@@ -1,0 +1,25 @@
+"""PyTorch/CUDA port of ``pytorch_quantize_impls_tpu`` for NVIDIA Hopper.
+
+The JAX package beside it is the reference this port is held against: both
+run the same numpy inputs and must agree bit for bit where the reference is
+integer-exact. Sub-packages and modules keep the JAX package's names, so each
+counterpart is easy to find. The port imports ``torch`` and never ``jax``.
+
+Ported so far: packed serving of the BNN LeNet (``utils.config`` entry
+``bnn_lenet``) through hand-written CUDA kernels for the 1-bit GEMM, the
+1-bit decode and the int8 GEMM (``kernels``, sources in ``csrc/``). On a CPU
+tensor each kernel wrapper runs its plain PyTorch version instead. ROADMAP.md
+lists what is still to port.
+"""
+
+__version__ = "0.1.0"
+
+from pytorch_quantize_impls_tpu_torch import (  # noqa: F401
+    infer,
+    kernels,
+    models,
+    nn,
+    ops,
+    serve,
+    utils,
+)

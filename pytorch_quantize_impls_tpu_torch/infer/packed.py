@@ -1,0 +1,245 @@
+"""Packed-model export and execution for the binary/xnor schemes.
+
+Counterpart of ``pytorch_quantize_impls_tpu/infer/packed.py``:
+
+    packed = pack_model(model)                  # once, from the master weights
+    ready  = prepare(packed)                    # decode hot buffers once
+    y      = packed_apply(model, ready, x)      # every quantized layer packed
+
+Records are keyed by the module path as a tuple, the same tuple flax gives
+(``("conv1", "conv")``), and ``save_packed``/``load_packed`` write and read
+the JAX package's ``.npz`` artifact (uint32 words, the same JSON meta), so
+artifacts move between the two packages in both directions.
+
+Execution plan (binary/xnor):
+
+| inputs              | prepared? | path                                            |
+|---------------------|-----------|-------------------------------------------------|
+| binarized (a_bits=1)| no        | ``binary_gemm`` on the packed words             |
+| binarized           | yes       | ``int8_gemm`` on ±1 int8 decoded by ``prepare`` |
+| real (a_bits=0)     | either    | float matmul on the decoded ±1 weights          |
+| conv, binarized     | either    | ``packed_conv2d``: decode per call, exact conv  |
+| conv, real          | either    | float conv on the decoded ±1 weights            |
+
+The dorefa, log, lin and ternary schemes raise ``NotImplementedError``
+(ROADMAP queue 1, item 10).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from pytorch_quantize_impls_tpu_torch.kernels import xnor_gemm as bg
+from pytorch_quantize_impls_tpu_torch.kernels.conv import (
+    PackedConv,
+    conv2d_nhwc,
+    packed_conv2d,
+)
+from pytorch_quantize_impls_tpu_torch.nn.base import (
+    QuantConv,
+    QuantDense,
+    intercept_quant_layers,
+)
+
+_PORTED_SCHEMES = ("binary", "xnor")
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedLayer:
+    packed: torch.Tensor  # grouped-planar packed words (int32 bit patterns)
+    alpha: Optional[torch.Tensor] = None  # xnor per-out-channel scale
+    decoded: Optional[torch.Tensor] = None  # prepare(): ±1 int8 (K, N)
+    kind: str = "dense"  # dense|conv
+    scheme: str = "binary"
+    w_bits: int = 1
+    a_bits: int = 0
+    fsr: float = 0.0
+    # the JAX kernel's shape: (in, out) dense, HWIO conv
+    kernel_shape: Tuple[int, ...] = ()
+
+
+PackedModel = Dict[Tuple[str, ...], PackedLayer]
+
+
+def _not_ported(scheme: str):
+    return NotImplementedError(
+        f"packed scheme {scheme!r} is not ported yet (ROADMAP queue 1, item 10)"
+    )
+
+
+def _pack_layer(m) -> PackedLayer:
+    if m.scheme != "binary":
+        raise _not_ported(m.scheme)
+    w = m.weight.detach()
+    if isinstance(m, QuantConv):
+        cout, cin, kh, kw = w.shape
+        w2d = w.reshape(cout, -1).T  # (cin*kh*kw, cout) in (cin, kh, kw) order
+        kind, kernel_shape = "conv", (kh, kw, cin, cout)
+    else:
+        w2d = w.T
+        kind, kernel_shape = "dense", tuple(w2d.shape)
+    return PackedLayer(
+        packed=bg.pack_binary_weights(w2d),
+        kind=kind,
+        scheme=m.scheme,
+        w_bits=m.w_bits,
+        a_bits=m.a_bits,
+        fsr=m.fsr,
+        kernel_shape=kernel_shape,
+    )
+
+
+def _quant_layers(model: nn.Module):
+    for name, m in model.named_modules():
+        if isinstance(m, (QuantDense, QuantConv)) and m.scheme != "none":
+            yield tuple(name.split(".")), m
+
+
+@torch.no_grad()
+def pack_model(model: nn.Module) -> PackedModel:
+    """Pack every quantized layer's master weight, on the weight's device."""
+    return {path: _pack_layer(m) for path, m in _quant_layers(model)}
+
+
+def _decode_weights(rec: PackedLayer) -> torch.Tensor:
+    """Packed codes -> execution-ready ±1 int8 (K, N)."""
+    if rec.scheme not in _PORTED_SCHEMES:
+        raise _not_ported(rec.scheme)
+    k2d = int(np.prod(rec.kernel_shape[:-1]))
+    return bg.decode_binary_weights(rec.packed)[:k2d]
+
+
+def prepare(packed: PackedModel) -> PackedModel:
+    """Decode every layer's execution buffer once (weight-stationary)."""
+    return {
+        path: dataclasses.replace(rec, decoded=_decode_weights(rec))
+        for path, rec in packed.items()
+    }
+
+
+def _dense_forward(rec: PackedLayer, x: torch.Tensor, bias) -> torch.Tensor:
+    # the GEMM kernels take (M, K): fold any leading batch/sequence dims
+    lead = x.shape[:-1]
+    y = _dense_forward_2d(rec, x.reshape(-1, x.shape[-1]), bias)
+    return y.reshape(*lead, y.shape[-1])
+
+
+def _dense_forward_2d(rec: PackedLayer, x: torch.Tensor, bias) -> torch.Tensor:
+    if rec.scheme not in _PORTED_SCHEMES:
+        raise _not_ported(rec.scheme)
+    if rec.a_bits == 1:
+        xi = bg.binarize_to_int8(x)
+        if rec.decoded is not None:
+            y = bg.binary_gemm_decoded(xi, rec.decoded, rec.alpha)
+        else:
+            y = bg.binary_gemm(xi, rec.packed, rec.alpha)
+    else:
+        # real inputs: decoded ±1 weights at the input dtype
+        w = rec.decoded if rec.decoded is not None else _decode_weights(rec)
+        y = (x @ w.to(x.dtype)).to(torch.float32)
+        if rec.alpha is not None:
+            y = y * rec.alpha[None, :]
+    if bias is not None:
+        y = y + bias
+    return y.to(x.dtype)
+
+
+def _conv_forward(m: QuantConv, rec: PackedLayer, x: torch.Tensor, bias) -> torch.Tensor:
+    if rec.scheme not in _PORTED_SCHEMES:
+        raise _not_ported(rec.scheme)
+    kh, kw, cin, cout = rec.kernel_shape
+    if rec.a_bits >= 1:
+        pc = PackedConv(
+            scheme=rec.scheme,
+            packed=rec.packed,
+            kernel_size=(kh, kw),
+            cin=cin,
+            cout=cout,
+            alpha=rec.alpha,
+        )
+        y = packed_conv2d(x, pc, strides=m.strides, padding=m.padding)
+    else:
+        # real inputs: decoded ±1 weights, float conv at the input dtype
+        w2d = rec.decoded if rec.decoded is not None else _decode_weights(rec)
+        w4d = w2d.T.reshape(cout, cin, kh, kw).to(x.dtype)
+        y = conv2d_nhwc(x, w4d, m.strides, m.padding)
+        if rec.alpha is not None:
+            y = y * rec.alpha
+    if bias is not None:
+        y = y + bias
+    return y.to(x.dtype)
+
+
+def packed_apply(model: nn.Module, packed: PackedModel, x: torch.Tensor) -> torch.Tensor:
+    """Eval forward with every packed quantized layer dispatched to its
+    packed path; other modules (BatchNorm, pooling) run as they are. The
+    model must be in eval mode."""
+    if model.training:
+        raise ValueError("packed_apply runs the eval forward: call model.eval() first")
+    paths = {m: path for path, m in _quant_layers(model)}
+
+    def interceptor(m, x, fake_quant_forward):
+        rec = packed.get(paths.get(m))
+        if rec is None:
+            return fake_quant_forward(x)
+        if isinstance(m, QuantConv):
+            return _conv_forward(m, rec, x, m.bias)
+        return _dense_forward(rec, x, m.bias)
+
+    with torch.no_grad(), intercept_quant_layers(interceptor):
+        return model(x)
+
+
+# --- inference-only export artifact ---------------------------------------
+
+
+def save_packed(path: str, packed: PackedModel) -> None:
+    """Write the packed model artifact: npz arrays (uint32 words) + json meta."""
+    meta = {}
+    arrays = {}
+    for i, (mpath, rec) in enumerate(sorted(packed.items())):
+        key = f"layer{i}"
+        meta[key] = {
+            "path": list(mpath),
+            "kind": rec.kind,
+            "scheme": rec.scheme,
+            "w_bits": rec.w_bits,
+            "a_bits": rec.a_bits,
+            "fsr": rec.fsr,
+            "kernel_shape": list(rec.kernel_shape),
+            "has_alpha": rec.alpha is not None,
+        }
+        arrays[f"{key}_packed"] = rec.packed.cpu().numpy().view(np.uint32)
+        if rec.alpha is not None:
+            arrays[f"{key}_alpha"] = rec.alpha.cpu().numpy()
+    np.savez(path, __meta__=json.dumps(meta), **arrays)
+
+
+def load_packed(path: str, device="cpu") -> PackedModel:
+    """Read an artifact written by either package onto ``device``."""
+    with np.load(path, allow_pickle=False) as data:
+        meta = json.loads(str(data["__meta__"]))
+        out: PackedModel = {}
+        for key, m in meta.items():
+            words = data[f"{key}_packed"].astype(np.uint32).view(np.int32)
+            out[tuple(m["path"])] = PackedLayer(
+                packed=torch.from_numpy(words).to(device),
+                alpha=(
+                    torch.from_numpy(data[f"{key}_alpha"]).to(device)
+                    if m["has_alpha"]
+                    else None
+                ),
+                kind=m["kind"],
+                scheme=m["scheme"],
+                w_bits=m["w_bits"],
+                a_bits=m["a_bits"],
+                fsr=m["fsr"],
+                kernel_shape=tuple(m["kernel_shape"]),
+            )
+    return out

@@ -1,0 +1,18 @@
+"""Hand-written CUDA kernels for Hopper (sources in ``csrc/``), each with its
+plain PyTorch version beside it. A wrapper launches its kernel for CUDA
+tensors (or raises) and runs the plain version for CPU tensors; kernels are
+built with nvcc at first launch (``kernels._build``)."""
+
+from pytorch_quantize_impls_tpu_torch.kernels.xnor_gemm import (  # noqa: F401
+    binarize_to_int8,
+    binary_gemm,
+    binary_gemm_decoded,
+    binary_gemm_reference,
+    decode_binary_weights,
+    decode_binary_weights_reference,
+    pack_binary_weights,
+)
+from pytorch_quantize_impls_tpu_torch.kernels.int8_matmul import (  # noqa: F401
+    int8_gemm,
+    int8_gemm_reference,
+)

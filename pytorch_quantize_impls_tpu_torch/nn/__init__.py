@@ -1,0 +1,9 @@
+"""Quantized layers as ``torch.nn.Module``s: fake-quant happens per forward
+call from the float32 master weight; the packed path is ``infer``."""
+
+from pytorch_quantize_impls_tpu_torch.nn.base import (  # noqa: F401
+    QuantConv,
+    QuantDense,
+    intercept_quant_layers,
+)
+from pytorch_quantize_impls_tpu_torch.nn.binary import BinConv, LinearBin  # noqa: F401

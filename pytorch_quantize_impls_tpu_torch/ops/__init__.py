@@ -1,0 +1,12 @@
+"""Quantizer math core: STE quantizers as ``torch.autograd.Function``s, and
+the grouped-planar bit packing (``ops.pack``)."""
+
+from pytorch_quantize_impls_tpu_torch.ops.common import (  # noqa: F401
+    safe_sign,
+    ste,
+)
+from pytorch_quantize_impls_tpu_torch.ops.binary import (  # noqa: F401
+    binary_connect_det,
+    binary_tanh,
+)
+from pytorch_quantize_impls_tpu_torch.ops import pack  # noqa: F401

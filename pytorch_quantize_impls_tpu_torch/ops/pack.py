@@ -1,0 +1,67 @@
+"""Grouped-planar bit packing: the layout of the packed GEMM kernels.
+
+Counterpart of ``pytorch_quantize_impls_tpu/ops/pack.py`` (its
+``pack_bitplanes``/``unpack_bitplanes``); the words are bit-identical, which
+is what lets packed artifacts move between the two packages. Codes are
+packed along the *contraction* axis (-2):
+
+  factor   f = 32 // bits          codes per 32-bit word
+  group    GROUP_ROWS = 32 words   covering group_k = f * 32 k-rows
+  word[g * 32 + r, n] holds ``codes[g * group_k + i * 32 + r, n]``
+  in bit field ``[bits*i, bits*(i+1))``.
+
+Words are ``int32`` tensors holding the uint32 bit pattern: PyTorch has no
+``>>``/``<<`` for ``uint32`` on the CPU, and ``int32`` ``>>`` is
+arithmetic, so every right shift is followed by a mask.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+SUPPORTED_BITS = (1, 2, 4, 8)
+GROUP_ROWS = 32
+
+
+def pack_factor(bits: int) -> int:
+    if bits not in SUPPORTED_BITS:
+        raise ValueError(f"bits must be one of {SUPPORTED_BITS}, got {bits}")
+    return 32 // bits
+
+
+def planar_group_k(bits: int) -> int:
+    """K-rows covered by one self-contained packed group."""
+    return pack_factor(bits) * GROUP_ROWS
+
+
+def pack_bitplanes(codes: torch.Tensor, bits: int) -> torch.Tensor:
+    """Grouped-planar-pack unsigned codes along axis -2 into int32 words.
+
+    K (axis -2) is zero-padded to a multiple of ``planar_group_k(bits)``.
+    """
+    f = pack_factor(bits)
+    gk = planar_group_k(bits)
+    k, n = codes.shape[-2:]
+    kp = -(-k // gk) * gk
+    c = F.pad(codes.to(torch.int64), (0, 0, 0, kp - k))
+    lead = c.shape[:-2]
+    c = c.reshape(*lead, kp // gk, f, GROUP_ROWS, n)
+    shifts = torch.arange(f, device=c.device, dtype=torch.int64) * bits
+    # bit fields are disjoint, so the sum is the bitwise or
+    words = (c << shifts.reshape(f, 1, 1)).sum(dim=-3)
+    words = torch.where(words >= 2**31, words - 2**32, words)
+    return words.to(torch.int32).reshape(*lead, (kp // gk) * GROUP_ROWS, n)
+
+
+def unpack_bitplanes(word: torch.Tensor, bits: int, k: int) -> torch.Tensor:
+    """Inverse of :func:`pack_bitplanes`; returns int32 codes, axis -2 = k."""
+    f = pack_factor(bits)
+    r, n = word.shape[-2:]
+    if r % GROUP_ROWS:
+        raise ValueError(f"packed rows {r} not a multiple of {GROUP_ROWS}")
+    lead = word.shape[:-2]
+    w = word.to(torch.int32).reshape(*lead, r // GROUP_ROWS, 1, GROUP_ROWS, n)
+    shifts = torch.arange(f, device=w.device, dtype=torch.int32) * bits
+    c = (w >> shifts.reshape(f, 1, 1)) & (2**bits - 1)
+    return c.reshape(*lead, (r // GROUP_ROWS) * f * GROUP_ROWS, n)[..., :k, :]

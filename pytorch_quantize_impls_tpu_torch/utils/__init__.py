@@ -1,0 +1,11 @@
+"""Run configs and the bridge from the JAX package's variables."""
+
+from pytorch_quantize_impls_tpu_torch.utils.bridge import (  # noqa: F401
+    flax_state_dict,
+    load_flax_variables,
+)
+from pytorch_quantize_impls_tpu_torch.utils.config import (  # noqa: F401
+    SCHEME_CONFIGS,
+    RunConfig,
+    build_model,
+)

@@ -1,0 +1,148 @@
+"""PyTorch port of the serving engine, and the port's import boundary.
+
+The engine's answers, requested from several client threads, must be the
+rows of ``packed_apply`` on the padded batch each request rode in, and those
+batches must give the JAX package's packed logits. The port must import with
+``jax`` unavailable, and ``chip_smoke.py`` must refuse to run without a GPU.
+"""
+
+import os
+import subprocess
+import sys
+import threading
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+from pytorch_quantize_impls_tpu import infer as jinfer
+from pytorch_quantize_impls_tpu import models as jmodels
+from pytorch_quantize_impls_tpu_torch import infer, models
+from pytorch_quantize_impls_tpu_torch.serve import InferenceEngine
+from pytorch_quantize_impls_tpu_torch.utils import load_flax_variables
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+WIDTH = 8
+SHAPE = (28, 28, 1)
+
+
+def test_engine_answers_from_threads_match_packed_apply():
+    rng = np.random.default_rng(1)
+    variables = chip_smoke.seeded_variables(WIDTH, rng)
+    model = load_flax_variables(models.BNNLeNet(width=WIDTH), variables).eval()
+    prepared = infer.prepare(infer.pack_model(model))
+    batches = []
+
+    def forward(x):
+        y = infer.packed_apply(model, prepared, x)
+        batches.append((x.clone(), y.clone()))
+        return y
+
+    engine = InferenceEngine(forward, SHAPE, batch_sizes=(1, 4, 16), max_delay_ms=5.0)
+    inputs = [rng.normal(size=SHAPE).astype(np.float32) for _ in range(24)]
+    answers = [None] * len(inputs)
+
+    def client(idx):
+        futs = [(i, engine.submit(inputs[i])) for i in idx]
+        for i, f in futs:
+            answers[i] = f.result(timeout=60)
+
+    threads = [threading.Thread(target=client, args=(range(c, 24, 3),)) for c in range(3)]
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+            assert not t.is_alive()
+    finally:
+        engine.shutdown()
+    assert engine.stats.requests == 24
+    assert sum(x.shape[0] for x, _ in batches) == 24 + engine.stats.padded_examples
+    assert all(x.shape[0] in (1, 4, 16) for x, _ in batches)
+
+    jm = jmodels.BNNLeNet(width=WIDTH)
+    jprep = jinfer.prepare(jinfer.pack_model(jm, variables, jnp.zeros((1, *SHAPE))))
+    row_of = {}
+    for x, y in batches:
+        np.testing.assert_array_equal(y.numpy(), infer.packed_apply(model, prepared, x).numpy())
+        ref = np.asarray(jinfer.packed_apply(jm, variables, jprep, jnp.asarray(x.numpy())))
+        np.testing.assert_array_equal(y.numpy(), ref)
+        for xr, yr in zip(x.numpy(), y.numpy()):
+            row_of[xr.tobytes()] = yr
+    for x, a in zip(inputs, answers):
+        assert a.shape == (10,)
+        np.testing.assert_array_equal(a, row_of[x.tobytes()])
+
+
+def test_engine_buckets_stats_and_errors():
+    engine = InferenceEngine(lambda x: x.sum(dim=(1, 2)), (2, 3), batch_sizes=(4, 1, 2))
+    try:
+        assert [engine._bucket_for(n) for n in (1, 2, 3, 4)] == [1, 2, 4, 4]
+        np.testing.assert_array_equal(engine(np.ones((2, 3), np.float32)), [6.0])
+        with pytest.raises(ValueError, match="expected"):
+            engine.submit(np.ones((3, 2)))
+        engine.warmup()
+    finally:
+        engine.shutdown()
+    assert engine.stats.requests == 1 and engine.stats.batches == 1
+    assert engine.stats.mean_batch_size == 1.0 and engine.stats.mean_latency_ms > 0
+
+    def broken(x):
+        raise RuntimeError("forward failed")
+
+    engine = InferenceEngine(broken, (2,), batch_sizes=(1,))
+    try:
+        with pytest.raises(RuntimeError, match="forward failed"):
+            engine.submit(np.ones(2)).result(timeout=30)
+    finally:
+        engine.shutdown()
+
+
+def test_engine_runs_forward_in_inference_mode():
+    seen = []
+
+    def forward(x):
+        seen.append((torch.is_inference_mode_enabled(), x.dtype, x.device.type))
+        return x
+
+    engine = InferenceEngine(forward, (3,), batch_sizes=(1,), dtype=torch.float64)
+    try:
+        engine(np.zeros(3))
+    finally:
+        engine.shutdown()
+    assert seen == [(True, torch.float64, "cpu")]
+
+
+def test_port_imports_without_jax():
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax'):\n"
+        "    sys.modules[name] = None\n"
+        "import torch\n"
+        "import pytorch_quantize_impls_tpu_torch as p\n"
+        "m = p.models.BNNLeNet(width=4).eval()\n"
+        "y = p.infer.packed_apply(m, p.infer.pack_model(m), torch.zeros(2, 28, 28, 1))\n"
+        "assert y.shape == (2, 10)\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax')"
+        " and sys.modules[k] is not None]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_chip_smoke_refuses_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: chip_smoke.py would run")
+    out = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=REPO, capture_output=True, text=True, timeout=300
+    )
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+    assert "needs a CUDA GPU" in out.stderr
