@@ -8,19 +8,29 @@ on one NVIDIA GPU (built for Hopper, sm_90a).
    without a CUDA device: there is no CPU fallback.
 2. Builds every CUDA kernel from ``pytorch_quantize_impls_tpu_torch/csrc``
    with nvcc, one process per source, all at once.
-3. Holds each kernel (K1 binary_gemm, K2 decode_binary_weights, K3 int8_gemm)
-   against its plain PyTorch version on the card, at the shapes BNN LeNet's
-   serving path gives it and at edge shapes; they must agree bit for bit.
-4. Drives the main path at full width (``bnn_lenet``, width 128) from seeded
-   random weights: bridge -> pack_model -> save_packed -> load_packed ->
+3. Holds each kernel against its plain PyTorch version on the card, at the
+   shapes the two main paths give it and at edge shapes: K1 binary_gemm,
+   K2 decode_binary_weights and K3 int8_gemm bit for bit, K4
+   decode_attention within a float32 tolerance. Prints kernel, plain,
+   library-call and bound times.
+4. Main path 1, BNN LeNet (``bnn_lenet``, width 128) from seeded random
+   weights: bridge -> pack_model -> save_packed -> load_packed ->
    InferenceEngine over the unprepared artifact (K1, K2) -> prepare ->
-   InferenceEngine over the prepared artifact (K2, K3), serving requests from
-   several client threads. The kernels' launch counters are zeroed just
-   before and read just after; each must be > 0. Every answer is then checked
-   against packed_apply on the same padded batch, the unprepared and prepared
-   artifacts and the fake-quant forward must agree exactly, and a small input
-   is checked against the same model run on the CPU.
-5. Prints kernel vs plain times, engine images/s per bucket, one JSON line
+   InferenceEngine over the prepared artifact (K2, K3), from several client
+   threads. Every answer is checked against packed_apply on its padded batch;
+   unprepared, prepared and fake-quant agree exactly; a small input agrees
+   with the CPU.
+5. Main path 2, the 1-bit transformer LM that scripts/perf_bench.py serves
+   (d 1024, 8 layers, cache 1024, W1A1, int8 KV) from seeded random weights:
+   bridge -> export_fused_decode (int8 and packed) -> DecodeEngine(fused=)
+   with 32 slots, 64 requests from 4 client threads (K4, K3, K1). Every
+   batch the engines ran is replayed through fused_decode_apply of the other
+   export and must give the same bits, tokens and final cache; the fused
+   step is held against the fake-quant decode model, teacher-forced; at the
+   JAX tests' size the two agree token for token.
+6. For each main path the kernels' launch counters are zeroed just before
+   it and read just after; each kernel of the path must be > 0.
+7. Prints engine images/s, decode prefill ms and tokens/s, one JSON line
    with the kernels, and last ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without the last line, if any phase fails.
@@ -46,6 +56,36 @@ CLIENTS = 4
 REQUESTS_PER_CLIENT = 24
 SMALL_M = (1, 16, 256)
 PORT = "pytorch_quantize_impls_tpu_torch"
+
+# the serving LM of scripts/perf_bench.py:273-276
+LM_CFG = dict(vocab=8192, d_model=1024, n_heads=8, n_layers=8, d_ff=4096, max_len=1024,
+              scheme="binary", w_bits=1, a_bits=1, kv_bits=8)
+# the JAX package's fused-decode test model, tests/test_fused_decode.py:22-28
+SMALL_LM_CFG = dict(vocab=128, d_model=64, n_heads=4, n_layers=2, d_ff=128, max_len=64,
+                    scheme="binary", w_bits=1, a_bits=1)
+SLOTS = 32
+DECODE_REQUESTS = 64
+PROMPT_LENS = (16, 128)
+MAX_NEW = 32
+DECODE_BATCHES = (1, 8, 32)
+PREFILL_LEN = 128
+# Logits of the fused step against the fake-quant model where no ±1 code
+# differs: the JAX package's own tolerance for this seam
+# (tests/test_fused_decode.py:47); only LayerNorm statistics and the f32 head
+# differ in summation order there.
+LOGIT_TOL = 2e-4
+
+# NVIDIA H100 SXM published peaks (dense), at a 700 W power limit
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
+F32_FLOPS_PER_S = 67e12
+
+
+def cuda():
+    """The card this script runs on."""
+    import torch
+
+    return torch.device("cuda", 0)
 
 
 def fail(msg: str) -> None:
@@ -81,13 +121,78 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+# the CUDA function each wrapper launches, as torch.profiler names it
+KERNEL_SYMBOLS = {
+    "binary_gemm": "binary_gemm_kernel", "decode_binary_weights": "decode_binary_kernel",
+    "int8_gemm": "int8_gemm_kernel", "decode_attention": "decode_attention_kernel",
+}
+
+
+def device_times(fn, iters: int = 20):
+    """Run ``fn`` ``iters`` times under torch.profiler (CUDA activity);
+    returns ({kernel name: (device ms, launches) per call}, wall ms per
+    call). Device times carry no host time; the wall clock ends in a
+    synchronize."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / iters
+    per_call = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", 0.0)
+        if us > 0:
+            ms, n = per_call.get(e.key, (0.0, 0.0))
+            per_call[e.key] = (ms + us / 1e3 / iters, n + e.count / iters)
+    return per_call, wall
+
+
+def kernel_device_ms(fn, kernel: str):
+    """Device time per call of the kernel that ``kernel``'s wrapper
+    launches, or None if the profiler saw no device time for it."""
+    per_call, _ = device_times(fn)
+    got = [ms for name, (ms, _) in per_call.items() if KERNEL_SYMBOLS[kernel] in name]
+    return sum(got) if got else None
+
+
+def bound_ms(nbytes: float, ops: float, ops_per_s: float):
+    """(least time in ms, what sets it): bytes over the memory rate or
+    operations over the peak rate for their type, whichever is larger."""
+    t_bytes, t_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / ops_per_s
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 # --- kernels vs plain versions ---------------------------------------------
 
 
+def gemm_bound(m, k, n, w_bytes, scales):
+    """K1/K3: x (M,K) int8 + weights + out (M,N) f32 (+ scales) once each;
+    2*M*K*N int8 operations."""
+    return bound_ms(m * k + w_bytes + 4 * m * n + scales, 2 * m * k * n, INT8_OPS_PER_S)
+
+
+def attention_bound(b, h, cl, hd, lens):
+    """K4: what these inputs need: q, the mask row and the output once, and
+    the K/V codes and scales of the attended positions only (the kernel
+    skips masked ones); 4 flops per attended code pair element."""
+    valid = int(np.sum(lens)) * h
+    nbytes = 4 * b * h * hd * 2 + 4 * b * cl + valid * (2 * hd + 8)
+    return bound_ms(nbytes, 4 * valid * hd, F32_FLOPS_PER_S)
+
+
 def kernel_cases(rng, dev):
-    """(kernel, label, kernel_fn, plain_fn, main_shape) for every comparison."""
+    """Every comparison: dicts with the kernel, a label, the kernel call, its
+    plain version, the library call (or None), the bound and whether it is
+    the main-path shape reported in the JSON line."""
     import torch
 
+    from pytorch_quantize_impls_tpu_torch.kernels import decode_attention as da
     from pytorch_quantize_impls_tpu_torch.kernels import int8_matmul as im
     from pytorch_quantize_impls_tpu_torch.kernels import xnor_gemm as bg
 
@@ -105,6 +210,10 @@ def kernel_cases(rng, dev):
         row = t(rng.uniform(0.5, 1.5, m).astype(np.float32)) if use_row else None
         return alpha, row
 
+    def int_mm(m, k, n):
+        """torch._int_mm takes M > 16 and K, N multiples of 8."""
+        return m > 16 and k % 8 == 0 and n % 8 == 0
+
     cases = []
     # K2 at every layer's packed shape, and K = 2304 (decode once dropped the
     # last partial K tile there)
@@ -114,14 +223,24 @@ def kernel_cases(rng, dev):
         "K=2304 (96,256)": (2304, 256),
     }.items():
         wp = packed(k, n)
-        cases.append((
-            "decode_binary_weights", label, lambda wp=wp: bg.decode_binary_weights(wp),
-            lambda wp=wp: bg.decode_binary_weights_reference(wp), label.startswith("conv2"),
+        r = wp.shape[0]
+        cases.append(dict(
+            kernel="decode_binary_weights", label=label,
+            fn=lambda wp=wp: bg.decode_binary_weights(wp),
+            plain=lambda wp=wp: bg.decode_binary_weights_reference(wp),
+            library=None, bound=bound_ms(4 * r * n + 32 * r * n, 0, INT8_OPS_PER_S),
+            main=label.startswith("conv2"),
         ))
-    # K1 and K3 at fc1/head with M in SMALL_M (no scales: the binary scheme)
+    # K1 and K3 at LeNet's fc1/head with M in SMALL_M and at the decode LM's
+    # four projections (no scales: the binary scheme)
     gemm_shapes = [(f"{name} M={m}", m, k, n, False, False)
                    for name, k, n in (("fc1", 4096, 1024), ("head", 1024, 10))
                    for m in SMALL_M]
+    gemm_shapes += [(f"lm {name} M={m}", m, k, n, False, False)
+                    for name, k, n, ms in (
+                        ("qkv", 1024, 3072, (1, 32)), ("out", 1024, 1024, (32,)),
+                        ("ffn_in", 1024, 4096, (32,)), ("ffn_out", 4096, 1024, (1, 32)))
+                    for m in ms]
     # edges: odd M, N=10 and odd N, un-padded K, K % 4 != 0, scales on/off
     gemm_shapes += [
         ("edge M=33 K=300 N=130 alpha+row", 33, 300, 130, True, True),
@@ -136,53 +255,133 @@ def kernel_cases(rng, dev):
             x = x * t(rng.integers(0, 2, size=(m, k)).astype(np.int8))
         wp = packed(k, n)
         alpha, row = scales(m, n, ua, ur)
-        cases.append((
-            "binary_gemm", label,
-            lambda x=x, wp=wp, a=alpha, r=row: bg.binary_gemm(x, wp, a, r),
-            lambda x=x, wp=wp, a=alpha, r=row: bg.binary_gemm_reference(x, wp, a, r),
-            main,
+        nscale = 4 * ((n if ua else 0) + (m if ur else 0))
+        lib = int_mm(m, k, n) and not (ua or ur)
+        w8 = bg.decode_binary_weights(wp)[:k].contiguous() if lib else None
+        cases.append(dict(
+            kernel="binary_gemm", label=label,
+            fn=lambda x=x, wp=wp, a=alpha, r=row: bg.binary_gemm(x, wp, a, r),
+            plain=lambda x=x, wp=wp, a=alpha, r=row: bg.binary_gemm_reference(x, wp, a, r),
+            library=(lambda x=x, w=w8: torch._int_mm(x, w)) if lib else None,
+            bound=gemm_bound(m, k, n, 4 * wp.numel(), nscale), main=main,
         ))
         xi = t(rng.integers(-127, 128, size=(m, k)).astype(np.int8))
         wi = t(rng.integers(-127, 128, size=(k, n)).astype(np.int8))
-        cases.append((
-            "int8_gemm", label,
-            lambda x=xi, w=wi, a=alpha, r=row: im.int8_gemm(x, w, a, r),
-            lambda x=xi, w=wi, a=alpha, r=row: im.int8_gemm_reference(x, w, a, r),
-            main,
+        cases.append(dict(
+            kernel="int8_gemm", label=label,
+            fn=lambda x=xi, w=wi, a=alpha, r=row: im.int8_gemm(x, w, a, r),
+            plain=lambda x=xi, w=wi, a=alpha, r=row: im.int8_gemm_reference(x, w, a, r),
+            library=(lambda x=xi, w=wi: torch._int_mm(x, w)) if lib else None,
+            bound=gemm_bound(m, k, n, k * n, nscale), main=main,
+        ))
+    # K4 at the decode LM's shapes (h 8, cache 1024, hd 128) with per-slot
+    # cursors: as the engine has them (prompt 16..128 + up to 32 new), spread
+    # over the whole cache, and full; then edge shapes
+    hi = PROMPT_LENS[1] + MAX_NEW
+    attn_shapes = [
+        ("b=32 engine cursors", 32, 8, 1024, 128, rng.integers(PROMPT_LENS[0] + 1, hi + 1, 32)),
+        ("b=1 varied", 1, 8, 1024, 128, rng.integers(1, 1025, 1)),
+        ("b=8 varied", 8, 8, 1024, 128, rng.integers(1, 1025, 8)),
+        ("b=32 varied", 32, 8, 1024, 128, rng.integers(1, 1025, 32)),
+        ("b=32 full", 32, 8, 1024, 128, np.full(32, 1024)),
+        ("edge cl=1", 3, 8, 1, 128, np.ones(3, int)),
+        ("edge cl=37 hd=64 b=5", 5, 4, 37, 64, np.array([1, 37, 20, 2, 36])),
+        ("edge hd=64 one valid row", 3, 8, 1024, 64, np.array([1, 512, 1024])),
+        ("edge hd=16 b=7", 7, 2, 300, 16, rng.integers(1, 301, 7)),
+    ]
+    for label, b, h, cl, hd, lens in attn_shapes:
+        q = t(rng.normal(size=(b, h, hd)).astype(np.float32))
+        kc = t(rng.integers(-127, 128, (b, h, cl, hd)).astype(np.int8))
+        vc = t(rng.integers(-127, 128, (b, h, cl, hd)).astype(np.int8))
+        ks = t(rng.uniform(0.01, 0.1, (b, h, cl)).astype(np.float32))
+        vs = t(rng.uniform(0.01, 0.1, (b, h, cl)).astype(np.float32))
+        bias = t(np.where(np.arange(cl)[None, :] < lens[:, None], 0.0, -1e30).astype(np.float32))
+        args = (q, kc, ks, vc, vs, bias)
+        cases.append(dict(
+            kernel="decode_attention", label=label,
+            fn=lambda a=args: da.decode_attention(*a),
+            plain=lambda a=args: da.decode_attention_reference(*a),
+            library=None, sdpa=sdpa_yardstick(args),
+            bound=attention_bound(b, h, cl, hd, lens),
+            full_bound=attention_bound(b, h, cl, hd, np.full(b, cl)),
+            main=label == "b=32 engine cursors",
         ))
     return cases
 
 
+def sdpa_yardstick(args):
+    """No one PyTorch call computes decode attention over int8 codes and
+    scales. As a labelled yardstick only: scaled_dot_product_attention over
+    K/V dequantized to float32 beforehand (outside the timed call)."""
+    import torch
+    import torch.nn.functional as F
+
+    q, kc, ks, vc, vs, bias = args
+    kf = kc.to(torch.float32) * ks[..., None]
+    vf = vc.to(torch.float32) * vs[..., None]
+    mask = bias[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(q[:, :, None, :], kf, vf, attn_mask=mask)[:, :, 0]
+
+
 def check_kernels(card: str, timed: bool = True):
-    """Compare every kernel with its plain version on the card (bit for bit).
-    Returns {kernel: {"max_abs_err", "ms", "plain_ms", "shape"}}."""
+    """Compare every kernel with its plain version on the card: K1-K3 bit for
+    bit, K4 within ``rtol 1e-5, atol 1e-5 * max|plain|`` (float32 sums over
+    up to 1024 positions in another order; exp carries an ulp of a score
+    near 20, 2e-6, into every probability). K4 must also give the same bits
+    twice. Returns {kernel: summary for the JSON line}."""
     import torch
 
-    dev = torch.device("cuda", 0)
+    dev = cuda()
     rng = np.random.default_rng(SEED)
     summary = {}
-    for kernel, label, fn, plain, main in kernel_cases(rng, dev):
+    for c in kernel_cases(rng, dev):
+        kernel, label, fn, plain = c["kernel"], c["label"], c["fn"], c["plain"]
         got, ref = fn(), plain()
         torch.cuda.synchronize()
         if got.shape != ref.shape or got.dtype != ref.dtype:
             fail(f"{kernel} {label}: {got.dtype} {tuple(got.shape)} vs plain "
                  f"{ref.dtype} {tuple(ref.shape)}")
         err = (got.double() - ref.double()).abs().max().item()
-        if not torch.equal(got, ref):
-            fail(f"{kernel} {label}: differs from its plain version, max |err| {err}")
+        if kernel == "decode_attention":
+            scale = ref.abs().max().item()
+            if not torch.allclose(got, ref, rtol=1e-5, atol=1e-5 * scale):
+                fail(f"{kernel} {label}: max |err| {err} beyond 1e-5 of max |plain| {scale}")
+            if not torch.equal(got, fn()):
+                fail(f"{kernel} {label}: two launches gave different bits")
+            verdict = f"max |err| {err:.3g} (of {scale:.3g}), deterministic"
+        else:
+            if not torch.equal(got, ref):
+                fail(f"{kernel} {label}: differs from its plain version, max |err| {err}")
+            verdict = "bit-equal"
         s = summary.setdefault(kernel, {"max_abs_err": 0.0})
         s["max_abs_err"] = max(s["max_abs_err"], err)
-        line = f"check {kernel:22s} {label:32s} bit-equal"
+        line = f"check {kernel:22s} {label:32s} {verdict}"
         if timed and not label.startswith("edge"):
             ms, plain_ms = cuda_ms(fn), cuda_ms(plain)
-            line += f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  [{card}]"
-            if main:
-                s.update(ms=ms, plain_ms=plain_ms, shape=label)
+            dev_ms = kernel_device_ms(fn, kernel)
+            bms, by = c["bound"]
+            lib_ms = cuda_ms(c["library"]) if c["library"] else None
+            line += (f"  kernel {ms:.4f} ms (device "
+                     f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'})  plain "
+                     f"{plain_ms:.4f} ms  bound {bms:.4f} ms ({by})  library "
+                     f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+            extra = {"device_ms": dev_ms}
+            if "sdpa" in c:
+                sdpa_ms = cuda_ms(c["sdpa"])
+                yard_err = (c["sdpa"]() - ref).abs().max().item()
+                line += (f"  [yardstick: SDPA on dequantized f32 K/V {sdpa_ms:.4f} ms, "
+                         f"max |diff| {yard_err:.3g}; full-cache bound "
+                         f"{c['full_bound'][0]:.4f} ms]")
+                extra["sdpa_dequantized_ms"] = sdpa_ms
+            line += f"  [{card}]"
+            if c["main"]:
+                s.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                         library_ms=lib_ms, shape=label, **extra)
         print(line, flush=True)
     return summary
 
 
-# --- the main path ----------------------------------------------------------
+# --- main path 1: BNN LeNet -------------------------------------------------
 
 
 def seeded_variables(width: int, rng) -> dict:
@@ -213,10 +412,10 @@ def seeded_variables(width: int, rng) -> dict:
     return {"params": p, "batch_stats": s}
 
 
-def serve(engine, inputs):
-    """Submit ``inputs`` from CLIENTS threads with small random gaps; return
-    the answers in input order."""
-    answers = [None] * len(inputs)
+def serve(submit, n: int):
+    """Call ``submit(i)`` for i < n from CLIENTS threads with small random
+    gaps; return the futures' results in order."""
+    answers = [None] * n
     errors = []
 
     def client(idx):
@@ -224,24 +423,42 @@ def serve(engine, inputs):
         try:
             futs = []
             for i in idx:
-                futs.append((i, engine.submit(inputs[i])))
+                futs.append((i, submit(i)))
                 time.sleep(r.uniform(0, 1e-3))
             for i, f in futs:
-                answers[i] = f.result(timeout=120)
+                answers[i] = f.result(timeout=300)
         except Exception as e:  # reported by the caller
             errors.append(e)
 
-    threads = [threading.Thread(target=client, args=(list(range(c, len(inputs), CLIENTS)),))
+    threads = [threading.Thread(target=client, args=(list(range(c, n, CLIENTS)),))
                for c in range(CLIENTS)]
     for th in threads:
         th.start()
     for th in threads:
-        th.join(timeout=300)
+        th.join(timeout=600)
         if th.is_alive():
             fail("a client thread did not finish")
     if errors:
         fail(f"a request failed: {errors[0]!r}")
     return answers
+
+
+def zero_launches(kernels) -> None:
+    for k in kernels:
+        k.launches = 0
+
+
+def read_launches(path: str, kernels) -> dict:
+    """The counts since zero_launches; each kernel of the path must be > 0."""
+    import torch
+
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels}
+    print(f"launches on the {path} path: {launches}", flush=True)
+    for name, count in launches.items():
+        if count <= 0:
+            fail(f"kernel {name} was not launched on the {path} path")
+    return launches
 
 
 def drive_main_path(card: str, model, example_shape, inputs):
@@ -257,15 +474,14 @@ def drive_main_path(card: str, model, example_shape, inputs):
     from pytorch_quantize_impls_tpu_torch.kernels import xnor_gemm as bg
     from pytorch_quantize_impls_tpu_torch.serve import InferenceEngine
 
-    dev = torch.device("cuda", 0)
+    dev = cuda()
     kernels = (bg.binary_gemm, bg.decode_binary_weights, im.int8_gemm)
     logs = {"unprepared": [], "prepared": []}
     answers = {}
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "bnn_lenet.npz")
         infer.save_packed(path, infer.pack_model(model))
-        for k in kernels:
-            k.launches = 0
+        zero_launches(kernels)
         loaded = infer.load_packed(path, device=dev)
         for name in ("unprepared", "prepared"):
             recs = loaded if name == "unprepared" else infer.prepare(loaded)
@@ -278,7 +494,7 @@ def drive_main_path(card: str, model, example_shape, inputs):
             engine = InferenceEngine(forward, example_shape, batch_sizes=BUCKETS, device=dev)
             try:
                 engine.warmup()
-                answers[name] = serve(engine, inputs)
+                answers[name] = serve(lambda i: engine.submit(inputs[i]), len(inputs))
             finally:
                 engine.shutdown()
             st = engine.stats
@@ -287,12 +503,7 @@ def drive_main_path(card: str, model, example_shape, inputs):
                   f"{st.mean_latency_ms:.3f} ms  [{card}]", flush=True)
             if st.requests != len(inputs):
                 fail(f"engine[{name}] answered {st.requests} of {len(inputs)}")
-        torch.cuda.synchronize()
-        launches = {k.__name__: k.launches for k in kernels}
-    print(f"launches on the main path: {launches}", flush=True)
-    for name, count in launches.items():
-        if count <= 0:
-            fail(f"kernel {name} was not launched on the main path")
+        launches = read_launches("bnn_lenet", kernels)
     return loaded, answers, logs, launches
 
 
@@ -345,15 +556,15 @@ def main_path(card: str):
         SCHEME_CONFIGS, RunConfig, build_model, load_flax_variables,
     )
 
-    dev = torch.device("cuda", 0)
+    dev = cuda()
     rng = np.random.default_rng(SEED)
     cfg = RunConfig(**SCHEME_CONFIGS["bnn_lenet"])
-    model, example_shape, _ = build_model(cfg)
+    model, example_shape, _ = build_model(cfg, device=dev)
     if cfg.width != WIDTH:
         fail(f"bnn_lenet width {cfg.width}, expected {WIDTH}")
-    load_flax_variables(model, seeded_variables(cfg.width, rng))
-    cpu_model = copy.deepcopy(model).eval()
-    model = model.to(dev).eval()
+    load_flax_variables(model, seeded_variables(cfg.width, rng), device=dev)
+    model.eval()
+    cpu_model = copy.deepcopy(model).cpu()
     inputs = [rng.normal(size=example_shape).astype(np.float32)
               for _ in range(CLIENTS * REQUESTS_PER_CLIENT)]
 
@@ -384,7 +595,7 @@ def throughput(card: str, model, prepared, example_shape):
     from pytorch_quantize_impls_tpu_torch import infer
     from pytorch_quantize_impls_tpu_torch.serve import InferenceEngine
 
-    dev = torch.device("cuda", 0)
+    dev = cuda()
     rng = np.random.default_rng(SEED + 100)
     for b in BUCKETS:
         engine = InferenceEngine(lambda x: infer.packed_apply(model, prepared, x),
@@ -393,7 +604,7 @@ def throughput(card: str, model, prepared, example_shape):
         try:
             engine.warmup()
             xs = rng.normal(size=(b, *example_shape)).astype(np.float32)
-            rounds = max(100, 2048 // b)
+            rounds = max(100, 1024 // b)
             round_ms = []
             t0 = time.perf_counter()
             for _ in range(rounds):
@@ -414,6 +625,449 @@ def throughput(card: str, model, prepared, example_shape):
               f"{engine.stats.batches} batches); packed forward {fwd_ms:.3f} ms "
               f"({1e3 * b / fwd_ms:.1f} images/s), fake-quant forward {fq_ms:.3f} ms "
               f"per batch  [{card}]", flush=True)
+
+
+# --- main path 2: the 1-bit transformer LM, fused decode ---------------------
+
+
+def seeded_lm_variables(cfg: dict, rng) -> dict:
+    """QuantTransformerLM variables in the flax layout, as numpy. Only the
+    signs of the projection kernels matter (W1A1). LayerNorm scales and
+    biases are spread so that each sign after a LayerNorm sees values on
+    both sides; the FFN biases are on the scale of the integer sums they
+    shift (sqrt(fan_in) terms of ±1), so the hidden threshold is live."""
+    d, ff, vocab = cfg["d_model"], cfg["d_ff"], cfg["vocab"]
+
+    def normal(*shape, scale=1.0):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
+
+    def ln():
+        return {"scale": rng.uniform(0.5, 1.5, d).astype(np.float32), "bias": normal(d, scale=0.1)}
+
+    p = {"embed": {"embedding": normal(vocab, d, scale=d ** -0.5)},
+         "pos_embed": normal(cfg["max_len"], d, scale=0.02), "ln_f": ln()}
+    for i in range(cfg["n_layers"]):
+        p[f"block{i}"] = {
+            "ln1": ln(), "ln2": ln(),
+            "attn": {n: {"kernel": normal(d, d)} for n in ("q", "k", "v", "out")},
+            "ffn_in": {"kernel": normal(d, ff), "bias": normal(ff, scale=0.25 * d ** 0.5)},
+            "ffn_out": {"kernel": normal(ff, d), "bias": normal(d, scale=0.25 * ff ** 0.5)},
+        }
+    return {"params": p}
+
+
+def build_lm(cfg: dict, seed: int):
+    """(port QuantTransformerLM on the card, eval mode) from seeded weights
+    through the bridge."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch.models import QuantTransformerLM
+    from pytorch_quantize_impls_tpu_torch.utils import load_flax_variables
+
+    variables = seeded_lm_variables(cfg, np.random.default_rng(seed))
+    return load_flax_variables(QuantTransformerLM(**cfg), variables, device=cuda()).eval()
+
+
+def logged_engine(model, fm, dev):
+    """A DecodeEngine over ``fm`` that records every batch it runs, in order:
+    ("admit", slot, prompt), ("step", active mask) and after each of those
+    ("batch", tokens, logits)."""
+    from pytorch_quantize_impls_tpu_torch.serve import DecodeEngine
+
+    class LoggedEngine(DecodeEngine):
+        def __init__(self, *args, **kwargs):
+            self.log = []
+            super().__init__(*args, **kwargs)
+
+        def _admit(self, req, slot_idx):
+            self.log.append(("admit", slot_idx, req.prompt))
+            super()._admit(req, slot_idx)
+
+        def _step(self, toks, active):
+            self.log.append(("step", active.clone()))
+            return super()._step(toks, active)
+
+        def _apply(self, cache, toks):
+            logits, cache = super()._apply(cache, toks)
+            self.log.append(("batch", toks.clone(), logits.clone()))
+            return logits, cache
+
+    return LoggedEngine(model, fused=fm, n_slots=SLOTS, device=dev)
+
+
+def drive_decode_path(card: str, model, fms: dict, prompts):
+    """The decode main path: DecodeEngine(fused=) over the int8 and the
+    packed export, 64 requests each from 4 client threads. Launch counters
+    of K4, K3 and K1 are zeroed just before and read just after. Returns
+    {export: (answers, log, final cache)} and the launch counts."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch.kernels import decode_attention as da
+    from pytorch_quantize_impls_tpu_torch.kernels import int8_matmul as im
+    from pytorch_quantize_impls_tpu_torch.kernels import xnor_gemm as bg
+
+    dev = cuda()
+    kernels = (da.decode_attention, im.int8_gemm, bg.binary_gemm)
+    runs = {}
+    zero_launches(kernels)
+    for name, fm in fms.items():
+        engine = logged_engine(model, fm, dev)
+        t0 = time.perf_counter()
+        try:
+            answers = serve(lambda i: engine.submit(prompts[i], max_new=MAX_NEW), len(prompts))
+        finally:
+            engine.shutdown()
+        dt = time.perf_counter() - t0
+        st = engine.stats
+        print(f"decode engine[fused {name}]: {st.requests} requests, {st.tokens} tokens in "
+              f"{dt:.2f} s ({st.tokens / dt:.1f} tok/s), {st.steps} steps, mean occupancy "
+              f"{st.mean_occupancy:.3f}  [{card}]", flush=True)
+        if st.requests != len(prompts) or st.tokens != MAX_NEW * len(prompts):
+            fail(f"decode engine[{name}] answered {st.requests} requests, {st.tokens} tokens")
+        runs[name] = (answers, engine.log, engine._cache)
+    launches = read_launches("decode_lm", kernels)
+    return runs, launches
+
+
+def _pin_cursors(cache, active):
+    import torch
+
+    for key, sub in cache.items():
+        if key == "pos_index":
+            cache[key] = torch.where(active, sub, 0)
+        else:
+            sub["attn"]["index"] = torch.where(active, sub["attn"]["index"], 0)
+
+
+def _insert_row(cache, one, slot: int, n: int):
+    for key, sub in one.items():
+        if key == "pos_index":
+            cache[key][slot] = n
+            continue
+        for leaf, value in sub["attn"].items():
+            cache[key]["attn"][leaf][slot] = n if leaf == "index" else value[0]
+
+
+def replay(name: str, fm, log, answers, prompts, final_cache) -> int:
+    """Replay every batch an engine ran through ``fused_decode_apply`` of
+    ``fm`` on a cache rebuilt the same way (prefill rows inserted at their
+    slot, idle cursors pinned to 0): every batch's tokens and logits, every
+    request's answer and the final cache must be the same bits. Returns the
+    number of batches."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch.infer import fused_decode_apply, fused_init_cache
+
+    dev = cuda()
+    cache = fused_init_cache(fm, SLOTS, device=dev)
+    owner = [None] * SLOTS  # prompt bytes of the request in each slot
+    tokens = {}
+    i = batches = 0
+    while i < len(log):
+        event, (kind, toks, logits) = log[i], log[i + 1]
+        i += 2
+        if kind != "batch":
+            fail(f"replay[{name}]: event {event[0]} not followed by its batch")
+        if event[0] == "admit":
+            _, slot, prompt = event
+            n = prompt.size
+            want = np.zeros((1, toks.shape[1]), np.int32)
+            want[0, :n] = prompt
+            if not np.array_equal(toks.cpu().numpy(), want):
+                fail(f"replay[{name}]: prefill batch is not the padded prompt")
+            got, one = fused_decode_apply(fm, None, toks)
+            _insert_row(cache, one, slot, n)
+            owner[slot] = prompt.tobytes()
+            tokens[owner[slot]] = [int(got[0, n - 1].argmax())]
+        else:
+            active = event[1]
+            want = [s is not None for s in owner]
+            if active.tolist() != want:
+                fail(f"replay[{name}]: active slots {active.tolist()} vs {want}")
+            last = [tokens[s][-1] if s is not None else 0 for s in owner]
+            if toks[:, 0].tolist() != last:
+                fail(f"replay[{name}]: step tokens are not the slots' last tokens")
+            got, cache = fused_decode_apply(fm, cache, toks)
+            _pin_cursors(cache, active)
+            for slot, nxt in enumerate(got[:, 0].argmax(-1).tolist()):
+                if owner[slot] is not None:
+                    tokens[owner[slot]].append(nxt)
+        if not torch.equal(got, logits):
+            fail(f"replay[{name}]: batch {batches} logits differ in "
+                 f"{int((got != logits).sum())} places")
+        for slot, key in enumerate(owner):
+            if key is not None and len(tokens[key]) >= MAX_NEW:
+                owner[slot] = None
+        batches += 1
+    for p, a in zip(prompts, answers):
+        if not np.array_equal(np.asarray(tokens[p.tobytes()], np.int32), a):
+            fail(f"replay[{name}]: an engine answer differs from its replayed batches")
+    for key, sub in cache.items():
+        pairs = ([(key, sub, final_cache[key])] if key == "pos_index" else
+                 [(f"{key}/{leaf}", v, final_cache[key]["attn"][leaf])
+                  for leaf, v in sub["attn"].items()])
+        for leaf, mine, theirs in pairs:
+            if not torch.equal(mine, theirs):
+                fail(f"replay[{name}]: final cache {leaf} differs")
+    return batches
+
+
+GEMM_INPUTS = ("LN1 -> QKV", "context -> out", "LN2 -> ffn_in", "hidden -> ffn_out")
+
+
+def teacher_forced(card: str, model, fm, lockstep: bool):
+    """The fused step against the port's fake-quant decode model
+    (QuantTransformerLM decode mode) at full width, both fed the same tokens
+    (the fake-quant model's greedy choice): a 64-token prefill, then 32
+    steps, 8 rows. Each GEMM input's ±1 codes are captured on both sides.
+    Where a layer's Q/K/V input codes agree for a position, its K/V codes and
+    scales must be equal; logits of rows with no differing code must agree
+    within LOGIT_TOL.
+
+    A single flipped code (an input within ~1e-7 of zero, where the two
+    LayerNorm variance formulas or attention sum orders disagree) sends a
+    W1A1 slot down another path for the rest of the run. With ``lockstep``
+    every call starts from the fake-quant model's cache (copied into the
+    fused layout), so each step is compared on equal state and a flip
+    counts only where it happens: argmax must then agree on at least 99% of
+    the (step, row) pairs. Without it the run is free, and its agreement is
+    reported."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import serve
+    from pytorch_quantize_impls_tpu_torch.infer import fused_decode as fd
+    from pytorch_quantize_impls_tpu_torch.nn import intercept_quant_layers
+
+    dev = cuda()
+    b, steps = 8, 32
+    rng = np.random.default_rng(SEED + 7)
+    toks = torch.from_numpy(rng.integers(0, LM_CFG["vocab"], (b, 64)).astype(np.int32)).to(dev)
+    md = serve.decode_model(model)
+    tapped = {id(getattr(blk, n) if n.startswith("ffn") else getattr(blk.attn, n))
+              for blk in model.blocks() for n in ("q", "out", "ffn_in", "ffn_out")}
+    fake_codes, fused_codes = [], []
+
+    def interceptor(m, x, fake_quant_forward):
+        if id(m) in tapped:
+            fake_codes.append(torch.where(x >= 0, 1, -1).to(torch.int8).reshape(-1, x.shape[-1]))
+        return fake_quant_forward(x)
+
+    gemm = fd._gemm_i8
+
+    def tap(c, w):
+        fused_codes.append(c.clone())
+        return gemm(c, w)
+
+    def both(cache_f, cache_g, t):
+        fake_codes.clear()
+        fused_codes.clear()
+        with torch.no_grad(), intercept_quant_layers(interceptor):
+            ref, cache_f = md(t, cache_f)
+        fd._gemm_i8 = tap
+        try:
+            got, cache_g = fd.fused_decode_apply(fm, cache_g, t)
+        finally:
+            fd._gemm_i8 = gemm
+        if len(fake_codes) != len(fused_codes):
+            fail(f"teacher-forced: {len(fake_codes)} vs {len(fused_codes)} GEMM inputs")
+        return ref, cache_f, got, cache_g
+
+    kv = ("k_codes", "k_scale", "v_codes", "v_scale")
+    flips = kv_rows = kv_skipped = agree = total = clean_rows = 0
+    first_flips = [0] * len(GEMM_INPUTS)  # flips in slots clean until that GEMM
+    clean = torch.ones(b, dtype=torch.bool, device=dev)
+    max_clean_err = 0.0
+    ref, cf, got, cg = both(None, None, toks)
+    for step in range(steps + 1):
+        s = toks.shape[1] if step == 0 else 1
+        cur = int(cg["pos_index"][0]) - s
+        if lockstep:
+            clean = torch.ones(b, dtype=torch.bool, device=dev)
+        for layer in range(LM_CFG["n_layers"]):
+            for j in range(len(GEMM_INPUTS)):
+                bad = (fused_codes[4 * layer + j] != fake_codes[4 * layer + j]).reshape(b, s, -1)
+                flips += int(bad.sum())
+                first_flips[j] += int(bad[clean].sum())
+                if j == 0:
+                    same = ~bad.any(dim=-1)  # Q/K/V input codes of each (slot, position)
+                clean &= ~bad.any(dim=-1).any(dim=-1)
+            fa, ga = cf[f"block{layer}"]["attn"], cg[f"block{layer}"]["attn"]
+            for name in kv:
+                f = fa[name][:, cur:cur + s].transpose(1, 2)  # (b, h, s, ...)
+                g = ga[name][:, :, cur:cur + s]
+                eq = (f == g).reshape(b, f.shape[1], s, -1).all(dim=-1).all(dim=1)  # (b, s)
+                if not eq[same].all():
+                    fail(f"teacher-forced: layer {layer} {name} differs where the "
+                         f"Q/K/V input codes agree")
+            kv_rows += int(same.sum())
+            kv_skipped += int((~same).sum())
+        if step > 0:
+            total += b
+            agree += int((ref[:, 0].argmax(-1) == got[:, 0].argmax(-1)).sum())
+            if clean.any():
+                err = (ref[clean, 0] - got[clean, 0]).abs().max().item()
+                max_clean_err = max(max_clean_err, err)
+                if err > LOGIT_TOL:
+                    fail(f"teacher-forced: step {step} logits differ by {err} in rows "
+                         f"with no flipped code")
+                clean_rows += int(clean.sum())
+        if step == steps:
+            break
+        if lockstep:
+            for layer in range(LM_CFG["n_layers"]):
+                fa, ga = cf[f"block{layer}"]["attn"], cg[f"block{layer}"]["attn"]
+                for name in kv:
+                    ga[name].copy_(fa[name].transpose(1, 2))
+        t = ref[:, -1].argmax(-1).to(torch.int32)[:, None]
+        ref, cf, got, cg = both(cf, cg, t)
+    origin = ", ".join(f"{k}: {n}" for k, n in zip(GEMM_INPUTS, first_flips))
+    print(f"teacher-forced fused vs fake-quant at full width, "
+          f"{'lockstep' if lockstep else 'free-running'}: {steps} steps x {b} rows, argmax "
+          f"agrees on {agree}/{total} ({100 * agree / total:.2f}%); {flips} flipped ±1 codes "
+          f"over all GEMM inputs, first flips by GEMM input ({origin}); K/V codes and scales "
+          f"equal on {kv_rows} (layer, slot, position) rows with equal Q/K/V codes "
+          f"({kv_skipped} rows had a flipped code); max |logit err| {max_clean_err:.3g} over "
+          f"{clean_rows} rows with no flipped code (tolerance {LOGIT_TOL})  [{card}]", flush=True)
+    if lockstep and agree < 0.99 * total:
+        fail(f"teacher-forced (lockstep): argmax agrees on only {agree} of {total}")
+
+
+def small_token_exact(card: str):
+    """At the JAX package's fused-decode test size (seeded weights): the
+    fused step and the fake-quant decode model agree within LOGIT_TOL,
+    teacher-forced, and greedy generation gives the same tokens through
+    serve.generate (fake-quant) and DecodeEngine(fused=)."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import infer, serve
+
+    dev = cuda()
+    model = build_lm(SMALL_LM_CFG, SEED)
+    fm = infer.export_fused_decode(model, device=dev)
+    rng = np.random.default_rng(SEED + 1)
+    toks = torch.from_numpy(rng.integers(0, 128, (3, 8)).astype(np.int32)).to(dev)
+    md = serve.decode_model(model)
+    with torch.no_grad():
+        ref, cf = md(toks)
+        got, cg = infer.fused_decode_apply(fm, None, toks)
+        for _ in range(7):
+            err = (ref - got).abs().max().item()
+            if err > LOGIT_TOL or not torch.equal(ref[:, -1].argmax(-1), got[:, -1].argmax(-1)):
+                fail(f"small LM: fused vs fake-quant logits differ by {err}")
+            t = ref[:, -1].argmax(-1).to(torch.int32)[:, None]
+            ref, cf = md(t, cf)
+            got, cg = infer.fused_decode_apply(fm, cg, t)
+    prompts = [rng.integers(0, 128, (n,)).astype(np.int32) for n in (5, 9, 12)]
+    engine = serve.DecodeEngine(model, fused=fm, n_slots=4, device=dev)
+    try:
+        fused = [engine(p, max_new=6) for p in prompts]
+    finally:
+        engine.shutdown()
+    for p, f in zip(prompts, fused):
+        want = serve.generate(model, p[None], 6, device=dev)[0].cpu().numpy()
+        if not np.array_equal(f, want):
+            fail(f"small LM: fused engine {f} vs fake-quant generate {want}")
+    print("small LM (JAX test size): fused == fake-quant within 2e-4 for 8 teacher-forced "
+          "calls; greedy tokens identical for 3 prompts  [" + card + "]", flush=True)
+
+
+def decode_speed(card: str, model, fms: dict):
+    """scripts/perf_bench.py:bench_decode's metrics on the card: 128-token
+    prefill ms (b = 1) and decode tokens/s at each of DECODE_BATCHES, by
+    CUDA events over N steps with the cache advancing (each step feeds the
+    previous step's argmax, on the card), for the fake-quant model and the
+    fused int8 and packed exports."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import infer, serve
+
+    dev = cuda()
+    rng = np.random.default_rng(SEED + 2)
+    md = serve.decode_model(model)
+    backends = {"fake-quant": lambda c, t: md(t, c)}
+    for name, fm in fms.items():
+        backends[f"fused {name}"] = lambda c, t, fm=fm: infer.fused_decode_apply(fm, c, t)
+    n_steps = 32
+    profiles = []
+    with torch.no_grad():
+        for name, apply in backends.items():
+            toks1 = torch.from_numpy(
+                rng.integers(0, LM_CFG["vocab"], (1, PREFILL_LEN)).astype(np.int32)).to(dev)
+            prefill_ms = cuda_ms(lambda: apply(None, toks1), iters=5, warmup=1)
+            line = f"decode {name:13s}: prefill {PREFILL_LEN} tok {prefill_ms:.3f} ms"
+            for b in DECODE_BATCHES:
+                tb = torch.from_numpy(
+                    rng.integers(0, LM_CFG["vocab"], (b, PREFILL_LEN)).astype(np.int32)).to(dev)
+                logits, cache = apply(None, tb)
+                t = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+                for _ in range(3):
+                    logits, cache = apply(cache, t)
+                    t = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(n_steps):
+                    logits, cache = apply(cache, t)
+                    t = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+                end.record()
+                end.synchronize()
+                step_ms = start.elapsed_time(end) / n_steps
+                line += f"; b={b}: {step_ms:.3f} ms/step {1e3 * b / step_ms:.1f} tok/s"
+                if b == DECODE_BATCHES[-1]:
+                    state = {"cache": cache, "t": t}
+
+                    def step():
+                        logits, state["cache"] = apply(state["cache"], state["t"])
+                        state["t"] = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+
+                    per_call, wall = device_times(step, iters=8)
+                    busy = sum(ms for ms, _ in per_call.values())
+                    launches = sum(n for _, n in per_call.values())
+                    top = sorted(per_call.items(), key=lambda kv: -kv[1][0])[:4]
+                    profiles.append(
+                        f"decode {name} b={b} profile: wall {wall:.3f} ms/step, device busy "
+                        f"{busy:.3f} ms ({100 * (1 - busy / wall):.1f}% idle) in "
+                        f"{launches:.0f} launches; largest: "
+                        + "; ".join(f"{k[:48]} {ms:.3f} ms x{n:.0f}" for k, (ms, n) in top))
+                    cache = state["cache"]
+                del cache
+            print(line + f"  [{card}]", flush=True)
+    for line in profiles:
+        print(line + f"  [{card}]", flush=True)
+
+
+def decode_path(card: str):
+    """Build the serving LM at full width, export it both ways, drive and
+    replay the engine, then the seam checks and the speeds."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import infer
+
+    dev = cuda()
+    t0 = time.perf_counter()
+    model = build_lm(LM_CFG, SEED)
+    fms = {w: infer.export_fused_decode(model, weights=w, device=dev) for w in ("int8", "packed")}
+    print(f"decode LM built and exported in {time.perf_counter() - t0:.1f} s: "
+          f"{torch.cuda.memory_allocated() / 2**20:.0f} MiB allocated", flush=True)
+    rng = np.random.default_rng(SEED + 3)
+    prompts = [rng.integers(0, LM_CFG["vocab"], rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1))
+               .astype(np.int32) for _ in range(DECODE_REQUESTS)]
+    runs, launches = drive_decode_path(card, model, fms, prompts)
+    other = {"int8": "packed", "packed": "int8"}
+    for name, (answers, log, final_cache) in runs.items():
+        n = replay(name, fms[other[name]], log, answers, prompts, final_cache)
+        print(f"replayed the fused {name} engine's {n} batches through the {other[name]} "
+              f"export: same logits, tokens and final cache, bit for bit", flush=True)
+        del log
+    if any(not np.array_equal(a, b) for a, b in zip(runs["int8"][0], runs["packed"][0])):
+        fail("the int8 and packed engines answered differently")
+    del runs
+    for lockstep in (True, False):
+        teacher_forced(card, model, fms["int8"], lockstep)
+    small_token_exact(card)
+    decode_speed(card, model, fms)
+    return launches
 
 
 def main() -> None:
@@ -438,22 +1092,29 @@ def main() -> None:
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
 
     summary = check_kernels(card)
-    model, prepared, example_shape, launches = main_path(card)
+    model, prepared, example_shape, lenet_launches = main_path(card)
     throughput(card, model, prepared, example_shape)
+    del model, prepared
+    lm_launches = decode_path(card)
 
     src = f"{PORT}/csrc"
     meta = {
         "binary_gemm": ("xnor_gemm.cu", "pytorch_quantize_impls_tpu/kernels/xnor_gemm.py:132"),
         "decode_binary_weights": ("xnor_gemm.cu", "pytorch_quantize_impls_tpu/kernels/xnor_gemm.py:308"),
         "int8_gemm": ("int8_matmul.cu", "pytorch_quantize_impls_tpu/kernels/int8_matmul.py:99"),
+        "decode_attention": ("decode_attention.cu",
+                             "pytorch_quantize_impls_tpu/kernels/decode_attention.py:113"),
     }
     rows = []
     for name, (cu, replaces) in meta.items():
         s = summary[name]
+        by_path = {"bnn_lenet": lenet_launches.get(name, 0), "decode_lm": lm_launches.get(name, 0)}
         rows.append({
             "name": name, "route": "cuda", "source": f"{src}/{cu}", "replaces": replaces,
-            "launches": launches[name], "max_abs_err": s["max_abs_err"],
-            "ms": s["ms"], "plain_ms": s["plain_ms"], "shape": s["shape"],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
+            "bound_ms": s["bound_ms"], "bound_by": s["bound_by"], "library_ms": s["library_ms"],
+            **{k: v for k, v in s.items() if k in ("shape", "device_ms", "sdpa_dequantized_ms")},
         })
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "cuda_error.cuh"
+
 namespace qt {
 
 constexpr int BM = 64;
@@ -87,7 +89,3 @@ __device__ __forceinline__ void store_tile(const int32_t (&acc)[4][4], const flo
 }
 
 }  // namespace qt
-
-extern "C" const char* qt_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}

@@ -1,8 +1,12 @@
-"""Inference: the train (fake-quant) -> infer (packed) seam.
+"""Inference: the train (fake-quant) -> infer (packed) seam, and the fused
+decode step of the 1-bit transformer LM.
 
     packed = infer.pack_model(model)              # once
     ready  = infer.prepare(packed)                # decode hot buffers
     y      = infer.packed_apply(model, ready, x)  # fast path
+
+    fm = infer.export_fused_decode(lm, device="cuda")
+    logits, cache = infer.fused_decode_apply(fm, None, tokens)
 """
 
 from pytorch_quantize_impls_tpu_torch.infer.packed import (  # noqa: F401
@@ -12,4 +16,11 @@ from pytorch_quantize_impls_tpu_torch.infer.packed import (  # noqa: F401
     packed_apply,
     prepare,
     save_packed,
+)
+from pytorch_quantize_impls_tpu_torch.infer.fused_decode import (  # noqa: F401
+    FusedDecodeLayer,
+    FusedDecodeModel,
+    export_fused_decode,
+    fused_decode_apply,
+    fused_init_cache,
 )

@@ -46,6 +46,7 @@ from pytorch_quantize_impls_tpu_torch.nn.base import (
     QuantDense,
     intercept_quant_layers,
 )
+from pytorch_quantize_impls_tpu_torch.utils.device import resolve_device
 
 _PORTED_SCHEMES = ("binary", "xnor")
 
@@ -176,10 +177,12 @@ def _conv_forward(m: QuantConv, rec: PackedLayer, x: torch.Tensor, bias) -> torc
     return y.to(x.dtype)
 
 
-def packed_apply(model: nn.Module, packed: PackedModel, x: torch.Tensor) -> torch.Tensor:
-    """Eval forward with every packed quantized layer dispatched to its
-    packed path; other modules (BatchNorm, pooling) run as they are. The
-    model must be in eval mode."""
+def packed_apply(model: nn.Module, packed: PackedModel, *args, **kwargs):
+    """Eval forward ``model(*args, **kwargs)`` with every packed quantized
+    layer dispatched to its packed path; other modules (BatchNorm, pooling,
+    LayerNorm, attention) run as they are. The model must be in eval mode.
+    A decode-mode LM takes ``(tokens, cache)`` and returns what it returns,
+    ``(logits, cache)``."""
     if model.training:
         raise ValueError("packed_apply runs the eval forward: call model.eval() first")
     paths = {m: path for path, m in _quant_layers(model)}
@@ -193,7 +196,7 @@ def packed_apply(model: nn.Module, packed: PackedModel, x: torch.Tensor) -> torc
         return _dense_forward(rec, x, m.bias)
 
     with torch.no_grad(), intercept_quant_layers(interceptor):
-        return model(x)
+        return model(*args, **kwargs)
 
 
 # --- inference-only export artifact ---------------------------------------
@@ -221,8 +224,10 @@ def save_packed(path: str, packed: PackedModel) -> None:
     np.savez(path, __meta__=json.dumps(meta), **arrays)
 
 
-def load_packed(path: str, device="cpu") -> PackedModel:
-    """Read an artifact written by either package onto ``device``."""
+def load_packed(path: str, device="cuda") -> PackedModel:
+    """Read an artifact written by either package onto ``device`` (the card
+    unless ``device="cpu"``; raises without a GPU)."""
+    device = resolve_device(device)
     with np.load(path, allow_pickle=False) as data:
         meta = json.loads(str(data["__meta__"]))
         out: PackedModel = {}

@@ -16,3 +16,6 @@ from pytorch_quantize_impls_tpu_torch.kernels.int8_matmul import (  # noqa: F401
     int8_gemm,
     int8_gemm_reference,
 )
+# the module kernels.decode_attention is imported by name, not re-exported:
+# its function shares its name
+from pytorch_quantize_impls_tpu_torch.kernels import decode_attention  # noqa: F401

@@ -1,3 +1,10 @@
-"""Model zoo; so far ``BNNLeNet`` (BASELINE config 2)."""
+"""Model zoo; so far ``BNNLeNet`` (BASELINE config 2) and the quantized
+transformer LM with its decode mode."""
 
 from pytorch_quantize_impls_tpu_torch.models.lenet import BNNLeNet  # noqa: F401
+from pytorch_quantize_impls_tpu_torch.models.transformer import (  # noqa: F401
+    LayerNorm,
+    QuantAttention,
+    QuantTransformerBlock,
+    QuantTransformerLM,
+)

@@ -2,11 +2,16 @@
 the grouped-planar bit packing (``ops.pack``)."""
 
 from pytorch_quantize_impls_tpu_torch.ops.common import (  # noqa: F401
+    flush_subnormal,
     safe_sign,
     ste,
 )
 from pytorch_quantize_impls_tpu_torch.ops.binary import (  # noqa: F401
     binary_connect_det,
     binary_tanh,
+)
+from pytorch_quantize_impls_tpu_torch.ops.kv_cache import (  # noqa: F401
+    dequantize_kv,
+    quantize_kv,
 )
 from pytorch_quantize_impls_tpu_torch.ops import pack  # noqa: F401

@@ -23,6 +23,19 @@ def safe_sign(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 0, 1.0, -1.0).to(x.dtype)
 
 
+def flush_subnormal(x: torch.Tensor) -> torch.Tensor:
+    """Subnormal floats -> 0, as XLA computes on the CPU and the TPU.
+
+    PyTorch keeps subnormals. A value that is exactly 0 in the JAX package
+    (an attention context whose large terms cancel, the rest flushed) can
+    then come out as a tiny nonzero here, and a sign taken on it flips. The
+    attention code flushes the softmax probabilities and the context before
+    its sign. Products inside a matmul are not flushed, so the fused decode
+    step leaves ``p * v_scale`` as it is too: then it forms the same terms as
+    the fake-quant model, whose probabilities meet dequantized V in a matmul."""
+    return torch.where(x.abs() < torch.finfo(x.dtype).tiny, 0.0, x)
+
+
 class _STE(torch.autograd.Function):
     """Forward ``forward(x)``; backward ``g * backward_mask(x)`` (or ``g``)."""
 

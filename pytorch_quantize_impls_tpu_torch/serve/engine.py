@@ -24,6 +24,8 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from pytorch_quantize_impls_tpu_torch.utils.device import resolve_device
+
 
 @dataclass
 class EngineStats:
@@ -63,14 +65,14 @@ class InferenceEngine:
         *,
         batch_sizes: Sequence[int] = (1, 4, 16, 64, 256),
         max_delay_ms: float = 2.0,
-        device="cpu",
+        device="cuda",
         dtype: torch.dtype = torch.float32,
     ):
+        self._device = resolve_device(device)
         self._forward = forward
         self._example_shape = tuple(example_shape)
         self._buckets = sorted(batch_sizes)
         self._max_delay_s = max_delay_ms / 1e3
-        self._device = torch.device(device)
         self._dtype = dtype
         self._queue: "queue.Queue[Optional[_Request]]" = queue.Queue()
         self.stats = EngineStats()

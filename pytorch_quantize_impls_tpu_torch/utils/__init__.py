@@ -1,5 +1,7 @@
-"""Run configs and the bridge from the JAX package's variables."""
+"""Run configs, the bridge from the JAX package's variables, and the device
+rule of the port's entry points."""
 
+from pytorch_quantize_impls_tpu_torch.utils.device import resolve_device  # noqa: F401
 from pytorch_quantize_impls_tpu_torch.utils.bridge import (  # noqa: F401
     flax_state_dict,
     load_flax_variables,

@@ -8,8 +8,11 @@ port's module of the same architecture:
 * Dense ``kernel (in, out)`` -> ``weight (out, in)``;
 * Conv ``kernel`` HWIO -> ``weight`` OIHW;
 * ``bias`` -> ``bias``;
-* BatchNorm ``scale``/``bias`` -> ``weight``/``bias``, and
-  ``batch_stats`` ``mean``/``var`` -> ``running_mean``/``running_var``.
+* BatchNorm and LayerNorm ``scale``/``bias`` -> ``weight``/``bias``, and
+  ``batch_stats`` ``mean``/``var`` -> ``running_mean``/``running_var``;
+* Embed ``embedding (vocab, d)`` -> ``weight (vocab, d)``, not transposed;
+* a parameter the model declares itself (the LM's ``pos_embed``) keeps its
+  name and layout.
 
 A flax path ``("fc1", "dense", "kernel")`` becomes the state-dict key
 ``"fc1.dense.weight"``. Loading is strict: a missing or extra entry raises.
@@ -23,7 +26,11 @@ import numpy as np
 import torch
 from torch import nn
 
-_PARAM_NAMES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+from pytorch_quantize_impls_tpu_torch.utils.device import resolve_device
+
+_PARAM_NAMES = {
+    "kernel": "weight", "scale": "weight", "bias": "bias", "embedding": "weight",
+}
 _STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -46,14 +53,17 @@ def _to_torch_layout(name: str, value: np.ndarray) -> np.ndarray:
 
 
 def flax_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax ``variables`` (numpy leaves) -> a PyTorch state dict."""
+    """Flax ``variables`` (numpy leaves) -> a PyTorch state dict on the CPU."""
     sd: Dict[str, torch.Tensor] = {}
     for collection, names in (("params", _PARAM_NAMES), ("batch_stats", _STAT_NAMES)):
         for path, value in _leaves(variables.get(collection, {})):
             leaf = path[-1]
-            if leaf not in names:
+            if collection == "params" and len(path) == 1:
+                key = leaf  # the model's own parameter, e.g. pos_embed
+            elif leaf in names:
+                key = ".".join(path[:-1] + (names[leaf],))
+            else:
                 raise ValueError(f"{collection} leaf {'/'.join(path)} has no port counterpart")
-            key = ".".join(path[:-1] + (names[leaf],))
             arr = np.ascontiguousarray(_to_torch_layout(leaf, value), dtype=np.float32)
             sd[key] = torch.from_numpy(arr)
     extra = set(variables) - {"params", "batch_stats"}
@@ -62,7 +72,12 @@ def flax_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def load_flax_variables(module: nn.Module, variables: Mapping[str, Any]) -> nn.Module:
-    """Copy flax ``variables`` into ``module`` (strict); returns ``module``."""
+def load_flax_variables(
+    module: nn.Module, variables: Mapping[str, Any], device="cuda"
+) -> nn.Module:
+    """Copy flax ``variables`` into ``module`` (strict) and move it to
+    ``device`` (the card unless ``device="cpu"``; raises without a GPU).
+    Returns ``module``."""
+    device = resolve_device(device)
     module.load_state_dict(flax_state_dict(variables), strict=True)
-    return module
+    return module.to(device)

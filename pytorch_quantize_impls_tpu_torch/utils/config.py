@@ -11,6 +11,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+from pytorch_quantize_impls_tpu_torch.utils.device import resolve_device
+
 
 @dataclasses.dataclass
 class RunConfig:
@@ -28,12 +30,15 @@ SCHEME_CONFIGS = {
 }
 
 
-def build_model(cfg: RunConfig):
-    """Config -> (model, input_shape, dataset_name)."""
+def build_model(cfg: RunConfig, device="cuda"):
+    """Config -> (model on ``device``, input_shape, dataset_name). The model
+    is built on the card unless ``device="cpu"``; raises without a GPU."""
     from pytorch_quantize_impls_tpu_torch import models
 
+    device = resolve_device(device)
     if cfg.config == "bnn_lenet":
-        return models.BNNLeNet(width=cfg.width or 32), (28, 28, 1), "mnist"
+        model = models.BNNLeNet(width=cfg.width or 32).to(device)
+        return model, (28, 28, 1), "mnist"
     raise ValueError(
         f"config {cfg.config!r} is not ported; pick from {sorted(SCHEME_CONFIGS)}"
     )

@@ -19,7 +19,7 @@ import torch
 import chip_smoke
 from pytorch_quantize_impls_tpu import infer as jinfer
 from pytorch_quantize_impls_tpu import models as jmodels
-from pytorch_quantize_impls_tpu_torch import infer, models
+from pytorch_quantize_impls_tpu_torch import infer, models, serve
 from pytorch_quantize_impls_tpu_torch.serve import InferenceEngine
 from pytorch_quantize_impls_tpu_torch.utils import load_flax_variables
 
@@ -31,7 +31,7 @@ SHAPE = (28, 28, 1)
 def test_engine_answers_from_threads_match_packed_apply():
     rng = np.random.default_rng(1)
     variables = chip_smoke.seeded_variables(WIDTH, rng)
-    model = load_flax_variables(models.BNNLeNet(width=WIDTH), variables).eval()
+    model = load_flax_variables(models.BNNLeNet(width=WIDTH), variables, device="cpu").eval()
     prepared = infer.prepare(infer.pack_model(model))
     batches = []
 
@@ -40,7 +40,8 @@ def test_engine_answers_from_threads_match_packed_apply():
         batches.append((x.clone(), y.clone()))
         return y
 
-    engine = InferenceEngine(forward, SHAPE, batch_sizes=(1, 4, 16), max_delay_ms=5.0)
+    engine = InferenceEngine(forward, SHAPE, batch_sizes=(1, 4, 16), max_delay_ms=5.0,
+                             device="cpu")
     inputs = [rng.normal(size=SHAPE).astype(np.float32) for _ in range(24)]
     answers = [None] * len(inputs)
 
@@ -77,7 +78,8 @@ def test_engine_answers_from_threads_match_packed_apply():
 
 
 def test_engine_buckets_stats_and_errors():
-    engine = InferenceEngine(lambda x: x.sum(dim=(1, 2)), (2, 3), batch_sizes=(4, 1, 2))
+    engine = InferenceEngine(lambda x: x.sum(dim=(1, 2)), (2, 3), batch_sizes=(4, 1, 2),
+                             device="cpu")
     try:
         assert [engine._bucket_for(n) for n in (1, 2, 3, 4)] == [1, 2, 4, 4]
         np.testing.assert_array_equal(engine(np.ones((2, 3), np.float32)), [6.0])
@@ -92,7 +94,7 @@ def test_engine_buckets_stats_and_errors():
     def broken(x):
         raise RuntimeError("forward failed")
 
-    engine = InferenceEngine(broken, (2,), batch_sizes=(1,))
+    engine = InferenceEngine(broken, (2,), batch_sizes=(1,), device="cpu")
     try:
         with pytest.raises(RuntimeError, match="forward failed"):
             engine.submit(np.ones(2)).result(timeout=30)
@@ -107,7 +109,7 @@ def test_engine_runs_forward_in_inference_mode():
         seen.append((torch.is_inference_mode_enabled(), x.dtype, x.device.type))
         return x
 
-    engine = InferenceEngine(forward, (3,), batch_sizes=(1,), dtype=torch.float64)
+    engine = InferenceEngine(forward, (3,), batch_sizes=(1,), dtype=torch.float64, device="cpu")
     try:
         engine(np.zeros(3))
     finally:
@@ -120,13 +122,24 @@ def test_port_imports_without_jax():
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'flax', 'optax'):\n"
         "    sys.modules[name] = None\n"
-        "import torch\n"
+        "import numpy as np, torch\n"
         "import pytorch_quantize_impls_tpu_torch as p\n"
+        "from pytorch_quantize_impls_tpu_torch.infer import fused_decode\n"
+        "from pytorch_quantize_impls_tpu_torch.kernels import decode_attention\n"
+        "from pytorch_quantize_impls_tpu_torch.models import transformer\n"
+        "from pytorch_quantize_impls_tpu_torch.ops import kv_cache\n"
+        "from pytorch_quantize_impls_tpu_torch.serve import decode_engine, generate\n"
         "m = p.models.BNNLeNet(width=4).eval()\n"
         "y = p.infer.packed_apply(m, p.infer.pack_model(m), torch.zeros(2, 28, 28, 1))\n"
         "assert y.shape == (2, 10)\n"
-        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax')"
-        " and sys.modules[k] is not None]\n"
+        "lm = p.models.QuantTransformerLM(16, 32, 2, 1, 32, 16, a_bits=1).eval()\n"
+        "fm = p.infer.export_fused_decode(lm, device='cpu')\n"
+        "eng = p.serve.DecodeEngine(lm, fused=fm, n_slots=2, device='cpu')\n"
+        "out = eng(np.array([1, 2, 3]), max_new=3)\n"
+        "eng.shutdown()\n"
+        "assert out.shape == (3,)\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',"
+        " 'pytorch_quantize_impls_tpu') and sys.modules[k] is not None]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
@@ -135,6 +148,35 @@ def test_port_imports_without_jax():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_entry_points_default_to_the_card_and_raise_without_one(tmp_path):
+    """Without an explicit ``device="cpu"`` every entry point asks for the
+    card; with no GPU it raises rather than falling back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the defaults would run on it")
+    from pytorch_quantize_impls_tpu_torch.utils import SCHEME_CONFIGS, RunConfig, build_model
+
+    path = os.path.join(tmp_path, "m.npz")
+    m = models.BNNLeNet(width=4).eval()
+    infer.save_packed(path, infer.pack_model(m))
+    lm = models.QuantTransformerLM(16, 32, 2, 1, 32, 16, a_bits=1).eval()
+    fm = infer.export_fused_decode(lm, device="cpu")
+    calls = {
+        "load_packed": lambda: infer.load_packed(path),
+        "InferenceEngine": lambda: InferenceEngine(lambda x: x, (2,)),
+        "DecodeEngine": lambda: serve.DecodeEngine(lm),
+        "build_model": lambda: build_model(RunConfig(**SCHEME_CONFIGS["bnn_lenet"])),
+        "load_flax_variables": lambda: load_flax_variables(m, {"params": {}}),
+        "export_fused_decode": lambda: infer.export_fused_decode(lm),
+        "fused_init_cache": lambda: infer.fused_init_cache(fm, 2),
+        "generate": lambda: serve.generate(lm, np.zeros((1, 2), np.int32), 2),
+        "init_cache": lambda: lm.init_cache(2),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+            pytest.fail(f"{name} ran without a GPU")
 
 
 def test_chip_smoke_refuses_without_gpu():

@@ -22,11 +22,13 @@ from pytorch_quantize_impls_tpu.kernels import int8_matmul as jim
 from pytorch_quantize_impls_tpu.ops import pack as jpack
 from pytorch_quantize_impls_tpu_torch import ops as tops
 from pytorch_quantize_impls_tpu_torch.kernels import _build
+from pytorch_quantize_impls_tpu_torch.kernels import decode_attention as tda
 from pytorch_quantize_impls_tpu_torch.kernels import int8_matmul as tim
 from pytorch_quantize_impls_tpu_torch.kernels import xnor_gemm as tbg
 from pytorch_quantize_impls_tpu_torch.ops import pack as tpack
 
 jbg = sys.modules["pytorch_quantize_impls_tpu.kernels.xnor_gemm"]
+jda = sys.modules["pytorch_quantize_impls_tpu.kernels.decode_attention"]
 
 
 def _normal(rng, *shape):
@@ -173,13 +175,69 @@ def test_binary_connect_det_identity_ste_matches_jax():
     np.testing.assert_array_equal(xt.grad.numpy(), np.asarray(jgrad))
 
 
+def _attention_inputs(rng, b, h, cl, hd, lens):
+    """Inputs of tests/test_kernels.py's decode-attention test; position j
+    of slot i is attended iff j < lens[i]."""
+    q = _normal(rng, b, h, hd)
+    kc = rng.integers(-127, 128, (b, h, cl, hd)).astype(np.int8)
+    vc = rng.integers(-127, 128, (b, h, cl, hd)).astype(np.int8)
+    ks = rng.uniform(0.01, 0.1, (b, h, cl)).astype(np.float32)
+    vs = rng.uniform(0.01, 0.1, (b, h, cl)).astype(np.float32)
+    bias = np.where(np.arange(cl)[None, :] < np.asarray(lens)[:, None], 0.0, -1e30)
+    return q, kc, ks, vc, vs, bias.astype(np.float32)
+
+
+@pytest.mark.parametrize(
+    "b,h,cl,hd,lens",
+    [
+        (3, 4, 64, 32, [5, 30, 64]),  # tests/test_kernels.py:305-315
+        (1, 8, 1, 128, [1]),
+        (5, 2, 37, 64, [1, 37, 20, 2, 36]),
+        (2, 8, 256, 128, [256, 1]),
+    ],
+)
+def test_decode_attention_plain_matches_jax_kernel(b, h, cl, hd, lens):
+    rng = np.random.default_rng(b * cl + hd)
+    args = _attention_inputs(rng, b, h, cl, hd, lens)
+    ref = np.asarray(jda.decode_attention(*map(jnp.asarray, args)))
+    got = tda.decode_attention(*map(_t, args))
+    assert got.dtype == torch.float32 and got.shape == (b, h, hd)
+    # float32 on both sides (not the TPU's bf16 passes), sums in another
+    # order. Scores reach |s| ~ 20, where an f32 ulp is 2e-6, and exp turns
+    # that into a relative error of every p; a context that cancels keeps it
+    # as an absolute error, measured here up to 2e-6 of the largest context.
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5 * np.abs(ref).max())
+
+
+def test_decode_attention_flushes_subnormal_probabilities():
+    """Scores 100 apart give p = e^-100 (subnormal): XLA flushes it, so the
+    context is that of the one dominant position exactly."""
+    q = np.zeros((1, 1, 16), np.float32)
+    q[0, 0, 0] = 1.0
+    kc = np.zeros((1, 1, 2, 16), np.int8)
+    kc[0, 0, 0, 0] = 100  # score 100 * k_scale 4 * rsqrt(16) = 100; the other 0
+    vc = np.zeros((1, 1, 2, 16), np.int8)
+    vc[0, 0, 1, :] = 1
+    ks = np.array([[[4.0, 4.0]]], np.float32)
+    vs = np.ones((1, 1, 2), np.float32)
+    bias = np.zeros((1, 2), np.float32)
+    args = (q, kc, ks, vc, vs, bias)
+    got = tda.decode_attention(*map(_t, args))
+    ref = np.asarray(jda.decode_attention(*map(jnp.asarray, args)))
+    np.testing.assert_array_equal(got.numpy(), ref)
+    assert (got == 0).all()
+
+
 def test_cpu_tensors_take_the_plain_versions():
-    counters = (tbg.binary_gemm, tbg.decode_binary_weights, tim.int8_gemm)
+    counters = (tbg.binary_gemm, tbg.decode_binary_weights, tim.int8_gemm, tda.decode_attention)
     before = [f.launches for f in counters]
     x = torch.ones(4, 64, dtype=torch.int8)
     wp = tbg.pack_binary_weights(torch.ones(64, 8))
     tbg.binary_gemm(x, wp)
     tim.int8_gemm(x, tbg.decode_binary_weights(wp)[:64])
+    codes = torch.zeros(2, 2, 8, 16, dtype=torch.int8)
+    scales = torch.ones(2, 2, 8)
+    tda.decode_attention(torch.ones(2, 2, 16), codes, scales, codes, scales, torch.zeros(2, 8))
     assert [f.launches for f in counters] == before
 
 
@@ -194,6 +252,11 @@ def test_other_devices_raise():
         tbg.decode_binary_weights(wp)
     with pytest.raises(ValueError, match="unsupported device"):
         tim.int8_gemm(x, w8)
+    codes = torch.empty(2, 2, 8, 16, dtype=torch.int8, device="meta")
+    scales = torch.empty(2, 2, 8, device="meta")
+    q, bias = torch.empty(2, 2, 16, device="meta"), torch.empty(2, 8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tda.decode_attention(q, codes, scales, codes, scales, bias)
 
 
 def test_shape_checks_raise():
@@ -203,6 +266,13 @@ def test_shape_checks_raise():
         tbg.decode_binary_weights(torch.zeros(31, 4, dtype=torch.int32))
     with pytest.raises(ValueError):
         tim.int8_gemm(torch.ones(2, 8, dtype=torch.int8), torch.ones(9, 4, dtype=torch.int8))
+    codes = torch.zeros(2, 2, 8, 16, dtype=torch.int8)
+    scales = torch.ones(2, 2, 8)
+    with pytest.raises(ValueError, match="codes"):
+        tda.decode_attention(torch.ones(2, 2, 16), codes[:, :, :, :8], scales, codes, scales,
+                             torch.zeros(2, 8))
+    with pytest.raises(ValueError, match="mask_bias"):
+        tda.decode_attention(torch.ones(2, 2, 16), codes, scales, codes, scales, torch.zeros(2, 9))
 
 
 def test_build_is_keyed_on_sources_and_needs_nvcc(monkeypatch, tmp_path):

@@ -43,7 +43,7 @@ def lenet():
     init = jm.init({"params": jax.random.PRNGKey(0)}, jnp.asarray(x[:1]), train=False)
     same_tree = jax.tree_util.tree_map(lambda a, b: a.shape == b.shape, dict(init), variables)
     assert all(jax.tree_util.tree_leaves(same_tree))
-    tm = load_flax_variables(models.BNNLeNet(width=WIDTH), variables).eval()
+    tm = load_flax_variables(models.BNNLeNet(width=WIDTH), variables, device="cpu").eval()
     return jm, variables, tm, x
 
 
@@ -59,7 +59,7 @@ def test_bridge_layouts(lenet):
         tm.bn2.running_var.numpy(), variables["batch_stats"]["bn2"]["var"]
     )
     with pytest.raises(ValueError, match="no port counterpart"):
-        flax_state_dict({"params": {"x": {"embedding": np.zeros(3)}}})
+        flax_state_dict({"params": {"x": {"gamma": np.zeros(3)}}})
 
 
 def test_fake_quant_logits_identical(lenet):
@@ -108,7 +108,7 @@ def test_jax_artifact_loads_in_port(lenet, tmp_path):
     path = os.path.join(tmp_path, "jax.npz")
     jinfer.save_packed(path, jinfer.pack_model(jm, variables, jnp.asarray(x[:1])))
     ref = np.asarray(jinfer.packed_apply(jm, variables, jinfer.load_packed(path), jnp.asarray(x)))
-    loaded = infer.load_packed(path)
+    loaded = infer.load_packed(path, device="cpu")
     for rec in (loaded, infer.prepare(loaded)):
         got = infer.packed_apply(tm, rec, torch.from_numpy(x)).numpy()
         np.testing.assert_array_equal(got, ref)
@@ -140,7 +140,7 @@ def test_real_input_dense_branch_matches_jax():
     variables = {"params": {"dense": {"kernel": kernel, "bias": bias}}}
     jl = jnn.LinearBin(features=16)
     ref = np.asarray(jinfer.packed_apply(jl, variables, jinfer.pack_model(jl, variables, jnp.asarray(x[:1])), jnp.asarray(x)))
-    tl = load_flax_variables(tnn.LinearBin(64, 16), variables).eval()
+    tl = load_flax_variables(tnn.LinearBin(64, 16), variables, device="cpu").eval()
     for tp in (infer.pack_model(tl), infer.prepare(infer.pack_model(tl))):
         got = infer.packed_apply(tl, tp, torch.from_numpy(x)).numpy()
         # real-valued sums: float32 rounding, order differs between packages
@@ -149,12 +149,12 @@ def test_real_input_dense_branch_matches_jax():
 
 def test_build_model_bnn_lenet():
     cfg = RunConfig(**SCHEME_CONFIGS["bnn_lenet"])
-    model, shape, data = build_model(cfg)
+    model, shape, data = build_model(cfg, device="cpu")
     assert (shape, data, cfg.width, cfg.a_bits) == ((28, 28, 1), "mnist", 128, 1)
     assert tuple(model.fc1.dense.weight.shape) == (1024, 4096)
     assert tuple(model.conv2.conv.weight.shape) == (256, 128, 5, 5)
     with pytest.raises(ValueError, match="not ported"):
-        build_model(RunConfig(config="xnor_cifar"))
+        build_model(RunConfig(config="xnor_cifar"), device="cpu")
 
 
 def test_unported_parts_raise(lenet):
