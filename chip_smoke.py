@@ -9,17 +9,17 @@ on one NVIDIA GPU (built for Hopper, sm_90a).
 2. Builds every CUDA kernel from ``pytorch_quantize_impls_tpu_torch/csrc``
    with nvcc, one process per source, all at once.
 3. Holds each kernel against its plain PyTorch version on the card, at the
-   shapes the two main paths give it and at edge shapes: K1 binary_gemm,
-   K2 decode_binary_weights and K3 int8_gemm bit for bit, K4
-   decode_attention within a float32 tolerance. Prints kernel, plain,
-   library-call and bound times.
+   shapes the main paths give it and at edge shapes: K1 binary_gemm, K2
+   decode_binary_weights, K3 int8_gemm, K5 int8_conv2d, K6 dorefa_gemm and
+   K7 decode_dorefa_weights bit for bit, K4 decode_attention within a
+   float32 tolerance. Prints kernel, plain, library-call and bound times.
 4. Main path 1, BNN LeNet (``bnn_lenet``, width 128) from seeded random
    weights: bridge -> pack_model -> save_packed -> load_packed ->
-   InferenceEngine over the unprepared artifact (K1, K2) -> prepare ->
-   InferenceEngine over the prepared artifact (K2, K3), from several client
-   threads. Every answer is checked against packed_apply on its padded batch;
-   unprepared, prepared and fake-quant agree exactly; a small input agrees
-   with the CPU.
+   InferenceEngine over the unprepared artifact (K1, K2, K5) -> prepare ->
+   InferenceEngine over the prepared artifact (K2, K3, K5), from several
+   client threads. Every answer is checked against packed_apply on its
+   padded batch; unprepared, prepared and fake-quant agree exactly; a small
+   input agrees with the CPU.
 5. Main path 2, the 1-bit transformer LM that scripts/perf_bench.py serves
    (d 1024, 8 layers, cache 1024, W1A1, int8 KV) from seeded random weights:
    bridge -> export_fused_decode (int8 and packed) -> DecodeEngine(fused=)
@@ -28,10 +28,24 @@ on one NVIDIA GPU (built for Hopper, sm_90a).
    export and must give the same bits, tokens and final cache; the fused
    step is held against the fake-quant decode model, teacher-forced; at the
    JAX tests' size the two agree token for token.
-6. For each main path the kernels' launch counters are zeroed just before
+6. Main path 3, the DoReFa ResNet-20 W4A4 at width 64 (scripts/perf_bench.py
+   :211-213, fixed clip) from seeded weights with BatchNorm statistics
+   calibrated on seeded images (the codes of each stage's input must spread
+   over [0, 15]): pack_model -> save_packed -> load_packed ->
+   InferenceEngine over the unprepared and the prepared artifact (K7, K5),
+   then export_fused_resnet20 -> InferenceEngine.from_fused_resnet (K5).
+   Every batch is replayed bit-equal (unprepared == prepared); direct ==
+   im2col (K6) at the stride-2 stage-1 conv; packed and fused agree with
+   fake-quant (argmax, logit gap within RESNET_LOGIT_TOL) and with the CPU.
+7. Main path 4, the serving LM's shape with DoReFa W4A4: DecodeEngine(
+   packed=) over the unprepared records (K6), then prepare() (K7) and the
+   prepared records (K3); the same tokens for every request, and
+   teacher-forced argmax against the fake-quant model.
+8. For each main path the kernels' launch counters are zeroed just before
    it and read just after; each kernel of the path must be > 0.
-7. Prints engine images/s, decode prefill ms and tokens/s, one JSON line
-   with the kernels, and last ``{"ok": true, "device": {...}}``.
+9. Prints engine images/s, decode prefill ms and tokens/s, one JSON line
+   with the kernels and their launches per path, and last
+   ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without the last line, if any phase fails.
 """
@@ -74,6 +88,33 @@ PREFILL_LEN = 128
 # (tests/test_fused_decode.py:47); only LayerNorm statistics and the f32 head
 # differ in summation order there.
 LOGIT_TOL = 2e-4
+
+# the production-width DoReFa ResNet-20 of scripts/perf_bench.py:211-213,
+# W4A4 with the fixed [0, 1] clip, on CIFAR-10-shaped images
+RESNET_WIDTH = 64
+RESNET_SHAPE = (32, 32, 3)
+RESNET_BATCH = BUCKETS[-1]
+RESNET_CALIB = 256  # images whose statistics set every BatchNorm's
+RESNET_EVAL = 512  # rows held against the fake-quant forward
+RESNET_IM2COL_BATCH = 16
+# Packed and fused logits against the fake-quant forward (and card against
+# CPU). The block convs' k-bit grid amplifies float rounding: where a float32
+# sum lands within an ulp of a .5 code boundary, the two paths round it to
+# neighbouring codes, and such flips cascade through the later convs, so
+# logits differ by about 1e-2 (on logits of std ~0.3) even where every
+# integer is exact; against_fake_quant prints the spread. The JAX package
+# holds this seam to 5e-2 (tests/test_infer.py:47): 99% of rows must be
+# within it, and argmax must agree on 99% of rows.
+RESNET_LOGIT_TOL = 5e-2
+# The serving LM's shape, W4A4 DoReFa (scheme="dorefa"), served packed
+W4A4_LM_CFG = dict(LM_CFG, scheme="dorefa", w_bits=4, a_bits=4)
+# A packed projection against its fake-quant GEMM on the same input: the
+# float32 sum of up to 4096 products of the fake-quant GEMM, in another order
+# than the exact integer sum, is off by some tens of ulps of its largest
+# output; this allows ~800 (2^-13)
+W4A4_GEMM_RTOL = 1e-4
+# End-to-end argmax of the W4A4 LM in lockstep: see lm_teacher_forced
+W4A4_ARGMAX_FLOOR = 0.85
 
 # NVIDIA H100 SXM published peaks (dense), at a 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
@@ -125,6 +166,8 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 KERNEL_SYMBOLS = {
     "binary_gemm": "binary_gemm_kernel", "decode_binary_weights": "decode_binary_kernel",
     "int8_gemm": "int8_gemm_kernel", "decode_attention": "decode_attention_kernel",
+    "int8_conv2d": "int8_conv_kernel", "dorefa_gemm": "dorefa_gemm_kernel",
+    "decode_dorefa_weights": "decode_dorefa_kernel",
 }
 
 
@@ -151,6 +194,18 @@ def device_times(fn, iters: int = 20):
             ms, n = per_call.get(e.key, (0.0, 0.0))
             per_call[e.key] = (ms + us / 1e3 / iters, n + e.count / iters)
     return per_call, wall
+
+
+def profile_line(fn, unit: str, iters: int) -> str:
+    """torch.profiler over ``iters`` calls of ``fn``: wall and device-busy
+    ms per call, the idle share, launches, and the four largest kernels."""
+    per_call, wall = device_times(fn, iters=iters)
+    busy = sum(ms for ms, _ in per_call.values())
+    launches = sum(n for _, n in per_call.values())
+    top = sorted(per_call.items(), key=lambda kv: -kv[1][0])[:4]
+    return (f"profile: wall {wall:.3f} ms/{unit}, device busy {busy:.3f} ms "
+            f"({100 * (1 - busy / wall):.1f}% idle) in {launches:.0f} launches; largest: "
+            + "; ".join(f"{k[:48]} {ms:.3f} ms x{n:.0f}" for k, (ms, n) in top))
 
 
 def kernel_device_ms(fn, kernel: str):
@@ -309,6 +364,157 @@ def kernel_cases(rng, dev):
     return cases
 
 
+def resnet_convs():
+    """The DoReFa ResNet-20's block convs at RESNET_WIDTH: (label, input
+    size, cin, cout, stride), one of each shape."""
+    w = RESNET_WIDTH
+    return (
+        (f"stage0 conv 32x32x{w}", 32, w, w, 1),
+        (f"stage1 conv1 s2 32x32x{w}", 32, w, 2 * w, 2),
+        (f"stage1 conv 16x16x{2 * w}", 16, 2 * w, 2 * w, 1),
+        (f"stage2 conv1 s2 16x16x{2 * w}", 16, 2 * w, 4 * w, 2),
+        (f"stage2 conv 8x8x{4 * w}", 8, 4 * w, 4 * w, 1),
+    )
+
+
+def lm_gemms(cfg: dict):
+    """The LM's projection GEMMs (name, K, N), one per GEMM_INPUTS entry."""
+    d, ff = cfg["d_model"], cfg["d_ff"]
+    return (("qkv", d, d), ("out", d, d), ("ffn_in", d, ff), ("ffn_out", ff, d))
+
+
+def kbit_cases(rng, dev):
+    """K5 int8_conv2d, K6 dorefa_gemm and K7 decode_dorefa_weights: every
+    shape the ResNet (b = RESNET_BATCH) and W4A4 LM paths give them, the
+    im2col cross-check's, BNN LeNet's conv2, and edges. Same dicts as
+    :func:`kernel_cases`."""
+    import torch
+    import torch.nn.functional as F
+
+    from pytorch_quantize_impls_tpu_torch import ops
+    from pytorch_quantize_impls_tpu_torch.kernels import int8_conv as ic
+    from pytorch_quantize_impls_tpu_torch.kernels import packed_matmul as pm
+    from pytorch_quantize_impls_tpu_torch.kernels.conv import conv_pads
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def dorefa_packed(k, n, w_bits):
+        w = t(rng.normal(size=(k, n)).astype(np.float32))
+        return pm.pack_dorefa_weights(ops.dorefa_weight(w, w_bits), w_bits)
+
+    cases = []
+    # K7 at every ResNet block conv's and LM projection's weights, then edges
+    k7 = {f"resnet {label} ({9 * cin},{cout})": (9 * cin, cout, 4)
+          for label, _, cin, cout, _ in resnet_convs()}
+    k7.update({f"lm {name} ({k},{n})": (k, n, 4) for name, k, n in lm_gemms(W4A4_LM_CFG)})
+    k7.update({"edge w2 K=300 N=10": (300, 10, 2), "edge w1 K=1500 N=130": (1500, 130, 1),
+               "edge w4 K=25 N=7": (25, 7, 4)})
+    for label, (k, n, w_bits) in k7.items():
+        wp = dorefa_packed(k, n, w_bits)
+        r = wp.shape[0]
+        cases.append(dict(
+            kernel="decode_dorefa_weights", label=label,
+            fn=lambda wp=wp, b=w_bits: pm.decode_dorefa_weights(wp, w_bits=b),
+            plain=lambda wp=wp, b=w_bits: pm.decode_dorefa_weights_reference(wp, w_bits=b),
+            library=None, bound=bound_ms(4 * r * n + r * (32 // w_bits) * n, 0, INT8_OPS_PER_S),
+            main=label.startswith("resnet stage2 conv 8x8"),
+        ))
+    # K6 at the LM's GEMMs (decode step M = SLOTS, prefill M = 128), the
+    # im2col cross-check of the stage-1 stride-2 conv (RESNET_IM2COL_BATCH
+    # images), then edges over w_bits x a_bits, M = 1, ragged N, K off the
+    # group and K % 4 != 0
+    w = RESNET_WIDTH
+    k6 = [(f"lm {name} M={m}", m, k, n, 4, 4)
+          for name, k, n in lm_gemms(W4A4_LM_CFG) for m in (SLOTS, 128)]
+    k6 += [(f"resnet im2col stage1 conv1 b={RESNET_IM2COL_BATCH}",
+            RESNET_IM2COL_BATCH * 16 * 16, 9 * w, 2 * w, 4, 4)]
+    k6 += [("edge M=1 K=576 N=64 w4a4", 1, 576, 64, 4, 4),
+           ("edge M=33 K=2304 N=130 w4a2", 33, 2304, 130, 4, 2),
+           ("edge M=17 K=301 N=64 w4a1", 17, 301, 64, 4, 1),
+           ("edge M=64 K=700 N=24 w2a4", 64, 700, 24, 2, 4),
+           ("edge M=5 K=300 N=40 w2a2", 5, 300, 40, 2, 2),
+           ("edge M=8 K=1500 N=24 w1a1", 8, 1500, 24, 1, 1),
+           ("edge M=3 K=64 N=8 w1a4", 3, 64, 8, 1, 4)]
+    for label, m, k, n, w_bits, a_bits in k6:
+        a = t(rng.integers(0, 2**a_bits, size=(m, k)).astype(np.int8))
+        wp = dorefa_packed(k, n, w_bits)
+        lib = m > 16 and k % 8 == 0 and n % 8 == 0  # torch._int_mm's shape rules
+        w8 = pm.decode_dorefa_weights(wp, w_bits=w_bits)[:k].contiguous() if lib else None
+        cases.append(dict(
+            kernel="dorefa_gemm", label=label,
+            fn=lambda a=a, wp=wp, wb=w_bits, ab=a_bits: pm.dorefa_gemm(a, wp, w_bits=wb, a_bits=ab),
+            plain=lambda a=a, wp=wp, wb=w_bits, ab=a_bits: pm.dorefa_gemm_reference(
+                a, wp, w_bits=wb, a_bits=ab),
+            library=(lambda a=a, w8=w8: torch._int_mm(a, w8)) if lib else None,
+            bound=gemm_bound(m, k, n, 4 * wp.numel(), 0), main=label == f"lm ffn_in M={SLOTS}",
+        ))
+    # K5 at the ResNet's block convs (b = RESNET_BATCH): the packed path's
+    # scale epilogue at every shape, the fused path's codes and affine ones
+    # at stage 1; BNN LeNet's conv2 (±1, no scale); then edges
+    n_a = 15
+    conv_cases = [(label, RESNET_BATCH, h, cin, cout, 3, (s, s), "SAME", "scale")
+                  for label, h, cin, cout, s in resnet_convs()]
+    conv_cases += [(f"stage1 conv 16x16x{2 * w} {epi}", RESNET_BATCH, 16, 2 * w, 2 * w, 3,
+                    (1, 1), "SAME", epi) for epi in ("codes", "affine")]
+    conv_cases += [(f"bnn_lenet conv2 12x12x{WIDTH}", BUCKETS[-1], 12, WIDTH, 2 * WIDTH, 5,
+                    (1, 1), "VALID", "none")]
+    conv_cases += [
+        ("edge b=1 3x3 VALID C=5 N=7 -> 1x1", 1, 3, 5, 7, 3, (1, 1), "VALID", "scale"),
+        ("edge 5x5 VALID C=6 N=10 codes", 2, 12, 6, 10, 5, (1, 1), "VALID", "codes"),
+        ("edge 1x1 s2 SAME C=12 N=20 affine", 3, 9, 12, 20, 1, (2, 2), "SAME", "affine"),
+        ("edge s2 SAME 15x15 C=64 N=130", 2, 15, 64, 130, 3, (2, 2), "SAME", "scale"),
+        ("edge s2 SAME 16x16 C=3 N=65 codes", 2, 16, 3, 65, 3, (2, 2), "SAME", "codes"),
+        ("edge pads ((1,2),(0,1)) s(2,1) C=33", 2, 15, 33, 70, 3, (2, 1), ((1, 2), (0, 1)),
+         "affine"),
+        ("edge codes ties a=0.5 b=0", 2, 8, 16, 20, 3, (1, 1), "SAME", "ties"),
+    ]
+    for label, b, h, cin, cout, k, strides, padding, epi in conv_cases:
+        kk = cin * k * k
+        if label.startswith("bnn_lenet"):
+            x = t(np.where(rng.normal(size=(b, h, h, cin)) >= 0, 1, -1).astype(np.int8))
+            wc = t(np.where(rng.normal(size=(kk, cout)) >= 0, 1, -1).astype(np.int8))
+        else:
+            x = t(rng.integers(0, n_a + 1, size=(b, h, h, cin)).astype(np.int8))
+            wc = t((2 * rng.integers(0, 16, size=(kk, cout)) - 15).astype(np.int8))
+        pads = conv_pads(padding, (h, h), (k, k), strides)
+        # codes: y = a acc + b spread over [0, n_a] (acc's spread is about
+        # 1e3 sqrt(K) for uniform codes); ties: every odd acc lands on .5
+        acc_scale = n_a / (4.0e3 * np.sqrt(kk))
+        a = b_ = None
+        if epi == "scale":
+            a = t(rng.uniform(0.5, 1.5, cout).astype(np.float32) / np.float32(1e3))
+        elif epi in ("codes", "affine"):
+            a = t((rng.uniform(0.5, 1.5, cout) * acc_scale).astype(np.float32))
+            b_ = t(rng.uniform(0, n_a, cout).astype(np.float32))
+        elif epi == "ties":
+            a, b_ = t(np.full(cout, 0.5, np.float32)), t(np.zeros(cout, np.float32))
+        kind = {"none": "scale", "ties": "codes"}.get(epi, epi)
+        args = (x, wc, (k, k), strides, pads, kind, a, b_, n_a)
+        (pt, pb), (pl, pr) = pads
+        ho, wo = ic.out_size(h, k, strides[0], pads[0]), ic.out_size(h, k, strides[1], pads[1])
+        m = b * ho * wo
+        xf = F.pad(x.permute(0, 3, 1, 2).to(torch.float32), (pl, pr, pt, pb))
+        wf = wc.T.reshape(cout, cin, k, k).to(torch.float32).contiguous()
+
+        def cudnn(xf=xf, wf=wf, strides=strides):
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                return F.conv2d(xf, wf, stride=strides)
+
+        out_bytes = m * cout * (1 if kind == "codes" else 4)
+        nvec = (a is not None) + (b_ is not None)
+        cases.append(dict(
+            kernel="int8_conv2d", label=label,
+            fn=lambda args=args: ic.int8_conv2d(*args),
+            plain=lambda args=args: ic.int8_conv2d_reference(*args),
+            library=cudnn,
+            bound=bound_ms(x.numel() + wc.numel() + out_bytes + 4 * cout * nvec,
+                           2 * m * kk * cout, INT8_OPS_PER_S),
+            main=label == f"stage1 conv 16x16x{2 * w}",
+        ))
+    return cases
+
+
 def sdpa_yardstick(args):
     """No one PyTorch call computes decode attention over int8 codes and
     scales. As a labelled yardstick only: scaled_dot_product_attention over
@@ -334,7 +540,7 @@ def check_kernels(card: str, timed: bool = True):
     dev = cuda()
     rng = np.random.default_rng(SEED)
     summary = {}
-    for c in kernel_cases(rng, dev):
+    for c in kernel_cases(rng, dev) + kbit_cases(rng, dev):
         kernel, label, fn, plain = c["kernel"], c["label"], c["fn"], c["plain"]
         got, ref = fn(), plain()
         torch.cuda.synchronize()
@@ -443,21 +649,34 @@ def serve(submit, n: int):
     return answers
 
 
-def zero_launches(kernels) -> None:
-    for k in kernels:
+def all_kernels():
+    """Every kernel wrapper of the port, K1-K7, in the JSON line's order."""
+    from pytorch_quantize_impls_tpu_torch.kernels import decode_attention as da
+    from pytorch_quantize_impls_tpu_torch.kernels import int8_conv as ic
+    from pytorch_quantize_impls_tpu_torch.kernels import int8_matmul as im
+    from pytorch_quantize_impls_tpu_torch.kernels import packed_matmul as pm
+    from pytorch_quantize_impls_tpu_torch.kernels import xnor_gemm as bg
+
+    return (bg.binary_gemm, bg.decode_binary_weights, im.int8_gemm, da.decode_attention,
+            ic.int8_conv2d, pm.dorefa_gemm, pm.decode_dorefa_weights)
+
+
+def zero_launches() -> None:
+    for k in all_kernels():
         k.launches = 0
 
 
-def read_launches(path: str, kernels) -> dict:
-    """The counts since zero_launches; each kernel of the path must be > 0."""
+def read_launches(path: str, required) -> dict:
+    """Every kernel's count since zero_launches; each kernel in ``required``
+    (the path's) must be > 0."""
     import torch
 
     torch.cuda.synchronize()
-    launches = {k.__name__: k.launches for k in kernels}
+    launches = {k.__name__: k.launches for k in all_kernels()}
     print(f"launches on the {path} path: {launches}", flush=True)
-    for name, count in launches.items():
-        if count <= 0:
-            fail(f"kernel {name} was not launched on the {path} path")
+    for k in required:
+        if launches[k.__name__] <= 0:
+            fail(f"kernel {k.__name__} was not launched on the {path} path")
     return launches
 
 
@@ -467,21 +686,21 @@ def drive_main_path(card: str, model, example_shape, inputs):
     InferenceEngine (prepared artifact). The kernels' launch counters are
     zeroed just before and read just after. Returns (loaded artifact, engine
     answers and logged (batch, output) pairs per artifact, launch counts)."""
-    import torch
-
     from pytorch_quantize_impls_tpu_torch import infer
+    from pytorch_quantize_impls_tpu_torch.kernels import int8_conv as ic
     from pytorch_quantize_impls_tpu_torch.kernels import int8_matmul as im
     from pytorch_quantize_impls_tpu_torch.kernels import xnor_gemm as bg
     from pytorch_quantize_impls_tpu_torch.serve import InferenceEngine
 
     dev = cuda()
-    kernels = (bg.binary_gemm, bg.decode_binary_weights, im.int8_gemm)
+    # conv2 runs K2 + K5, fc1 and head K1 (unprepared) or K3 (prepared)
+    kernels = (bg.binary_gemm, bg.decode_binary_weights, im.int8_gemm, ic.int8_conv2d)
     logs = {"unprepared": [], "prepared": []}
     answers = {}
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "bnn_lenet.npz")
         infer.save_packed(path, infer.pack_model(model))
-        zero_launches(kernels)
+        zero_launches()
         loaded = infer.load_packed(path, device=dev)
         for name in ("unprepared", "prepared"):
             recs = loaded if name == "unprepared" else infer.prepare(loaded)
@@ -583,48 +802,47 @@ def main_path(card: str):
     return model, prepared, example_shape, launches
 
 
-def throughput(card: str, model, prepared, example_shape):
-    """Engine images/s per bucket ``b``, closed loop: an engine whose largest
-    bucket is ``b`` serves rounds of exactly ``b`` requests submitted at once.
-    Its deadline (1 s) is far beyond a round's submissions (which at b=256
-    took over 50 ms on the H100 host), so each round is one full batch and
-    no deadline is waited out. At least 100 rounds, so the p90 round time has
-    10 samples beyond it."""
+def throughput(card: str, label: str, backends: dict, example_shape):
+    """Engine images/s per bucket ``b`` for each backend (name -> forward),
+    closed loop: an engine whose largest bucket is ``b`` serves rounds of
+    exactly ``b`` requests submitted at once. Its deadline (1 s) is far
+    beyond a round's submissions (which at b=256 took over 50 ms on the H100
+    host), so each round is one full batch and no deadline is waited out. At
+    least 100 rounds, so the p90 round time has 10 samples beyond it. Beside
+    it, the forward alone on a batch of ``b`` (CUDA events)."""
     import torch
 
-    from pytorch_quantize_impls_tpu_torch import infer
     from pytorch_quantize_impls_tpu_torch.serve import InferenceEngine
 
     dev = cuda()
     rng = np.random.default_rng(SEED + 100)
     for b in BUCKETS:
-        engine = InferenceEngine(lambda x: infer.packed_apply(model, prepared, x),
-                                 example_shape, batch_sizes=(b,), max_delay_ms=1000.0,
-                                 device=dev)
-        try:
-            engine.warmup()
-            xs = rng.normal(size=(b, *example_shape)).astype(np.float32)
-            rounds = max(100, 1024 // b)
-            round_ms = []
-            t0 = time.perf_counter()
-            for _ in range(rounds):
-                t1 = time.perf_counter()
-                futs = [engine.submit(x) for x in xs]
-                for f in futs:
-                    f.result(timeout=120)
-                round_ms.append(1e3 * (time.perf_counter() - t1))
-            dt = time.perf_counter() - t0
-        finally:
-            engine.shutdown()
+        xs = rng.normal(size=(b, *example_shape)).astype(np.float32)
         xb = torch.from_numpy(xs).to(dev)
-        fwd_ms = cuda_ms(lambda: infer.packed_apply(model, prepared, xb), iters=20)
-        fq_ms = cuda_ms(lambda: torch.no_grad()(model)(xb), iters=20)
-        p50, p90 = np.percentile(round_ms, [50, 90])
-        print(f"engine bucket {b:3d}: {rounds * b / dt:10.1f} images/s, round "
-              f"p50 {p50:.3f} ms p90 {p90:.3f} ms ({rounds} rounds in "
-              f"{engine.stats.batches} batches); packed forward {fwd_ms:.3f} ms "
-              f"({1e3 * b / fwd_ms:.1f} images/s), fake-quant forward {fq_ms:.3f} ms "
-              f"per batch  [{card}]", flush=True)
+        for name, forward in backends.items():
+            engine = InferenceEngine(forward, example_shape, batch_sizes=(b,),
+                                     max_delay_ms=1000.0, device=dev)
+            try:
+                engine.warmup()
+                rounds = max(100, 1024 // b)
+                round_ms = []
+                t0 = time.perf_counter()
+                for _ in range(rounds):
+                    t1 = time.perf_counter()
+                    futs = [engine.submit(x) for x in xs]
+                    for f in futs:
+                        f.result(timeout=120)
+                    round_ms.append(1e3 * (time.perf_counter() - t1))
+                dt = time.perf_counter() - t0
+            finally:
+                engine.shutdown()
+            with torch.inference_mode():
+                fwd_ms = cuda_ms(lambda: forward(xb), iters=20)
+            p50, p90 = np.percentile(round_ms, [50, 90])
+            print(f"{label} {name:16s} bucket {b:3d}: engine {rounds * b / dt:10.1f} images/s, "
+                  f"round p50 {p50:.3f} ms p90 {p90:.3f} ms ({rounds} rounds in "
+                  f"{engine.stats.batches} batches); forward {fwd_ms:.3f} ms "
+                  f"({1e3 * b / fwd_ms:.1f} images/s)  [{card}]", flush=True)
 
 
 # --- main path 2: the 1-bit transformer LM, fused decode ---------------------
@@ -656,15 +874,36 @@ def seeded_lm_variables(cfg: dict, rng) -> dict:
     return {"params": p}
 
 
+def seeded_dorefa_lm_variables(cfg: dict, rng) -> dict:
+    """:func:`seeded_lm_variables` for the DoReFa scheme. DoReFa's weight
+    quantizer divides by max|tanh(W)|, so the kernels' scale alone sets
+    nothing: a kernel of N(0, 1) entries puts codes all over the 4-bit grid,
+    and each projection output (1024 terms in [0, 1] x [-1, 1]) is ~10 wide,
+    which saturates the next [0, 1] quantizer at codes 0 and 15. Here each
+    kernel is N(0, 0.05^2) with its first entry set to 1, as a trained
+    kernel's bell shape and outliers do: most codes fall on the two central
+    levels, ±1/15, each projection's output is O(1), and the next quantizer
+    sees a spread of codes. The FFN biases are on that scale."""
+    v = seeded_lm_variables(cfg, rng)
+    for i in range(cfg["n_layers"]):
+        blk = v["params"][f"block{i}"]
+        for node in (*blk["attn"].values(), blk["ffn_in"], blk["ffn_out"]):
+            k = node["kernel"] * np.float32(0.05)
+            k.flat[0] = 1.0
+            node["kernel"] = k
+        for name in ("ffn_in", "ffn_out"):
+            blk[name]["bias"] = rng.normal(size=blk[name]["bias"].shape).astype(np.float32) * 0.25
+    return v
+
+
 def build_lm(cfg: dict, seed: int):
     """(port QuantTransformerLM on the card, eval mode) from seeded weights
     through the bridge."""
-    import torch
-
     from pytorch_quantize_impls_tpu_torch.models import QuantTransformerLM
     from pytorch_quantize_impls_tpu_torch.utils import load_flax_variables
 
-    variables = seeded_lm_variables(cfg, np.random.default_rng(seed))
+    seeded = seeded_dorefa_lm_variables if cfg["scheme"] == "dorefa" else seeded_lm_variables
+    variables = seeded(cfg, np.random.default_rng(seed))
     return load_flax_variables(QuantTransformerLM(**cfg), variables, device=cuda()).eval()
 
 
@@ -700,8 +939,6 @@ def drive_decode_path(card: str, model, fms: dict, prompts):
     packed export, 64 requests each from 4 client threads. Launch counters
     of K4, K3 and K1 are zeroed just before and read just after. Returns
     {export: (answers, log, final cache)} and the launch counts."""
-    import torch
-
     from pytorch_quantize_impls_tpu_torch.kernels import decode_attention as da
     from pytorch_quantize_impls_tpu_torch.kernels import int8_matmul as im
     from pytorch_quantize_impls_tpu_torch.kernels import xnor_gemm as bg
@@ -709,7 +946,7 @@ def drive_decode_path(card: str, model, fms: dict, prompts):
     dev = cuda()
     kernels = (da.decode_attention, im.int8_gemm, bg.binary_gemm)
     runs = {}
-    zero_launches(kernels)
+    zero_launches()
     for name, fm in fms.items():
         engine = logged_engine(model, fm, dev)
         t0 = time.perf_counter()
@@ -971,22 +1208,16 @@ def small_token_exact(card: str):
           "calls; greedy tokens identical for 3 prompts  [" + card + "]", flush=True)
 
 
-def decode_speed(card: str, model, fms: dict):
+def decode_speed(card: str, backends: dict):
     """scripts/perf_bench.py:bench_decode's metrics on the card: 128-token
     prefill ms (b = 1) and decode tokens/s at each of DECODE_BATCHES, by
     CUDA events over N steps with the cache advancing (each step feeds the
-    previous step's argmax, on the card), for the fake-quant model and the
-    fused int8 and packed exports."""
+    previous step's argmax, on the card), for each backend (name ->
+    ``apply(cache, tokens) -> (logits, cache)``)."""
     import torch
-
-    from pytorch_quantize_impls_tpu_torch import infer, serve
 
     dev = cuda()
     rng = np.random.default_rng(SEED + 2)
-    md = serve.decode_model(model)
-    backends = {"fake-quant": lambda c, t: md(t, c)}
-    for name, fm in fms.items():
-        backends[f"fused {name}"] = lambda c, t, fm=fm: infer.fused_decode_apply(fm, c, t)
     n_steps = 32
     profiles = []
     with torch.no_grad():
@@ -1021,15 +1252,7 @@ def decode_speed(card: str, model, fms: dict):
                         logits, state["cache"] = apply(state["cache"], state["t"])
                         state["t"] = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
 
-                    per_call, wall = device_times(step, iters=8)
-                    busy = sum(ms for ms, _ in per_call.values())
-                    launches = sum(n for _, n in per_call.values())
-                    top = sorted(per_call.items(), key=lambda kv: -kv[1][0])[:4]
-                    profiles.append(
-                        f"decode {name} b={b} profile: wall {wall:.3f} ms/step, device busy "
-                        f"{busy:.3f} ms ({100 * (1 - busy / wall):.1f}% idle) in "
-                        f"{launches:.0f} launches; largest: "
-                        + "; ".join(f"{k[:48]} {ms:.3f} ms x{n:.0f}" for k, (ms, n) in top))
+                    profiles.append(f"decode {name} b={b} " + profile_line(step, "step", 8))
                     cache = state["cache"]
                 del cache
             print(line + f"  [{card}]", flush=True)
@@ -1043,6 +1266,7 @@ def decode_path(card: str):
     import torch
 
     from pytorch_quantize_impls_tpu_torch import infer
+    from pytorch_quantize_impls_tpu_torch.serve import decode_model
 
     dev = cuda()
     t0 = time.perf_counter()
@@ -1066,7 +1290,508 @@ def decode_path(card: str):
     for lockstep in (True, False):
         teacher_forced(card, model, fms["int8"], lockstep)
     small_token_exact(card)
-    decode_speed(card, model, fms)
+    md = decode_model(model)
+    backends = {"fake-quant": lambda c, t: md(t, c)}
+    for name, fm in fms.items():
+        backends[f"fused {name}"] = lambda c, t, fm=fm: infer.fused_decode_apply(fm, c, t)
+    decode_speed(card, backends)
+    return launches
+
+
+# --- main path 3: DoReFa ResNet-20 W4A4, packed and fused --------------------
+
+
+def seeded_resnet_variables(width: int, rng, a_quant: str = "fixed") -> dict:
+    """DorefaResNet20 variables in the flax layout, as numpy: He-scaled conv
+    kernels, BatchNorm scales and biases by role, statistics left for
+    :func:`calibrate_batchnorm`. After calibration each BatchNorm output is
+    about N(bias, scale) per channel: the stem's and bn1's around 0.2-0.5
+    (their relu'd output is a block conv's input on the [0, 1] grid), bn2's
+    small and centred a little below 0 (it is added to the residual stream,
+    which must not drift past 1 and saturate the codes), the projections'
+    like the stem's. PACT clips (``a_quant="pact"``) are drawn in [1, 2]."""
+    f32 = np.float32
+
+    def normal(*shape, scale=1.0):
+        return (rng.normal(size=shape) * scale).astype(f32)
+
+    def bn(c, gamma, beta):
+        return ({"scale": rng.uniform(*gamma, c).astype(f32),
+                 "bias": rng.uniform(*beta, c).astype(f32)},
+                {"mean": np.zeros(c, f32), "var": np.ones(c, f32)})
+
+    def kernel(k, cin, cout):
+        return normal(k, k, cin, cout, scale=np.sqrt(2.0 / (k * k * cin)))
+
+    w = width
+    p = {"stem": {"kernel": kernel(3, 3, w)}}
+    s = {}
+    p["bn_stem"], s["bn_stem"] = bn(w, (0.3, 0.6), (0.2, 0.5))
+    cin = w
+    for stage, (f, stride) in enumerate([(w, 1), (2 * w, 2), (4 * w, 2)]):
+        for b in range(3):
+            bp, bs = {}, {}
+            for i, c_in in ((1, cin), (2, f)):
+                bp[f"conv{i}"] = {"conv": {"kernel": kernel(3, c_in, f)}}
+                if a_quant == "pact":
+                    bp[f"conv{i}"]["act"] = {"alpha": np.asarray(rng.uniform(1.0, 2.0), f32)}
+            bp["bn1"], bs["bn1"] = bn(f, (0.3, 0.5), (0.2, 0.5))
+            bp["bn2"], bs["bn2"] = bn(f, (0.1, 0.3), (-0.15, 0.05))
+            if b == 0 and (stride != 1 or cin != f):
+                bp["proj"] = {"kernel": kernel(1, cin, f)}
+                bp["bn_proj"], bs["bn_proj"] = bn(f, (0.2, 0.4), (0.2, 0.4))
+            p[f"stage{stage}_block{b}"], s[f"stage{stage}_block{b}"] = bp, bs
+            cin = f
+    p["head"] = {"kernel": normal(4 * w, 10, scale=(4 * w) ** -0.5), "bias": normal(10, scale=0.1)}
+    return {"params": p, "batch_stats": s}
+
+
+def calibrate_batchnorm(model, x) -> dict:
+    """Set every BatchNorm's running statistics to the per-channel mean and
+    (biased) variance of its input on ``x``, in one forward pass in order,
+    so each sees inputs already normalized by the ones before it. Returns
+    the statistics in the flax ``batch_stats`` layout (numpy)."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch.models.lenet import BatchNorm
+
+    def hook(bn, args):
+        dims = tuple(range(args[0].dim() - 1))
+        bn.running_mean.copy_(args[0].mean(dim=dims))
+        bn.running_var.copy_(args[0].var(dim=dims, unbiased=False))
+
+    bns = [(name, m) for name, m in model.named_modules() if isinstance(m, BatchNorm)]
+    handles = [m.register_forward_pre_hook(hook) for _, m in bns]
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in handles:
+            h.remove()
+    stats = {}
+    for name, m in bns:
+        node = stats
+        for part in name.split("."):
+            node = node.setdefault(part, {})
+        node["mean"] = m.running_mean.cpu().numpy()
+        node["var"] = m.running_var.cpu().numpy()
+    return stats
+
+
+def calibrated_resnet(width: int, rng, x, device, a_quant: str = "fixed"):
+    """(port DorefaResNet20 W4 on ``device`` in eval mode, its variables in
+    the flax layout): seeded weights through the bridge, BatchNorm
+    statistics calibrated on the images ``x`` (numpy NHWC)."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch.models import DorefaResNet20
+    from pytorch_quantize_impls_tpu_torch.utils import load_flax_variables
+
+    variables = seeded_resnet_variables(width, rng, a_quant)
+    model = DorefaResNet20(w_bits=4, a_bits=4, a_quant=a_quant, width=width)
+    load_flax_variables(model, variables, device=device).eval()
+    variables["batch_stats"] = calibrate_batchnorm(model, torch.from_numpy(x).to(device))
+    return model, variables
+
+
+def stage_code_histograms(model, x) -> None:
+    """The codes of each stage's first block-conv input on the images ``x``
+    (fake-quant forward); fail if one code holds more than 90% of them, which
+    would leave the integer paths nothing to disagree on."""
+    import torch
+
+    n_a = 2**model.a_bits - 1
+    seen = {}
+
+    def hook(s):
+        def fn(m, args):
+            codes = torch.round(torch.clamp(args[0], 0, 1) * n_a).flatten().to(torch.int64)
+            seen[s] = torch.bincount(codes, minlength=n_a + 1).cpu()
+        return fn
+
+    hooks = [getattr(model, f"stage{s}_block0").conv1.conv.register_forward_pre_hook(hook(s))
+             for s in range(3)]
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    for s, counts in sorted(seen.items()):
+        share = (counts.double() / counts.sum()).tolist()
+        print(f"stage{s}_block0.conv1 input code shares 0..{n_a}: "
+              + " ".join(f"{v:.3f}" for v in share), flush=True)
+        if max(share) > 0.9:
+            fail(f"stage {s}: one code holds {max(share):.3f} of the conv inputs")
+
+
+def logged_engine_class():
+    """InferenceEngine that records every batch it runs after its warmup, as
+    (input, output) numpy arrays; ``from_fused_resnet`` builds one too."""
+    from pytorch_quantize_impls_tpu_torch.serve import InferenceEngine
+
+    class LoggedInferenceEngine(InferenceEngine):
+        def __init__(self, *args, **kwargs):
+            self.log = []
+            super().__init__(*args, **kwargs)
+
+        def warmup(self):
+            super().warmup()
+            self.log.clear()
+
+        def _run(self, x):
+            y = super()._run(x)
+            self.log.append((x, y))
+            return y
+
+    return LoggedInferenceEngine
+
+
+def run_engine(card: str, label: str, engine, inputs):
+    """Warm ``engine`` up, serve ``inputs`` from CLIENTS threads, shut it
+    down; returns the answers."""
+    try:
+        engine.warmup()
+        answers = serve(lambda i: engine.submit(inputs[i]), len(inputs))
+    finally:
+        engine.shutdown()
+    st = engine.stats
+    print(f"engine[{label}]: {st.requests} requests in {st.batches} batches, mean batch "
+          f"{st.mean_batch_size:.2f}, mean latency {st.mean_latency_ms:.3f} ms  [{card}]",
+          flush=True)
+    if st.requests != len(inputs):
+        fail(f"engine[{label}] answered {st.requests} of {len(inputs)}")
+    return answers
+
+
+def check_logged(label: str, log, inputs, answers, refs: dict) -> None:
+    """Every batch the engine ran: finite (B, 10) and bit-equal to each
+    forward in ``refs`` on the same batch; every answer: its batch's row."""
+    import torch
+
+    dev = cuda()
+    rows = {}
+    for xb, yb in log:
+        if yb.shape != (xb.shape[0], 10) or not np.isfinite(yb).all():
+            fail(f"engine[{label}] batch output {yb.shape} not finite (B, 10)")
+        with torch.inference_mode():
+            xt = torch.from_numpy(xb).to(dev)
+            for name, forward in refs.items():
+                ref = forward(xt).cpu().numpy()
+                if not np.array_equal(yb, ref):
+                    fail(f"engine[{label}] batch of {xb.shape[0]} differs from {name} in "
+                         f"{int((yb != ref).sum())} logits")
+        for xr, yr in zip(xb, yb):
+            rows[xr.tobytes()] = yr
+    for x, a in zip(inputs, answers):
+        row = rows.get(x.tobytes())
+        if row is None or not np.array_equal(a, row):
+            fail(f"engine[{label}] answer differs from its batch row")
+    print(f"engine[{label}]: {len(log)} batches bit-equal to {' and '.join(refs)} on the same "
+          f"batch; {len(answers)} answers are their batch rows", flush=True)
+
+
+def against_fake_quant(card: str, label: str, model, forward, xs) -> None:
+    """``forward`` against the fake-quant forward on the images ``xs``, in
+    batches of RESNET_BATCH: argmax agreement and the row-max logit gap,
+    gated as RESNET_LOGIT_TOL says."""
+    import torch
+
+    dev = cuda()
+    gaps, agree = [], 0
+    with torch.inference_mode():
+        for i in range(0, len(xs), RESNET_BATCH):
+            xb = torch.from_numpy(xs[i:i + RESNET_BATCH]).to(dev)
+            ref, got = model(xb), forward(xb)
+            gaps.append((got - ref).abs().amax(dim=1).cpu())
+            agree += int((got.argmax(1) == ref.argmax(1)).sum())
+    gaps = torch.cat(gaps).double()
+    n = len(xs)
+    within = float((gaps <= RESNET_LOGIT_TOL).double().mean())
+    q50, q99 = np.quantile(gaps.numpy(), [0.5, 0.99])
+    print(f"{label} vs fake-quant on {n} rows: argmax agrees on {agree}/{n}; row max |logit "
+          f"gap| median {q50:.4g} p99 {q99:.4g} max {gaps.max():.4g}; {100 * within:.2f}% of "
+          f"rows within {RESNET_LOGIT_TOL}  [{card}]", flush=True)
+    if agree < 0.99 * n or within < 0.99:
+        fail(f"{label}: argmax agrees on {agree}/{n}, {100 * within:.2f}% of rows within "
+             f"{RESNET_LOGIT_TOL} of the fake-quant logits")
+
+
+def direct_vs_im2col(model, loaded, x) -> None:
+    """The stride-2 first conv of stage 1 (JAX's (0, 1) SAME pads) on its
+    real input: direct (K7 + K5) and im2col (F.unfold + K6) bit for bit."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch.kernels.conv import PackedConv, packed_conv2d
+
+    conv = model.stage1_block0.conv1.conv
+    rec = loaded[("stage1_block0", "conv1", "conv")]
+    kh, kw, cin, cout = rec.kernel_shape
+    pc = PackedConv("dorefa", rec.packed, (kh, kw), cin, cout, None, rec.w_bits, rec.a_bits)
+    seen = []
+    hook = conv.register_forward_pre_hook(lambda m, args: seen.append(args[0]))
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        hook.remove()
+    xq = conv.input_quant(seen[0])
+    kw_ = dict(strides=conv.strides, padding=conv.padding)
+    direct = packed_conv2d(xq, pc, **kw_)
+    im2col = packed_conv2d(xq, pc, mode="im2col", **kw_)
+    if not torch.equal(direct, im2col):
+        fail(f"stage1 conv1: direct and im2col differ in {int((direct != im2col).sum())} places")
+    print(f"stage1_block0.conv1 (stride 2) on {x.shape[0]} images: direct (K7 + K5) == "
+          f"im2col (F.unfold + K6), {tuple(direct.shape)}, bit for bit", flush=True)
+
+
+def resnet_path(card: str):
+    """Main path 3: the DoReFa ResNet-20 W4A4 at width 64, packed
+    (unprepared, then prepared) and fused, each through InferenceEngine, with
+    every served batch replayed; then the seams and the speeds."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import infer
+    from pytorch_quantize_impls_tpu_torch.kernels import int8_conv as ic
+    from pytorch_quantize_impls_tpu_torch.kernels import packed_matmul as pm
+
+    dev = cuda()
+    rng = np.random.default_rng(SEED + 20)
+    calib = rng.normal(size=(RESNET_CALIB, *RESNET_SHAPE)).astype(np.float32)
+    model, _ = calibrated_resnet(RESNET_WIDTH, rng, calib, dev)
+    stage_code_histograms(model, torch.from_numpy(calib[:64]).to(dev))
+    cpu_model = copy.deepcopy(model).cpu()
+    inputs = [rng.normal(size=RESNET_SHAPE).astype(np.float32)
+              for _ in range(CLIENTS * REQUESTS_PER_CLIENT)]
+    Logged = logged_engine_class()
+    launches, answers, logs = {}, {}, {}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "dorefa_resnet20_w64.npz")
+        infer.save_packed(path, infer.pack_model(model))
+        zero_launches()
+        loaded = infer.load_packed(path, device=dev)
+        for name in ("unprepared", "prepared"):
+            recs = loaded if name == "unprepared" else infer.prepare(loaded)
+            engine = Logged(lambda x, recs=recs: infer.packed_apply(model, recs, x), RESNET_SHAPE,
+                            batch_sizes=BUCKETS, device=dev)
+            answers[name] = run_engine(card, f"resnet {name}", engine, inputs)
+            logs[name] = engine.log
+        launches["resnet_w4a4_packed"] = read_launches(
+            "resnet_w4a4_packed", (pm.decode_dorefa_weights, ic.int8_conv2d))
+    prepared = infer.prepare(loaded)
+    net = infer.export_fused_resnet20(model)
+    zero_launches()
+    engine = Logged.from_fused_resnet(net, RESNET_SHAPE, batch_sizes=BUCKETS, device=dev)
+    answers["fused"] = run_engine(card, "resnet fused", engine, inputs)
+    logs["fused"] = engine.log
+    launches["resnet_w4a4_fused"] = read_launches("resnet_w4a4_fused", (ic.int8_conv2d,))
+
+    forwards = {
+        "packed_apply (unprepared)": lambda x: infer.packed_apply(model, loaded, x),
+        "packed_apply (prepared)": lambda x: infer.packed_apply(model, prepared, x),
+    }
+    check_logged("resnet unprepared", logs["unprepared"], inputs, answers["unprepared"], forwards)
+    check_logged("resnet prepared", logs["prepared"], inputs, answers["prepared"], forwards)
+    fused = {"fused_resnet_apply": lambda x: infer.fused_resnet_apply(net, x)}
+    check_logged("resnet fused", logs["fused"], inputs, answers["fused"], fused)
+    del logs
+    direct_vs_im2col(model, loaded, torch.from_numpy(calib[:RESNET_IM2COL_BATCH]).to(dev))
+
+    xs = rng.normal(size=(RESNET_EVAL, *RESNET_SHAPE)).astype(np.float32)
+    against_fake_quant(card, "resnet packed", model, forwards["packed_apply (prepared)"], xs)
+    against_fake_quant(card, "resnet fused", model, fused["fused_resnet_apply"], xs)
+
+    # a small input against the same model on the CPU (plain kernel versions)
+    xs = rng.normal(size=(8, *RESNET_SHAPE)).astype(np.float32)
+    with torch.inference_mode():
+        xt = torch.from_numpy(xs)
+        pairs = {
+            "packed": (infer.packed_apply(model, prepared, xt.to(dev)),
+                       infer.packed_apply(cpu_model, infer.pack_model(cpu_model), xt)),
+            "fused": (infer.fused_resnet_apply(net, xt.to(dev)),
+                      infer.fused_resnet_apply(infer.export_fused_resnet20(cpu_model), xt)),
+        }
+    for name, (gpu, cpu) in pairs.items():
+        gap = (gpu.cpu() - cpu).abs().max().item()
+        if gap > RESNET_LOGIT_TOL or not torch.equal(gpu.argmax(1).cpu(), cpu.argmax(1)):
+            fail(f"resnet {name}: card and CPU logits differ by {gap} on 8 images")
+        print(f"resnet {name}: card vs CPU (plain versions) on 8 images: max |logit gap| "
+              f"{gap:.4g} (tolerance {RESNET_LOGIT_TOL}), same argmax", flush=True)
+
+    backends = {
+        "packed": forwards["packed_apply (unprepared)"],
+        "packed prepared": forwards["packed_apply (prepared)"],
+        "fused": fused["fused_resnet_apply"],
+        "fake-quant": model,
+    }
+    throughput(card, "resnet", backends, RESNET_SHAPE)
+    for b in (1, RESNET_BATCH):
+        xb = torch.from_numpy(rng.normal(size=(b, *RESNET_SHAPE)).astype(np.float32)).to(dev)
+        for name, forward in backends.items():
+            with torch.inference_mode():
+                line = profile_line(lambda: forward(xb), "forward", 10)
+            print(f"resnet {name} b={b} {line}  [{card}]", flush=True)
+    return launches
+
+
+def lm_code_shares(model, md, toks) -> None:
+    """Print, for the first and last block, the code shares of each GEMM
+    input (the [0, 1] grid of a_bits) on one prefill of ``toks``."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch.nn import intercept_quant_layers
+
+    n_a = 2**model.a_bits - 1
+    names = {}
+    for i in (0, model.n_layers - 1):
+        blk = getattr(model, f"block{i}")
+        for label, m in zip(GEMM_INPUTS, (blk.attn.q, blk.attn.out, blk.ffn_in, blk.ffn_out)):
+            names[id(m)] = f"block{i} {label}"
+    shares = {}
+
+    def interceptor(m, x, fake_quant_forward):
+        if id(m) in names:
+            codes = torch.round(torch.clamp(x, 0, 1) * n_a).flatten().to(torch.int64)
+            counts = torch.bincount(codes, minlength=n_a + 1).double()
+            shares[names[id(m)]] = (counts / counts.sum()).tolist()
+        return fake_quant_forward(x)
+
+    with torch.no_grad(), intercept_quant_layers(interceptor):
+        md(toks, None)
+    for name, share in shares.items():
+        print(f"W4A4 LM {name:24s} input code shares 0..{n_a}: "
+              + " ".join(f"{v:.3f}" for v in share), flush=True)
+
+
+def lm_teacher_forced(card: str, model, recs) -> None:
+    """The packed W4A4 LM against the fake-quant decode model, both fed the
+    fake-quant model's greedy tokens: a 64-token prefill, then 32 steps over
+    SLOTS rows.
+
+    Per projection (the gate): inside the fake-quant forward, every
+    QuantDense also runs its packed record on the same input, and the two
+    outputs must agree within W4A4_GEMM_RTOL of the call's largest output.
+
+    End to end (reported, with a floor): each packed call starts from a copy
+    of the fake-quant model's cache (lockstep). A W4A4 model of this width
+    is chaotic in code space: a code flipped by float rounding (a sum within
+    an ulp of a .5 boundary) moves every output of the next projection by
+    ~1/225, which flips ~7% of the codes after it, so one step's 8 layers
+    amplify a few first flips into logit gaps of ~0.1 and argmax moves where
+    the top two logits are that close. The floor catches a wrong scale or
+    code mapping (argmax would agree on ~1/8192), not this."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import infer
+    from pytorch_quantize_impls_tpu_torch.nn import intercept_quant_layers
+    from pytorch_quantize_impls_tpu_torch.serve import decode_model
+
+    dev = cuda()
+    b, steps = SLOTS, 32
+    rng = np.random.default_rng(SEED + 8)
+    toks = torch.from_numpy(rng.integers(0, LM_CFG["vocab"], (b, 64)).astype(np.int32)).to(dev)
+    md = decode_model(model)
+    lm_code_shares(model, md, toks[:4])
+    paths = {id(m): tuple(n.split(".")) for n, m in md.named_modules()}
+    kind = {"q": 0, "k": 0, "v": 0, "out": 1, "ffn_in": 2, "ffn_out": 3}
+    worst = [0.0] * len(GEMM_INPUTS)
+    calls = [0]
+
+    def per_gemm(m, x, fake_quant_forward):
+        y = fake_quant_forward(x)
+        path = paths[id(m)]
+        got = infer.packed_apply(m, {("",): recs[path]}, x)
+        rel = ((got - y).abs().max() / y.abs().max()).item()
+        j = kind[path[-1]]
+        worst[j] = max(worst[j], rel)
+        calls[0] += 1
+        return y
+
+    def clone(cache):
+        return {k: clone(v) if isinstance(v, dict) else v.clone() for k, v in cache.items()}
+
+    agree = total = 0
+    gaps = []
+    cache, t = None, toks
+    with torch.no_grad():
+        for step in range(steps + 1):
+            got, _ = infer.packed_apply(md, recs, t, None if cache is None else clone(cache))
+            with intercept_quant_layers(per_gemm):
+                ref, cache = md(t, cache)
+            gaps.append((got[:, -1] - ref[:, -1]).abs().amax(dim=1).cpu())
+            if step > 0:
+                total += b
+                agree += int((got[:, -1].argmax(-1) == ref[:, -1].argmax(-1)).sum())
+            t = ref[:, -1].argmax(-1).to(torch.int32)[:, None]
+    gaps = torch.cat(gaps).double().numpy()
+    per = ", ".join(f"{k}: {w:.3g}" for k, w in zip(GEMM_INPUTS, worst))
+    print(f"W4A4 LM packed vs fake-quant, teacher-forced: per projection on the same input, "
+          f"{calls[0]} calls, max |diff| / max |output| by GEMM input ({per}; tolerance "
+          f"{W4A4_GEMM_RTOL}); end to end in lockstep, {steps} steps x {b} rows, argmax agrees "
+          f"on {agree}/{total} ({100 * agree / total:.2f}%, floor "
+          f"{100 * W4A4_ARGMAX_FLOOR:.0f}%), row max |logit gap| median {np.median(gaps):.4g} "
+          f"max {gaps.max():.4g}  [{card}]", flush=True)
+    if max(worst) > W4A4_GEMM_RTOL:
+        fail(f"W4A4 LM: a packed projection differs from its fake-quant GEMM by "
+             f"{max(worst):.3g} of its largest output")
+    if agree < W4A4_ARGMAX_FLOOR * total:
+        fail(f"W4A4 LM teacher-forced: argmax agrees on only {agree} of {total}")
+
+
+def w4a4_lm_path(card: str):
+    """Main path 4: the serving LM's shape with DoReFa W4A4 weights and
+    activations, through DecodeEngine(packed=): the unprepared records (K6),
+    then prepare() (K7) and the prepared ones (K3), each path's counters
+    zeroed just before it. Both must answer every request with the same
+    tokens: the GEMMs are integer-exact and share one f32 scale."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import infer
+    from pytorch_quantize_impls_tpu_torch.kernels import int8_matmul as im
+    from pytorch_quantize_impls_tpu_torch.kernels import packed_matmul as pm
+    from pytorch_quantize_impls_tpu_torch.serve import DecodeEngine, decode_model
+
+    dev = cuda()
+    t0 = time.perf_counter()
+    model = build_lm(W4A4_LM_CFG, SEED + 9)
+    packed = infer.pack_model(model)
+    print(f"W4A4 LM built and packed in {time.perf_counter() - t0:.1f} s: "
+          f"{torch.cuda.memory_allocated() / 2**20:.0f} MiB allocated", flush=True)
+    rng = np.random.default_rng(SEED + 10)
+    prompts = [rng.integers(0, LM_CFG["vocab"], rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1))
+               .astype(np.int32) for _ in range(DECODE_REQUESTS)]
+    answers, launches, records = {}, {}, {}
+    for name, required in (("unprepared", (pm.dorefa_gemm,)),
+                           ("prepared", (pm.decode_dorefa_weights, im.int8_gemm))):
+        zero_launches()
+        recs = packed if name == "unprepared" else infer.prepare(packed)
+        engine = DecodeEngine(model, packed=recs, n_slots=SLOTS, device=dev)
+        t1 = time.perf_counter()
+        try:
+            answers[name] = serve(lambda i: engine.submit(prompts[i], max_new=MAX_NEW),
+                                  len(prompts))
+        finally:
+            engine.shutdown()
+        dt = time.perf_counter() - t1
+        st = engine.stats
+        print(f"decode engine[W4A4 packed {name}]: {st.requests} requests, {st.tokens} tokens "
+              f"in {dt:.2f} s ({st.tokens / dt:.1f} tok/s), {st.steps} steps, mean occupancy "
+              f"{st.mean_occupancy:.3f}  [{card}]", flush=True)
+        if st.requests != len(prompts) or st.tokens != MAX_NEW * len(prompts):
+            fail(f"W4A4 engine[{name}] answered {st.requests} requests, {st.tokens} tokens")
+        launches[f"lm_w4a4_{name}"] = read_launches(f"lm_w4a4_{name}", required)
+        records[name] = recs
+    if any(not np.array_equal(a, b) for a, b in zip(answers["unprepared"], answers["prepared"])):
+        fail("the W4A4 LM's unprepared and prepared engines answered differently")
+    print(f"W4A4 LM: unprepared and prepared engines gave the same {MAX_NEW} tokens for all "
+          f"{len(prompts)} requests", flush=True)
+    lm_teacher_forced(card, model, records["prepared"])
+    md = decode_model(model)
+    backends = {"fake-quant": lambda c, t: md(t, c)}
+    for name, recs in records.items():
+        backends[f"packed {name}"] = lambda c, t, recs=recs: infer.packed_apply(md, recs, t, c)
+    decode_speed(card, backends)
     return launches
 
 
@@ -1080,6 +1805,7 @@ def main() -> None:
     if torch.backends.cuda.matmul.allow_tf32:
         fail("TF32 matmul is on; the fake-quant forward must run in float32")
 
+    from pytorch_quantize_impls_tpu_torch import infer
     from pytorch_quantize_impls_tpu_torch.kernels import _build
 
     t0 = time.perf_counter()
@@ -1092,23 +1818,33 @@ def main() -> None:
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
 
     summary = check_kernels(card)
-    model, prepared, example_shape, lenet_launches = main_path(card)
-    throughput(card, model, prepared, example_shape)
+    model, prepared, example_shape, launches = main_path(card)
+    launches = {"bnn_lenet": launches}
+    throughput(card, "bnn_lenet", {
+        "packed prepared": lambda x: infer.packed_apply(model, prepared, x),
+        "fake-quant": model,
+    }, example_shape)
     del model, prepared
-    lm_launches = decode_path(card)
+    launches["decode_lm"] = decode_path(card)
+    launches.update(resnet_path(card))
+    launches.update(w4a4_lm_path(card))
 
     src = f"{PORT}/csrc"
+    tpu = "pytorch_quantize_impls_tpu"
     meta = {
-        "binary_gemm": ("xnor_gemm.cu", "pytorch_quantize_impls_tpu/kernels/xnor_gemm.py:132"),
-        "decode_binary_weights": ("xnor_gemm.cu", "pytorch_quantize_impls_tpu/kernels/xnor_gemm.py:308"),
-        "int8_gemm": ("int8_matmul.cu", "pytorch_quantize_impls_tpu/kernels/int8_matmul.py:99"),
-        "decode_attention": ("decode_attention.cu",
-                             "pytorch_quantize_impls_tpu/kernels/decode_attention.py:113"),
+        "binary_gemm": ("xnor_gemm.cu", f"{tpu}/kernels/xnor_gemm.py:132"),
+        "decode_binary_weights": ("xnor_gemm.cu", f"{tpu}/kernels/xnor_gemm.py:308"),
+        "int8_gemm": ("int8_matmul.cu", f"{tpu}/kernels/int8_matmul.py:99"),
+        "decode_attention": ("decode_attention.cu", f"{tpu}/kernels/decode_attention.py:113"),
+        # not a pallas_call: XLA's int8 conv_general_dilated
+        "int8_conv2d": ("int8_conv.cu", f"{tpu}/kernels/conv.py:121"),
+        "dorefa_gemm": ("dorefa_gemm.cu", f"{tpu}/kernels/packed_matmul.py:156"),
+        "decode_dorefa_weights": ("dorefa_gemm.cu", f"{tpu}/kernels/packed_matmul.py:315"),
     }
     rows = []
     for name, (cu, replaces) in meta.items():
         s = summary[name]
-        by_path = {"bnn_lenet": lenet_launches.get(name, 0), "decode_lm": lm_launches.get(name, 0)}
+        by_path = {path: counts[name] for path, counts in launches.items()}
         rows.append({
             "name": name, "route": "cuda", "source": f"{src}/{cu}", "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,

@@ -5,11 +5,13 @@ run the same numpy inputs and must agree bit for bit where the reference is
 integer-exact. Sub-packages and modules keep the JAX package's names, so each
 counterpart is easy to find. The port imports ``torch`` and never ``jax``.
 
-Ported so far: packed serving of the BNN LeNet (``utils.config`` entry
-``bnn_lenet``) through hand-written CUDA kernels for the 1-bit GEMM, the
-1-bit decode and the int8 GEMM (``kernels``, sources in ``csrc/``). On a CPU
-tensor each kernel wrapper runs its plain PyTorch version instead. ROADMAP.md
-lists what is still to port.
+Ported so far, each through hand-written CUDA kernels (``kernels``, sources
+in ``csrc/``): packed serving of the BNN LeNet (``utils.config`` entry
+``bnn_lenet``); decode serving of the 1-bit transformer LM (fused step,
+int8 KV cache); and DoReFa serving, the ResNet-20 packed and fused
+(``dorefa_resnet20``) and the transformer LM packed (``scheme="dorefa"``).
+On a CPU tensor each kernel wrapper runs its plain PyTorch version instead.
+ROADMAP.md lists what is still to port.
 """
 
 __version__ = "0.1.0"

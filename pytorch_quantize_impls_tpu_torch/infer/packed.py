@@ -1,4 +1,4 @@
-"""Packed-model export and execution for the binary/xnor schemes.
+"""Packed-model export and execution for the binary, xnor and dorefa schemes.
 
 Counterpart of ``pytorch_quantize_impls_tpu/infer/packed.py``:
 
@@ -11,18 +11,21 @@ Records are keyed by the module path as a tuple, the same tuple flax gives
 the JAX package's ``.npz`` artifact (uint32 words, the same JSON meta), so
 artifacts move between the two packages in both directions.
 
-Execution plan (binary/xnor):
+Execution plan:
 
-| inputs              | prepared? | path                                            |
-|---------------------|-----------|-------------------------------------------------|
-| binarized (a_bits=1)| no        | ``binary_gemm`` on the packed words             |
-| binarized           | yes       | ``int8_gemm`` on ±1 int8 decoded by ``prepare`` |
-| real (a_bits=0)     | either    | float matmul on the decoded ±1 weights          |
-| conv, binarized     | either    | ``packed_conv2d``: decode per call, exact conv  |
-| conv, real          | either    | float conv on the decoded ±1 weights            |
+| scheme, inputs               | prepared? | path                                          |
+|------------------------------|-----------|-----------------------------------------------|
+| binary/xnor, a_bits=1        | no        | ``binary_gemm`` (K1) on the packed words      |
+| binary/xnor, a_bits=1        | yes       | ``int8_gemm`` (K3) on ±1 decoded by prepare   |
+| dorefa, 1 <= a_bits <= 7     | no        | ``dorefa_gemm`` (K6) on the packed codes      |
+| dorefa, 1 <= a_bits <= 7     | yes       | ``int8_gemm`` (K3) on centered codes (K7)     |
+| real inputs (a_bits=0)       | either    | float matmul on decoded ±1 / f32 grid weights |
+| conv, quantized inputs       | either    | ``packed_conv2d``: decode per call, K5 conv   |
+| conv, real inputs            | either    | float conv on the decoded weights             |
 
-The dorefa, log, lin and ternary schemes raise ``NotImplementedError``
-(ROADMAP queue 1, item 10).
+As in the JAX package, the conv path decodes its weights on every call and
+does not read ``prepare()``'s buffer. The log, lin and ternary schemes raise
+``NotImplementedError`` (ROADMAP queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from pytorch_quantize_impls_tpu_torch.kernels import packed_matmul as pm
 from pytorch_quantize_impls_tpu_torch.kernels import xnor_gemm as bg
 from pytorch_quantize_impls_tpu_torch.kernels.conv import (
     PackedConv,
@@ -46,16 +50,19 @@ from pytorch_quantize_impls_tpu_torch.nn.base import (
     QuantDense,
     intercept_quant_layers,
 )
+from pytorch_quantize_impls_tpu_torch.ops import pack as packlib
+from pytorch_quantize_impls_tpu_torch.ops.dorefa import dorefa_activation, dorefa_weight
 from pytorch_quantize_impls_tpu_torch.utils.device import resolve_device
 
-_PORTED_SCHEMES = ("binary", "xnor")
+_PORTED_SCHEMES = ("binary", "xnor", "dorefa")
 
 
 @dataclasses.dataclass(frozen=True)
 class PackedLayer:
     packed: torch.Tensor  # grouped-planar packed words (int32 bit patterns)
     alpha: Optional[torch.Tensor] = None  # xnor per-out-channel scale
-    decoded: Optional[torch.Tensor] = None  # prepare(): ±1 int8 (K, N)
+    # prepare(): ±1 int8 (K, N), centered int8 codes (Kp, N) or f32 grid (K, N)
+    decoded: Optional[torch.Tensor] = None
     kind: str = "dense"  # dense|conv
     scheme: str = "binary"
     w_bits: int = 1
@@ -75,7 +82,7 @@ def _not_ported(scheme: str):
 
 
 def _pack_layer(m) -> PackedLayer:
-    if m.scheme != "binary":
+    if m.scheme not in ("binary", "dorefa"):
         raise _not_ported(m.scheme)
     w = m.weight.detach()
     if isinstance(m, QuantConv):
@@ -85,8 +92,12 @@ def _pack_layer(m) -> PackedLayer:
     else:
         w2d = w.T
         kind, kernel_shape = "dense", tuple(w2d.shape)
+    if m.scheme == "dorefa":
+        packed = pm.pack_dorefa_weights(dorefa_weight(w2d, m.w_bits), m.w_bits)
+    else:
+        packed = bg.pack_binary_weights(w2d)
     return PackedLayer(
-        packed=bg.pack_binary_weights(w2d),
+        packed=packed,
         kind=kind,
         scheme=m.scheme,
         w_bits=m.w_bits,
@@ -109,17 +120,37 @@ def pack_model(model: nn.Module) -> PackedModel:
 
 
 def _decode_weights(rec: PackedLayer) -> torch.Tensor:
-    """Packed codes -> execution-ready ±1 int8 (K, N)."""
+    """Packed codes -> execution-ready weights (K, N): ±1 int8 for
+    binary/xnor, the f32 grid ``(2c - n) / n`` for dorefa (not bf16-exact;
+    unpacked in plain PyTorch, as the JAX package does)."""
     if rec.scheme not in _PORTED_SCHEMES:
         raise _not_ported(rec.scheme)
     k2d = int(np.prod(rec.kernel_shape[:-1]))
+    if rec.scheme == "dorefa":
+        c = packlib.unpack_bitplanes(rec.packed, rec.w_bits, k2d)
+        n = 2**rec.w_bits - 1
+        return (2.0 * c.to(torch.float32) - n) / n
     return bg.decode_binary_weights(rec.packed)[:k2d]
+
+
+def _int_codes(rec: PackedLayer) -> bool:
+    """True where the layer runs the integer-code GEMM: dorefa with inputs
+    quantized to 1..7 bits (codes that fit int8)."""
+    return rec.scheme == "dorefa" and 1 <= rec.a_bits <= 7
+
+
+def _decode_execution(rec: PackedLayer) -> torch.Tensor:
+    """The buffer the layer's hot path consumes: centered int8 codes (K7)
+    for the integer-code GEMM, decoded values otherwise."""
+    if _int_codes(rec):
+        return pm.decode_dorefa_weights(rec.packed, w_bits=rec.w_bits)
+    return _decode_weights(rec)
 
 
 def prepare(packed: PackedModel) -> PackedModel:
     """Decode every layer's execution buffer once (weight-stationary)."""
     return {
-        path: dataclasses.replace(rec, decoded=_decode_weights(rec))
+        path: dataclasses.replace(rec, decoded=_decode_execution(rec))
         for path, rec in packed.items()
     }
 
@@ -134,14 +165,20 @@ def _dense_forward(rec: PackedLayer, x: torch.Tensor, bias) -> torch.Tensor:
 def _dense_forward_2d(rec: PackedLayer, x: torch.Tensor, bias) -> torch.Tensor:
     if rec.scheme not in _PORTED_SCHEMES:
         raise _not_ported(rec.scheme)
-    if rec.a_bits == 1:
+    if rec.scheme in ("binary", "xnor") and rec.a_bits == 1:
         xi = bg.binarize_to_int8(x)
         if rec.decoded is not None:
             y = bg.binary_gemm_decoded(xi, rec.decoded, rec.alpha)
         else:
             y = bg.binary_gemm(xi, rec.packed, rec.alpha)
+    elif _int_codes(rec):
+        codes = pm.dorefa_act_to_int8(dorefa_activation(x, rec.a_bits), rec.a_bits)
+        if rec.decoded is not None:
+            y = pm.dorefa_gemm_decoded(codes, rec.decoded, w_bits=rec.w_bits, a_bits=rec.a_bits)
+        else:
+            y = pm.dorefa_gemm(codes, rec.packed, w_bits=rec.w_bits, a_bits=rec.a_bits)
     else:
-        # real inputs: decoded ±1 weights at the input dtype
+        # real inputs: decoded weights at the input dtype
         w = rec.decoded if rec.decoded is not None else _decode_weights(rec)
         y = (x @ w.to(x.dtype)).to(torch.float32)
         if rec.alpha is not None:
@@ -163,10 +200,14 @@ def _conv_forward(m: QuantConv, rec: PackedLayer, x: torch.Tensor, bias) -> torc
             cin=cin,
             cout=cout,
             alpha=rec.alpha,
+            w_bits=rec.w_bits,
+            a_bits=rec.a_bits,
+            fsr=rec.fsr,
         )
-        y = packed_conv2d(x, pc, strides=m.strides, padding=m.padding)
+        xin = dorefa_activation(x, rec.a_bits) if rec.scheme == "dorefa" else x
+        y = packed_conv2d(xin, pc, strides=m.strides, padding=m.padding)
     else:
-        # real inputs: decoded ±1 weights, float conv at the input dtype
+        # real inputs: decoded weights, float conv at the input dtype
         w2d = rec.decoded if rec.decoded is not None else _decode_weights(rec)
         w4d = w2d.T.reshape(cout, cin, kh, kw).to(x.dtype)
         y = conv2d_nhwc(x, w4d, m.strides, m.padding)

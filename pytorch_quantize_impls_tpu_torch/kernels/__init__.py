@@ -16,6 +16,19 @@ from pytorch_quantize_impls_tpu_torch.kernels.int8_matmul import (  # noqa: F401
     int8_gemm,
     int8_gemm_reference,
 )
+from pytorch_quantize_impls_tpu_torch.kernels.packed_matmul import (  # noqa: F401
+    decode_dorefa_weights,
+    decode_dorefa_weights_reference,
+    dorefa_act_to_int8,
+    dorefa_gemm,
+    dorefa_gemm_decoded,
+    dorefa_gemm_reference,
+    pack_dorefa_weights,
+)
+from pytorch_quantize_impls_tpu_torch.kernels.int8_conv import (  # noqa: F401
+    int8_conv2d,
+    int8_conv2d_reference,
+)
 # the module kernels.decode_attention is imported by name, not re-exported:
 # its function shares its name
 from pytorch_quantize_impls_tpu_torch.kernels import decode_attention  # noqa: F401

@@ -28,14 +28,17 @@ prefill and slots of different lengths are safe, as in the JAX model.
 Callers keep every cursor + s within ``max_len``: ``serve.generate`` and
 ``serve.DecodeEngine`` check it.
 
-Ported scope: schemes ``binary`` and ``none``, ``a_bits`` 0 or 1, dense FFN,
-``kv_bits`` 8 (2..8) or ``None``. MoE (``n_experts > 0``) and an injected
-``attention_fn`` wait for ROADMAP queue 1 item 12, the other schemes for
-item 8; they raise ``NotImplementedError``.
+Ported scope: schemes ``binary`` (``a_bits`` 0 or 1), ``dorefa`` (k-bit
+weights; ``a_bits`` > 0 quantizes every projection input to the [0, 1] grid,
+with a ReLU before the FFN's quantizer) and ``none``; dense FFN; ``kv_bits``
+8 (2..8) or ``None``. MoE (``n_experts > 0``) and an injected
+``attention_fn`` wait for ROADMAP queue 1 item 12, the xnor, ternary, log and
+lin schemes for item 8; they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Dict, Optional
 
 import torch
@@ -45,27 +48,32 @@ from pytorch_quantize_impls_tpu_torch import ops
 from pytorch_quantize_impls_tpu_torch.nn.base import QuantDense
 from pytorch_quantize_impls_tpu_torch.utils.device import resolve_device
 
-_ZOO_SCHEMES = ("xnor", "ternary", "dorefa", "log", "lin")
+_ZOO_SCHEMES = ("xnor", "ternary", "log", "lin")
 
 
 def _not_ported(what: str, item: int):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, item {item})")
 
 
-def _weight_quant(scheme: str):
+def _weight_quant(scheme: str, w_bits: int):
     if scheme == "none":
         return None
     if scheme == "binary":
         return ops.binary_connect_det
+    if scheme == "dorefa":
+        return partial(ops.dorefa_weight, bits=w_bits)
     if scheme in _ZOO_SCHEMES:
         raise _not_ported(f"transformer scheme {scheme!r}", 8)
     raise ValueError(f"unknown scheme {scheme!r}")
 
 
 def _act_quant(scheme: str, a_bits: int):
-    """Sign binarization of every projection input for binary W1A1."""
+    """The quantizer of every projection input: sign binarization for binary
+    W1A1, the k-bit [0, 1] grid for dorefa."""
     if a_bits <= 0:
         return None
+    if scheme == "dorefa":
+        return partial(ops.dorefa_activation, bits=a_bits)
     if scheme == "binary":
         if a_bits != 1:
             raise ValueError(f"scheme {scheme!r} activations are 1-bit; got a_bits={a_bits}")
@@ -139,7 +147,7 @@ class QuantAttention(nn.Module):
         self.causal = causal
         self.cache_len = cache_len
         self.kv_bits = kv_bits
-        wq = _weight_quant(scheme)
+        wq = _weight_quant(scheme, w_bits)
         aq = _act_quant(scheme, a_bits)
 
         def proj():
@@ -217,7 +225,8 @@ class QuantTransformerBlock(nn.Module):
     """Pre-LN block: LN -> quantized attention -> residual; LN -> quantized
     dense FFN -> residual. With sign-binarized activations (binary,
     ``a_bits == 1``) the sign is the FFN's nonlinearity and there is no ReLU
-    before it (ReLU then sign would be +1 everywhere)."""
+    before it (ReLU then sign would be +1 everywhere); otherwise (dorefa's
+    [0, 1] grid included) a ReLU precedes ``ffn_out``."""
 
     def __init__(
         self,
@@ -244,7 +253,7 @@ class QuantTransformerBlock(nn.Module):
             causal=causal, cache_len=cache_len, kv_bits=kv_bits, attention_fn=attention_fn,
         )
         self.ln2 = LayerNorm(d_model)
-        wq, aq = _weight_quant(scheme), _act_quant(scheme, a_bits)
+        wq, aq = _weight_quant(scheme, w_bits), _act_quant(scheme, a_bits)
         meta = dict(weight_quant=wq, input_quant=aq, scheme=scheme, w_bits=w_bits,
                     a_bits=a_bits, fsr=fsr)
         self.ffn_in = QuantDense(d_model, d_ff, **meta)

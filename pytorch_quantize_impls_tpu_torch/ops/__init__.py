@@ -10,6 +10,12 @@ from pytorch_quantize_impls_tpu_torch.ops.binary import (  # noqa: F401
     binary_connect_det,
     binary_tanh,
 )
+from pytorch_quantize_impls_tpu_torch.ops.dorefa import (  # noqa: F401
+    dorefa_activation,
+    dorefa_weight,
+    quantize_k,
+)
+from pytorch_quantize_impls_tpu_torch.ops.pact import pact  # noqa: F401
 from pytorch_quantize_impls_tpu_torch.ops.kv_cache import (  # noqa: F401
     dequantize_kv,
     quantize_kv,

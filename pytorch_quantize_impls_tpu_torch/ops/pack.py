@@ -1,7 +1,8 @@
 """Grouped-planar bit packing: the layout of the packed GEMM kernels.
 
 Counterpart of ``pytorch_quantize_impls_tpu/ops/pack.py`` (its
-``pack_bitplanes``/``unpack_bitplanes``); the words are bit-identical, which
+``pack_bitplanes``/``unpack_bitplanes`` and the DoReFa code encodings); the
+words are bit-identical, which
 is what lets packed artifacts move between the two packages. Codes are
 packed along the *contraction* axis (-2):
 
@@ -65,3 +66,23 @@ def unpack_bitplanes(word: torch.Tensor, bits: int, k: int) -> torch.Tensor:
     shifts = torch.arange(f, device=w.device, dtype=torch.int32) * bits
     c = (w >> shifts.reshape(f, 1, 1)) & (2**bits - 1)
     return c.reshape(*lead, (r // GROUP_ROWS) * f * GROUP_ROWS, n)[..., :k, :]
+
+
+# --- DoReFa value <-> code encodings -----------------------------------------
+
+
+def dorefa_weight_to_codes(wq: torch.Tensor, bits: int) -> torch.Tensor:
+    """DoReFa fake-quant weights (grid ``{2i/(2^k-1) - 1}``) -> codes i."""
+    n = float(2**bits - 1)
+    return torch.round((wq + 1.0) * 0.5 * n).to(torch.int32)
+
+
+def codes_to_dorefa_weight(c: torch.Tensor, bits: int, dtype=torch.float32) -> torch.Tensor:
+    n = float(2**bits - 1)
+    return (2.0 * c.to(dtype) / n - 1.0).to(dtype)
+
+
+def dorefa_act_to_codes(aq: torch.Tensor, bits: int) -> torch.Tensor:
+    """DoReFa fake-quant activations (grid ``{i/(2^k-1)}``) -> codes i."""
+    n = float(2**bits - 1)
+    return torch.round(aq * n).to(torch.int32)

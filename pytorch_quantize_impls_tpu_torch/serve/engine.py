@@ -8,8 +8,9 @@ and large batches. A deadline (``max_delay_ms``) bounds latency when traffic
 is sparse.
 
 The forward runs under ``torch.inference_mode()`` on the engine's device.
-Data-parallel serving over a mesh and the ``from_fused_*`` constructors wait
-for their ROADMAP items.
+``from_fused_resnet`` serves a fused DoReFa ResNet; data-parallel serving
+over a mesh and ``from_fused_chain`` (the binary chains) wait for their
+ROADMAP items.
 """
 
 from __future__ import annotations
@@ -80,6 +81,14 @@ class InferenceEngine:
         self._running = True
         self._thread = threading.Thread(target=self._dispatch_loop, daemon=True)
         self._thread.start()
+
+    @classmethod
+    def from_fused_resnet(cls, net, example_shape, **kw):
+        """Serve a fused DoReFa ResNet (``infer.export_fused_resnet20``);
+        ``device`` (default the card) must be where its weights are."""
+        from pytorch_quantize_impls_tpu_torch.infer.fused_chain import fused_resnet_apply
+
+        return cls(lambda x: fused_resnet_apply(net, x), example_shape, **kw)
 
     # -- client API --------------------------------------------------------
 

@@ -12,7 +12,10 @@ port's module of the same architecture:
   ``batch_stats`` ``mean``/``var`` -> ``running_mean``/``running_var``;
 * Embed ``embedding (vocab, d)`` -> ``weight (vocab, d)``, not transposed;
 * a parameter the model declares itself (the LM's ``pos_embed``) keeps its
-  name and layout.
+  name and layout, and so does PACT's scalar ``alpha``;
+* the ``losses`` collection is dropped: it holds what layers sow for the
+  training loss (PACT's alpha penalty), which ``model.init`` returns beside
+  the state. Any other collection raises.
 
 A flax path ``("fc1", "dense", "kernel")`` becomes the state-dict key
 ``"fc1.dense.weight"``. Loading is strict: a missing or extra entry raises.
@@ -30,7 +33,10 @@ from pytorch_quantize_impls_tpu_torch.utils.device import resolve_device
 
 _PARAM_NAMES = {
     "kernel": "weight", "scale": "weight", "bias": "bias", "embedding": "weight",
+    "alpha": "alpha",
 }
+# collections that hold no state of the model
+_DROPPED = {"losses"}
 _STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -64,9 +70,10 @@ def flax_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                 key = ".".join(path[:-1] + (names[leaf],))
             else:
                 raise ValueError(f"{collection} leaf {'/'.join(path)} has no port counterpart")
-            arr = np.ascontiguousarray(_to_torch_layout(leaf, value), dtype=np.float32)
+            # np.array, not np.ascontiguousarray: that makes a scalar 1-D
+            arr = np.array(_to_torch_layout(leaf, value), dtype=np.float32, order="C")
             sd[key] = torch.from_numpy(arr)
-    extra = set(variables) - {"params", "batch_stats"}
+    extra = set(variables) - {"params", "batch_stats"} - _DROPPED
     if extra:
         raise ValueError(f"variable collections {sorted(extra)} have no port counterpart")
     return sd

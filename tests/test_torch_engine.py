@@ -129,9 +129,18 @@ def test_port_imports_without_jax():
         "from pytorch_quantize_impls_tpu_torch.models import transformer\n"
         "from pytorch_quantize_impls_tpu_torch.ops import kv_cache\n"
         "from pytorch_quantize_impls_tpu_torch.serve import decode_engine, generate\n"
+        "from pytorch_quantize_impls_tpu_torch.infer import fused_chain\n"
+        "from pytorch_quantize_impls_tpu_torch.kernels import int8_conv, packed_matmul\n"
+        "from pytorch_quantize_impls_tpu_torch.nn import dorefa, pact\n"
+        "from pytorch_quantize_impls_tpu_torch.ops import dorefa, pact\n"
         "m = p.models.BNNLeNet(width=4).eval()\n"
         "y = p.infer.packed_apply(m, p.infer.pack_model(m), torch.zeros(2, 28, 28, 1))\n"
         "assert y.shape == (2, 10)\n"
+        "r = p.models.DorefaResNet20(width=4).eval()\n"
+        "x = torch.rand(2, 16, 16, 3)\n"
+        "y = p.infer.packed_apply(r, p.infer.prepare(p.infer.pack_model(r)), x)\n"
+        "assert y.shape == (2, 10)\n"
+        "assert p.infer.fused_resnet_apply(p.infer.export_fused_resnet20(r), x).shape == (2, 10)\n"
         "lm = p.models.QuantTransformerLM(16, 32, 2, 1, 32, 16, a_bits=1).eval()\n"
         "fm = p.infer.export_fused_decode(lm, device='cpu')\n"
         "eng = p.serve.DecodeEngine(lm, fused=fm, n_slots=2, device='cpu')\n"
@@ -162,7 +171,11 @@ def test_entry_points_default_to_the_card_and_raise_without_one(tmp_path):
     infer.save_packed(path, infer.pack_model(m))
     lm = models.QuantTransformerLM(16, 32, 2, 1, 32, 16, a_bits=1).eval()
     fm = infer.export_fused_decode(lm, device="cpu")
+    net = infer.export_fused_resnet20(models.DorefaResNet20(width=4).eval())
     calls = {
+        "from_fused_resnet": lambda: InferenceEngine.from_fused_resnet(net, (16, 16, 3)),
+        "build_model dorefa_resnet20": lambda: build_model(
+            RunConfig(**SCHEME_CONFIGS["dorefa_resnet20"])),
         "load_packed": lambda: infer.load_packed(path),
         "InferenceEngine": lambda: InferenceEngine(lambda x: x, (2,)),
         "DecodeEngine": lambda: serve.DecodeEngine(lm),

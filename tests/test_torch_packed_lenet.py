@@ -157,11 +157,12 @@ def test_build_model_bnn_lenet():
         build_model(RunConfig(config="xnor_cifar"), device="cpu")
 
 
-def test_unported_parts_raise(lenet):
+@pytest.mark.parametrize("scheme", ["log", "lin", "ternary"])
+def test_unported_parts_raise(lenet, scheme):
     _, _, tm, x = lenet
     with pytest.raises(NotImplementedError, match="act_scale"):
         tnn.LinearBin(8, 4, binarize_input=True, act_scale=True)
-    rec = tpacked.PackedLayer(packed=torch.zeros(32, 4, dtype=torch.int32), scheme="dorefa",
+    rec = tpacked.PackedLayer(packed=torch.zeros(32, 4, dtype=torch.int32), scheme=scheme,
                               w_bits=4, a_bits=4, kernel_shape=(8, 4))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tpacked._dense_forward_2d(rec, torch.zeros(2, 8), None)
