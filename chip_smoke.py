@@ -11,8 +11,10 @@ on one NVIDIA GPU (built for Hopper, sm_90a).
 3. Holds each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it and at edge shapes: K1 binary_gemm, K2
    decode_binary_weights, K3 int8_gemm, K5 int8_conv2d, K6 dorefa_gemm and
-   K7 decode_dorefa_weights bit for bit, K4 decode_attention within a
-   float32 tolerance. Prints kernel, plain, library-call and bound times.
+   K7 decode_dorefa_weights bit for bit, K9 decode_log_weights bit for bit
+   as int16 patterns, K4 decode_attention within a float32 tolerance, K8
+   shift_gemm within 1e-5 of |bf16(x)| @ |w| per element. Prints kernel,
+   plain, library-call and bound times.
 4. Main path 1, BNN LeNet (``bnn_lenet``, width 128) from seeded random
    weights: bridge -> pack_model -> save_packed -> load_packed ->
    InferenceEngine over the unprepared artifact (K1, K2, K5) -> prepare ->
@@ -41,11 +43,25 @@ on one NVIDIA GPU (built for Hopper, sm_90a).
    packed=) over the unprepared records (K6), then prepare() (K7) and the
    prepared records (K3); the same tokens for every request, and
    teacher-forced argmax against the fake-quant model.
-8. For each main path the kernels' launch counters are zeroed just before
-   it and read just after; each kernel of the path must be > 0.
-9. Prints engine images/s, decode prefill ms and tokens/s, one JSON line
-   with the kernels and their launches per path, and last
-   ``{"ok": true, "device": {...}}``.
+8. Main path 5, the log-quant VGG-small (``logquant_vgg``, widths
+   128..512, W4 log, fsr 1) from build_model with seeded weights and
+   BatchNorm calibrated on seeded images: pack_model -> save_packed ->
+   load_packed -> InferenceEngine over the unprepared records (K9 at every
+   conv call, K8 at the head), then prepare() (K9) and the prepared records
+   (no K8). Every batch is replayed bit-equal; packed against fake-quant
+   (argmax, logits within the JAX seam tolerance), unprepared against
+   prepared (the head's bf16 input rounding), direct (K9 + conv) against
+   im2col (K8) at conv3, card against CPU.
+9. Main path 6, the serving LM's shape with W4 log weights (fsr 0):
+   DecodeEngine(packed=) over the unprepared records (K8 on every
+   projection), then prepare() (K9) and the prepared records; each packed
+   projection held to its fake-quant GEMM on the same input, and
+   teacher-forced argmax against the fake-quant model.
+10. For each main path the kernels' launch counters are zeroed just before
+    it and read just after; each kernel of the path must be > 0.
+11. Prints engine images/s, decode prefill ms and tokens/s, one JSON line
+    with the kernels and their launches per path, and last
+    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, without the last line, if any phase fails.
 """
@@ -116,9 +132,39 @@ W4A4_GEMM_RTOL = 1e-4
 # End-to-end argmax of the W4A4 LM in lockstep: see lm_teacher_forced
 W4A4_ARGMAX_FLOOR = 0.85
 
+# BASELINE config 5, logquant_vgg (utils/config.py): VGG-small at its
+# published widths 128/128/256/256/512/512, W4 log weights, fsr 1, on
+# CIFAR-10-shaped images; its head is 8192 -> 10
+VGG_CALIB = 256  # images whose statistics set every BatchNorm's
+VGG_EVAL = 512  # rows held against the fake-quant forward
+VGG_IM2COL_BATCH = 8  # conv3 as im2col: M 2048, K 2304, N 256
+# Packed against fake-quant logits (and card against CPU): the JAX package's
+# tolerance for this seam, tests/test_infer.py:50-52 (atol 5e-2, rtol 5e-2).
+# The unprepared head rounds its input to bf16 (2^-9 relative) and the
+# float32 sums run in another order; 99% of rows must have every logit
+# within it, and argmax must agree on 99% of rows.
+VGG_LOGIT_ATOL = VGG_LOGIT_RTOL = 5e-2
+# K8 against its plain version: |K8 - plain| <= rtol * (|bf16(x)| @ |w|) per
+# element, the JAX test's rtol (tests/test_kernels.py:162): the products are
+# exact, only the order of the float32 sum differs
+SHIFT_RTOL = 1e-5
+# Rounding a value to bf16 moves it by at most 2^-9 of itself; an output of
+# the unprepared (bf16 x) and the prepared (float32 x) path then differs by at
+# most 2^-9 (|x| @ |w|) plus float32 sums: hazard bound 2^-8, plus SHIFT_RTOL
+BF16_INPUT_RTOL = 2.0**-8
+# The serving LM's shape with W4 log weights (weights only: a_bits 0), levels
+# 2^-16 .. 2^0 (fsr 0); served packed through DecodeEngine(packed=)
+LOG_LM_CFG = dict(LM_CFG, scheme="log", w_bits=4, a_bits=0, fsr=0.0)
+# End-to-end argmax of the log LM in lockstep: no activation is quantized, so
+# the prepared path (float32 x, the same weights) differs from fake-quant by
+# float32 sum order only; the unprepared one also rounds every projection
+# input to bf16
+LOG_ARGMAX_FLOOR = {"prepared": 0.99, "unprepared": 0.95}
+
 # NVIDIA H100 SXM published peaks (dense), at a 700 W power limit
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+BF16_FLOPS_PER_S = 989e12
 F32_FLOPS_PER_S = 67e12
 
 
@@ -167,7 +213,8 @@ KERNEL_SYMBOLS = {
     "binary_gemm": "binary_gemm_kernel", "decode_binary_weights": "decode_binary_kernel",
     "int8_gemm": "int8_gemm_kernel", "decode_attention": "decode_attention_kernel",
     "int8_conv2d": "int8_conv_kernel", "dorefa_gemm": "dorefa_gemm_kernel",
-    "decode_dorefa_weights": "decode_dorefa_kernel",
+    "decode_dorefa_weights": "decode_dorefa_kernel", "shift_gemm": "shift_gemm_kernel",
+    "decode_log_weights": "decode_log_kernel",
 }
 
 
@@ -200,6 +247,10 @@ def profile_line(fn, unit: str, iters: int) -> str:
     """torch.profiler over ``iters`` calls of ``fn``: wall and device-busy
     ms per call, the idle share, launches, and the four largest kernels."""
     per_call, wall = device_times(fn, iters=iters)
+    if not per_call:  # the profiler once saw no device activity at all: try again
+        per_call, wall = device_times(fn, iters=iters)
+    if not per_call:
+        return f"profile: wall {wall:.3f} ms/{unit}; device time not measured (no device events)"
     busy = sum(ms for ms, _ in per_call.values())
     launches = sum(n for _, n in per_call.values())
     top = sorted(per_call.items(), key=lambda kv: -kv[1][0])[:4]
@@ -515,6 +566,92 @@ def kbit_cases(rng, dev):
     return cases
 
 
+def vgg_convs(widths):
+    """LogQuantVGGSmall's convs: (label, input size, cin, cout), a 2x2 pool
+    after every second one."""
+    convs, hw, cin = [], RESNET_SHAPE[0], RESNET_SHAPE[2]
+    for i, w in enumerate(widths):
+        convs.append((f"conv{i} {hw}x{hw}x{cin}", hw, cin, w))
+        cin = w
+        if i % 2 == 1:
+            hw //= 2
+    return convs
+
+
+def log_cases(rng, dev):
+    """K8 shift_gemm and K9 decode_log_weights: every shape the VGG and log
+    LM paths give them, conv3 as im2col, and edges (K off the 128-row group,
+    N = 10, (fsr, bits) = (0, 3) and (1, 6)). Same dicts as
+    :func:`kernel_cases`, plus ``abs_ref``, K8's |bf16(x)| @ |w| in float64,
+    and ``cublas_bf16``, the bf16 tensor-core yardstick."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch.kernels import shift_matmul as sm
+    from pytorch_quantize_impls_tpu_torch.utils import SCHEME_CONFIGS, RunConfig
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def packed(k, n, fsr, bits):
+        w = t(rng.normal(size=(k, n)).astype(np.float32) * np.float32((2.0 / k) ** 0.5))
+        return sm.pack_log_weights(w, fsr, bits)
+
+    cfg = RunConfig(**SCHEME_CONFIGS["logquant_vgg"])
+    vgg = (cfg.fsr, cfg.w_bits)
+    lm = (LOG_LM_CFG["fsr"], LOG_LM_CFG["w_bits"])
+    head_k = 512 * 4 * 4
+    cases = []
+    # K9 at every VGG conv's and the head's weights (prepare), the log LM's
+    # projections, then edges
+    k9 = {f"vgg {label} ({9 * cin},{cout})": (9 * cin, cout, *vgg)
+          for label, _, cin, cout in vgg_convs((128, 128, 256, 256, 512, 512))}
+    k9[f"vgg head ({head_k},10)"] = (head_k, 10, *vgg)
+    k9.update({f"lm {name} ({k},{n})": (k, n, *lm) for name, k, n in lm_gemms(LOG_LM_CFG)})
+    k9.update({"edge K=300 N=10 fsr0 b3": (300, 10, 0.0, 3),
+               "edge K=27 N=7 fsr1 b6": (27, 7, 1.0, 6),
+               "edge K=2100 N=130 fsr0 b4": (2100, 130, 0.0, 4)})
+    for label, (k, n, fsr, bits) in k9.items():
+        wp = packed(k, n, fsr, bits)
+        r = wp.shape[0]
+        cases.append(dict(
+            kernel="decode_log_weights", label=label,
+            fn=lambda wp=wp, f=fsr, b=bits: sm.decode_log_weights(wp, fsr=f, bits=b),
+            plain=lambda wp=wp, f=fsr, b=bits: sm.decode_log_weights_reference(wp, fsr=f, bits=b),
+            library=None, bound=bound_ms(4 * r * n + 2 * 4 * r * n, 0, BF16_FLOPS_PER_S),
+            main=label.startswith("vgg conv5"),
+        ))
+    # K8 at the VGG head (M = 1, 16, 256), the log LM's projections at
+    # M = SLOTS, conv3 as im2col, then edges
+    k8 = [(f"vgg head M={m}", m, head_k, 10, *vgg) for m in SMALL_M]
+    k8 += [(f"lm {name} M={SLOTS}", SLOTS, k, n, *lm) for name, k, n in lm_gemms(LOG_LM_CFG)]
+    k8 += [(f"vgg im2col conv3 b={VGG_IM2COL_BATCH}", VGG_IM2COL_BATCH * 16 * 16, 9 * 256, 256,
+            *vgg)]
+    k8 += [("edge M=1 K=27 N=128 fsr1 b4", 1, 27, 128, 1.0, 4),
+           ("edge M=33 K=300 N=10 fsr0 b3", 33, 300, 10, 0.0, 3),
+           ("edge M=70 K=2100 N=130 fsr1 b6", 70, 2100, 130, 1.0, 6),
+           ("edge M=5 K=128 N=65 fsr0 b4", 5, 128, 65, 0.0, 4)]
+    for label, m, k, n, fsr, bits in k8:
+        x = t(rng.normal(size=(m, k)).astype(np.float32))
+        wp = packed(k, n, fsr, bits)
+        wb = sm.decode_log_weights(wp, fsr=fsr, bits=bits)[:k].contiguous()
+        xb = x.to(torch.bfloat16)
+        xf, wf = xb.to(torch.float32), wb.to(torch.float32)
+        cases.append(dict(
+            kernel="shift_gemm", label=label,
+            fn=lambda x=x, wp=wp, f=fsr, b=bits: sm.shift_gemm(x, wp, fsr=f, bits=b),
+            plain=lambda x=x, wp=wp, f=fsr, b=bits: sm.shift_gemm_reference(x, wp, fsr=f, bits=b),
+            # the same function in one PyTorch call: float32 matmul of the
+            # bf16 values (TF32 off)
+            library=lambda xf=xf, wf=wf: torch.matmul(xf, wf),
+            cublas_bf16=lambda xb=xb, wb=wb: torch.matmul(xb, wb),
+            abs_ref=lambda xf=xf, wf=wf: xf.abs().double() @ wf.abs().double(),
+            bound=bound_ms(4 * m * k + 4 * wp.numel() + 4 * m * n, 2 * m * k * n,
+                           BF16_FLOPS_PER_S),
+            main=label == f"lm ffn_in M={SLOTS}",
+        ))
+    return cases
+
+
 def sdpa_yardstick(args):
     """No one PyTorch call computes decode attention over int8 codes and
     scales. As a labelled yardstick only: scaled_dot_product_attention over
@@ -530,17 +667,19 @@ def sdpa_yardstick(args):
 
 
 def check_kernels(card: str, timed: bool = True):
-    """Compare every kernel with its plain version on the card: K1-K3 bit for
-    bit, K4 within ``rtol 1e-5, atol 1e-5 * max|plain|`` (float32 sums over
-    up to 1024 positions in another order; exp carries an ulp of a score
-    near 20, 2e-6, into every probability). K4 must also give the same bits
-    twice. Returns {kernel: summary for the JSON line}."""
+    """Compare every kernel with its plain version on the card: K1-K3 and
+    K5-K7 bit for bit, K9 bit for bit as int16 patterns, K4 within ``rtol
+    1e-5, atol 1e-5 * max|plain|`` (float32 sums over up to 1024 positions
+    in another order; exp carries an ulp of a score near 20, 2e-6, into every
+    probability), K8 within ``SHIFT_RTOL * (|bf16(x)| @ |w|)`` per element.
+    K4 and K8 must also give the same bits twice. Returns {kernel: summary
+    for the JSON line}."""
     import torch
 
     dev = cuda()
     rng = np.random.default_rng(SEED)
     summary = {}
-    for c in kernel_cases(rng, dev) + kbit_cases(rng, dev):
+    for c in kernel_cases(rng, dev) + kbit_cases(rng, dev) + log_cases(rng, dev):
         kernel, label, fn, plain = c["kernel"], c["label"], c["fn"], c["plain"]
         got, ref = fn(), plain()
         torch.cuda.synchronize()
@@ -555,6 +694,20 @@ def check_kernels(card: str, timed: bool = True):
             if not torch.equal(got, fn()):
                 fail(f"{kernel} {label}: two launches gave different bits")
             verdict = f"max |err| {err:.3g} (of {scale:.3g}), deterministic"
+        elif kernel == "shift_gemm":
+            bound = c["abs_ref"]()
+            ratio = ((got.double() - ref.double()).abs() / bound.clamp_min(1e-300)).max().item()
+            if not ((got.double() - ref.double()).abs() <= SHIFT_RTOL * bound).all():
+                fail(f"{kernel} {label}: |err| / (|bf16(x)| @ |w|) reaches {ratio:.3g}, beyond "
+                     f"{SHIFT_RTOL}")
+            if not torch.equal(got, fn()):
+                fail(f"{kernel} {label}: two launches gave different bits")
+            verdict = f"max |err| {err:.3g}, largest |err| / (|x|@|w|) {ratio:.3g}, deterministic"
+        elif kernel == "decode_log_weights":
+            if not torch.equal(got.view(torch.int16), ref.view(torch.int16)):
+                n = int((got.view(torch.int16) != ref.view(torch.int16)).sum())
+                fail(f"{kernel} {label}: {n} bf16 patterns differ from its plain version")
+            verdict = "bit-equal (int16 patterns)"
         else:
             if not torch.equal(got, ref):
                 fail(f"{kernel} {label}: differs from its plain version, max |err| {err}")
@@ -579,6 +732,10 @@ def check_kernels(card: str, timed: bool = True):
                          f"max |diff| {yard_err:.3g}; full-cache bound "
                          f"{c['full_bound'][0]:.4f} ms]")
                 extra["sdpa_dequantized_ms"] = sdpa_ms
+            if "cublas_bf16" in c:
+                bf16_ms = cuda_ms(c["cublas_bf16"])
+                line += f"  [yardstick: cuBLAS bf16 matmul on decoded weights {bf16_ms:.4f} ms]"
+                extra["cublas_bf16_ms"] = bf16_ms
             line += f"  [{card}]"
             if c["main"]:
                 s.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
@@ -650,15 +807,17 @@ def serve(submit, n: int):
 
 
 def all_kernels():
-    """Every kernel wrapper of the port, K1-K7, in the JSON line's order."""
+    """Every kernel wrapper of the port, K1-K9, in the JSON line's order."""
     from pytorch_quantize_impls_tpu_torch.kernels import decode_attention as da
     from pytorch_quantize_impls_tpu_torch.kernels import int8_conv as ic
     from pytorch_quantize_impls_tpu_torch.kernels import int8_matmul as im
     from pytorch_quantize_impls_tpu_torch.kernels import packed_matmul as pm
+    from pytorch_quantize_impls_tpu_torch.kernels import shift_matmul as sm
     from pytorch_quantize_impls_tpu_torch.kernels import xnor_gemm as bg
 
     return (bg.binary_gemm, bg.decode_binary_weights, im.int8_gemm, da.decode_attention,
-            ic.int8_conv2d, pm.dorefa_gemm, pm.decode_dorefa_weights)
+            ic.int8_conv2d, pm.dorefa_gemm, pm.decode_dorefa_weights, sm.shift_gemm,
+            sm.decode_log_weights)
 
 
 def zero_launches() -> None:
@@ -902,7 +1061,8 @@ def build_lm(cfg: dict, seed: int):
     from pytorch_quantize_impls_tpu_torch.models import QuantTransformerLM
     from pytorch_quantize_impls_tpu_torch.utils import load_flax_variables
 
-    seeded = seeded_dorefa_lm_variables if cfg["scheme"] == "dorefa" else seeded_lm_variables
+    seeded = {"dorefa": seeded_dorefa_lm_variables, "log": seeded_log_lm_variables}.get(
+        cfg["scheme"], seeded_lm_variables)
     variables = seeded(cfg, np.random.default_rng(seed))
     return load_flax_variables(QuantTransformerLM(**cfg), variables, device=cuda()).eval()
 
@@ -1491,30 +1651,35 @@ def check_logged(label: str, log, inputs, answers, refs: dict) -> None:
           f"batch; {len(answers)} answers are their batch rows", flush=True)
 
 
-def against_fake_quant(card: str, label: str, model, forward, xs) -> None:
+def against_fake_quant(card: str, label: str, model, forward, xs, atol=RESNET_LOGIT_TOL,
+                       rtol=0.0) -> None:
     """``forward`` against the fake-quant forward on the images ``xs``, in
-    batches of RESNET_BATCH: argmax agreement and the row-max logit gap,
-    gated as RESNET_LOGIT_TOL says."""
+    batches of RESNET_BATCH: argmax agreement and the row-max logit gap. A
+    row is within the tolerance when every logit is within ``atol + rtol *
+    |fake-quant logit|``; 99% of rows must be, and argmax must agree on 99%
+    of rows."""
     import torch
 
     dev = cuda()
-    gaps, agree = [], 0
+    gaps, inside, agree = [], [], 0
     with torch.inference_mode():
         for i in range(0, len(xs), RESNET_BATCH):
             xb = torch.from_numpy(xs[i:i + RESNET_BATCH]).to(dev)
             ref, got = model(xb), forward(xb)
             gaps.append((got - ref).abs().amax(dim=1).cpu())
+            inside.append(((got - ref).abs() <= atol + rtol * ref.abs()).all(dim=1).cpu())
             agree += int((got.argmax(1) == ref.argmax(1)).sum())
     gaps = torch.cat(gaps).double()
     n = len(xs)
-    within = float((gaps <= RESNET_LOGIT_TOL).double().mean())
+    within = float(torch.cat(inside).double().mean())
+    tol = f"{atol}" + (f" + {rtol} |ref|" if rtol else "")
     q50, q99 = np.quantile(gaps.numpy(), [0.5, 0.99])
     print(f"{label} vs fake-quant on {n} rows: argmax agrees on {agree}/{n}; row max |logit "
           f"gap| median {q50:.4g} p99 {q99:.4g} max {gaps.max():.4g}; {100 * within:.2f}% of "
-          f"rows within {RESNET_LOGIT_TOL}  [{card}]", flush=True)
+          f"rows within {tol}  [{card}]", flush=True)
     if agree < 0.99 * n or within < 0.99:
         fail(f"{label}: argmax agrees on {agree}/{n}, {100 * within:.2f}% of rows within "
-             f"{RESNET_LOGIT_TOL} of the fake-quant logits")
+             f"{tol} of the fake-quant logits")
 
 
 def direct_vs_im2col(model, loaded, x) -> None:
@@ -1632,6 +1797,262 @@ def resnet_path(card: str):
             with torch.inference_mode():
                 line = profile_line(lambda: forward(xb), "forward", 10)
             print(f"resnet {name} b={b} {line}  [{card}]", flush=True)
+    return launches
+
+
+# --- main path 5: log-quant VGG-small, packed --------------------------------
+
+
+def seeded_vgg_variables(widths, rng) -> dict:
+    """LogQuantVGGSmall variables in the flax layout, as numpy: He-scaled
+    conv kernels (the exponent indices of each layer spread over several
+    levels), BatchNorm scales and biases that leave each ReLU about half
+    open, statistics left for :func:`calibrate_batchnorm`, and a head of
+    scale 1/sqrt(fan_in) with a small bias."""
+    f32 = np.float32
+    p, s = {}, {}
+    cin = RESNET_SHAPE[2]
+    for i, w in enumerate(widths):
+        kernel = rng.normal(size=(3, 3, cin, w)) * np.sqrt(2.0 / (9 * cin))
+        p[f"conv{i}"] = {"conv": {"kernel": kernel.astype(f32)}}
+        p[f"bn{i}"] = {"scale": rng.uniform(0.5, 1.5, w).astype(f32),
+                       "bias": rng.uniform(-0.2, 0.4, w).astype(f32)}
+        s[f"bn{i}"] = {"mean": np.zeros(w, f32), "var": np.ones(w, f32)}
+        cin = w
+    side = RESNET_SHAPE[0] // 2 ** (len(widths) // 2)
+    k = side * side * cin
+    p["head"] = {"dense": {"kernel": (rng.normal(size=(k, 10)) * k ** -0.5).astype(f32),
+                           "bias": (rng.normal(size=10) * 0.1).astype(f32)}}
+    return {"params": p, "batch_stats": s}
+
+
+def calibrated_vgg(model, rng, x):
+    """Load seeded variables into the port LogQuantVGGSmall ``model`` through
+    the bridge (eval mode) and calibrate its BatchNorm statistics on the
+    images ``x`` (numpy NHWC). Returns (model, its variables in the flax
+    layout)."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch.utils import load_flax_variables
+
+    dev = next(model.parameters()).device
+    variables = seeded_vgg_variables(model.widths, rng)
+    load_flax_variables(model, variables, device=dev).eval()
+    variables["batch_stats"] = calibrate_batchnorm(model, torch.from_numpy(x).to(dev))
+    return model, variables
+
+
+def exponent_histograms(label: str, model, min_levels: int, show=("",)) -> None:
+    """Per log layer, the shares of its weights' exponent indices 0..2^bits
+    (``ops.log_quant_exponent`` of the master weight), printed for the
+    layers whose name starts with one of ``show``; fail unless every layer
+    has at least ``min_levels`` indices holding 1% or more."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import ops
+    from pytorch_quantize_impls_tpu_torch.nn import QuantConv, QuantDense
+
+    fewest = None
+    for name, m in model.named_modules():
+        if not isinstance(m, (QuantConv, QuantDense)) or m.scheme != "log":
+            continue
+        _, idx = ops.log_quant_exponent(m.weight.detach(), m.fsr, m.w_bits)
+        counts = torch.bincount(idx.flatten().long(), minlength=2**m.w_bits + 1).double()
+        share = (counts / counts.sum()).tolist()
+        live = sum(v >= 0.01 for v in share)
+        fewest = live if fewest is None else min(fewest, live)
+        if name.startswith(show):
+            print(f"{label} {name:20s} exponent index shares 0..{2**m.w_bits}: "
+                  + " ".join(f"{v:.3f}" for v in share), flush=True)
+        if live < min_levels:
+            fail(f"{label} {name}: only {live} exponent levels hold 1% of the weights")
+    print(f"{label}: every log layer has >= {fewest} exponent levels holding 1% of its weights",
+          flush=True)
+
+
+def packed_words_vs_cpu(label: str, model, card_recs, cpu_recs) -> None:
+    """Codes packed on the card against codes packed on the CPU from the same
+    master weights: log2 may round the other way where |w| is within an ulp
+    of 2^(k + 1/2). Print how many differ; fail if one is not at such a
+    boundary."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch.nn import QuantConv, QuantDense
+    from pytorch_quantize_impls_tpu_torch.ops import pack as packlib
+
+    masters = {tuple(n.split(".")): m.weight.detach().cpu() for n, m in model.named_modules()
+               if isinstance(m, (QuantConv, QuantDense)) and m.scheme == "log"}
+    total = differ = 0
+    for path, rec in cpu_recs.items():
+        w = masters[path]
+        w2d = w.reshape(w.shape[0], -1).T  # (K, N) in the packed order
+        k = w2d.shape[0]
+        a = packlib.unpack_bitplanes(card_recs[path].packed.cpu(), 8, k)
+        b = packlib.unpack_bitplanes(rec.packed, 8, k)
+        bad = a != b
+        total += a.numel()
+        differ += int(bad.sum())
+        if bad.any():
+            frac = torch.log2(w2d[bad].abs().double()) % 1.0
+            if ((frac - 0.5).abs() > 1e-6).any():
+                fail(f"{label} {path}: a code packed on the card differs from the CPU's away "
+                     f"from an exponent boundary")
+    print(f"{label}: codes packed on the card and on the CPU differ in {differ} of {total} "
+          f"(each at an exponent boundary)", flush=True)
+
+
+def vgg_direct_vs_im2col(model, loaded, x) -> None:
+    """conv3 (16x16x256 -> 256) on its real input: packed_conv2d(scheme=
+    "log") direct (K9 + float conv) against im2col (F.unfold + K8), within
+    SHIFT_RTOL of |bf16(x)| conv |w|: both round x to bf16, only the float32
+    sums differ."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch.kernels.conv import (
+        PackedConv, conv2d_nhwc, decode_conv_weights, packed_conv2d,
+    )
+
+    conv = model.conv3.conv
+    rec = loaded[("conv3", "conv")]
+    kh, kw, cin, cout = rec.kernel_shape
+    pc = PackedConv("log", rec.packed, (kh, kw), cin, cout, None, rec.w_bits, 0, rec.fsr)
+    seen = []
+    hook = conv.register_forward_pre_hook(lambda m, args: seen.append(args[0]))
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        hook.remove()
+    xin = seen[0]
+    kw_ = dict(strides=conv.strides, padding=conv.padding)
+    with torch.no_grad():
+        direct = packed_conv2d(xin, pc, **kw_)
+        im2col = packed_conv2d(xin, pc, mode="im2col", **kw_)
+        w = decode_conv_weights(pc).double().abs().T.reshape(cout, cin, kh, kw)
+        bound = conv2d_nhwc(xin.to(torch.bfloat16).double().abs(), w, conv.strides, conv.padding)
+    diff = (direct.double() - im2col.double()).abs()
+    ratio = (diff / bound.clamp_min(1e-300)).max().item()
+    if (diff > SHIFT_RTOL * bound).any():
+        fail(f"vgg conv3: direct and im2col differ by {ratio:.3g} of |x| conv |w|")
+    print(f"vgg conv3 on {x.shape[0]} images: direct (K9 + conv) vs im2col (F.unfold + K8) "
+          f"{tuple(direct.shape)}, max |diff| {diff.max().item():.3g}, largest |diff| / "
+          f"(|bf16(x)| conv |w|) {ratio:.3g} (tolerance {SHIFT_RTOL})", flush=True)
+
+
+def vgg_unprepared_vs_prepared(card: str, model, records, xs) -> None:
+    """The convs of both paths run the same float conv on the same K9
+    weights, so the head sees the same input h; the unprepared head rounds h
+    to bf16 (K8), the prepared one does not: per logit within
+    (BF16_INPUT_RTOL + SHIFT_RTOL) (|h| @ |W_head|)."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import infer
+
+    dev = cuda()
+    seen = []
+    hook = model.head.dense.register_forward_pre_hook(lambda m, args: seen.append(args[0]))
+    try:
+        with torch.inference_mode():
+            xb = torch.from_numpy(xs).to(dev)
+            y = {name: infer.packed_apply(model, recs, xb) for name, recs in records.items()}
+    finally:
+        hook.remove()
+    if not torch.equal(seen[0], seen[1]):
+        fail("vgg: the head's input differs between the unprepared and prepared paths")
+    w = records["prepared"][("head", "dense")].decoded.double()
+    bound = seen[0].abs().double() @ w.abs() + model.head.dense.bias.detach().abs().double()
+    diff = (y["unprepared"] - y["prepared"]).abs().double()
+    ratio = (diff / bound).max().item()
+    print(f"vgg unprepared vs prepared on {len(xs)} images: max |logit diff| "
+          f"{diff.max().item():.3g}, largest |diff| / (|h| @ |W_head|) {ratio:.3g} (bf16 "
+          f"rounding of the head's input; tolerance {BF16_INPUT_RTOL + SHIFT_RTOL:.6g})  "
+          f"[{card}]", flush=True)
+    if ratio > BF16_INPUT_RTOL + SHIFT_RTOL:
+        fail(f"vgg: unprepared and prepared logits differ by {ratio:.3g} of |h| @ |W_head|")
+
+
+def vgg_path(card: str):
+    """Main path 5: logquant_vgg at its published widths through build_model,
+    seeded weights and calibrated BatchNorm, packed and served through
+    InferenceEngine: the unprepared records (K9 at every conv call, K8 at the
+    head), then prepare() (K9) and the prepared records (no K8), each path's
+    counters zeroed just before it; every served batch replayed; then the
+    seams and the speeds."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import infer
+    from pytorch_quantize_impls_tpu_torch.kernels import shift_matmul as sm
+    from pytorch_quantize_impls_tpu_torch.utils import SCHEME_CONFIGS, RunConfig, build_model
+
+    dev = cuda()
+    rng = np.random.default_rng(SEED + 30)
+    cfg = RunConfig(**SCHEME_CONFIGS["logquant_vgg"])
+    model, shape, _ = build_model(cfg, device=dev)
+    head = tuple(model.head.dense.weight.shape)
+    if model.widths != (128, 128, 256, 256, 512, 512) or head != (10, 8192):
+        fail(f"logquant_vgg widths {model.widths}, head {head}")
+    calib = rng.normal(size=(VGG_CALIB, *shape)).astype(np.float32)
+    calibrated_vgg(model, rng, calib)
+    exponent_histograms("vgg", model, 4)
+    cpu_model = copy.deepcopy(model).cpu()
+    inputs = [rng.normal(size=shape).astype(np.float32)
+              for _ in range(CLIENTS * REQUESTS_PER_CLIENT)]
+    Logged = logged_engine_class()
+    launches, answers, logs, records = {}, {}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "logquant_vgg.npz")
+        infer.save_packed(path, infer.pack_model(model))
+        loaded = infer.load_packed(path, device=dev)
+    for name, required in (("unprepared", (sm.decode_log_weights, sm.shift_gemm)),
+                           ("prepared", (sm.decode_log_weights,))):
+        zero_launches()
+        recs = loaded if name == "unprepared" else infer.prepare(loaded)
+        engine = Logged(lambda x, recs=recs: infer.packed_apply(model, recs, x), shape,
+                        batch_sizes=BUCKETS, device=dev)
+        answers[name] = run_engine(card, f"vgg {name}", engine, inputs)
+        logs[name] = engine.log
+        launches[f"vgg_{name}"] = read_launches(f"vgg_{name}", required)
+        records[name] = recs
+    if launches["vgg_prepared"]["shift_gemm"]:
+        fail("the prepared VGG path launched shift_gemm")
+
+    forwards = {name: (lambda x, recs=recs: infer.packed_apply(model, recs, x))
+                for name, recs in records.items()}
+    for name in records:
+        check_logged(f"vgg {name}", logs[name], inputs, answers[name],
+                     {f"packed_apply ({name})": forwards[name]})
+    del logs
+    vgg_direct_vs_im2col(model, loaded, torch.from_numpy(calib[:VGG_IM2COL_BATCH]).to(dev))
+    xs = rng.normal(size=(VGG_EVAL, *shape)).astype(np.float32)
+    for name in records:
+        against_fake_quant(card, f"vgg packed {name}", model, forwards[name], xs,
+                           atol=VGG_LOGIT_ATOL, rtol=VGG_LOGIT_RTOL)
+    vgg_unprepared_vs_prepared(card, model, records, xs[:RESNET_BATCH])
+
+    # a small input against the same model on the CPU (plain kernel versions)
+    cpu_recs = infer.pack_model(cpu_model)
+    packed_words_vs_cpu("vgg", cpu_model, loaded, cpu_recs)
+    xs = rng.normal(size=(8, *shape)).astype(np.float32)
+    for name, recs in (("unprepared", cpu_recs), ("prepared", infer.prepare(cpu_recs))):
+        with torch.inference_mode():
+            gpu = forwards[name](torch.from_numpy(xs).to(dev)).cpu()
+            cpu = infer.packed_apply(cpu_model, recs, torch.from_numpy(xs))
+        gap = (gpu - cpu).abs().max().item()
+        inside = ((gpu - cpu).abs() <= VGG_LOGIT_ATOL + VGG_LOGIT_RTOL * cpu.abs()).all()
+        if not inside or not torch.equal(gpu.argmax(1), cpu.argmax(1)):
+            fail(f"vgg packed {name}: card and CPU logits differ by {gap} on 8 images")
+        print(f"vgg packed {name}: card vs CPU (plain versions) on 8 images: max |logit gap| "
+              f"{gap:.4g} (tolerance {VGG_LOGIT_ATOL} + {VGG_LOGIT_RTOL} |ref|), same argmax",
+              flush=True)
+
+    backends = {"packed": forwards["unprepared"], "packed prepared": forwards["prepared"],
+                "fake-quant": model}
+    throughput(card, "vgg", backends, shape)
+    xb = torch.from_numpy(rng.normal(size=(RESNET_BATCH, *shape)).astype(np.float32)).to(dev)
+    for name, forward in backends.items():
+        with torch.inference_mode():
+            line = profile_line(lambda: forward(xb), "forward", 10)
+        print(f"vgg {name} b={RESNET_BATCH} {line}  [{card}]", flush=True)
     return launches
 
 
@@ -1795,6 +2216,158 @@ def w4a4_lm_path(card: str):
     return launches
 
 
+# --- main path 6: the serving LM's shape with W4 log weights, packed ----------
+
+
+def seeded_log_lm_variables(cfg: dict, rng) -> dict:
+    """:func:`seeded_lm_variables` for W4 log weights: each projection kernel
+    is N(0, 1/fan_in), so every projection output stays O(1) and the
+    exponent indices of a kernel spread over about 7 levels around
+    2^-5 (fsr 0: levels 2^-16 .. 2^0); the FFN biases are 0.1-scale."""
+    v = seeded_lm_variables(cfg, rng)
+    for i in range(cfg["n_layers"]):
+        blk = v["params"][f"block{i}"]
+        for node in (*blk["attn"].values(), blk["ffn_in"], blk["ffn_out"]):
+            node["kernel"] = node["kernel"] * np.float32(node["kernel"].shape[0] ** -0.5)
+        for name in ("ffn_in", "ffn_out"):
+            blk[name]["bias"] = rng.normal(size=blk[name]["bias"].shape).astype(np.float32) * 0.1
+    return v
+
+
+def log_lm_teacher_forced(card: str, model, records: dict) -> None:
+    """The packed log LM (unprepared and prepared) against the fake-quant
+    decode model, all fed the fake-quant model's greedy tokens: a 64-token
+    prefill, then 32 steps over SLOTS rows.
+
+    Per projection (the gate): inside the fake-quant forward, every
+    QuantDense also runs each packed record on the same input x, and each
+    output must be within rtol (|x| @ |w| + |bias|) of the fake-quant one:
+    SHIFT_RTOL for the prepared record (the same float32 x and weights; the
+    fake-quant exp2 may sit an ulp off the exact decoded level), plus
+    BF16_INPUT_RTOL for the unprepared one (K8 rounds x to bf16).
+
+    End to end: each packed call starts from a copy of the fake-quant
+    model's cache (lockstep); argmax must agree on LOG_ARGMAX_FLOOR of the
+    (step, row) pairs."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import infer
+    from pytorch_quantize_impls_tpu_torch.nn import intercept_quant_layers
+    from pytorch_quantize_impls_tpu_torch.serve import decode_model
+
+    dev = cuda()
+    b, steps = SLOTS, 32
+    rng = np.random.default_rng(SEED + 41)
+    toks = torch.from_numpy(rng.integers(0, LM_CFG["vocab"], (b, 64)).astype(np.int32)).to(dev)
+    md = decode_model(model)
+    paths = {id(m): tuple(n.split(".")) for n, m in md.named_modules()}
+    kind = {"q": 0, "k": 0, "v": 0, "out": 1, "ffn_in": 2, "ffn_out": 3}
+    rtol = {"unprepared": BF16_INPUT_RTOL + SHIFT_RTOL, "prepared": SHIFT_RTOL}
+    worst = {name: [0.0] * len(GEMM_INPUTS) for name in records}
+    calls = [0]
+
+    def per_gemm(m, x, fake_quant_forward):
+        y = fake_quant_forward(x)
+        path = paths[id(m)]
+        bound = x.abs().double() @ m.weight_quant(m.weight).abs().double().T
+        if m.bias is not None:
+            bound = bound + m.bias.abs().double()
+        for name, recs in records.items():
+            got = infer.packed_apply(m, {("",): recs[path]}, x)
+            rel = ((got - y).abs().double() / bound.clamp_min(1e-300)).max().item()
+            j = kind[path[-1]]
+            worst[name][j] = max(worst[name][j], rel)
+        calls[0] += 1
+        return y
+
+    def clone(cache):
+        return {k: clone(v) if isinstance(v, dict) else v.clone() for k, v in cache.items()}
+
+    agree = {name: 0 for name in records}
+    total = 0
+    cache, t = None, toks
+    with torch.no_grad():
+        for step in range(steps + 1):
+            got = {name: infer.packed_apply(md, recs, t, None if cache is None else clone(cache))[0]
+                   for name, recs in records.items()}
+            with intercept_quant_layers(per_gemm):
+                ref, cache = md(t, cache)
+            if step > 0:
+                total += b
+                for name in records:
+                    agree[name] += int((got[name][:, -1].argmax(-1) == ref[:, -1].argmax(-1)).sum())
+            t = ref[:, -1].argmax(-1).to(torch.int32)[:, None]
+    for name in records:
+        per = ", ".join(f"{k}: {w:.3g}" for k, w in zip(GEMM_INPUTS, worst[name]))
+        print(f"log LM packed {name} vs fake-quant, teacher-forced: per projection on the same "
+              f"input, {calls[0]} calls, largest |diff| / (|x| @ |w|) by GEMM input ({per}; "
+              f"tolerance {rtol[name]:.6g}); end to end in lockstep, {steps} steps x {b} rows, "
+              f"argmax agrees on {agree[name]}/{total} ({100 * agree[name] / total:.2f}%, floor "
+              f"{100 * LOG_ARGMAX_FLOOR[name]:.0f}%)  [{card}]", flush=True)
+        if max(worst[name]) > rtol[name]:
+            fail(f"log LM {name}: a packed projection differs from its fake-quant GEMM by "
+                 f"{max(worst[name]):.3g} of |x| @ |w|")
+        if agree[name] < LOG_ARGMAX_FLOOR[name] * total:
+            fail(f"log LM {name} teacher-forced: argmax agrees on only {agree[name]} of {total}")
+
+
+def log_lm_path(card: str):
+    """Main path 6: the serving LM's shape with W4 log weights, through
+    DecodeEngine(packed=): the unprepared records (K8 on every projection),
+    then prepare() (K9) and the prepared records (no K8), each path's
+    counters zeroed just before it; then the seams and the speeds."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import infer
+    from pytorch_quantize_impls_tpu_torch.kernels import shift_matmul as sm
+    from pytorch_quantize_impls_tpu_torch.serve import DecodeEngine, decode_model
+
+    dev = cuda()
+    t0 = time.perf_counter()
+    model = build_lm(LOG_LM_CFG, SEED + 40)
+    last = f"block{LOG_LM_CFG['n_layers'] - 1}."
+    exponent_histograms("log LM", model, 6, show=("block0.", last))
+    packed = infer.pack_model(model)
+    print(f"log LM built and packed in {time.perf_counter() - t0:.1f} s: "
+          f"{torch.cuda.memory_allocated() / 2**20:.0f} MiB allocated", flush=True)
+    rng = np.random.default_rng(SEED + 42)
+    prompts = [rng.integers(0, LM_CFG["vocab"], rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1))
+               .astype(np.int32) for _ in range(DECODE_REQUESTS)]
+    answers, launches, records = {}, {}, {}
+    for name, required, absent in (("unprepared", sm.shift_gemm, sm.decode_log_weights),
+                                   ("prepared", sm.decode_log_weights, sm.shift_gemm)):
+        zero_launches()
+        recs = packed if name == "unprepared" else infer.prepare(packed)
+        engine = DecodeEngine(model, packed=recs, n_slots=SLOTS, device=dev)
+        t1 = time.perf_counter()
+        try:
+            answers[name] = serve(lambda i: engine.submit(prompts[i], max_new=MAX_NEW),
+                                  len(prompts))
+        finally:
+            engine.shutdown()
+        dt = time.perf_counter() - t1
+        st = engine.stats
+        print(f"decode engine[log packed {name}]: {st.requests} requests, {st.tokens} tokens in "
+              f"{dt:.2f} s ({st.tokens / dt:.1f} tok/s), {st.steps} steps, mean occupancy "
+              f"{st.mean_occupancy:.3f}  [{card}]", flush=True)
+        if st.requests != len(prompts) or st.tokens != MAX_NEW * len(prompts):
+            fail(f"log LM engine[{name}] answered {st.requests} requests, {st.tokens} tokens")
+        launches[f"lm_log_{name}"] = read_launches(f"lm_log_{name}", (required,))
+        if launches[f"lm_log_{name}"][absent.__name__]:
+            fail(f"the {name} log LM path launched {absent.__name__}")
+        records[name] = recs
+    same = sum(np.array_equal(a, b) for a, b in zip(answers["unprepared"], answers["prepared"]))
+    print(f"log LM: the unprepared (bf16 x) and prepared (float32 x) engines gave the same "
+          f"{MAX_NEW} tokens for {same} of {len(prompts)} requests", flush=True)
+    log_lm_teacher_forced(card, model, records)
+    md = decode_model(model)
+    backends = {"fake-quant": lambda c, t: md(t, c)}
+    for name, recs in records.items():
+        backends[f"packed {name}"] = lambda c, t, recs=recs: infer.packed_apply(md, recs, t, c)
+    decode_speed(card, backends)
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -1828,6 +2401,8 @@ def main() -> None:
     launches["decode_lm"] = decode_path(card)
     launches.update(resnet_path(card))
     launches.update(w4a4_lm_path(card))
+    launches.update(vgg_path(card))
+    launches.update(log_lm_path(card))
 
     src = f"{PORT}/csrc"
     tpu = "pytorch_quantize_impls_tpu"
@@ -1840,6 +2415,8 @@ def main() -> None:
         "int8_conv2d": ("int8_conv.cu", f"{tpu}/kernels/conv.py:121"),
         "dorefa_gemm": ("dorefa_gemm.cu", f"{tpu}/kernels/packed_matmul.py:156"),
         "decode_dorefa_weights": ("dorefa_gemm.cu", f"{tpu}/kernels/packed_matmul.py:315"),
+        "shift_gemm": ("shift_gemm.cu", f"{tpu}/kernels/shift_matmul.py:112"),
+        "decode_log_weights": ("shift_gemm.cu", f"{tpu}/kernels/shift_matmul.py:260"),
     }
     rows = []
     for name, (cu, replaces) in meta.items():
@@ -1850,7 +2427,8 @@ def main() -> None:
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
             "bound_ms": s["bound_ms"], "bound_by": s["bound_by"], "library_ms": s["library_ms"],
-            **{k: v for k, v in s.items() if k in ("shape", "device_ms", "sdpa_dequantized_ms")},
+            **{k: v for k, v in s.items()
+               if k in ("shape", "device_ms", "sdpa_dequantized_ms", "cublas_bf16_ms")},
         })
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

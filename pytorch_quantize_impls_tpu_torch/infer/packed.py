@@ -1,4 +1,5 @@
-"""Packed-model export and execution for the binary, xnor and dorefa schemes.
+"""Packed-model export and execution for the binary, xnor, dorefa, log and
+lin schemes.
 
 Counterpart of ``pytorch_quantize_impls_tpu/infer/packed.py``:
 
@@ -19,13 +20,20 @@ Execution plan:
 | binary/xnor, a_bits=1        | yes       | ``int8_gemm`` (K3) on ±1 decoded by prepare   |
 | dorefa, 1 <= a_bits <= 7     | no        | ``dorefa_gemm`` (K6) on the packed codes      |
 | dorefa, 1 <= a_bits <= 7     | yes       | ``int8_gemm`` (K3) on centered codes (K7)     |
-| real inputs (a_bits=0)       | either    | float matmul on decoded ±1 / f32 grid weights |
-| conv, quantized inputs       | either    | ``packed_conv2d``: decode per call, K5 conv   |
-| conv, real inputs            | either    | float conv on the decoded weights             |
+| log (a_bits=0)               | no        | ``shift_gemm`` (K8) on the codes, bf16(x)     |
+| log (a_bits=0)               | yes       | float matmul on bf16 ±2^e decoded by K9       |
+| other real inputs (a_bits=0) | either    | float matmul on decoded ±1 / f32 grid weights |
+| conv, binary/xnor/dorefa with quantized inputs | either | ``packed_conv2d``: decode per call, K5 conv |
+| conv, real inputs (log: K9 decode) | either | float conv on the decoded weights     |
 
-As in the JAX package, the conv path decodes its weights on every call and
-does not read ``prepare()``'s buffer. The log, lin and ternary schemes raise
-``NotImplementedError`` (ROADMAP queue 1, item 10).
+As in the JAX package, the quantized-input conv path decodes its weights on
+every call and does not read ``prepare()``'s buffer; a real-input conv reads
+it when it is there (log: K9 on every unprepared call). The unprepared log
+dense layer rounds its input to bf16 and the prepared one does not, as in
+the JAX package. ``pack_model`` refuses log and lin layers with quantized
+inputs (``quantize_input=True``): the JAX package's packed paths ignore that
+quantizer (ROADMAP section 3). The ternary scheme, and packing xnor layers
+(the port has none), raise ``NotImplementedError`` (ROADMAP queue 1, item 10).
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ import torch
 from torch import nn
 
 from pytorch_quantize_impls_tpu_torch.kernels import packed_matmul as pm
+from pytorch_quantize_impls_tpu_torch.kernels import shift_matmul as sm
 from pytorch_quantize_impls_tpu_torch.kernels import xnor_gemm as bg
 from pytorch_quantize_impls_tpu_torch.kernels.conv import (
     PackedConv,
@@ -54,14 +63,15 @@ from pytorch_quantize_impls_tpu_torch.ops import pack as packlib
 from pytorch_quantize_impls_tpu_torch.ops.dorefa import dorefa_activation, dorefa_weight
 from pytorch_quantize_impls_tpu_torch.utils.device import resolve_device
 
-_PORTED_SCHEMES = ("binary", "xnor", "dorefa")
+_PORTED_SCHEMES = ("binary", "xnor", "dorefa", "log", "lin")
 
 
 @dataclasses.dataclass(frozen=True)
 class PackedLayer:
     packed: torch.Tensor  # grouped-planar packed words (int32 bit patterns)
     alpha: Optional[torch.Tensor] = None  # xnor per-out-channel scale
-    # prepare(): ±1 int8 (K, N), centered int8 codes (Kp, N) or f32 grid (K, N)
+    # prepare(): ±1 int8 (K, N), centered int8 codes (Kp, N), f32 grid (K, N)
+    # or bf16 ±2^e (K, N)
     decoded: Optional[torch.Tensor] = None
     kind: str = "dense"  # dense|conv
     scheme: str = "binary"
@@ -82,8 +92,14 @@ def _not_ported(scheme: str):
 
 
 def _pack_layer(m) -> PackedLayer:
-    if m.scheme not in ("binary", "dorefa"):
+    if m.scheme not in ("binary", "dorefa", "log", "lin"):
         raise _not_ported(m.scheme)
+    if m.scheme in ("log", "lin") and m.a_bits > 0:
+        raise NotImplementedError(
+            f"a {m.scheme} layer with quantize_input=True (a_bits={m.a_bits}) does not pack: "
+            "the packed paths ignore the input quantizer, as the JAX package's do, so "
+            "they would compute another function (ROADMAP section 3)"
+        )
     w = m.weight.detach()
     if isinstance(m, QuantConv):
         cout, cin, kh, kw = w.shape
@@ -94,6 +110,14 @@ def _pack_layer(m) -> PackedLayer:
         kind, kernel_shape = "dense", tuple(w2d.shape)
     if m.scheme == "dorefa":
         packed = pm.pack_dorefa_weights(dorefa_weight(w2d, m.w_bits), m.w_bits)
+    elif m.scheme == "log":
+        packed = sm.pack_log_weights(w2d, m.fsr, m.w_bits)
+    elif m.scheme == "lin":
+        # signed grid codes round(w / step) clipped to ±2^bits, offset into
+        # [0, 2^(bits+1)]; 8-bit planar fields (bits <= 6)
+        step = 2.0 ** (m.fsr - m.w_bits)
+        c = torch.clamp(torch.round(w2d / step), -(2**m.w_bits), 2**m.w_bits)
+        packed = packlib.pack_bitplanes((c + 2**m.w_bits).to(torch.int32), 8)
     else:
         packed = bg.pack_binary_weights(w2d)
     return PackedLayer(
@@ -121,8 +145,10 @@ def pack_model(model: nn.Module) -> PackedModel:
 
 def _decode_weights(rec: PackedLayer) -> torch.Tensor:
     """Packed codes -> execution-ready weights (K, N): ±1 int8 for
-    binary/xnor, the f32 grid ``(2c - n) / n`` for dorefa (not bf16-exact;
-    unpacked in plain PyTorch, as the JAX package does)."""
+    binary/xnor; the f32 grids ``(2c - n) / n`` for dorefa (not bf16-exact)
+    and ``c * step`` for lin, unpacked in plain PyTorch as the JAX package
+    does; bf16 ``±2^e`` for log, by K9, bit-identical to the JAX package's
+    plain decode."""
     if rec.scheme not in _PORTED_SCHEMES:
         raise _not_ported(rec.scheme)
     k2d = int(np.prod(rec.kernel_shape[:-1]))
@@ -130,6 +156,11 @@ def _decode_weights(rec: PackedLayer) -> torch.Tensor:
         c = packlib.unpack_bitplanes(rec.packed, rec.w_bits, k2d)
         n = 2**rec.w_bits - 1
         return (2.0 * c.to(torch.float32) - n) / n
+    if rec.scheme == "log":
+        return sm.decode_log_weights(rec.packed, fsr=rec.fsr, bits=rec.w_bits)[:k2d]
+    if rec.scheme == "lin":
+        c = packlib.unpack_bitplanes(rec.packed, 8, k2d) - 2**rec.w_bits
+        return c.to(torch.float32) * 2.0 ** (rec.fsr - rec.w_bits)
     return bg.decode_binary_weights(rec.packed)[:k2d]
 
 
@@ -177,6 +208,8 @@ def _dense_forward_2d(rec: PackedLayer, x: torch.Tensor, bias) -> torch.Tensor:
             y = pm.dorefa_gemm_decoded(codes, rec.decoded, w_bits=rec.w_bits, a_bits=rec.a_bits)
         else:
             y = pm.dorefa_gemm(codes, rec.packed, w_bits=rec.w_bits, a_bits=rec.a_bits)
+    elif rec.scheme == "log" and rec.decoded is None:
+        y = sm.shift_gemm(x, rec.packed, fsr=rec.fsr, bits=rec.w_bits)
     else:
         # real inputs: decoded weights at the input dtype
         w = rec.decoded if rec.decoded is not None else _decode_weights(rec)
@@ -192,7 +225,7 @@ def _conv_forward(m: QuantConv, rec: PackedLayer, x: torch.Tensor, bias) -> torc
     if rec.scheme not in _PORTED_SCHEMES:
         raise _not_ported(rec.scheme)
     kh, kw, cin, cout = rec.kernel_shape
-    if rec.a_bits >= 1:
+    if rec.scheme in ("binary", "xnor", "dorefa") and rec.a_bits >= 1:
         pc = PackedConv(
             scheme=rec.scheme,
             packed=rec.packed,

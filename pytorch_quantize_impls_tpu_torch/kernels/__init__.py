@@ -25,6 +25,14 @@ from pytorch_quantize_impls_tpu_torch.kernels.packed_matmul import (  # noqa: F4
     dorefa_gemm_reference,
     pack_dorefa_weights,
 )
+from pytorch_quantize_impls_tpu_torch.kernels.shift_matmul import (  # noqa: F401
+    decode_log_weights,
+    decode_log_weights_reference,
+    pack_log_weights,
+    shift_gemm,
+    shift_gemm_decoded,
+    shift_gemm_reference,
+)
 from pytorch_quantize_impls_tpu_torch.kernels.int8_conv import (  # noqa: F401
     int8_conv2d,
     int8_conv2d_reference,

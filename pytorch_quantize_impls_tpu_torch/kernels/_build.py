@@ -27,7 +27,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("xnor_gemm", "int8_matmul", "decode_attention", "dorefa_gemm", "int8_conv")
+SOURCES = (
+    "xnor_gemm", "int8_matmul", "decode_attention", "dorefa_gemm", "int8_conv", "shift_gemm",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,24 +1,27 @@
-"""Packed 2-D convolution over bit-packed weights (binary, xnor, dorefa).
+"""Packed 2-D convolution over bit-packed weights (binary, xnor, dorefa, log).
 
 Counterpart of ``pytorch_quantize_impls_tpu/kernels/conv.py``. Two modes:
 
-``direct`` (default): decode the packed weight planes to int8 codes on every
-call (``decode_binary_weights`` K2 or ``decode_dorefa_weights`` K7, as in the
-JAX package) and run the int8 convolution K5 (``kernels.int8_conv``) with an
-int32 accumulator and a scale epilogue, where the JAX package runs XLA's
-int8 conv.
+``direct`` (default): decode the packed weight planes on every call, as the
+JAX package does. binary/xnor/dorefa decode to int8 codes
+(``decode_binary_weights`` K2 or ``decode_dorefa_weights`` K7) and run the
+int8 convolution K5 (``kernels.int8_conv``) with an int32 accumulator and a
+scale epilogue, where the JAX package runs XLA's int8 conv. log decodes to
+bf16 ``±2^e`` (``decode_log_weights`` K9) and runs a float conv of bf16(x)
+on them with a float32 result (``conv2d_nhwc`` on the values upcast to
+float32, TF32 off), where the JAX package runs XLA's bf16 conv.
 
 ``im2col``: patches (``F.unfold``, features in (cin, kh, kw) order) through
-the packed GEMM, ``binary_gemm`` K1 or ``dorefa_gemm`` K6: the cross-check
-path. Binary inputs are binarized before padding, so padding stays 0.
+the packed GEMM, ``binary_gemm`` K1, ``dorefa_gemm`` K6 or ``shift_gemm``
+K8: the cross-check path. Binary inputs are binarized before padding, so
+padding stays 0.
 
 Layouts follow the JAX package: x is NHWC, and the packed weight is the HWIO
 kernel flattened to (cin * kh * kw, cout) in (cin, kh, kw) order, which is
 PyTorch's OIHW ``weight.reshape(cout, -1).T``. Padding is JAX's: ``"SAME"``
 pads ``total = max((ceil(n / s) - 1) * s + k - n, 0)`` with ``total // 2``
 before and the rest after (asymmetric at stride 2: a 3x3 conv of a 32-wide
-input pads (0, 1)), ``"VALID"`` none, or explicit ``(lo, hi)`` pairs. The
-log scheme (K8, K9) is not ported yet.
+input pads (0, 1)), ``"VALID"`` none, or explicit ``(lo, hi)`` pairs.
 """
 
 from __future__ import annotations
@@ -29,17 +32,18 @@ import torch
 import torch.nn.functional as F
 
 from pytorch_quantize_impls_tpu_torch.kernels import packed_matmul as pm
+from pytorch_quantize_impls_tpu_torch.kernels import shift_matmul as sm
 from pytorch_quantize_impls_tpu_torch.kernels import xnor_gemm as bg
 from pytorch_quantize_impls_tpu_torch.kernels.int8_conv import Pads, int8_conv2d
 
 Padding = Union[str, Sequence[Tuple[int, int]]]
-SCHEMES = ("binary", "xnor", "dorefa")
+SCHEMES = ("binary", "xnor", "dorefa", "log")
 
 
 class PackedConv(NamedTuple):
     """Frozen packed conv weights + metadata (inference export unit)."""
 
-    scheme: str  # 'binary' | 'xnor' | 'dorefa'
+    scheme: str  # 'binary' | 'xnor' | 'dorefa' | 'log'
     packed: torch.Tensor
     kernel_size: Tuple[int, int]
     cin: int
@@ -51,8 +55,6 @@ class PackedConv(NamedTuple):
 
 
 def _check_scheme(scheme: str) -> None:
-    if scheme == "log":
-        raise NotImplementedError("packed conv scheme 'log' is not ported yet (ROADMAP K8, K9)")
     if scheme not in SCHEMES:
         raise ValueError(f"unknown scheme {scheme!r}")
 
@@ -61,13 +63,15 @@ def pack_conv_weights(
     w_oihw: torch.Tensor, scheme: str, *, w_bits: int = 1, a_bits: int = 32, fsr: float = 0.0
 ) -> PackedConv:
     """Pack OIHW conv weights for ``scheme`` (weights already on the DoReFa
-    grid for 'dorefa'; raw float for 'binary'/'xnor')."""
+    grid for 'dorefa'; raw float for 'binary'/'xnor'/'log')."""
     _check_scheme(scheme)
     cout, cin, kh, kw = w_oihw.shape
     flat = w_oihw.reshape(cout, -1).T
     alpha = None
     if scheme == "dorefa":
         packed = pm.pack_dorefa_weights(flat, w_bits)
+    elif scheme == "log":
+        packed = sm.pack_log_weights(flat, fsr, w_bits)
     else:
         packed = bg.pack_binary_weights(flat)
         if scheme == "xnor":
@@ -76,13 +80,16 @@ def pack_conv_weights(
 
 
 def decode_conv_weights(pw: PackedConv) -> torch.Tensor:
-    """Packed planes -> flat (cin * kh * kw, cout) int8 codes, the layout K5
-    takes: ±1 for binary/xnor, centered ``2c - n_w`` for dorefa."""
+    """Packed planes -> flat (cin * kh * kw, cout) weights: the int8 codes K5
+    takes, ±1 for binary/xnor and centered ``2c - n_w`` for dorefa; exact
+    bf16 ``±2^e`` for log."""
     _check_scheme(pw.scheme)
     kh, kw = pw.kernel_size
     k = pw.cin * kh * kw
     if pw.scheme == "dorefa":
         return pm.decode_dorefa_weights(pw.packed, w_bits=pw.w_bits)[:k]
+    if pw.scheme == "log":
+        return sm.decode_log_weights(pw.packed, fsr=pw.fsr, bits=pw.w_bits)[:k]
     return bg.decode_binary_weights(pw.packed)[:k]
 
 
@@ -138,11 +145,14 @@ def packed_conv2d(
     mode: str = "direct",
 ) -> torch.Tensor:
     """NHWC packed conv. 'binary'/'xnor': x is sign-binarized (full-binary
-    conv); 'dorefa': x is fake-quant [0, 1] activations (``a_bits``).
-    Output float32 NHWC."""
+    conv); 'dorefa': x is fake-quant [0, 1] activations (``a_bits``); 'log':
+    x is rounded to bf16. Output float32 NHWC."""
     _check_scheme(pw.scheme)
     kh, kw = pw.kernel_size
     pads = conv_pads(padding, x.shape[1:3], (kh, kw), strides)
+    if mode == "direct" and pw.scheme == "log":
+        w = decode_conv_weights(pw).to(torch.float32).T.reshape(pw.cout, pw.cin, kh, kw)
+        return conv2d_nhwc(x.to(torch.bfloat16).to(torch.float32), w, strides, pads)
     if mode == "direct":
         return int8_conv2d(
             _input_codes(x, pw), decode_conv_weights(pw), (kh, kw), tuple(strides), pads,
@@ -164,6 +174,8 @@ def packed_conv2d(
         out = pm.dorefa_gemm(
             pm.dorefa_act_to_int8(flat, pw.a_bits), pw.packed, w_bits=pw.w_bits, a_bits=pw.a_bits
         )
+    elif pw.scheme == "log":
+        out = sm.shift_gemm(flat, pw.packed, fsr=pw.fsr, bits=pw.w_bits)
     else:
         out = bg.binary_gemm(flat.to(torch.int8), pw.packed, pw.alpha)  # exact {-1, 0, +1}
     return out.reshape(b, ho, wo, pw.cout)

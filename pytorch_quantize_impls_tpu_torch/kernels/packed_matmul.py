@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from pytorch_quantize_impls_tpu_torch.kernels import _build, int8_matmul
-from pytorch_quantize_impls_tpu_torch.kernels.common import pad_dim
+from pytorch_quantize_impls_tpu_torch.kernels.common import packed_rows, pad_dim
 from pytorch_quantize_impls_tpu_torch.ops import pack as packlib
 
 
@@ -77,16 +77,6 @@ def dorefa_act_to_int8(aq: torch.Tensor, bits: int) -> torch.Tensor:
     return packlib.dorefa_act_to_codes(aq, bits).to(torch.int8)
 
 
-def _packed_rows(w_packed: torch.Tensor, w_bits: int, k: int = 0) -> int:
-    """Rows of a packed weight; raise unless they are whole groups covering
-    K = ``k``."""
-    r = w_packed.shape[0]
-    f = packlib.pack_factor(w_bits)
-    if r % packlib.GROUP_ROWS or k > r * f:
-        raise ValueError(f"packed weight has {r} rows (K <= {r * f}), x has K = {k}")
-    return r
-
-
 def _centered(w_packed: torch.Tensor, w_bits: int) -> torch.Tensor:
     r = w_packed.shape[0]
     c = packlib.unpack_bitplanes(w_packed, w_bits, r * packlib.pack_factor(w_bits))
@@ -110,7 +100,7 @@ def dorefa_gemm(
     be less than the packed K: the missing columns of x count as 0."""
     _check_w_bits(w_bits)
     m, k = a_codes.shape
-    r = _packed_rows(w_packed, w_bits, k)
+    r = packed_rows(w_packed, w_bits, k)
     n = w_packed.shape[1]
     dev = a_codes.device
     if dev.type == "cpu":
@@ -143,7 +133,7 @@ def decode_dorefa_weights(w_packed: torch.Tensor, *, w_bits: int) -> torch.Tenso
     (Kp, N): the one-pass decode. Every packed row decodes; callers slice
     their true K."""
     _check_w_bits(w_bits)
-    r = _packed_rows(w_packed, w_bits)
+    r = packed_rows(w_packed, w_bits)
     n = w_packed.shape[1]
     dev = w_packed.device
     if dev.type == "cpu":

@@ -30,10 +30,12 @@ Callers keep every cursor + s within ``max_len``: ``serve.generate`` and
 
 Ported scope: schemes ``binary`` (``a_bits`` 0 or 1), ``dorefa`` (k-bit
 weights; ``a_bits`` > 0 quantizes every projection input to the [0, 1] grid,
-with a ReLU before the FFN's quantizer) and ``none``; dense FFN; ``kv_bits``
-8 (2..8) or ``None``. MoE (``n_experts > 0``) and an injected
-``attention_fn`` wait for ROADMAP queue 1 item 12, the xnor, ternary, log and
-lin schemes for item 8; they raise ``NotImplementedError``.
+with a ReLU before the FFN's quantizer), ``log`` and ``lin`` (weights only,
+levels set by ``fsr``; ``a_bits`` > 0 raises, as in the JAX package) and
+``none``; dense FFN; ``kv_bits`` 8 (2..8) or ``None``. MoE
+(``n_experts > 0``) and an injected ``attention_fn`` wait for ROADMAP
+queue 1 item 12, the xnor and ternary schemes for item 8; they raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -48,20 +50,24 @@ from pytorch_quantize_impls_tpu_torch import ops
 from pytorch_quantize_impls_tpu_torch.nn.base import QuantDense
 from pytorch_quantize_impls_tpu_torch.utils.device import resolve_device
 
-_ZOO_SCHEMES = ("xnor", "ternary", "log", "lin")
+_ZOO_SCHEMES = ("xnor", "ternary")
 
 
 def _not_ported(what: str, item: int):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, item {item})")
 
 
-def _weight_quant(scheme: str, w_bits: int):
+def _weight_quant(scheme: str, w_bits: int, fsr: float):
     if scheme == "none":
         return None
     if scheme == "binary":
         return ops.binary_connect_det
     if scheme == "dorefa":
         return partial(ops.dorefa_weight, bits=w_bits)
+    if scheme == "log":
+        return partial(ops.log_quant, fsr=fsr, bits=w_bits)
+    if scheme == "lin":
+        return partial(ops.lin_quant, fsr=fsr, bits=w_bits)
     if scheme in _ZOO_SCHEMES:
         raise _not_ported(f"transformer scheme {scheme!r}", 8)
     raise ValueError(f"unknown scheme {scheme!r}")
@@ -69,7 +75,8 @@ def _weight_quant(scheme: str, w_bits: int):
 
 def _act_quant(scheme: str, a_bits: int):
     """The quantizer of every projection input: sign binarization for binary
-    W1A1, the k-bit [0, 1] grid for dorefa."""
+    W1A1, the k-bit [0, 1] grid for dorefa; none for log and lin, whose
+    activations stay real."""
     if a_bits <= 0:
         return None
     if scheme == "dorefa":
@@ -147,7 +154,7 @@ class QuantAttention(nn.Module):
         self.causal = causal
         self.cache_len = cache_len
         self.kv_bits = kv_bits
-        wq = _weight_quant(scheme, w_bits)
+        wq = _weight_quant(scheme, w_bits, fsr)
         aq = _act_quant(scheme, a_bits)
 
         def proj():
@@ -253,7 +260,7 @@ class QuantTransformerBlock(nn.Module):
             causal=causal, cache_len=cache_len, kv_bits=kv_bits, attention_fn=attention_fn,
         )
         self.ln2 = LayerNorm(d_model)
-        wq, aq = _weight_quant(scheme, w_bits), _act_quant(scheme, a_bits)
+        wq, aq = _weight_quant(scheme, w_bits, fsr), _act_quant(scheme, a_bits)
         meta = dict(weight_quant=wq, input_quant=aq, scheme=scheme, w_bits=w_bits,
                     a_bits=a_bits, fsr=fsr)
         self.ffn_in = QuantDense(d_model, d_ff, **meta)

@@ -8,4 +8,10 @@ from pytorch_quantize_impls_tpu_torch.nn.base import (  # noqa: F401
 )
 from pytorch_quantize_impls_tpu_torch.nn.binary import BinConv, LinearBin  # noqa: F401
 from pytorch_quantize_impls_tpu_torch.nn.dorefa import DorefaConv, LinearDorefa  # noqa: F401
+from pytorch_quantize_impls_tpu_torch.nn.log_lin import (  # noqa: F401
+    ConvQuantLin,
+    ConvQuantLog,
+    LinearQuantLin,
+    LinearQuantLog,
+)
 from pytorch_quantize_impls_tpu_torch.nn.pact import PACT  # noqa: F401

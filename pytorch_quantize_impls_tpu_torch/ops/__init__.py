@@ -15,6 +15,12 @@ from pytorch_quantize_impls_tpu_torch.ops.dorefa import (  # noqa: F401
     dorefa_weight,
     quantize_k,
 )
+from pytorch_quantize_impls_tpu_torch.ops.log_lin import (  # noqa: F401
+    lin_quant,
+    log_quant,
+    log_quant_exponent,
+    log_quant_from_exponent,
+)
 from pytorch_quantize_impls_tpu_torch.ops.pact import pact  # noqa: F401
 from pytorch_quantize_impls_tpu_torch.ops.kv_cache import (  # noqa: F401
     dequantize_kv,

@@ -1,7 +1,8 @@
 """Grouped-planar bit packing: the layout of the packed GEMM kernels.
 
 Counterpart of ``pytorch_quantize_impls_tpu/ops/pack.py`` (its
-``pack_bitplanes``/``unpack_bitplanes`` and the DoReFa code encodings); the
+``pack_bitplanes``/``unpack_bitplanes``, the DoReFa code encodings and the
+log (sign, exponent) codes); the
 words are bit-identical, which
 is what lets packed artifacts move between the two packages. Codes are
 packed along the *contraction* axis (-2):
@@ -86,3 +87,23 @@ def dorefa_act_to_codes(aq: torch.Tensor, bits: int) -> torch.Tensor:
     """DoReFa fake-quant activations (grid ``{i/(2^k-1)}``) -> codes i."""
     n = float(2**bits - 1)
     return torch.round(aq * n).to(torch.int32)
+
+
+# --- log (sign, exponent index) <-> code encoding -----------------------------
+
+
+def log_to_codes(sign: torch.Tensor, exp_idx: torch.Tensor, bits: int) -> torch.Tensor:
+    """(sign, exponent index) from ``ops.log_quant_exponent`` -> int32 codes.
+
+    The index takes ``2^bits + 1`` values, so it needs ``bits + 1`` bits; the
+    sign sits at bit ``bits + 1`` and 1 means POSITIVE (IEEE's sign bit 1
+    means negative). ``bits + 2`` bits in all, packed at 8 bits."""
+    sign_bit = (sign > 0).to(torch.int32)
+    return (sign_bit << (bits + 1)) | torch.clamp(exp_idx.to(torch.int32), 0, 2**bits)
+
+
+def codes_to_log(c: torch.Tensor, bits: int):
+    """Inverse of :func:`log_to_codes`: (sign ±1, exponent index), int32."""
+    c = c.to(torch.int32)
+    sign = 2 * ((c >> (bits + 1)) & 1) - 1
+    return sign, c & (2 ** (bits + 1) - 1)

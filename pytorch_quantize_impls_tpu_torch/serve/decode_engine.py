@@ -10,9 +10,9 @@ step a dummy token with their cursors pinned to 0; admitting a request
 rewrites the whole row.
 
 Backends: the fake-quant decode model (default), ``packed=`` records from
-``infer.pack_model`` run through ``infer.packed_apply`` (binary or dorefa), or
-``fused=`` a program from ``infer.export_fused_decode`` (the fused step with
-the ``decode_attention`` kernel). A mesh (``mesh=``) waits for ROADMAP
+``infer.pack_model`` run through ``infer.packed_apply`` (binary, dorefa, log
+or lin), or ``fused=`` a program from ``infer.export_fused_decode`` (the
+fused step with the ``decode_attention`` kernel). A mesh (``mesh=``) waits for ROADMAP
 queue 1 item 12. The cache is updated in place by every call (see
 ``models.transformer``).
 """

@@ -2,7 +2,8 @@
 
 Counterpart of ``pytorch_quantize_impls_tpu/utils/config.py``. Ported:
 ``bnn_lenet`` (BASELINE config 2), ``dorefa_resnet20`` (BASELINE config 4,
-W4A4 with PACT) and ``dorefa_resnet20_w4`` (weights only). ``RunConfig``
+W4A4 with PACT), ``dorefa_resnet20_w4`` (weights only) and ``logquant_vgg``
+(BASELINE config 5, W4 log weights). ``RunConfig``
 holds the fields their entries set; the training fields (lr, batch size,
 mesh, checkpointing, warm start, elastic weight) and the other configs
 arrive with their ROADMAP items.
@@ -24,6 +25,8 @@ class RunConfig:
     # activation quantizer of the DoReFa configs: "fixed" clip [0, 1] or
     # "pact" learnable per-layer clip (arXiv:1805.06085)
     a_quant: str = "fixed"
+    # log/lin full-scale range: levels up to 2^fsr
+    fsr: float = 1.0
     # model capacity (None = model default)
     width: Optional[int] = None
     steps: int = 2000
@@ -35,6 +38,7 @@ SCHEME_CONFIGS = {
     "dorefa_resnet20": dict(config="dorefa_resnet20", w_bits=4, a_bits=4, a_quant="pact",
                             steps=6000),
     "dorefa_resnet20_w4": dict(config="dorefa_resnet20_w4", w_bits=4, a_bits=0),
+    "logquant_vgg": dict(config="logquant_vgg", w_bits=4, fsr=1.0),
 }
 
 
@@ -52,6 +56,9 @@ def build_model(cfg: RunConfig, device="cuda"):
         model = models.DorefaResNet20(
             w_bits=cfg.w_bits, a_bits=a_bits, a_quant=cfg.a_quant, width=cfg.width or 16
         ).to(device)
+        return model, (32, 32, 3), "cifar10"
+    if cfg.config == "logquant_vgg":
+        model = models.LogQuantVGGSmall(bits=cfg.w_bits, fsr=cfg.fsr).to(device)
         return model, (32, 32, 3), "cifar10"
     raise ValueError(
         f"config {cfg.config!r} is not ported; pick from {sorted(SCHEME_CONFIGS)}"

@@ -385,7 +385,7 @@ def test_unported_parts_raise():
     with pytest.raises(NotImplementedError, match="item 12"):
         QuantTransformerLM(**dict(ENGINE_CFG, attention_fn=lambda q, k, v: q))
     with pytest.raises(NotImplementedError, match="item 8"):
-        QuantTransformerLM(**dict(ENGINE_CFG, scheme="log", w_bits=4))
+        QuantTransformerLM(**dict(ENGINE_CFG, scheme="ternary", w_bits=4))
     with pytest.raises(ValueError, match="1-bit"):
         QuantTransformerLM(**dict(ENGINE_CFG, a_bits=2))
     with pytest.raises(ValueError, match="decode mode"):

@@ -27,6 +27,7 @@ from pytorch_quantize_impls_tpu_torch import infer, ops, serve
 from pytorch_quantize_impls_tpu_torch.kernels import conv as tconv
 from pytorch_quantize_impls_tpu_torch.kernels import int8_conv as tic
 from pytorch_quantize_impls_tpu_torch.kernels import packed_matmul as tpm
+from pytorch_quantize_impls_tpu_torch.kernels import shift_matmul as tsm
 from pytorch_quantize_impls_tpu_torch.models import QuantTransformerLM
 from pytorch_quantize_impls_tpu_torch.ops import pack as tpack
 from pytorch_quantize_impls_tpu_torch.utils import load_flax_variables
@@ -282,16 +283,20 @@ def test_packed_conv_direct_equals_im2col_and_jax(scheme, strides, padding, k):
     np.testing.assert_array_equal(direct.numpy(), tconv.packed_conv2d(_t(x), tpc, mode="im2col", **kw).numpy())
     ref = np.asarray(jconv.packed_conv2d(jnp.asarray(x), jpc, **kw))
     np.testing.assert_array_equal(direct.numpy(), ref)
-    with pytest.raises(NotImplementedError, match="K8"):
-        tconv.packed_conv2d(_t(x), tpc._replace(scheme="log"))
+    with pytest.raises(ValueError, match="unknown scheme"):  # not ported: ROADMAP queue 1
+        tconv.packed_conv2d(_t(x), tpc._replace(scheme="ternary"))
 
 
 def test_cpu_tensors_take_the_plain_versions_and_other_devices_raise():
-    counters = (tpm.dorefa_gemm, tpm.decode_dorefa_weights, tic.int8_conv2d)
+    counters = (tpm.dorefa_gemm, tpm.decode_dorefa_weights, tic.int8_conv2d, tsm.shift_gemm,
+                tsm.decode_log_weights)
     before = [f.launches for f in counters]
     wp = tpm.pack_dorefa_weights(torch.zeros(64, 8), 4)
     tpm.dorefa_gemm(torch.ones(4, 64, dtype=torch.int8), wp, w_bits=4, a_bits=4)
     tpm.decode_dorefa_weights(wp, w_bits=4)
+    lp = tsm.pack_log_weights(torch.ones(64, 8), 1.0, 4)
+    tsm.shift_gemm(torch.ones(4, 64), lp, fsr=1.0, bits=4)
+    tsm.decode_log_weights(lp, fsr=1.0, bits=4)
     tic.int8_conv2d(torch.ones(1, 4, 4, 2, dtype=torch.int8), torch.ones(18, 3, dtype=torch.int8),
                     (3, 3), (1, 1), ((1, 1), (1, 1)))
     assert [f.launches for f in counters] == before
@@ -301,6 +306,11 @@ def test_cpu_tensors_take_the_plain_versions_and_other_devices_raise():
                         torch.empty(32, 8, dtype=torch.int32, **meta), w_bits=4, a_bits=4)
     with pytest.raises(ValueError, match="unsupported device"):
         tpm.decode_dorefa_weights(torch.empty(32, 8, dtype=torch.int32, **meta), w_bits=4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tsm.shift_gemm(torch.empty(4, 64, **meta), torch.empty(32, 8, dtype=torch.int32, **meta),
+                       fsr=1.0, bits=4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tsm.decode_log_weights(torch.empty(32, 8, dtype=torch.int32, **meta), fsr=1.0, bits=4)
     with pytest.raises(ValueError, match="unsupported device"):
         tic.int8_conv2d(torch.empty(1, 4, 4, 2, dtype=torch.int8, **meta),
                         torch.empty(18, 3, dtype=torch.int8, **meta), (3, 3), (1, 1),

@@ -133,6 +133,10 @@ def test_port_imports_without_jax():
         "from pytorch_quantize_impls_tpu_torch.kernels import int8_conv, packed_matmul\n"
         "from pytorch_quantize_impls_tpu_torch.nn import dorefa, pact\n"
         "from pytorch_quantize_impls_tpu_torch.ops import dorefa, pact\n"
+        "from pytorch_quantize_impls_tpu_torch.kernels import shift_matmul\n"
+        "from pytorch_quantize_impls_tpu_torch.models import convnets\n"
+        "from pytorch_quantize_impls_tpu_torch.nn import log_lin\n"
+        "from pytorch_quantize_impls_tpu_torch.ops import log_lin\n"
         "m = p.models.BNNLeNet(width=4).eval()\n"
         "y = p.infer.packed_apply(m, p.infer.pack_model(m), torch.zeros(2, 28, 28, 1))\n"
         "assert y.shape == (2, 10)\n"
@@ -141,6 +145,13 @@ def test_port_imports_without_jax():
         "y = p.infer.packed_apply(r, p.infer.prepare(p.infer.pack_model(r)), x)\n"
         "assert y.shape == (2, 10)\n"
         "assert p.infer.fused_resnet_apply(p.infer.export_fused_resnet20(r), x).shape == (2, 10)\n"
+        "v = p.models.LogQuantVGGSmall(widths=(4, 4)).eval()\n"
+        "for rec in (p.infer.pack_model(v), p.infer.prepare(p.infer.pack_model(v))):\n"
+        "    assert p.infer.packed_apply(v, rec, torch.rand(2, 32, 32, 3)).shape == (2, 10)\n"
+        "lg = p.models.QuantTransformerLM(16, 32, 2, 1, 32, 16, scheme='log', w_bits=4).eval()\n"
+        "eng = p.serve.DecodeEngine(lg, packed=p.infer.pack_model(lg), n_slots=2, device='cpu')\n"
+        "assert eng(np.array([1, 2]), max_new=2).shape == (2,)\n"
+        "eng.shutdown()\n"
         "lm = p.models.QuantTransformerLM(16, 32, 2, 1, 32, 16, a_bits=1).eval()\n"
         "fm = p.infer.export_fused_decode(lm, device='cpu')\n"
         "eng = p.serve.DecodeEngine(lm, fused=fm, n_slots=2, device='cpu')\n"
@@ -180,6 +191,7 @@ def test_entry_points_default_to_the_card_and_raise_without_one(tmp_path):
         "InferenceEngine": lambda: InferenceEngine(lambda x: x, (2,)),
         "DecodeEngine": lambda: serve.DecodeEngine(lm),
         "build_model": lambda: build_model(RunConfig(**SCHEME_CONFIGS["bnn_lenet"])),
+        "build_model logquant_vgg": lambda: build_model(RunConfig(**SCHEME_CONFIGS["logquant_vgg"])),
         "load_flax_variables": lambda: load_flax_variables(m, {"params": {}}),
         "export_fused_decode": lambda: infer.export_fused_decode(lm),
         "fused_init_cache": lambda: infer.fused_init_cache(fm, 2),

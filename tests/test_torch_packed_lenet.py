@@ -157,15 +157,21 @@ def test_build_model_bnn_lenet():
         build_model(RunConfig(config="xnor_cifar"), device="cpu")
 
 
-@pytest.mark.parametrize("scheme", ["log", "lin", "ternary"])
+@pytest.mark.parametrize("scheme", ["ternary", "xnor"])
 def test_unported_parts_raise(lenet, scheme):
+    """What is still unported raises: act_scale, packing a ternary layer or
+    an xnor one (the port has no xnor layers yet), and the ternary packed
+    forward."""
     _, _, tm, x = lenet
     with pytest.raises(NotImplementedError, match="act_scale"):
         tnn.LinearBin(8, 4, binarize_input=True, act_scale=True)
-    rec = tpacked.PackedLayer(packed=torch.zeros(32, 4, dtype=torch.int32), scheme=scheme,
-                              w_bits=4, a_bits=4, kernel_shape=(8, 4))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpacked._dense_forward_2d(rec, torch.zeros(2, 8), None)
+        infer.pack_model(tnn.QuantDense(8, 4, scheme=scheme, w_bits=2).eval())
+    if scheme == "ternary":
+        rec = tpacked.PackedLayer(packed=torch.zeros(32, 4, dtype=torch.int32), scheme=scheme,
+                                  w_bits=4, a_bits=4, kernel_shape=(8, 4))
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tpacked._dense_forward_2d(rec, torch.zeros(2, 8), None)
     tm.train()
     try:
         with pytest.raises(ValueError, match="eval"):
