@@ -10,11 +10,15 @@ on one NVIDIA GPU (built for Hopper, sm_90a).
    with nvcc, one process per source, all at once.
 3. Holds each kernel against its plain PyTorch version on the card, at the
    shapes the main paths give it and at edge shapes: K1 binary_gemm, K2
-   decode_binary_weights, K3 int8_gemm, K5 int8_conv2d, K6 dorefa_gemm and
-   K7 decode_dorefa_weights bit for bit, K9 decode_log_weights bit for bit
-   as int16 patterns, K4 decode_attention within a float32 tolerance, K8
-   shift_gemm within 1e-5 of |bf16(x)| @ |w| per element. Prints kernel,
-   plain, library-call and bound times.
+   decode_binary_weights, K3 int8_gemm, K5 int8_conv2d, K6 dorefa_gemm, K7
+   decode_dorefa_weights, K10 binary_gemm_ws, K11 dorefa_gemm_ws and P1
+   tiled_mm (int8, int4) bit for bit, K9 decode_log_weights bit for bit as
+   int16 patterns, K4 decode_attention within a float32 tolerance, K8
+   shift_gemm, K12 shift_gemm_ws and P1 tiled_mm (bf16) within 1e-5 of
+   |bf16(x)| @ |w| per element and deterministic. K10-K12 run at the JAX
+   tests' shapes, 4096^3, a served conv as im2col and edges (every m_tiles,
+   all-zero activations); P1 at 256x512x256 and 4096^3 over every tiling.
+   Prints kernel, plain, library-call and bound times.
 4. Main path 1, BNN LeNet (``bnn_lenet``, width 128) from seeded random
    weights: bridge -> pack_model -> save_packed -> load_packed ->
    InferenceEngine over the unprepared artifact (K1, K2, K5) -> prepare ->
@@ -57,9 +61,17 @@ on one NVIDIA GPU (built for Hopper, sm_90a).
    projection), then prepare() (K9) and the prepared records; each packed
    projection held to its fake-quant GEMM on the same input, and
    teacher-forced argmax against the fake-quant model.
-10. For each main path the kernels' launch counters are zeroed just before
-    it and read just after; each kernel of the path must be > 0.
-11. Prints engine images/s, decode prefill ms and tokens/s, one JSON line
+10. Path 7, the headline GEMM bench at 4096^3 (bench.headline.run, the
+    counterpart of bench.py): binary fused (K1), binary ws (K10), binary
+    decoded (K2 once, K3), dorefa4 packed (K6) and log shift (K8) against a
+    float32 matmul with TF32 off; prints its JSON line.
+11. Path 8, the kernel bench (bench.kernel_bench.run) of binary_ws,
+    dorefa_ws and shift_ws at 4096^3 over every m_tiles (K10, K11, K12).
+12. Path 9, the dtype probe (bench.mxu_probe.run): P1 at 4096^3 for bf16,
+    int8 and int4 over every tiling, beside torch.matmul and torch._int_mm.
+13. For each path the kernels' launch counters are zeroed just before it
+    and read just after; each kernel of the path must be > 0.
+14. Prints engine images/s, decode prefill ms and tokens/s, one JSON line
     with the kernels and their launches per path, and last
     ``{"ok": true, "device": {...}}``.
 
@@ -78,6 +90,11 @@ import threading
 import time
 
 import numpy as np
+
+# the GEMM measurements' M = N = K and the card's published peak rates
+from pytorch_quantize_impls_tpu_torch.bench.common import (
+    BF16_FLOPS_PER_S, F32_FLOPS_PER_S, HBM_BYTES_PER_S, INT8_OPS_PER_S)
+from pytorch_quantize_impls_tpu_torch.bench.common import SHAPE as HEADLINE_SHAPE
 
 SEED = 0
 WIDTH = 128
@@ -161,12 +178,6 @@ LOG_LM_CFG = dict(LM_CFG, scheme="log", w_bits=4, a_bits=0, fsr=0.0)
 # input to bf16
 LOG_ARGMAX_FLOOR = {"prepared": 0.99, "unprepared": 0.95}
 
-# NVIDIA H100 SXM published peaks (dense), at a 700 W power limit
-HBM_BYTES_PER_S = 3.35e12
-INT8_OPS_PER_S = 1979e12
-BF16_FLOPS_PER_S = 989e12
-F32_FLOPS_PER_S = 67e12
-
 
 def cuda():
     """The card this script runs on."""
@@ -214,7 +225,9 @@ KERNEL_SYMBOLS = {
     "int8_gemm": "int8_gemm_kernel", "decode_attention": "decode_attention_kernel",
     "int8_conv2d": "int8_conv_kernel", "dorefa_gemm": "dorefa_gemm_kernel",
     "decode_dorefa_weights": "decode_dorefa_kernel", "shift_gemm": "shift_gemm_kernel",
-    "decode_log_weights": "decode_log_kernel",
+    "decode_log_weights": "decode_log_kernel", "binary_gemm_ws": "binary_gemm_ws_kernel",
+    "dorefa_gemm_ws": "dorefa_gemm_ws_kernel", "shift_gemm_ws": "shift_gemm_ws_kernel",
+    "tiled_mm": "tiled_mm_kernel",
 }
 
 
@@ -326,7 +339,7 @@ def kernel_cases(rng, dev):
     for label, (k, n) in {
         "conv1 (32,128)": (25, 128), "conv2 (128,256)": (3200, 256),
         "fc1 (128,1024)": (4096, 1024), "head (32,10)": (1024, 10),
-        "K=2304 (96,256)": (2304, 256),
+        "K=2304 (96,256)": (2304, 256), "headline (128,4096)": (HEADLINE_SHAPE, HEADLINE_SHAPE),
     }.items():
         wp = packed(k, n)
         r = wp.shape[0]
@@ -652,6 +665,147 @@ def log_cases(rng, dev):
     return cases
 
 
+def ws_cases(rng, dev):
+    """K10 binary_gemm_ws, K11 dorefa_gemm_ws and K12 shift_gemm_ws: the
+    JAX tests' shapes (tests/test_kernels.py:53-62, 111-124, 172-180), the
+    headline's 4096^3 (the main row), one served conv as im2col, and edges
+    (M = 1, M = 64 R + 1 for the default R, N = 130, K = 300 off the group,
+    every m_tiles, all-zero activations). Same dicts as :func:`log_cases`
+    (``abs_ref`` and ``cublas_bf16`` for K12)."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import ops
+    from pytorch_quantize_impls_tpu_torch.kernels import packed_matmul as pm
+    from pytorch_quantize_impls_tpu_torch.kernels import shift_matmul as sm
+    from pytorch_quantize_impls_tpu_torch.kernels import xnor_gemm as bg
+    from pytorch_quantize_impls_tpu_torch.kernels.common import WS_DEFAULT_M_TILES, WS_M_TILES
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def normal(*shape):
+        return t(rng.normal(size=shape).astype(np.float32))
+
+    def shapes(kernel, im2col):
+        """(label, M, K, N, m_tiles, zero activations)"""
+        r, big = WS_DEFAULT_M_TILES[kernel], HEADLINE_SHAPE
+        return ([("jax test 64x128x128", 64, 128, 128, None, False),
+                 ("jax test 300x2100x260", 300, 2100, 260, None, False),
+                 (f"main {big}^3", big, big, big, None, False), (*im2col, None, False),
+                 ("edge M=1 K=1000 N=64", 1, 1000, 64, None, False),
+                 (f"edge M={64 * r + 1} K=300 N=130", 64 * r + 1, 300, 130, None, False),
+                 ("edge zeros M=200 K=300 N=130", 200, 300, 130, None, True)]
+                + [(f"edge M=257 K=2100 N=130 m_tiles={mt}", 257, 2100, 130, mt, False)
+                   for mt in WS_M_TILES])
+
+    def int_mm(m, k, n):  # torch._int_mm's shape rules
+        return m > 16 and k % 8 == 0 and n % 8 == 0
+
+    cases = []
+    # K10: with alpha and row scale except at the main and im2col rows, whose
+    # library call (_int_mm on K2's output) computes the unscaled product
+    for label, m, k, n, mt, zeros in shapes("binary_gemm_ws", (
+            "bnn_lenet conv2 im2col b=16", 16 * 8 * 8, 25 * WIDTH, 2 * WIDTH)):
+        x = bg.binarize_to_int8(normal(m, k)) * (0 if zeros else 1)
+        wp = bg.pack_binary_weights(normal(k, n))
+        scaled = not (label.startswith("main") or "im2col" in label)
+        alpha = t(rng.uniform(0.5, 1.5, n).astype(np.float32)) if scaled else None
+        row = t(rng.uniform(0.5, 1.5, m).astype(np.float32)) if scaled else None
+        lib = not scaled and int_mm(m, k, n)
+        w8 = bg.decode_binary_weights(wp)[:k].contiguous() if lib else None
+        cases.append(dict(
+            kernel="binary_gemm_ws", label=label,
+            fn=lambda x=x, wp=wp, a=alpha, r=row, mt=mt: bg.binary_gemm_ws(x, wp, a, r, m_tiles=mt),
+            plain=lambda x=x, wp=wp, a=alpha, r=row: bg.binary_gemm_ws_reference(x, wp, a, r),
+            library=(lambda x=x, w=w8: torch._int_mm(x, w)) if lib else None,
+            bound=gemm_bound(m, k, n, 4 * wp.numel(), 4 * (n + m) if scaled else 0),
+            main=label.startswith("main"),
+        ))
+    # K11: w2a2 and w4a4 at the JAX tests' shapes, w4a4 elsewhere
+    w = RESNET_WIDTH
+    k11 = []
+    for label, m, k, n, mt, zeros in shapes("dorefa_gemm_ws", (
+            f"resnet im2col stage1 conv1 b={RESNET_IM2COL_BATCH}",
+            RESNET_IM2COL_BATCH * 16 * 16, 9 * w, 2 * w)):
+        bits = ((2, 2), (4, 4)) if label.startswith("jax") else ((4, 4),)
+        k11 += [(f"{label} w{wb}a{ab}", m, k, n, mt, zeros, wb, ab) for wb, ab in bits]
+    for label, m, k, n, mt, zeros, wb, ab in k11:
+        a = t(rng.integers(0, 2**ab, size=(m, k)).astype(np.int8)) * (0 if zeros else 1)
+        wp = pm.pack_dorefa_weights(ops.dorefa_weight(normal(k, n), wb), wb)
+        lib = int_mm(m, k, n)
+        w8 = pm.decode_dorefa_weights(wp, w_bits=wb)[:k].contiguous() if lib else None
+        cases.append(dict(
+            kernel="dorefa_gemm_ws", label=label,
+            fn=lambda a=a, wp=wp, wb=wb, ab=ab, mt=mt: pm.dorefa_gemm_ws(
+                a, wp, w_bits=wb, a_bits=ab, m_tiles=mt),
+            plain=lambda a=a, wp=wp, wb=wb, ab=ab: pm.dorefa_gemm_ws_reference(
+                a, wp, w_bits=wb, a_bits=ab),
+            library=(lambda a=a, w8=w8: torch._int_mm(a, w8)) if lib else None,
+            bound=gemm_bound(m, k, n, 4 * wp.numel(), 0), main=label.startswith("main"),
+        ))
+    # K12: (fsr 1, bits 4) and (fsr 0, bits 3) at the JAX tests' shapes, the
+    # headline's (1, 4) at 4096^3, logquant_vgg's conv3 as im2col
+    k12 = []
+    for label, m, k, n, mt, zeros in shapes("shift_gemm_ws", (
+            f"vgg im2col conv3 b={VGG_IM2COL_BATCH}", VGG_IM2COL_BATCH * 16 * 16, 9 * 256, 256)):
+        pairs = ((1.0, 4), (0.0, 3)) if label.startswith("jax") else ((1.0, 4),)
+        k12 += [(f"{label} fsr{fsr:g} b{bits}", m, k, n, mt, zeros, fsr, bits)
+                for fsr, bits in pairs]
+    for label, m, k, n, mt, zeros, fsr, bits in k12:
+        x = normal(m, k) * (0 if zeros else 1)
+        wp = sm.pack_log_weights(normal(k, n) * np.float32((2.0 / k) ** 0.5), fsr, bits)
+        wb = sm.decode_log_weights(wp, fsr=fsr, bits=bits)[:k].contiguous()
+        xb = x.to(torch.bfloat16)
+        xf, wf = xb.to(torch.float32), wb.to(torch.float32)
+        cases.append(dict(
+            kernel="shift_gemm_ws", label=label,
+            fn=lambda x=x, wp=wp, f=fsr, b=bits, mt=mt: sm.shift_gemm_ws(
+                x, wp, fsr=f, bits=b, m_tiles=mt),
+            plain=lambda x=x, wp=wp, f=fsr, b=bits: sm.shift_gemm_ws_reference(
+                x, wp, fsr=f, bits=b),
+            library=lambda xf=xf, wf=wf: torch.matmul(xf, wf),
+            cublas_bf16=lambda xb=xb, wb=wb: torch.matmul(xb, wb),
+            abs_ref=lambda xf=xf, wf=wf: xf.abs().double() @ wf.abs().double(),
+            bound=bound_ms(4 * m * k + 4 * wp.numel() + 4 * m * n, 2 * m * k * n,
+                           BF16_FLOPS_PER_S),
+            main=label.startswith("main"),
+        ))
+    return cases
+
+
+def probe_cases(rng, dev):
+    """P1 tiled_mm for each dtype at 256x512x256 and at 4096^3 over every
+    tiling: bf16 within SHIFT_RTOL * (|x| @ |w|) (the tensor cores' float32
+    sum), int8 and int4 bit for bit. The int8 case at 4096^3 and the default
+    tiles is the main row; the bf16 and int4 ones are timed beside it."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch.bench import mxu_probe as mp
+
+    cases = []
+    for m, k, n in ((256, 512, 256), (HEADLINE_SHAPE,) * 3):
+        ops_by_dtype = mp.operands(m, n, k, dev, seed=int(rng.integers(2**31)))
+        for dt, (x, w) in ops_by_dtype.items():
+            lib = mp.library_call(dt, x, w)
+            nbytes = x.numel() * x.element_size() + w.numel() * w.element_size() + 4 * m * n
+            rate = BF16_FLOPS_PER_S if dt == "bf16" else INT8_OPS_PER_S
+            for tiles in mp.TILES:
+                default = tiles == mp.TILES[0]
+                case = dict(
+                    kernel="tiled_mm", label=f"{dt} {m}x{k}x{n} tiles {tiles[0]}x{tiles[1]}",
+                    fn=lambda x=x, w=w, tl=tiles, i4=dt == "int4": mp.tiled_mm(
+                        x, w, tiles=tl, int4=i4),
+                    plain=lambda x=x, w=w, i4=dt == "int4": mp.tiled_mm_reference(x, w, int4=i4),
+                    library=lib, bound=bound_ms(nbytes, 2 * m * k * n, rate),
+                    main=default and dt == "int8" and m == HEADLINE_SHAPE,
+                    timed=default, also=default and m == HEADLINE_SHAPE and dt != "int8",
+                )
+                if dt == "bf16":
+                    case["abs_ref"] = lambda x=x, w=w: x.double().abs() @ w.double().abs()
+                cases.append(case)
+    return cases
+
+
 def sdpa_yardstick(args):
     """No one PyTorch call computes decode attention over int8 codes and
     scales. As a labelled yardstick only: scaled_dot_product_attention over
@@ -666,56 +820,67 @@ def sdpa_yardstick(args):
     return lambda: F.scaled_dot_product_attention(q[:, :, None, :], kf, vf, attn_mask=mask)[:, :, 0]
 
 
-def check_kernels(card: str, timed: bool = True):
-    """Compare every kernel with its plain version on the card: K1-K3 and
-    K5-K7 bit for bit, K9 bit for bit as int16 patterns, K4 within ``rtol
-    1e-5, atol 1e-5 * max|plain|`` (float32 sums over up to 1024 positions
-    in another order; exp carries an ulp of a score near 20, 2e-6, into every
-    probability), K8 within ``SHIFT_RTOL * (|bf16(x)| @ |w|)`` per element.
-    K4 and K8 must also give the same bits twice. Returns {kernel: summary
-    for the JSON line}."""
+def hold(kernel: str, label: str, fn, plain, abs_ref=None):
+    """Compare ``fn()`` with ``plain()`` on the card and fail on a
+    mismatch: K4 within ``rtol 1e-5, atol 1e-5 * max|plain|`` (float32 sums
+    over up to 1024 positions in another order; exp carries an ulp of a
+    score near 20, 2e-6, into every probability); where ``abs_ref`` is given
+    (K8, K12, P1 bf16) within ``SHIFT_RTOL * abs_ref()`` per element; K9 bit
+    for bit as int16 patterns; anything else bit for bit. K4 and the
+    ``abs_ref`` kernels must also give the same bits twice. Returns (max
+    |err|, verdict)."""
     import torch
 
+    got, ref = fn(), plain()
+    torch.cuda.synchronize()
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        fail(f"{kernel} {label}: {got.dtype} {tuple(got.shape)} vs plain "
+             f"{ref.dtype} {tuple(ref.shape)}")
+    err = (got.double() - ref.double()).abs().max().item()
+    if kernel == "decode_attention":
+        scale = ref.abs().max().item()
+        if not torch.allclose(got, ref, rtol=1e-5, atol=1e-5 * scale):
+            fail(f"{kernel} {label}: max |err| {err} beyond 1e-5 of max |plain| {scale}")
+        if not torch.equal(got, fn()):
+            fail(f"{kernel} {label}: two launches gave different bits")
+        return err, f"max |err| {err:.3g} (of {scale:.3g}), deterministic"
+    if abs_ref is not None:
+        bound = abs_ref()
+        ratio = ((got.double() - ref.double()).abs() / bound.clamp_min(1e-300)).max().item()
+        if not ((got.double() - ref.double()).abs() <= SHIFT_RTOL * bound).all():
+            fail(f"{kernel} {label}: |err| / (|bf16(x)| @ |w|) reaches {ratio:.3g}, beyond "
+                 f"{SHIFT_RTOL}")
+        if not torch.equal(got, fn()):
+            fail(f"{kernel} {label}: two launches gave different bits")
+        return err, f"max |err| {err:.3g}, largest |err| / (|x|@|w|) {ratio:.3g}, deterministic"
+    if kernel == "decode_log_weights":
+        if not torch.equal(got.view(torch.int16), ref.view(torch.int16)):
+            n = int((got.view(torch.int16) != ref.view(torch.int16)).sum())
+            fail(f"{kernel} {label}: {n} bf16 patterns differ from its plain version")
+        return err, "bit-equal (int16 patterns)"
+    if not torch.equal(got, ref):
+        fail(f"{kernel} {label}: differs from its plain version, max |err| {err}")
+    return err, "bit-equal"
+
+
+def check_kernels(card: str, timed: bool = True):
+    """Compare every kernel with its plain version on the card (:func:`hold`):
+    K1-K3, K5-K7, K10, K11 and P1 int8/int4 bit for bit, K9 bit for bit as
+    int16 patterns, K4 within a float32 tolerance, K8, K12 and P1 bf16
+    within ``SHIFT_RTOL * (|bf16(x)| @ |w|)`` per element and deterministic.
+    Returns {kernel: summary for the JSON line}."""
     dev = cuda()
     rng = np.random.default_rng(SEED)
     summary = {}
-    for c in kernel_cases(rng, dev) + kbit_cases(rng, dev) + log_cases(rng, dev):
+    cases = (kernel_cases(rng, dev) + kbit_cases(rng, dev) + log_cases(rng, dev)
+             + ws_cases(rng, dev) + probe_cases(rng, dev))
+    for c in cases:
         kernel, label, fn, plain = c["kernel"], c["label"], c["fn"], c["plain"]
-        got, ref = fn(), plain()
-        torch.cuda.synchronize()
-        if got.shape != ref.shape or got.dtype != ref.dtype:
-            fail(f"{kernel} {label}: {got.dtype} {tuple(got.shape)} vs plain "
-                 f"{ref.dtype} {tuple(ref.shape)}")
-        err = (got.double() - ref.double()).abs().max().item()
-        if kernel == "decode_attention":
-            scale = ref.abs().max().item()
-            if not torch.allclose(got, ref, rtol=1e-5, atol=1e-5 * scale):
-                fail(f"{kernel} {label}: max |err| {err} beyond 1e-5 of max |plain| {scale}")
-            if not torch.equal(got, fn()):
-                fail(f"{kernel} {label}: two launches gave different bits")
-            verdict = f"max |err| {err:.3g} (of {scale:.3g}), deterministic"
-        elif kernel == "shift_gemm":
-            bound = c["abs_ref"]()
-            ratio = ((got.double() - ref.double()).abs() / bound.clamp_min(1e-300)).max().item()
-            if not ((got.double() - ref.double()).abs() <= SHIFT_RTOL * bound).all():
-                fail(f"{kernel} {label}: |err| / (|bf16(x)| @ |w|) reaches {ratio:.3g}, beyond "
-                     f"{SHIFT_RTOL}")
-            if not torch.equal(got, fn()):
-                fail(f"{kernel} {label}: two launches gave different bits")
-            verdict = f"max |err| {err:.3g}, largest |err| / (|x|@|w|) {ratio:.3g}, deterministic"
-        elif kernel == "decode_log_weights":
-            if not torch.equal(got.view(torch.int16), ref.view(torch.int16)):
-                n = int((got.view(torch.int16) != ref.view(torch.int16)).sum())
-                fail(f"{kernel} {label}: {n} bf16 patterns differ from its plain version")
-            verdict = "bit-equal (int16 patterns)"
-        else:
-            if not torch.equal(got, ref):
-                fail(f"{kernel} {label}: differs from its plain version, max |err| {err}")
-            verdict = "bit-equal"
+        err, verdict = hold(kernel, label, fn, plain, c.get("abs_ref"))
         s = summary.setdefault(kernel, {"max_abs_err": 0.0})
         s["max_abs_err"] = max(s["max_abs_err"], err)
         line = f"check {kernel:22s} {label:32s} {verdict}"
-        if timed and not label.startswith("edge"):
+        if timed and c.get("timed", not label.startswith("edge")):
             ms, plain_ms = cuda_ms(fn), cuda_ms(plain)
             dev_ms = kernel_device_ms(fn, kernel)
             bms, by = c["bound"]
@@ -727,7 +892,7 @@ def check_kernels(card: str, timed: bool = True):
             extra = {"device_ms": dev_ms}
             if "sdpa" in c:
                 sdpa_ms = cuda_ms(c["sdpa"])
-                yard_err = (c["sdpa"]() - ref).abs().max().item()
+                yard_err = (c["sdpa"]() - plain()).abs().max().item()
                 line += (f"  [yardstick: SDPA on dequantized f32 K/V {sdpa_ms:.4f} ms, "
                          f"max |diff| {yard_err:.3g}; full-cache bound "
                          f"{c['full_bound'][0]:.4f} ms]")
@@ -740,6 +905,10 @@ def check_kernels(card: str, timed: bool = True):
             if c["main"]:
                 s.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
                          library_ms=lib_ms, shape=label, **extra)
+            elif c.get("also"):  # timed beside the main row, in its JSON row
+                s.setdefault("also", {})[label] = dict(
+                    ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
+                    **extra)
         print(line, flush=True)
     return summary
 
@@ -807,7 +976,9 @@ def serve(submit, n: int):
 
 
 def all_kernels():
-    """Every kernel wrapper of the port, K1-K9, in the JSON line's order."""
+    """Every kernel wrapper of the port, K1-K12 and P1, in the JSON line's
+    order."""
+    from pytorch_quantize_impls_tpu_torch.bench import mxu_probe as mp
     from pytorch_quantize_impls_tpu_torch.kernels import decode_attention as da
     from pytorch_quantize_impls_tpu_torch.kernels import int8_conv as ic
     from pytorch_quantize_impls_tpu_torch.kernels import int8_matmul as im
@@ -817,7 +988,8 @@ def all_kernels():
 
     return (bg.binary_gemm, bg.decode_binary_weights, im.int8_gemm, da.decode_attention,
             ic.int8_conv2d, pm.dorefa_gemm, pm.decode_dorefa_weights, sm.shift_gemm,
-            sm.decode_log_weights)
+            sm.decode_log_weights, bg.binary_gemm_ws, pm.dorefa_gemm_ws, sm.shift_gemm_ws,
+            mp.tiled_mm)
 
 
 def zero_launches() -> None:
@@ -2368,6 +2540,69 @@ def log_lm_path(card: str):
     return launches
 
 
+# --- paths 7-9: the GEMM measurements ----------------------------------------
+
+
+def headline_path(card: str) -> dict:
+    """Path 7: the headline bench (bench.headline.run, bench.py's counterpart)
+    at 4096^3, which runs K1, K10, K2 (its one-time decode), K3, K6 and K8.
+    Its result must be finite and positive; its JSON line is printed. Then,
+    outside the timed windows and after the launch count, every kernel row
+    and the int8 yardstick is held against its plain version on the bench's
+    own inputs (:func:`hold`): the exact rows bit for bit (binary decoded
+    checks K2's decode through K3), log shift within SHIFT_RTOL of
+    |bf16(x)| @ |w|. The float yardsticks are library calls, not checked."""
+    from pytorch_quantize_impls_tpu_torch.bench import headline
+    from pytorch_quantize_impls_tpu_torch.kernels import int8_matmul as im
+    from pytorch_quantize_impls_tpu_torch.kernels import packed_matmul as pm
+    from pytorch_quantize_impls_tpu_torch.kernels import shift_matmul as sm
+    from pytorch_quantize_impls_tpu_torch.kernels import xnor_gemm as bg
+
+    zero_launches()
+    rows = headline.build_rows(HEADLINE_SHAPE, HEADLINE_SHAPE, HEADLINE_SHAPE, cuda())
+    res = headline.run(cuda(), window_s=0.1, repeats=3, log=lambda s: print(s, flush=True),
+                       rows=rows)
+    launches = read_launches("headline", (
+        bg.binary_gemm, bg.binary_gemm_ws, bg.decode_binary_weights, im.int8_gemm,
+        pm.dorefa_gemm, sm.shift_gemm))
+    numbers = [res["value"], res["vs_baseline"], res["pct_of_int8_peak"],
+               *res["detail_tflops"].values()]
+    if not all(np.isfinite(v) and v > 0 for v in numbers):
+        fail(f"headline result has a non-finite or non-positive number: {res}")
+    for r in rows:
+        if r["exact"] or "abs_ref" in r:
+            _, verdict = hold(r["name"], "headline", r["fn"], r["plain"], r.get("abs_ref"))
+            print(f"check headline {HEADLINE_SHAPE}^3 {r['label']:38s} {verdict}", flush=True)
+    print(json.dumps(res), flush=True)
+    return launches
+
+
+def kernel_bench_path(card: str) -> dict:
+    """Path 8: the kernel bench (bench.kernel_bench.run) of binary_ws,
+    dorefa_ws and shift_ws at 4096^3 over every m_tiles (K10, K11, K12)."""
+    from pytorch_quantize_impls_tpu_torch.bench import kernel_bench
+    from pytorch_quantize_impls_tpu_torch.kernels import packed_matmul as pm
+    from pytorch_quantize_impls_tpu_torch.kernels import shift_matmul as sm
+    from pytorch_quantize_impls_tpu_torch.kernels import xnor_gemm as bg
+
+    zero_launches()
+    for kernel in ("binary_ws", "dorefa_ws", "shift_ws"):
+        kernel_bench.run(kernel, (HEADLINE_SHAPE,) * 3, 4, cuda(), window_s=0.1, repeats=3,
+                         log=lambda s: print(s, flush=True))
+    return read_launches("kernel_bench", (bg.binary_gemm_ws, pm.dorefa_gemm_ws, sm.shift_gemm_ws))
+
+
+def probe_path(card: str) -> dict:
+    """Path 9: the dtype probe (bench.mxu_probe.run) at 4096^3, every dtype
+    over every tiling, beside torch.matmul bf16 and torch._int_mm (P1)."""
+    from pytorch_quantize_impls_tpu_torch.bench import mxu_probe as mp
+
+    zero_launches()
+    res = mp.run(cuda(), window_s=0.1, repeats=3, log=lambda s: print(s, flush=True))
+    print(json.dumps({"probe": res, "device": card}), flush=True)
+    return read_launches("probe", (mp.tiled_mm,))
+
+
 def main() -> None:
     import torch
 
@@ -2390,19 +2625,28 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
 
-    summary = check_kernels(card)
-    model, prepared, example_shape, launches = main_path(card)
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"phase {name}: {time.perf_counter() - t:.1f} s", flush=True)
+        return out
+
+    summary = phase("kernel checks", check_kernels, card)
+    model, prepared, example_shape, launches = phase("bnn_lenet", main_path, card)
     launches = {"bnn_lenet": launches}
-    throughput(card, "bnn_lenet", {
+    phase("bnn_lenet throughput", throughput, card, "bnn_lenet", {
         "packed prepared": lambda x: infer.packed_apply(model, prepared, x),
         "fake-quant": model,
     }, example_shape)
     del model, prepared
-    launches["decode_lm"] = decode_path(card)
-    launches.update(resnet_path(card))
-    launches.update(w4a4_lm_path(card))
-    launches.update(vgg_path(card))
-    launches.update(log_lm_path(card))
+    launches["decode_lm"] = phase("decode LM", decode_path, card)
+    launches.update(phase("resnet", resnet_path, card))
+    launches.update(phase("W4A4 LM", w4a4_lm_path, card))
+    launches.update(phase("vgg", vgg_path, card))
+    launches.update(phase("log LM", log_lm_path, card))
+    launches["headline"] = phase("headline", headline_path, card)
+    launches["kernel_bench"] = phase("kernel bench", kernel_bench_path, card)
+    launches["probe"] = phase("probe", probe_path, card)
 
     src = f"{PORT}/csrc"
     tpu = "pytorch_quantize_impls_tpu"
@@ -2417,6 +2661,10 @@ def main() -> None:
         "decode_dorefa_weights": ("dorefa_gemm.cu", f"{tpu}/kernels/packed_matmul.py:315"),
         "shift_gemm": ("shift_gemm.cu", f"{tpu}/kernels/shift_matmul.py:112"),
         "decode_log_weights": ("shift_gemm.cu", f"{tpu}/kernels/shift_matmul.py:260"),
+        "binary_gemm_ws": ("xnor_gemm.cu", f"{tpu}/kernels/xnor_gemm.py:249"),
+        "dorefa_gemm_ws": ("dorefa_gemm.cu", f"{tpu}/kernels/packed_matmul.py:257"),
+        "shift_gemm_ws": ("shift_gemm.cu", f"{tpu}/kernels/shift_matmul.py:205"),
+        "tiled_mm": ("mxu_probe.cu", "scripts/mxu_probe.py:47"),
     }
     rows = []
     for name, (cu, replaces) in meta.items():
@@ -2428,8 +2676,9 @@ def main() -> None:
             "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
             "bound_ms": s["bound_ms"], "bound_by": s["bound_by"], "library_ms": s["library_ms"],
             **{k: v for k, v in s.items()
-               if k in ("shape", "device_ms", "sdpa_dequantized_ms", "cublas_bf16_ms")},
+               if k in ("shape", "device_ms", "sdpa_dequantized_ms", "cublas_bf16_ms", "also")},
         })
+    print(f"whole run from the kernel builds on: {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

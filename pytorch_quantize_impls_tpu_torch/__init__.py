@@ -8,9 +8,12 @@ counterpart is easy to find. The port imports ``torch`` and never ``jax``.
 Ported so far, each through hand-written CUDA kernels (``kernels``, sources
 in ``csrc/``): packed serving of the BNN LeNet (``utils.config`` entry
 ``bnn_lenet``); decode serving of the 1-bit transformer LM (fused step,
-int8 KV cache); and DoReFa serving, the ResNet-20 packed and fused
-(``dorefa_resnet20``) and the transformer LM packed (``scheme="dorefa"``).
-On a CPU tensor each kernel wrapper runs its plain PyTorch version instead.
+int8 KV cache); DoReFa serving, the ResNet-20 packed and fused
+(``dorefa_resnet20``) and the transformer LM packed (``scheme="dorefa"``);
+log-quant serving (``logquant_vgg``, ``scheme="log"``); and the GEMM
+measurements at 4096^3 (``bench``: the headline bench, the kernel bench and
+the tensor-core dtype probe). On a CPU tensor each kernel wrapper runs its
+plain PyTorch version instead.
 ROADMAP.md lists what is still to port.
 """
 

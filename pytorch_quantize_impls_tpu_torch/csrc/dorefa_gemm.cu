@@ -18,6 +18,19 @@
 // k >= K as 0, which cancels them. Bound by the __dp4a rate at serving
 // batch sizes, by the weight bytes at M = 1.
 //
+// dorefa_gemm_ws replaces the Pallas kernel packed_matmul.py dorefa_gemm_ws
+// (pallas_call at :257): dorefa_gemm's contract and epilogue (so it equals
+// dorefa_gemm and dorefa_gemm_decoded bit for bit), with each packed weight
+// tile decoded once for many M tiles. The schedule is binary_gemm_ws's
+// (mma_tile.cuh: ws_gemm): a block takes R M-tiles of 64 rows (m_tiles, R in
+// {1, 2, 4}) and 64 columns, decodes each 64-row stage (two bit planes) of
+// its weights once into centered int8 in shared memory, and runs all R
+// M-tiles against it on the int8 tensor cores (mma.sync m16n8k32), the int32
+// accumulators in registers for the whole of K. Decodes per packed weight
+// tile: ceil(M / (64 R)) (16 at M = 4096, R = 4). At 4096^3 it is bound by
+// the int8 tensor-core rate (0.069 ms at 1979 TOP/s; its 88 MB at 4 bits take
+// 0.026 ms), and below that by its unpipelined shared-memory stages.
+//
 // decode_dorefa_weights replaces packed_matmul.py decode_dorefa_weights
 // (pallas_call at :315): packed (Kp/f, N) -> centered int8 (Kp, N). An
 // elementwise pass bound by device-memory bandwidth: one thread per output
@@ -25,6 +38,7 @@
 // hold them and writes one 32-bit word; neighbouring threads take
 // neighbouring quads, so loads and stores coalesce.
 #include "gemm_tile.cuh"
+#include "mma_tile.cuh"
 
 namespace {
 
@@ -83,6 +97,32 @@ dorefa_gemm_kernel(const int8_t* __restrict__ x, const uint32_t* __restrict__ wp
   }
 }
 
+template <int BITS, int R>
+__global__ void __launch_bounds__(qt::mma::THREADS)
+dorefa_gemm_ws_kernel(const int8_t* __restrict__ x, const uint32_t* __restrict__ wp,
+                      float* __restrict__ out, int M, int N, int K, float inv_scale, bool vec) {
+  using namespace qt::mma;
+  auto load_a = [&](uint32_t* As, int m0, int k0) {
+    load_rows_bytes(As, reinterpret_cast<const uint8_t*>(x), m0, 64 * R, M, k0, K, vec);
+  };
+  // word q of column c: bit field plane0 + q / 8 of word rows 4 (q % 8) ..
+  // + 3, i.e. weight rows k0 + 4q .. k0 + 4q + 3, as centered int8
+  auto decode = [](uint32_t* Bs, const uint32_t* Ws, int plane0) {
+    for (int e = threadIdx.x; e < 16 * 64; e += THREADS) {
+      const int c = e % 64, q = e / 64;
+      const int plane = plane0 + (q >> 3), r = 4 * (q & 7);
+      uint32_t v = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v |= centered_byte<BITS>(Ws[(r + j) * 64 + c], plane) << (8 * j);
+      Bs[c * LDW + q] = v;
+    }
+  };
+  auto store = [&](int m, int n, int32_t acc) {
+    if (m < M && n < N) out[(size_t)m * N + n] = (float)acc * inv_scale;
+  };
+  ws_gemm<S8, R>(wp, N, K, (32 / BITS) * GROUP_ROWS, load_a, decode, store);
+}
+
 template <int BITS>
 __global__ void decode_dorefa_kernel(const uint32_t* __restrict__ wp, int8_t* __restrict__ out,
                                      int R, int N, bool vec) {
@@ -118,6 +158,23 @@ cudaError_t launch_gemm(const void* x, const void* wp, void* out, int M, int N, 
 }
 
 template <int BITS>
+cudaError_t launch_gemm_ws(const void* x, const void* wp, void* out, int M, int N, int K,
+                           float inv_scale, int m_tiles, cudaStream_t stream) {
+  const bool vec = (K % 16 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
+  const dim3 grid((N + 63) / 64, (M + 64 * m_tiles - 1) / (64 * m_tiles));
+  const auto* xp = static_cast<const int8_t*>(x);
+  const auto* w = static_cast<const uint32_t*>(wp);
+  auto* o = static_cast<float*>(out);
+  switch (m_tiles) {
+    case 1: dorefa_gemm_ws_kernel<BITS, 1><<<grid, qt::mma::THREADS, 0, stream>>>(xp, w, o, M, N, K, inv_scale, vec); break;
+    case 2: dorefa_gemm_ws_kernel<BITS, 2><<<grid, qt::mma::THREADS, 0, stream>>>(xp, w, o, M, N, K, inv_scale, vec); break;
+    case 4: dorefa_gemm_ws_kernel<BITS, 4><<<grid, qt::mma::THREADS, 0, stream>>>(xp, w, o, M, N, K, inv_scale, vec); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
+}
+
+template <int BITS>
 cudaError_t launch_decode(const void* wp, void* out, int R, int N, cudaStream_t stream) {
   const size_t quads = (size_t)R * (32 / BITS) * ((N + 3) / 4);
   const unsigned blocks = (unsigned)((quads + 255) / 256);
@@ -141,6 +198,22 @@ extern "C" int qt_dorefa_gemm(const void* x, const void* wp, void* out, int M, i
     case 1: return (int)launch_gemm<1>(x, wp, out, M, N, K, inv_scale, s);
     case 2: return (int)launch_gemm<2>(x, wp, out, M, N, K, inv_scale, s);
     default: return (int)launch_gemm<4>(x, wp, out, M, N, K, inv_scale, s);
+  }
+}
+
+extern "C" int qt_dorefa_gemm_ws(const void* x, const void* wp, void* out, int M, int N, int K,
+                                 int R, int bits, float inv_scale, int m_tiles, int device,
+                                 void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (R % GROUP_ROWS != 0 || (bits != 1 && bits != 2 && bits != 4) || K > R * (32 / bits))
+    return (int)cudaErrorInvalidValue;
+  if (M == 0 || N == 0) return (int)cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (bits) {
+    case 1: return (int)launch_gemm_ws<1>(x, wp, out, M, N, K, inv_scale, m_tiles, s);
+    case 2: return (int)launch_gemm_ws<2>(x, wp, out, M, N, K, inv_scale, m_tiles, s);
+    default: return (int)launch_gemm_ws<4>(x, wp, out, M, N, K, inv_scale, m_tiles, s);
   }
 }
 

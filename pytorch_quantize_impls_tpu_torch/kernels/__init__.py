@@ -8,6 +8,8 @@ from pytorch_quantize_impls_tpu_torch.kernels.xnor_gemm import (  # noqa: F401
     binary_gemm,
     binary_gemm_decoded,
     binary_gemm_reference,
+    binary_gemm_ws,
+    binary_gemm_ws_reference,
     decode_binary_weights,
     decode_binary_weights_reference,
     pack_binary_weights,
@@ -23,6 +25,8 @@ from pytorch_quantize_impls_tpu_torch.kernels.packed_matmul import (  # noqa: F4
     dorefa_gemm,
     dorefa_gemm_decoded,
     dorefa_gemm_reference,
+    dorefa_gemm_ws,
+    dorefa_gemm_ws_reference,
     pack_dorefa_weights,
 )
 from pytorch_quantize_impls_tpu_torch.kernels.shift_matmul import (  # noqa: F401
@@ -32,6 +36,8 @@ from pytorch_quantize_impls_tpu_torch.kernels.shift_matmul import (  # noqa: F40
     shift_gemm,
     shift_gemm_decoded,
     shift_gemm_reference,
+    shift_gemm_ws,
+    shift_gemm_ws_reference,
 )
 from pytorch_quantize_impls_tpu_torch.kernels.int8_conv import (  # noqa: F401
     int8_conv2d,

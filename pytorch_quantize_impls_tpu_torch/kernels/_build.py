@@ -29,6 +29,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = (
     "xnor_gemm", "int8_matmul", "decode_attention", "dorefa_gemm", "int8_conv", "shift_gemm",
+    "mxu_probe",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

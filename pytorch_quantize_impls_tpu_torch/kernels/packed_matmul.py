@@ -12,13 +12,13 @@ the weights decoded to centered integers ``d = 2 c_w - n_w`` (odd, within
 exact up to that one f32 rounding. Weight codes are planar-packed
 (``ops.pack.pack_bitplanes``); activation codes are int8 (a_bits <= 7).
 
-``dorefa_gemm`` (K6) and ``decode_dorefa_weights`` (K7) launch the
-hand-written CUDA kernels in ``csrc/dorefa_gemm.cu`` for CUDA tensors and
-take their plain PyTorch versions (``*_reference``) for CPU tensors; each
-counts its kernel launches in ``.launches``. ``dorefa_gemm_decoded`` runs
+``dorefa_gemm`` (K6), its weight-stationary variant ``dorefa_gemm_ws``
+(K11) and ``decode_dorefa_weights`` (K7) launch the hand-written CUDA
+kernels in ``csrc/dorefa_gemm.cu`` for CUDA tensors and take their plain
+PyTorch versions (``*_reference``) for CPU tensors; each counts its kernel
+launches in ``.launches``. ``dorefa_gemm_decoded`` runs
 ``int8_matmul.int8_gemm`` (K3) with ``alpha = 1/(n_w n_a)``: the same f32
-value, so it equals ``dorefa_gemm`` bit for bit. The weight-stationary
-variant ``dorefa_gemm_ws`` is not ported yet (ROADMAP).
+value, so it equals ``dorefa_gemm`` and ``dorefa_gemm_ws`` bit for bit.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from pytorch_quantize_impls_tpu_torch.kernels import _build, int8_matmul
-from pytorch_quantize_impls_tpu_torch.kernels.common import packed_rows, pad_dim
+from pytorch_quantize_impls_tpu_torch.kernels.common import packed_rows, pad_dim, ws_m_tiles
 from pytorch_quantize_impls_tpu_torch.ops import pack as packlib
 
 
@@ -39,6 +39,8 @@ def _lib() -> ctypes.CDLL:
         "dorefa_gemm",
         # (x, w_packed, out, M, N, K, R, bits, inv_scale, device, stream)
         qt_dorefa_gemm=[p, p, p, i, i, i, i, i, ctypes.c_float, i, p],
+        # (x, w_packed, out, M, N, K, R, bits, inv_scale, m_tiles, device, stream)
+        qt_dorefa_gemm_ws=[p, p, p, i, i, i, i, i, ctypes.c_float, i, i, p],
         # (w_packed, out, R, N, bits, device, stream)
         qt_decode_dorefa=[p, p, i, i, i, i, p],
     )
@@ -121,6 +123,46 @@ def dorefa_gemm(
 
 
 dorefa_gemm.launches = 0
+
+
+def dorefa_gemm_ws_reference(a_codes, w_packed, *, w_bits: int, a_bits: int):
+    """Plain PyTorch version of :func:`dorefa_gemm_ws`: the function is
+    :func:`dorefa_gemm`'s, so is its plain version."""
+    return dorefa_gemm_reference(a_codes, w_packed, w_bits=w_bits, a_bits=a_bits)
+
+
+def dorefa_gemm_ws(
+    a_codes: torch.Tensor, w_packed: torch.Tensor, *, w_bits: int, a_bits: int,
+    m_tiles=None,
+) -> torch.Tensor:
+    """:func:`dorefa_gemm`'s contract, weight-stationary: each packed weight
+    tile is decoded once for ``m_tiles`` M-tiles of 64 rows (one of
+    ``common.WS_M_TILES``) and the product runs on the int8 tensor cores.
+    Output float32, equal to :func:`dorefa_gemm` bit for bit."""
+    _check_w_bits(w_bits)
+    r_tiles = ws_m_tiles(m_tiles, "dorefa_gemm_ws")
+    m, k = a_codes.shape
+    r = packed_rows(w_packed, w_bits, k)
+    n = w_packed.shape[1]
+    dev = a_codes.device
+    if dev.type == "cpu":
+        return dorefa_gemm_ws_reference(a_codes, w_packed, w_bits=w_bits, a_bits=a_bits)
+    if dev.type != "cuda":
+        raise ValueError(f"dorefa_gemm_ws: unsupported device {dev}")
+    _build.require("a_codes", a_codes, torch.int8, (m, k), dev)
+    _build.require("w_packed", w_packed, torch.int32, (r, n), dev)
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    lib = _lib()
+    code = lib.qt_dorefa_gemm_ws(
+        _build.ptr(a_codes), _build.ptr(w_packed), _build.ptr(out), m, n, k, r, w_bits,
+        inv_scale(w_bits, a_bits), r_tiles, *_build.launch_args(a_codes),
+    )
+    _build.check(lib, code, "dorefa_gemm_ws")
+    dorefa_gemm_ws.launches += 1
+    return out
+
+
+dorefa_gemm_ws.launches = 0
 
 
 def decode_dorefa_weights_reference(w_packed: torch.Tensor, *, w_bits: int) -> torch.Tensor:

@@ -14,13 +14,13 @@ level (``ops.log_quant`` takes the float ``fsr - 2^bits``; the two agree for
 an integer ``fsr``). Code 0 is ``-2^lo``, not 0: K-padding rows decode to
 that level and cancel only against zero activations.
 
-``shift_gemm`` (K8) and ``decode_log_weights`` (K9) launch the hand-written
-CUDA kernels in ``csrc/shift_gemm.cu`` for CUDA tensors and take their plain
-PyTorch versions (``*_reference``) for CPU tensors; each counts its kernel
-launches in ``.launches``. ``shift_gemm_decoded`` is the JAX package's plain
-matmul of bf16 x with pre-decoded bf16 weights: here a float32 matmul of the
-same values (bf16 products are exact in float32). The
-weight-stationary variant ``shift_gemm_ws`` is not ported yet (ROADMAP).
+``shift_gemm`` (K8), its weight-stationary variant ``shift_gemm_ws`` (K12)
+and ``decode_log_weights`` (K9) launch the hand-written CUDA kernels in
+``csrc/shift_gemm.cu`` for CUDA tensors and take their plain PyTorch
+versions (``*_reference``) for CPU tensors; each counts its kernel launches
+in ``.launches``. ``shift_gemm_decoded`` is the JAX package's plain matmul
+of bf16 x with pre-decoded bf16 weights: here a float32 matmul of the same
+values (bf16 products are exact in float32).
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ import ctypes
 import torch
 
 from pytorch_quantize_impls_tpu_torch.kernels import _build
-from pytorch_quantize_impls_tpu_torch.kernels.common import packed_rows, pad_dim
+from pytorch_quantize_impls_tpu_torch.kernels.common import packed_rows, pad_dim, ws_m_tiles
 from pytorch_quantize_impls_tpu_torch.ops import log_lin
 from pytorch_quantize_impls_tpu_torch.ops import pack as packlib
 
@@ -43,6 +43,8 @@ def _lib() -> ctypes.CDLL:
         "shift_gemm",
         # (x, w_packed, out, M, N, K, R, bits, lo, device, stream)
         qt_shift_gemm=[p, p, p, i, i, i, i, i, i, i, p],
+        # (x, w_packed, out, M, N, K, R, bits, lo, m_tiles, device, stream)
+        qt_shift_gemm_ws=[p, p, p, i, i, i, i, i, i, i, i, p],
         # (w_packed, out, R, N, bits, lo, device, stream)
         qt_decode_log=[p, p, i, i, i, i, i, p],
     )
@@ -141,6 +143,47 @@ def shift_gemm(x: torch.Tensor, w_packed: torch.Tensor, *, fsr: float, bits: int
 
 
 shift_gemm.launches = 0
+
+
+def shift_gemm_ws_reference(x: torch.Tensor, w_packed: torch.Tensor, *, fsr: float, bits: int):
+    """Plain PyTorch version of :func:`shift_gemm_ws`: the function is
+    :func:`shift_gemm`'s, so is its plain version."""
+    return shift_gemm_reference(x, w_packed, fsr=fsr, bits=bits)
+
+
+def shift_gemm_ws(
+    x: torch.Tensor, w_packed: torch.Tensor, *, fsr: float, bits: int, m_tiles=None
+) -> torch.Tensor:
+    """:func:`shift_gemm`'s contract, weight-stationary: each packed code
+    tile is decoded to bf16 once for ``m_tiles`` M-tiles of 64 rows (one of
+    ``common.WS_M_TILES``) and the product runs on the bf16 tensor cores with
+    a float32 sum in a fixed order (deterministic; it differs from
+    :func:`shift_gemm` in the order and rounding of that sum only)."""
+    _check_bits(bits)
+    r_tiles = ws_m_tiles(m_tiles, "shift_gemm_ws")
+    m, k = x.shape
+    r = packed_rows(w_packed, CODE_BITS, k)
+    n = w_packed.shape[1]
+    dev = x.device
+    if dev.type == "cpu":
+        return shift_gemm_ws_reference(x, w_packed, fsr=fsr, bits=bits)
+    if dev.type != "cuda":
+        raise ValueError(f"shift_gemm_ws: unsupported device {dev}")
+    # the kernel rounds float32 to bf16 as it loads; bf16 x is exact in float32
+    x = x.to(torch.float32).contiguous()
+    _build.require("w_packed", w_packed, torch.int32, (r, n), dev)
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    lib = _lib()
+    code = lib.qt_shift_gemm_ws(
+        _build.ptr(x), _build.ptr(w_packed), _build.ptr(out), m, n, k, r, bits,
+        _lo(fsr, bits), r_tiles, *_build.launch_args(x),
+    )
+    _build.check(lib, code, "shift_gemm_ws")
+    shift_gemm_ws.launches += 1
+    return out
+
+
+shift_gemm_ws.launches = 0
 
 
 def shift_gemm_decoded(x: torch.Tensor, w_bf16: torch.Tensor) -> torch.Tensor:

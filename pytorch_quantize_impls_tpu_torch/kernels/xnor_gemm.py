@@ -4,11 +4,11 @@ Counterpart of ``pytorch_quantize_impls_tpu/kernels/xnor_gemm.py``. Weights
 are stored grouped-planar (``ops.pack.pack_bitplanes``, 1 bit each, K padded
 to the 1024-row group); activations are ±1 int8 (0 in padding).
 
-``binary_gemm`` and ``decode_binary_weights`` launch the hand-written CUDA
-kernels in ``csrc/xnor_gemm.cu`` for CUDA tensors and take their plain
-PyTorch versions (``*_reference``) for CPU tensors. Each counts its kernel
-launches in ``.launches``. The weight-stationary variant ``binary_gemm_ws``
-is not ported yet (ROADMAP).
+``binary_gemm``, its weight-stationary variant ``binary_gemm_ws`` and
+``decode_binary_weights`` launch the hand-written CUDA kernels in
+``csrc/xnor_gemm.cu`` for CUDA tensors and take their plain PyTorch versions
+(``*_reference``) for CPU tensors. Each counts its kernel launches in
+``.launches``.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from typing import Optional
 import torch
 
 from pytorch_quantize_impls_tpu_torch.kernels import _build, int8_matmul
-from pytorch_quantize_impls_tpu_torch.kernels.common import pad_dim
+from pytorch_quantize_impls_tpu_torch.kernels.common import pad_dim, ws_m_tiles
 from pytorch_quantize_impls_tpu_torch.ops import pack as packlib
 
 
@@ -29,6 +29,8 @@ def _lib() -> ctypes.CDLL:
         "xnor_gemm",
         # (x, w_packed, alpha, row_scale, out, M, N, K, R, device, stream)
         qt_binary_gemm=[p] * 5 + [i] * 5 + [p],
+        # (x, w_packed, alpha, row_scale, out, M, N, K, R, m_tiles, device, stream)
+        qt_binary_gemm_ws=[p] * 5 + [i] * 6 + [p],
         # (w_packed, out, R, N, device, stream)
         qt_decode_binary=[p, p, i, i, i, p],
     )
@@ -106,6 +108,55 @@ def binary_gemm(
 
 
 binary_gemm.launches = 0
+
+
+def binary_gemm_ws_reference(x_i8, w_packed, alpha=None, row_scale=None):
+    """Plain PyTorch version of :func:`binary_gemm_ws`: the function is
+    :func:`binary_gemm`'s, so is its plain version."""
+    return binary_gemm_reference(x_i8, w_packed, alpha, row_scale)
+
+
+def binary_gemm_ws(
+    x_i8: torch.Tensor,
+    w_packed: torch.Tensor,
+    alpha: Optional[torch.Tensor] = None,
+    row_scale: Optional[torch.Tensor] = None,
+    *,
+    m_tiles: Optional[int] = None,
+) -> torch.Tensor:
+    """:func:`binary_gemm`'s contract, weight-stationary: each packed weight
+    tile is unpacked once for ``m_tiles`` M-tiles of 64 rows (one of
+    ``common.WS_M_TILES``; the JAX function's ``tiles=``) and the product
+    runs on the int8 tensor cores. Output float32, equal to
+    :func:`binary_gemm` bit for bit."""
+    r_tiles = ws_m_tiles(m_tiles, "binary_gemm_ws")
+    m, k = x_i8.shape
+    r = _packed_rows(w_packed, k)
+    n = w_packed.shape[1]
+    dev = x_i8.device
+    if dev.type == "cpu":
+        return binary_gemm_ws_reference(x_i8, w_packed, alpha, row_scale)
+    if dev.type != "cuda":
+        raise ValueError(f"binary_gemm_ws: unsupported device {dev}")
+    _build.require("x_i8", x_i8, torch.int8, (m, k), dev)
+    _build.require("w_packed", w_packed, torch.int32, (r, n), dev)
+    if alpha is not None:
+        _build.require("alpha", alpha, torch.float32, (n,), dev)
+    if row_scale is not None:
+        _build.require("row_scale", row_scale, torch.float32, (m,), dev)
+    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    lib = _lib()
+    code = lib.qt_binary_gemm_ws(
+        _build.ptr(x_i8), _build.ptr(w_packed), _build.ptr(alpha),
+        _build.ptr(row_scale), _build.ptr(out), m, n, k, r, r_tiles,
+        *_build.launch_args(x_i8),
+    )
+    _build.check(lib, code, "binary_gemm_ws")
+    binary_gemm_ws.launches += 1
+    return out
+
+
+binary_gemm_ws.launches = 0
 
 
 def decode_binary_weights_reference(w_packed: torch.Tensor) -> torch.Tensor:

@@ -137,6 +137,11 @@ def test_port_imports_without_jax():
         "from pytorch_quantize_impls_tpu_torch.models import convnets\n"
         "from pytorch_quantize_impls_tpu_torch.nn import log_lin\n"
         "from pytorch_quantize_impls_tpu_torch.ops import log_lin\n"
+        "from pytorch_quantize_impls_tpu_torch.bench import headline, kernel_bench, mxu_probe\n"
+        "assert len(headline.build_rows(16, 16, 64, 'cpu')) == 8\n"
+        "assert len(kernel_bench.build('shift_ws', (16, 16, 64), 4, 'cpu')) == 3\n"
+        "i8 = torch.ones(64, 128, dtype=torch.int8)\n"
+        "assert mxu_probe.tiled_mm(i8[:, :64], i8, tiles=(64, 128)).shape == (64, 128)\n"
         "m = p.models.BNNLeNet(width=4).eval()\n"
         "y = p.infer.packed_apply(m, p.infer.pack_model(m), torch.zeros(2, 28, 28, 1))\n"
         "assert y.shape == (2, 10)\n"

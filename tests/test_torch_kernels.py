@@ -306,3 +306,61 @@ def test_launch_errors_and_bad_arguments_raise():
             _build.require("x", bad, torch.int8, (4, 6), t.device)
     with pytest.raises(ValueError, match="expected meta"):
         _build.require("x", t, torch.int8, (4, 6), torch.device("meta"))
+
+
+def _ws_and_probe_wrappers(device):
+    """The weight-stationary GEMMs and the probe's tiled matmul, each called
+    on small tensors on ``device``: {name: (wrapper, call)}."""
+    from pytorch_quantize_impls_tpu_torch.bench import mxu_probe as tmp
+    from pytorch_quantize_impls_tpu_torch.kernels import packed_matmul as tpm
+    from pytorch_quantize_impls_tpu_torch.kernels import shift_matmul as tsm
+
+    x8 = torch.ones(4, 64, dtype=torch.int8, device=device)
+    wp = torch.zeros(32, 8, dtype=torch.int32, device=device)
+    xf = torch.ones(4, 64, device=device)
+    a = torch.ones(128, 128, dtype=torch.int8, device=device)
+    return {
+        "binary_gemm_ws": (tbg.binary_gemm_ws, lambda: tbg.binary_gemm_ws(x8, wp)),
+        "dorefa_gemm_ws": (tpm.dorefa_gemm_ws,
+                           lambda: tpm.dorefa_gemm_ws(x8, wp, w_bits=4, a_bits=4)),
+        "shift_gemm_ws": (tsm.shift_gemm_ws, lambda: tsm.shift_gemm_ws(xf, wp, fsr=1.0, bits=4)),
+        "tiled_mm": (tmp.tiled_mm, lambda: tmp.tiled_mm(a, a)),
+    }
+
+
+WS_AND_PROBE = ("binary_gemm_ws", "dorefa_gemm_ws", "shift_gemm_ws", "tiled_mm")
+
+
+@pytest.mark.parametrize("name", WS_AND_PROBE)
+def test_ws_and_probe_cpu_tensors_take_the_plain_versions(name):
+    wrapper, call = _ws_and_probe_wrappers("cpu")[name]
+    before = wrapper.launches
+    out = call()
+    assert out.dtype == torch.float32 and out.device.type == "cpu"
+    assert wrapper.launches == before
+
+
+@pytest.mark.parametrize("name", WS_AND_PROBE)
+def test_ws_and_probe_other_devices_raise(name):
+    """Off the CPU a wrapper launches its kernel or raises: no fallback."""
+    _, call = _ws_and_probe_wrappers("meta")[name]
+    with pytest.raises(ValueError, match="unsupported device"):
+        call()
+
+
+@pytest.mark.parametrize("name", ["binary_gemm_ws", "dorefa_gemm_ws", "shift_gemm_ws"])
+def test_ws_shape_checks_raise(name):
+    from pytorch_quantize_impls_tpu_torch.kernels import packed_matmul as tpm
+    from pytorch_quantize_impls_tpu_torch.kernels import shift_matmul as tsm
+
+    short = torch.zeros(31, 4, dtype=torch.int32)  # packed rows not a whole group
+    x_long = torch.ones(2, 1025, dtype=torch.int8)  # K beyond a 1-bit group
+    call = {
+        "binary_gemm_ws": lambda w, x: tbg.binary_gemm_ws(x, w),
+        "dorefa_gemm_ws": lambda w, x: tpm.dorefa_gemm_ws(x, w, w_bits=4, a_bits=4),
+        "shift_gemm_ws": lambda w, x: tsm.shift_gemm_ws(x.float(), w, fsr=1.0, bits=4),
+    }[name]
+    with pytest.raises(ValueError):
+        call(short, torch.ones(2, 8, dtype=torch.int8))
+    with pytest.raises(ValueError):
+        call(torch.zeros(32, 4, dtype=torch.int32), x_long)
