@@ -15,10 +15,14 @@ on one NVIDIA GPU (built for Hopper, sm_90a).
    tiled_mm (int8, int4) bit for bit, K9 decode_log_weights bit for bit as
    int16 patterns, K4 decode_attention within a float32 tolerance, K8
    shift_gemm, K12 shift_gemm_ws and P1 tiled_mm (bf16) within 1e-5 of
-   |bf16(x)| @ |w| per element and deterministic. K10-K12 run at the JAX
-   tests' shapes, 4096^3, a served conv as im2col and edges (every m_tiles,
-   all-zero activations); P1 at 256x512x256 and 4096^3 over every tiling.
-   Prints kernel, plain, library-call and bound times.
+   |bf16(x)| @ |w| per element and deterministic. K6 and K8 also run at the
+   VGG head's shape and 4096^3 (timed beside their main rows) and at cases
+   whose launch plan splits K (ragged last chunks, M = 1 and 65, N = 10,
+   zeros); each check line shows the plan (BM, S), the main rows the host's
+   microseconds per call. K10-K12 run at the JAX tests' shapes, 4096^3, a
+   served conv as im2col and edges (every m_tiles, all-zero activations);
+   P1 at 256x512x256 and 4096^3 over every tiling. Prints kernel, plain,
+   library-call and bound times.
 4. Main path 1, BNN LeNet (``bnn_lenet``, width 128) from seeded random
    weights: bridge -> pack_model -> save_packed -> load_packed ->
    InferenceEngine over the unprepared artifact (K1, K2, K5) -> prepare ->
@@ -219,7 +223,26 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-# the CUDA function each wrapper launches, as torch.profiler names it
+def host_us(fn, calls: int = 2000) -> float:
+    """Host time per call of ``fn`` in microseconds, by the CPU clock over
+    ``calls`` back-to-back calls (the wrapper's checks, allocation and
+    launch); the card runs behind and is synchronized after the clock
+    stops."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / calls
+
+
+# the CUDA function each wrapper launches, as torch.profiler names it: a
+# substring of the name, so dorefa_gemm's and shift_gemm's second pass over
+# a split K (*_kernel_sum) counts with them
 KERNEL_SYMBOLS = {
     "binary_gemm": "binary_gemm_kernel", "decode_binary_weights": "decode_binary_kernel",
     "int8_gemm": "int8_gemm_kernel", "decode_attention": "decode_attention_kernel",
@@ -458,6 +481,7 @@ def kbit_cases(rng, dev):
     from pytorch_quantize_impls_tpu_torch import ops
     from pytorch_quantize_impls_tpu_torch.kernels import int8_conv as ic
     from pytorch_quantize_impls_tpu_torch.kernels import packed_matmul as pm
+    from pytorch_quantize_impls_tpu_torch.kernels.common import stream_plan
     from pytorch_quantize_impls_tpu_torch.kernels.conv import conv_pads
 
     def t(a):
@@ -486,13 +510,18 @@ def kbit_cases(rng, dev):
         ))
     # K6 at the LM's GEMMs (decode step M = SLOTS, prefill M = 128), the
     # im2col cross-check of the stage-1 stride-2 conv (RESNET_IM2COL_BATCH
-    # images), then edges over w_bits x a_bits, M = 1, ragged N, K off the
-    # group and K % 4 != 0
+    # images), the VGG head's shape and the headline's 4096^3 (timed beside
+    # the main row), then edges over w_bits x a_bits, M = 1, ragged N, K off
+    # the group and K % 4 != 0, and splits over K (S > 1: ragged last
+    # chunks at K = 300, 1500, 2100, N = 10, M = 1 and 65, zero codes)
     w = RESNET_WIDTH
+    big = HEADLINE_SHAPE
     k6 = [(f"lm {name} M={m}", m, k, n, 4, 4)
           for name, k, n in lm_gemms(W4A4_LM_CFG) for m in (SLOTS, 128)]
     k6 += [(f"resnet im2col stage1 conv1 b={RESNET_IM2COL_BATCH}",
-            RESNET_IM2COL_BATCH * 16 * 16, 9 * w, 2 * w, 4, 4)]
+            RESNET_IM2COL_BATCH * 16 * 16, 9 * w, 2 * w, 4, 4),
+           ("vgg head shape M=256 K=8192 N=10 w4a4", 256, 8192, 10, 4, 4),
+           (f"{big}^3 w4a4", big, big, big, 4, 4)]
     k6 += [("edge M=1 K=576 N=64 w4a4", 1, 576, 64, 4, 4),
            ("edge M=33 K=2304 N=130 w4a2", 33, 2304, 130, 4, 2),
            ("edge M=17 K=301 N=64 w4a1", 17, 301, 64, 4, 1),
@@ -500,8 +529,14 @@ def kbit_cases(rng, dev):
            ("edge M=5 K=300 N=40 w2a2", 5, 300, 40, 2, 2),
            ("edge M=8 K=1500 N=24 w1a1", 8, 1500, 24, 1, 1),
            ("edge M=3 K=64 N=8 w1a4", 3, 64, 8, 1, 4)]
+    k6 += [("edge split M=1 K=300 N=10 w4a4", 1, 300, 10, 4, 4),
+           ("edge split M=65 K=1500 N=130 w2a4", 65, 1500, 130, 2, 4),
+           ("edge split M=65 K=2100 N=130 w4a4", 65, 2100, 130, 4, 4),
+           ("edge split M=256 K=8192 N=10 w1a2", 256, 8192, 10, 1, 2),
+           ("edge split zeros M=32 K=1024 N=1024 w4a4", 32, 1024, 1024, 4, 4)]
     for label, m, k, n, w_bits, a_bits in k6:
         a = t(rng.integers(0, 2**a_bits, size=(m, k)).astype(np.int8))
+        a = a * 0 if "zeros" in label else a
         wp = dorefa_packed(k, n, w_bits)
         lib = m > 16 and k % 8 == 0 and n % 8 == 0  # torch._int_mm's shape rules
         w8 = pm.decode_dorefa_weights(wp, w_bits=w_bits)[:k].contiguous() if lib else None
@@ -512,6 +547,8 @@ def kbit_cases(rng, dev):
                 a, wp, w_bits=wb, a_bits=ab),
             library=(lambda a=a, w8=w8: torch._int_mm(a, w8)) if lib else None,
             bound=gemm_bound(m, k, n, 4 * wp.numel(), 0), main=label == f"lm ffn_in M={SLOTS}",
+            plan=stream_plan(m, n, k, pm.STAGE_K)[:2], split="split" in label,
+            also=label.startswith(("vgg head", f"{big}^3")),
         ))
     # K5 at the ResNet's block convs (b = RESNET_BATCH): the packed path's
     # scale epilogue at every shape, the fused path's codes and affine ones
@@ -600,6 +637,7 @@ def log_cases(rng, dev):
     import torch
 
     from pytorch_quantize_impls_tpu_torch.kernels import shift_matmul as sm
+    from pytorch_quantize_impls_tpu_torch.kernels.common import stream_plan
     from pytorch_quantize_impls_tpu_torch.utils import SCHEME_CONFIGS, RunConfig
 
     def t(a):
@@ -633,18 +671,27 @@ def log_cases(rng, dev):
             library=None, bound=bound_ms(4 * r * n + 2 * 4 * r * n, 0, BF16_FLOPS_PER_S),
             main=label.startswith("vgg conv5"),
         ))
-    # K8 at the VGG head (M = 1, 16, 256), the log LM's projections at
-    # M = SLOTS, conv3 as im2col, then edges
+    # K8 at the VGG head (M = 1, 16, 256; 256 timed beside the main row), the
+    # log LM's projections at M = SLOTS, conv3 as im2col, the headline's
+    # 4096^3 (timed beside the main row), then edges, and splits over K
+    # (S > 1: ragged last chunks at K = 300, 1500, 2100, M = 1 and 65, x
+    # unaligned (K % 4 != 0), zero activations)
+    big = HEADLINE_SHAPE
     k8 = [(f"vgg head M={m}", m, head_k, 10, *vgg) for m in SMALL_M]
     k8 += [(f"lm {name} M={SLOTS}", SLOTS, k, n, *lm) for name, k, n in lm_gemms(LOG_LM_CFG)]
     k8 += [(f"vgg im2col conv3 b={VGG_IM2COL_BATCH}", VGG_IM2COL_BATCH * 16 * 16, 9 * 256, 256,
-            *vgg)]
+            *vgg), (f"{big}^3 fsr1 b4", big, big, big, 1.0, 4)]
     k8 += [("edge M=1 K=27 N=128 fsr1 b4", 1, 27, 128, 1.0, 4),
            ("edge M=33 K=300 N=10 fsr0 b3", 33, 300, 10, 0.0, 3),
            ("edge M=70 K=2100 N=130 fsr1 b6", 70, 2100, 130, 1.0, 6),
            ("edge M=5 K=128 N=65 fsr0 b4", 5, 128, 65, 0.0, 4)]
+    k8 += [("edge split M=1 K=300 N=10 fsr0 b3", 1, 300, 10, 0.0, 3),
+           ("edge split M=65 K=1500 N=130 fsr1 b4", 65, 1500, 130, 1.0, 4),
+           ("edge split M=8 K=2100 N=64 fsr0 b4", 8, 2100, 64, 0.0, 4),
+           ("edge split M=65 K=1501 N=130 fsr1 b6", 65, 1501, 130, 1.0, 6),
+           ("edge split zeros M=32 K=1024 N=1024 fsr1 b4", 32, 1024, 1024, 1.0, 4)]
     for label, m, k, n, fsr, bits in k8:
-        x = t(rng.normal(size=(m, k)).astype(np.float32))
+        x = t(rng.normal(size=(m, k)).astype(np.float32) * (0 if "zeros" in label else 1))
         wp = packed(k, n, fsr, bits)
         wb = sm.decode_log_weights(wp, fsr=fsr, bits=bits)[:k].contiguous()
         xb = x.to(torch.bfloat16)
@@ -661,6 +708,8 @@ def log_cases(rng, dev):
             bound=bound_ms(4 * m * k + 4 * wp.numel() + 4 * m * n, 2 * m * k * n,
                            BF16_FLOPS_PER_S),
             main=label == f"lm ffn_in M={SLOTS}",
+            plan=stream_plan(m, n, k, sm.STAGE_K)[:2], split="split" in label,
+            also=label in ("vgg head M=256", f"{big}^3 fsr1 b4"),
         ))
     return cases
 
@@ -879,6 +928,10 @@ def check_kernels(card: str, timed: bool = True):
         err, verdict = hold(kernel, label, fn, plain, c.get("abs_ref"))
         s = summary.setdefault(kernel, {"max_abs_err": 0.0})
         s["max_abs_err"] = max(s["max_abs_err"], err)
+        if "plan" in c:  # K6, K8: the launch plan (BM, splits over K)
+            if c["split"] and c["plan"][1] == 1:
+                fail(f"{kernel} {label}: the launch plan does not split K")
+            verdict += f", plan BM {c['plan'][0]} S {c['plan'][1]}"
         line = f"check {kernel:22s} {label:32s} {verdict}"
         if timed and c.get("timed", not label.startswith("edge")):
             ms, plain_ms = cuda_ms(fn), cuda_ms(plain)
@@ -890,6 +943,11 @@ def check_kernels(card: str, timed: bool = True):
                      f"{plain_ms:.4f} ms  bound {bms:.4f} ms ({by})  library "
                      f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}")
             extra = {"device_ms": dev_ms}
+            if "plan" in c:
+                extra["plan"] = {"bm": c["plan"][0], "splits": c["plan"][1]}
+            if c["main"] and "plan" in c:
+                extra["host_us"] = host_us(fn)
+                line += f"  host {extra['host_us']:.2f} us/call (CPU clock, 2000 calls)"
             if "sdpa" in c:
                 sdpa_ms = cuda_ms(c["sdpa"])
                 yard_err = (c["sdpa"]() - plain()).abs().max().item()
@@ -2676,7 +2734,8 @@ def main() -> None:
             "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
             "bound_ms": s["bound_ms"], "bound_by": s["bound_by"], "library_ms": s["library_ms"],
             **{k: v for k, v in s.items()
-               if k in ("shape", "device_ms", "sdpa_dequantized_ms", "cublas_bf16_ms", "also")},
+               if k in ("shape", "device_ms", "sdpa_dequantized_ms", "cublas_bf16_ms", "also",
+                        "plan", "host_us")},
         })
     print(f"whole run from the kernel builds on: {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

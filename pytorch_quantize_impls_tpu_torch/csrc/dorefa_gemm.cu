@@ -9,14 +9,20 @@
 // at :156): (M, K) int8 activation codes in [0, n_a] x packed (Kp/f, N)
 // weight codes -> (M, N) f32 = f32(sum_k a[m, k] d[k, n]) * inv_scale, with
 // inv_scale = f32(1 / (n_w n_a)), the same value dorefa_gemm_decoded gives
-// int8_gemm as alpha, so the two paths agree bit for bit. It is binary_gemm
-// with the unpack widened to BITS-bit fields: a block stages one 32-word group
-// (32 f k-rows, 8 KB for 64 columns) in shared memory once, and each of its f
-// bit planes is one 32-deep k-tile, expanded into centered int8 k-quads for
-// __dp4a. Weights cross device memory at BITS bits each. Rows of the packed
-// group past K decode to -n_w; load_a_tile reads the activation columns
-// k >= K as 0, which cancels them. Bound by the __dp4a rate at serving
-// batch sizes, by the weight bytes at M = 1.
+// int8_gemm as alpha, so the two paths agree bit for bit. The schedule is
+// stream_tile.cuh's: a block owns a BM x 64 output tile (BM 32 or 64) and one
+// chunk of K; cp.async keeps two 64-deep stages of activation codes and the
+// 32-word groups they need in flight; each stage's two bit planes are decoded
+// ONCE into centered int8 (decode_dorefa_stage) for the int8 tensor cores
+// (mma.sync m16n8k32, exact int32 sums). Weights cross device memory at BITS
+// bits each: at serving batch sizes those bytes bound it (M = 32, K = 1024,
+// N = 4096 at 4 bits: 2.1 MB, 0.6 us at 3.35 TB/s), so where the tile grid
+// cannot fill the 132 SMs the launch splits K (kernels/common.py
+// stream_plan): each split writes its int32 partial tile to a workspace and
+// dorefa_gemm_kernel_sum adds them (exact in any order) and applies the
+// epilogue once. At 4096^3 the int8 tensor-core rate bounds it (0.069 ms).
+// Rows of the packed group past K decode to -n_w; activation columns k >= K
+// read as 0 (cp.async zero-fill), which cancels them.
 //
 // dorefa_gemm_ws replaces the Pallas kernel packed_matmul.py dorefa_gemm_ws
 // (pallas_call at :257): dorefa_gemm's contract and epilogue (so it equals
@@ -37,8 +43,8 @@
 // quad (4 neighbouring columns of one row), which reads the 4 words that
 // hold them and writes one 32-bit word; neighbouring threads take
 // neighbouring quads, so loads and stores coalesce.
-#include "gemm_tile.cuh"
 #include "mma_tile.cuh"
+#include "stream_tile.cuh"
 
 namespace {
 
@@ -51,50 +57,72 @@ __device__ __forceinline__ uint32_t centered_byte(uint32_t word, int plane) {
   return (uint32_t)(uint8_t)(int8_t)(2 * c - NW);
 }
 
+// The stage's weights, centered int8: word q of column c holds weight rows
+// k0 + 4q .. + 3, bit field plane0 + q / 8 of word rows 4 (q % 8) .. + 3. One
+// thread reads the four words of rows 4j .. 4j + 3 of a column once and
+// writes both planes' words (q = j and j + 8).
 template <int BITS>
-__global__ void __launch_bounds__(qt::THREADS)
+__device__ __forceinline__ void decode_dorefa_stage(uint32_t* Bs, const uint32_t* Ws, int plane0) {
+  for (int e = threadIdx.x; e < 8 * 64; e += qt::mma::THREADS) {
+    const int c = e % 64, j = e / 64;
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) w[i] = Ws[(4 * j + i) * 64 + c];
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      uint32_t v = 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v |= centered_byte<BITS>(w[i], plane0 + p) << (8 * i);
+      Bs[c * qt::mma::LDW + 8 * p + j] = v;
+    }
+  }
+}
+
+// K6 on stream_tile.cuh's schedule: a ring slot holds the stage's BM rows of
+// codes in the MMA's layout (LDW words a row). part: the split's workspace
+// of int32 partials (splits, M, N), null when K is not split.
+template <int BITS, int BM>
+__global__ void __launch_bounds__(qt::mma::THREADS)
 dorefa_gemm_kernel(const int8_t* __restrict__ x, const uint32_t* __restrict__ wp,
-                   float* __restrict__ out, int M, int N, int K, float inv_scale, bool aligned) {
-  constexpr int F = 32 / BITS;
-  constexpr int GROUP_K = F * GROUP_ROWS;
-  static_assert(qt::BK == GROUP_ROWS, "one bit plane of a group is one k-tile");
-  __shared__ int32_t As[qt::BM][qt::QK];
-  __shared__ int32_t Bs[qt::QK][qt::BN];
-  __shared__ uint32_t Ws[GROUP_ROWS][qt::BN];
-  const int m0 = blockIdx.y * qt::BM, n0 = blockIdx.x * qt::BN;
-  int32_t acc[4][4] = {};
-  for (int g = 0; g * GROUP_K < K; ++g) {
-    for (int e = threadIdx.x; e < GROUP_ROWS * qt::BN; e += qt::THREADS) {
-      const int r = e / qt::BN, c = e % qt::BN;
-      Ws[r][c] = (n0 + c < N) ? wp[(size_t)(g * GROUP_ROWS + r) * N + n0 + c] : 0u;
-    }
-    __syncthreads();
-    for (int i = 0; i < F && g * GROUP_K + i * qt::BK < K; ++i) {
-      qt::load_a_tile(As, x, m0, g * GROUP_K + i * qt::BK, M, K, aligned);
-      // plane i of word rows 4q .. 4q + 3 holds weight rows k0 + 4q .. k0 + 4q + 3
-      for (int e = threadIdx.x; e < qt::QK * qt::BN; e += qt::THREADS) {
-        const int q = e / qt::BN, c = e % qt::BN;
-        uint32_t v = 0;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) v |= centered_byte<BITS>(Ws[4 * q + j][c], i) << (8 * j);
-        Bs[q][c] = (int32_t)v;
+                   float* __restrict__ out, int32_t* __restrict__ part, int M, int N, int K,
+                   float inv_scale, int k_stages, int chunk, bool xvec, bool wvec) {
+  using namespace qt::mma;
+  const auto* xb = reinterpret_cast<const uint8_t*>(x);
+  // xvec: K % 16 == 0 and x 16-byte aligned, so 16 codes are one copy;
+  // else plain loads (load_rows_bytes), which the next barrier publishes
+  auto load_a = [&](uint32_t* S, int m0, int k0) {
+    if (xvec) {
+      for (int e = threadIdx.x; e < BM * 4; e += THREADS) {
+        const int r = e >> 2, c = 16 * (e & 3);
+        const bool in = m0 + r < M && k0 + c < K;
+        qt::stream::cp_async16(S + r * LDW + c / 4, in ? xb + (size_t)(m0 + r) * K + k0 + c : xb,
+                               in ? 16 : 0);
       }
-      __syncthreads();
-      qt::mma_tile(As, Bs, acc);
-      __syncthreads();
+    } else {
+      load_rows_bytes(S, xb, m0, BM, M, k0, K, false);
     }
-  }
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n < N) out[(size_t)m * N + n] = (float)acc[i][j] * inv_scale;
-    }
-  }
+  };
+  auto prep = [](const uint32_t*, const uint32_t* W, int stage, uint32_t* Bs, uint32_t*) {
+    decode_dorefa_stage<BITS>(Bs, W, 2 * stage);
+  };
+  auto store = [&](int m, int n, int32_t acc) {
+    if (m >= M || n >= N) return;
+    if (part)
+      part[((size_t)blockIdx.z * M + m) * N + n] = acc;
+    else
+      out[(size_t)m * N + n] = (float)acc * inv_scale;
+  };
+  constexpr int GROUP_K = (32 / BITS) * GROUP_ROWS;
+  qt::stream::stream_gemm<S8, BM, BM * LDW, false>(wp, N, GROUP_K / STAGE_BYTES, k_stages, chunk,
+                                                  wvec, load_a, prep, store);
+}
+
+// The split's second pass: the int32 partials summed (exact in any order),
+// then the epilogue once.
+__global__ void dorefa_gemm_kernel_sum(const int32_t* __restrict__ part, float* __restrict__ out,
+                                       size_t mn, int splits, float inv_scale) {
+  qt::stream::sum_splits(part, mn, splits,
+                         [&](size_t i, int32_t s) { out[i] = (float)s * inv_scale; });
 }
 
 template <int BITS, int R>
@@ -146,14 +174,29 @@ __global__ void decode_dorefa_kernel(const uint32_t* __restrict__ wp, int8_t* __
   }
 }
 
-template <int BITS>
-cudaError_t launch_gemm(const void* x, const void* wp, void* out, int M, int N, int K,
-                        float inv_scale, cudaStream_t stream) {
-  const bool aligned = (K % 4 == 0) && (reinterpret_cast<uintptr_t>(x) % 4 == 0);
-  const dim3 grid((N + qt::BN - 1) / qt::BN, (M + qt::BM - 1) / qt::BM);
-  dorefa_gemm_kernel<BITS><<<grid, qt::THREADS, 0, stream>>>(
-      static_cast<const int8_t*>(x), static_cast<const uint32_t*>(wp), static_cast<float*>(out),
-      M, N, K, inv_scale, aligned);
+template <int BITS, int BM>
+cudaError_t launch_gemm(const void* x, const void* wp, void* out, void* ws, int M, int N, int K,
+                        float inv_scale, int splits, int chunk, int device, cudaStream_t stream) {
+  constexpr size_t smem = qt::stream::smem_bytes<BM, BM * qt::mma::LDW, false>();
+  constexpr int STAGE_K = qt::mma::STAGE_BYTES;
+  static bool smem_set[16] = {};
+  const cudaError_t err =
+      qt::stream::allow_smem(dorefa_gemm_kernel<BITS, BM>, smem, device, smem_set);
+  if (err != cudaSuccess) return err;
+  const bool xvec = K % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool wvec = N % 4 == 0 && reinterpret_cast<uintptr_t>(wp) % 16 == 0;
+  const dim3 grid((N + qt::stream::BN - 1) / qt::stream::BN, (M + BM - 1) / BM, splits);
+  auto* o = static_cast<float*>(out);
+  auto* part = static_cast<int32_t*>(ws);
+  dorefa_gemm_kernel<BITS, BM><<<grid, qt::mma::THREADS, smem, stream>>>(
+      static_cast<const int8_t*>(x), static_cast<const uint32_t*>(wp), o,
+      splits > 1 ? part : nullptr, M, N, K, inv_scale, (K + STAGE_K - 1) / STAGE_K,
+      chunk / STAGE_K, xvec, wvec);
+  const cudaError_t launched = cudaGetLastError();
+  if (launched != cudaSuccess || splits == 1) return launched;
+  const size_t mn = (size_t)M * N;
+  dorefa_gemm_kernel_sum<<<qt::stream::sum_blocks(mn), 256, 0, stream>>>(part, o, mn, splits,
+                                                                          inv_scale);
   return cudaGetLastError();
 }
 
@@ -186,19 +229,41 @@ cudaError_t launch_decode(const void* wp, void* out, int R, int N, cudaStream_t 
 
 }  // namespace
 
-// R = rows of the packed weight = Kp / f; K <= Kp is the width of x.
-extern "C" int qt_dorefa_gemm(const void* x, const void* wp, void* out, int M, int N, int K,
-                              int R, int bits, float inv_scale, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+// qt_dorefa_gemm's arguments in one struct, packed by the wrapper
+// (kernels/packed_matmul.py): ctypes converts each argument of a call on its
+// own, and fifteen of them cost the host more than the launch. R = rows of
+// the packed weight = Kp / f; K <= Kp is the width of x. The launch plan
+// (bm, splits, chunk: k per split) is kernels/common.py stream_plan's; when
+// splits > 1, ws holds splits * M * N int32.
+struct DorefaGemmArgs {
+  const void* x;
+  const void* wp;
+  void* out;
+  void* ws;
+  cudaStream_t stream;
+  int M, N, K, R, bits;
+  float inv_scale;
+  int bm, splits, chunk, device;
+};
+
+extern "C" int qt_dorefa_gemm(const DorefaGemmArgs* a) {
+  cudaError_t err = cudaSetDevice(a->device);
   if (err != cudaSuccess) return (int)err;
-  if (R % GROUP_ROWS != 0 || (bits != 1 && bits != 2 && bits != 4) || K > R * (32 / bits))
+  const int bits = a->bits;
+  const int k_stages = (a->K + qt::mma::STAGE_BYTES - 1) / qt::mma::STAGE_BYTES;
+  if (a->R % GROUP_ROWS != 0 || (bits != 1 && bits != 2 && bits != 4) ||
+      a->K > a->R * (32 / bits) ||
+      !qt::stream::valid_plan(a->bm, a->splits, a->chunk, qt::mma::STAGE_BYTES, k_stages, a->ws))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (bits) {
-    case 1: return (int)launch_gemm<1>(x, wp, out, M, N, K, inv_scale, s);
-    case 2: return (int)launch_gemm<2>(x, wp, out, M, N, K, inv_scale, s);
-    default: return (int)launch_gemm<4>(x, wp, out, M, N, K, inv_scale, s);
-  }
+  if (a->M == 0 || a->N == 0) return (int)cudaSuccess;
+  using Launch = decltype(&launch_gemm<4, 64>);
+  static constexpr Launch launches[3][3] = {
+      {launch_gemm<1, 32>, launch_gemm<2, 32>, launch_gemm<4, 32>},
+      {launch_gemm<1, 64>, launch_gemm<2, 64>, launch_gemm<4, 64>},
+      {launch_gemm<1, 128>, launch_gemm<2, 128>, launch_gemm<4, 128>}};
+  const Launch f = launches[a->bm == 32 ? 0 : a->bm == 64 ? 1 : 2][bits == 1 ? 0 : bits == 2 ? 1 : 2];
+  return (int)f(a->x, a->wp, a->out, a->ws, a->M, a->N, a->K, a->inv_scale, a->splits, a->chunk,
+                a->device, a->stream);
 }
 
 extern "C" int qt_dorefa_gemm_ws(const void* x, const void* wp, void* out, int M, int N, int K,

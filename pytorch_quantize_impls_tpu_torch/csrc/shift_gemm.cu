@@ -12,16 +12,22 @@
 // pytorch_quantize_impls_tpu/kernels/shift_matmul.py shift_gemm (pallas_call
 // at :112): (M, K) f32 x rounded to bf16 (round to nearest even, as XLA's
 // convert) times the packed (Kp/4, N) codes -> (M, N) f32 sums. The TPU
-// kernel decodes a weight tile to bf16 and feeds the MXU. Here a block owns a
-// 64 x 64 output tile (256 threads, 4 x 4 outputs each, as gemm_tile.cuh),
-// stages one 32-word group (128 k-rows, 8 KB for 64 columns) of codes in
-// shared memory once, and expands each of its 4 byte planes into a 32-deep
-// f32 k-tile of ±2^e; x's tile is rounded to bf16 on load and every column
-// k >= K reads as 0, so x needs no padded copy. Products of a bf16 value and
-// a power of two are exact in f32, so only the order of the f32 sum differs
-// from the plain version. Multiply-add runs on the CUDA cores (67 TFLOP/s
-// f32 on the H100): at serving batch sizes that, not the 1 byte per weight
-// read, bounds it; bf16 tensor-core MMA (wgmma) is later work.
+// kernel decodes a weight tile to bf16 and feeds the MXU; here the schedule
+// is stream_tile.cuh's: a block owns a BM x 64 output tile (BM 32 or 64) and
+// one chunk of K, cp.async keeps two 32-deep stages of x (as float32) and
+// the 32-word code groups they need in flight, and each stage's byte plane
+// is decoded ONCE into bf16 ±2^e (log_bf16_bits) while x's stage is rounded
+// to bf16 in shared memory, for the bf16 tensor cores (mma.sync m16n8k16,
+// f32 accumulate). At serving batch sizes the code bytes (1 per weight)
+// bound it (at M = 32, K = 1024, N = 4096: 4.2 MB, 1.3 us at 3.35 TB/s), so
+// where ceil(M / BM) ceil(N / 64) blocks cannot fill the 132 SMs the launch
+// splits K (kernels/common.py stream_plan): each split's f32 partial tile
+// goes to a workspace and shift_gemm_kernel_sum adds the partials in index
+// order, with no atomics, so two launches give the same bits. At 4096^3 the
+// bf16 tensor-core rate bounds it (0.139 ms). Products of a bf16 value and
+// a power of two are exact; only the order and rounding of the f32 sums
+// differ from the plain version. Columns k >= K of x read as 0 (cp.async
+// zero-fill), so the -2^lo rows of the last group cancel.
 //
 // shift_gemm_ws replaces the Pallas kernel shift_matmul.py shift_gemm_ws
 // (pallas_call at :205): shift_gemm's contract, with each packed code tile
@@ -51,15 +57,13 @@
 
 #include "cuda_error.cuh"
 #include "mma_tile.cuh"
+#include "stream_tile.cuh"
 
 namespace {
 
 constexpr int GROUP_ROWS = 32;  // words per self-contained group
 constexpr int GROUP_K = 128;    // k-rows per group: 4 codes per word
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int BK = 32;          // one byte plane of a group
-constexpr int THREADS = 256;
+constexpr int STAGE_K = qt::mma::STAGE_BYTES / 2;  // bf16 k per stage: one byte plane
 
 // bf16 bit pattern (low 16 bits) of the code in the low byte of `c`
 __device__ __forceinline__ uint32_t log_bf16_bits(uint32_t c, int bits, int lo) {
@@ -68,64 +72,90 @@ __device__ __forceinline__ uint32_t log_bf16_bits(uint32_t c, int bits, int lo) 
   return ((neg << 15) | ((uint32_t)((int)idx + lo + 127) << 7)) & 0xFFFFu;
 }
 
-__device__ __forceinline__ float bf16_bits_to_float(uint32_t b) { return __uint_as_float(b << 16); }
+// word q of column c of the stage: byte plane `plane` of word rows 2q and
+// 2q + 1, i.e. weight rows k0 + 2q (low half) and k0 + 2q + 1 (high half),
+// as bf16
+__device__ __forceinline__ void decode_log_stage(uint32_t* Bs, const uint32_t* Ws, int plane,
+                                                 int bits, int lo) {
+  for (int e = threadIdx.x; e < 16 * 64; e += qt::mma::THREADS) {
+    const int c = e % 64, q = e / 64;
+    const uint32_t lo16 = log_bf16_bits((Ws[2 * q * 64 + c] >> (8 * plane)) & 0xFFu, bits, lo);
+    const uint32_t hi16 = log_bf16_bits((Ws[(2 * q + 1) * 64 + c] >> (8 * plane)) & 0xFFu, bits, lo);
+    Bs[c * qt::mma::LDW + q] = lo16 | (hi16 << 16);
+  }
+}
 
-__global__ void __launch_bounds__(THREADS)
+// K8 on stream_tile.cuh's schedule. A ring slot holds the stage's BM rows
+// of x as float32 (STAGE_K floats each); prep rounds them to bf16 into As.
+// part: the split's workspace of float32 partials (splits, M, N), null
+// when K is not split.
+template <int BM>
+__global__ void __launch_bounds__(qt::mma::THREADS)
 shift_gemm_kernel(const float* __restrict__ x, const uint32_t* __restrict__ wp,
-                  float* __restrict__ out, int M, int N, int K, int bits, int lo) {
-  __shared__ float As[BK][BM + 1];  // k-major; +1 keeps the transposing store conflict-free
-  __shared__ float Bs[BK][BN];
-  __shared__ uint32_t Ws[GROUP_ROWS][BN];
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float acc[4][4] = {};
-  for (int g = 0; g * GROUP_K < K; ++g) {
-    for (int e = threadIdx.x; e < GROUP_ROWS * BN; e += THREADS) {
-      const int r = e / BN, c = e % BN;
-      Ws[r][c] = (n0 + c < N) ? wp[(size_t)(g * GROUP_ROWS + r) * N + n0 + c] : 0u;
-    }
-    __syncthreads();
-    for (int i = 0; i < 4 && g * GROUP_K + i * BK < K; ++i) {
-      const int k0 = g * GROUP_K + i * BK;
-      // neighbouring threads read neighbouring k of one row of x
-      for (int e = threadIdx.x; e < BM * BK; e += THREADS) {
-        const int r = e / BK, kk = e % BK;
-        const int m = m0 + r, k = k0 + kk;
-        float v = 0.0f;
-        if (m < M && k < K) v = __bfloat162float(__float2bfloat16_rn(x[(size_t)m * K + k]));
-        As[kk][r] = v;
+                  float* __restrict__ out, float* __restrict__ part, int M, int N, int K, int bits,
+                  int lo, int k_stages, int chunk, bool xvec, bool wvec) {
+  using namespace qt::mma;
+  using qt::stream::cp_async16;
+  using qt::stream::cp_async4;
+  // xvec: K % 4 == 0 and x 16-byte aligned, so 4 floats are one copy
+  auto load_a = [&](uint32_t* S, int m0, int k0) {
+    float* f = reinterpret_cast<float*>(S);
+    if (xvec) {
+      for (int e = threadIdx.x; e < BM * STAGE_K / 4; e += THREADS) {
+        const int r = e / (STAGE_K / 4), c = 4 * (e % (STAGE_K / 4));
+        const bool in = m0 + r < M && k0 + c < K;
+        cp_async16(f + r * STAGE_K + c, in ? x + (size_t)(m0 + r) * K + k0 + c : x, in ? 16 : 0);
       }
-      // plane i of word row r holds weight row k0 + r
-      for (int e = threadIdx.x; e < BK * BN; e += THREADS) {
-        const int r = e / BN, c = e % BN;
-        Bs[r][c] = bf16_bits_to_float(log_bf16_bits((Ws[r][c] >> (8 * i)) & 0xFFu, bits, lo));
+    } else {
+      for (int e = threadIdx.x; e < BM * STAGE_K; e += THREADS) {
+        const int r = e / STAGE_K, c = e % STAGE_K;
+        const bool in = m0 + r < M && k0 + c < K;
+        cp_async4(f + r * STAGE_K + c, in ? x + (size_t)(m0 + r) * K + k0 + c : x, in ? 4 : 0);
       }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < BK; ++kk) {
-        float a[4], b[4];
-#pragma unroll
-        for (int p = 0; p < 4; ++p) a[p] = As[kk][ty + 16 * p];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) b[q] = Bs[kk][tx + 16 * q];
-#pragma unroll
-        for (int p = 0; p < 4; ++p)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) acc[p][q] = fmaf(a[p], b[q], acc[p][q]);
-      }
-      __syncthreads();
     }
-  }
-#pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    const int m = m0 + ty + 16 * p;
-    if (m >= M) continue;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int n = n0 + tx + 16 * q;
-      if (n < N) out[(size_t)m * N + n] = acc[p][q];
+  };
+  auto prep = [&](const uint32_t* S, const uint32_t* W, int plane, uint32_t* Bs, uint32_t* As) {
+    decode_log_stage(Bs, W, plane, bits, lo);
+    const float* f = reinterpret_cast<const float*>(S);
+    for (int e = threadIdx.x; e < BM * STAGE_K / 4; e += THREADS) {
+      const int r = e / (STAGE_K / 4), c = e % (STAGE_K / 4);
+      const float4 v = *reinterpret_cast<const float4*>(f + r * STAGE_K + 4 * c);
+      *reinterpret_cast<uint2*>(As + r * LDW + 2 * c) =
+          make_uint2(bf16_pair(v.x, v.y), bf16_pair(v.z, v.w));
     }
-  }
+  };
+  float* dst = part ? part + (size_t)blockIdx.z * M * N : out;
+  auto store = [&](int m, int n, float acc) {
+    if (m < M && n < N) dst[(size_t)m * N + n] = acc;
+  };
+  qt::stream::stream_gemm<BF16, BM, BM * STAGE_K, true>(wp, N, GROUP_K / STAGE_K, k_stages, chunk,
+                                                       wvec, load_a, prep, store);
+}
+
+__global__ void shift_gemm_kernel_sum(const float* __restrict__ part, float* __restrict__ out,
+                                      size_t mn, int splits) {
+  qt::stream::sum_splits(part, mn, splits, [&](size_t i, float s) { out[i] = s; });
+}
+
+template <int BM>
+cudaError_t launch_gemm(const float* x, const uint32_t* wp, float* out, float* part, int M, int N,
+                        int K, int bits, int lo, int splits, int chunk, int device,
+                        cudaStream_t s) {
+  constexpr size_t smem = qt::stream::smem_bytes<BM, BM * STAGE_K, true>();
+  static bool smem_set[16] = {};
+  const cudaError_t err = qt::stream::allow_smem(shift_gemm_kernel<BM>, smem, device, smem_set);
+  if (err != cudaSuccess) return err;
+  const bool xvec = K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool wvec = N % 4 == 0 && reinterpret_cast<uintptr_t>(wp) % 16 == 0;
+  const dim3 grid((N + qt::stream::BN - 1) / qt::stream::BN, (M + BM - 1) / BM, splits);
+  shift_gemm_kernel<BM><<<grid, qt::mma::THREADS, smem, s>>>(
+      x, wp, out, splits > 1 ? part : nullptr, M, N, K, bits, lo, (K + STAGE_K - 1) / STAGE_K,
+      chunk / STAGE_K, xvec, wvec);
+  const cudaError_t launched = cudaGetLastError();
+  if (launched != cudaSuccess || splits == 1) return launched;
+  const size_t mn = (size_t)M * N;
+  shift_gemm_kernel_sum<<<qt::stream::sum_blocks(mn), 256, 0, s>>>(part, out, mn, splits);
+  return cudaGetLastError();
 }
 
 template <int R>
@@ -136,15 +166,8 @@ shift_gemm_ws_kernel(const float* __restrict__ x, const uint32_t* __restrict__ w
   auto load_a = [&](uint32_t* As, int m0, int k0) {
     load_rows_f32_as_bf16(As, x, m0, 64 * R, M, k0, K, vec);
   };
-  // word q of column c: byte plane `plane` of word rows 2q and 2q + 1, i.e.
-  // weight rows k0 + 2q (low half) and k0 + 2q + 1 (high half), as bf16
   auto decode = [&](uint32_t* Bs, const uint32_t* Ws, int plane) {
-    for (int e = threadIdx.x; e < 16 * 64; e += qt::mma::THREADS) {
-      const int c = e % 64, q = e / 64;
-      const uint32_t lo16 = log_bf16_bits((Ws[2 * q * 64 + c] >> (8 * plane)) & 0xFFu, bits, lo);
-      const uint32_t hi16 = log_bf16_bits((Ws[(2 * q + 1) * 64 + c] >> (8 * plane)) & 0xFFu, bits, lo);
-      Bs[c * LDW + q] = lo16 | (hi16 << 16);
-    }
+    decode_log_stage(Bs, Ws, plane, bits, lo);
   };
   auto store = [&](int m, int n, float acc) {
     if (m < M && n < N) out[(size_t)m * N + n] = acc;
@@ -177,18 +200,32 @@ bool valid(int R, int bits) { return R % GROUP_ROWS == 0 && bits >= 1 && bits <=
 
 }  // namespace
 
-// R = rows of the packed weight = Kp / 4; K <= Kp is the width of x.
-extern "C" int qt_shift_gemm(const void* x, const void* wp, void* out, int M, int N, int K, int R,
-                             int bits, int lo, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+// qt_shift_gemm's arguments in one struct, packed by the wrapper
+// (kernels/shift_matmul.py): ctypes converts each argument of a call on its
+// own, and fifteen of them cost the host more than the launch. R = rows of
+// the packed weight = Kp / 4; K <= Kp is the width of x. The launch plan
+// (bm, splits, chunk: k per split) is kernels/common.py stream_plan's; when
+// splits > 1, ws holds splits * M * N floats.
+struct ShiftGemmArgs {
+  const float* x;
+  const uint32_t* wp;
+  float* out;
+  float* ws;
+  cudaStream_t stream;
+  int M, N, K, R, bits, lo, bm, splits, chunk, device;
+};
+
+extern "C" int qt_shift_gemm(const ShiftGemmArgs* a) {
+  cudaError_t err = cudaSetDevice(a->device);
   if (err != cudaSuccess) return (int)err;
-  if (!valid(R, bits) || K > R * 4) return (int)cudaErrorInvalidValue;
-  if (M == 0 || N == 0) return (int)cudaSuccess;
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  shift_gemm_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const uint32_t*>(wp), static_cast<float*>(out),
-      M, N, K, bits, lo);
-  return (int)cudaGetLastError();
+  const int k_stages = (a->K + STAGE_K - 1) / STAGE_K;
+  if (!valid(a->R, a->bits) || a->K > a->R * 4 ||
+      !qt::stream::valid_plan(a->bm, a->splits, a->chunk, STAGE_K, k_stages, a->ws))
+    return (int)cudaErrorInvalidValue;
+  if (a->M == 0 || a->N == 0) return (int)cudaSuccess;
+  const auto f = a->bm == 32 ? launch_gemm<32> : a->bm == 64 ? launch_gemm<64> : launch_gemm<128>;
+  return (int)f(a->x, a->wp, a->out, a->ws, a->M, a->N, a->K, a->bits, a->lo, a->splits, a->chunk,
+                a->device, a->stream);
 }
 
 extern "C" int qt_shift_gemm_ws(const void* x, const void* wp, void* out, int M, int N, int K,

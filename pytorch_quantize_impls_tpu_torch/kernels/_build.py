@@ -39,6 +39,7 @@ BUILD_TIMEOUT_S = 600
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+_scratch: Dict[tuple, torch.Tensor] = {}
 
 
 def nvcc() -> str:
@@ -105,6 +106,9 @@ def library(name: str, **argtypes) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed.
     ``argtypes`` maps each entry point to its argument types; every entry
     point returns a CUDA error code."""
+    lib = _loaded.get(name)  # a wrapper's every call: no lock once loaded
+    if lib is not None:
+        return lib
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
@@ -125,21 +129,36 @@ def check(lib: ctypes.CDLL, code: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel}: CUDA error {code}: {msg}")
 
 
-def ptr(t) -> ctypes.c_void_p:
-    """Device address of a tensor, or NULL for ``None``."""
-    return ctypes.c_void_p(None if t is None else t.data_ptr())
+def ptr(t):
+    """Device address of a tensor, or None (NULL) for ``None``: a Python
+    int, which ctypes converts through the entry point's argtypes."""
+    return None if t is None else t.data_ptr()
 
 
 def launch_args(t: torch.Tensor):
-    """(device index, stream) of the CUDA tensor ``t``: the current stream."""
-    stream = torch.cuda.current_stream(t.device).cuda_stream
-    return ctypes.c_int(t.device.index), ctypes.c_void_p(stream)
+    """(device index, stream) of the CUDA tensor ``t``: the current stream's
+    raw handle, read without building a ``torch.cuda.Stream``."""
+    index = t.get_device()
+    return index, torch._C._cuda_getCurrentRawStream(index)
+
+
+def scratch(nbytes: int, index: int, stream: int) -> int:
+    """Address of a scratch buffer of at least ``nbytes`` on CUDA device
+    ``index`` for the kernels launched on ``stream``: one buffer per stream,
+    made on that stream and kept for the next call, so a hot wrapper
+    allocates nothing for it. The launches of one stream run in order, so
+    no two of them use it at once."""
+    buf = _scratch.get((index, stream))
+    if buf is None or buf.numel() < nbytes:
+        buf = torch.empty(nbytes, dtype=torch.uint8, device=torch.device("cuda", index))
+        _scratch[(index, stream)] = buf
+    return buf.data_ptr()
 
 
 def require(name: str, t, dtype: torch.dtype, shape, device: torch.device) -> None:
     """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
     ``device`` (what a kernel reads through a raw pointer)."""
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+    if t.dtype != dtype or t.shape != tuple(shape):
         raise ValueError(
             f"{name}: expected {dtype} {tuple(shape)}, got {t.dtype} {tuple(t.shape)}"
         )

@@ -24,21 +24,31 @@ value, so it equals ``dorefa_gemm`` and ``dorefa_gemm_ws`` bit for bit.
 from __future__ import annotations
 
 import ctypes
+import functools
+import struct
 
 import numpy as np
 import torch
 
 from pytorch_quantize_impls_tpu_torch.kernels import _build, int8_matmul
-from pytorch_quantize_impls_tpu_torch.kernels.common import packed_rows, pad_dim, ws_m_tiles
+from pytorch_quantize_impls_tpu_torch.kernels.common import (
+    packed_rows, pad_dim, stream_plan, stream_workspace_bytes, ws_m_tiles,
+)
 from pytorch_quantize_impls_tpu_torch.ops import pack as packlib
 
+STAGE_K = 64  # k per shared-memory stage of dorefa_gemm: 64 int8 codes
+# csrc/dorefa_gemm.cu DorefaGemmArgs: (x, w_packed, out, workspace, stream)
+# addresses, then (M, N, K, R, bits), inv_scale, (bm, splits, chunk, device)
+_GEMM_ARGS = struct.Struct("=5Q5if4i")
 
+
+@functools.lru_cache(maxsize=None)  # the argtypes lists are built once
 def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     return _build.library(
         "dorefa_gemm",
-        # (x, w_packed, out, M, N, K, R, bits, inv_scale, device, stream)
-        qt_dorefa_gemm=[p, p, p, i, i, i, i, i, ctypes.c_float, i, p],
+        # one packed DorefaGemmArgs (_GEMM_ARGS)
+        qt_dorefa_gemm=[ctypes.c_char_p],
         # (x, w_packed, out, M, N, K, R, bits, inv_scale, m_tiles, device, stream)
         qt_dorefa_gemm_ws=[p, p, p, i, i, i, i, i, ctypes.c_float, i, i, p],
         # (w_packed, out, R, N, bits, device, stream)
@@ -55,6 +65,7 @@ def _check_w_bits(bits: int) -> None:
         )
 
 
+@functools.lru_cache(maxsize=None)
 def inv_scale(w_bits: int, a_bits: int) -> float:
     """The epilogue scale ``1 / (n_w n_a)``, rounded to float32 as the JAX
     package's f32 multiply rounds it."""
@@ -99,7 +110,9 @@ def dorefa_gemm(
 ) -> torch.Tensor:
     """(M, K) int8 activation codes @ planar w codes -> (M, N) float32, equal
     to ``dorefa_activation(x) @ dorefa_weight(w)`` up to f32 rounding. K may
-    be less than the packed K: the missing columns of x count as 0."""
+    be less than the packed K: the missing columns of x count as 0. On the
+    card K may be split (``common.stream_plan``); the int32 sum is exact, so
+    the result is the same whatever the split."""
     _check_w_bits(w_bits)
     m, k = a_codes.shape
     r = packed_rows(w_packed, w_bits, k)
@@ -111,18 +124,31 @@ def dorefa_gemm(
         raise ValueError(f"dorefa_gemm: unsupported device {dev}")
     _build.require("a_codes", a_codes, torch.int8, (m, k), dev)
     _build.require("w_packed", w_packed, torch.int32, (r, n), dev)
-    out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    lib = _lib()
-    code = lib.qt_dorefa_gemm(
-        _build.ptr(a_codes), _build.ptr(w_packed), _build.ptr(out), m, n, k, r, w_bits,
-        inv_scale(w_bits, a_bits), *_build.launch_args(a_codes),
-    )
-    _build.check(lib, code, "dorefa_gemm")
+    out = _launch_dorefa_gemm(a_codes, w_packed, w_bits, inv_scale(w_bits, a_bits),
+                              stream_plan(m, n, k, STAGE_K))
     dorefa_gemm.launches += 1
     return out
 
 
 dorefa_gemm.launches = 0
+
+
+def _launch_dorefa_gemm(a_codes, w_packed, w_bits: int, scale: float, plan) -> torch.Tensor:
+    """dorefa_gemm's launch on checked CUDA tensors under the launch plan
+    (BM, splits, chunk); ``bench/stream_sweep.py`` times other plans
+    through it."""
+    (m, k), (r, n) = a_codes.shape, w_packed.shape
+    bm, splits, chunk = plan
+    index, stream = _build.launch_args(a_codes)
+    ws = _build.scratch(stream_workspace_bytes(m, n, splits), index, stream) if splits > 1 else 0
+    out = torch.empty((m, n), dtype=torch.float32, device=a_codes.device)
+    lib = _lib()
+    code = lib.qt_dorefa_gemm(_GEMM_ARGS.pack(
+        a_codes.data_ptr(), w_packed.data_ptr(), out.data_ptr(), ws, stream, m, n, k, r, w_bits,
+        scale, bm, splits, chunk, index,
+    ))
+    _build.check(lib, code, "dorefa_gemm")
+    return out
 
 
 def dorefa_gemm_ws_reference(a_codes, w_packed, *, w_bits: int, a_bits: int):

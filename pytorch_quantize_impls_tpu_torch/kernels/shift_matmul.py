@@ -26,23 +26,32 @@ values (bf16 products are exact in float32).
 from __future__ import annotations
 
 import ctypes
+import functools
+import struct
 
 import torch
 
 from pytorch_quantize_impls_tpu_torch.kernels import _build
-from pytorch_quantize_impls_tpu_torch.kernels.common import packed_rows, pad_dim, ws_m_tiles
+from pytorch_quantize_impls_tpu_torch.kernels.common import (
+    packed_rows, pad_dim, stream_plan, stream_workspace_bytes, ws_m_tiles,
+)
 from pytorch_quantize_impls_tpu_torch.ops import log_lin
 from pytorch_quantize_impls_tpu_torch.ops import pack as packlib
 
 CODE_BITS = 8  # sign + (bits+1)-bit exponent index; bits <= 6
+STAGE_K = 32  # k per shared-memory stage of shift_gemm: one byte plane of bf16
+# csrc/shift_gemm.cu ShiftGemmArgs: (x, w_packed, out, workspace, stream)
+# addresses, then (M, N, K, R, bits, lo, bm, splits, chunk, device)
+_GEMM_ARGS = struct.Struct("=5Q10i")
 
 
+@functools.lru_cache(maxsize=None)  # the argtypes lists are built once
 def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     return _build.library(
         "shift_gemm",
-        # (x, w_packed, out, M, N, K, R, bits, lo, device, stream)
-        qt_shift_gemm=[p, p, p, i, i, i, i, i, i, i, p],
+        # one packed ShiftGemmArgs (_GEMM_ARGS)
+        qt_shift_gemm=[ctypes.c_char_p],
         # (x, w_packed, out, M, N, K, R, bits, lo, m_tiles, device, stream)
         qt_shift_gemm_ws=[p, p, p, i, i, i, i, i, i, i, i, p],
         # (w_packed, out, R, N, bits, lo, device, stream)
@@ -118,7 +127,10 @@ def shift_gemm_reference(x: torch.Tensor, w_packed: torch.Tensor, *, fsr: float,
 def shift_gemm(x: torch.Tensor, w_packed: torch.Tensor, *, fsr: float, bits: int) -> torch.Tensor:
     """(M, K) float x @ packed log weights -> (M, N) float32, with x rounded
     to bf16 first: ``bf16(x) @ log_quant(w)`` with a float32 sum. K may be
-    less than the packed K: the missing columns of x count as 0."""
+    less than the packed K: the missing columns of x count as 0. On the card
+    the sum runs in the order ``common.stream_plan`` fixes for the shape
+    (split over K where the tile grid is small, partials added in index
+    order), so one shape always gives the same bits."""
     _check_bits(bits)
     m, k = x.shape
     r = packed_rows(w_packed, CODE_BITS, k)
@@ -129,20 +141,33 @@ def shift_gemm(x: torch.Tensor, w_packed: torch.Tensor, *, fsr: float, bits: int
     if dev.type != "cuda":
         raise ValueError(f"shift_gemm: unsupported device {dev}")
     # the kernel rounds float32 to bf16 as it loads; bf16 x is exact in float32
-    x = x.to(torch.float32).contiguous()
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        x = x.to(torch.float32).contiguous()
     _build.require("w_packed", w_packed, torch.int32, (r, n), dev)
-    out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    lib = _lib()
-    code = lib.qt_shift_gemm(
-        _build.ptr(x), _build.ptr(w_packed), _build.ptr(out), m, n, k, r, bits,
-        _lo(fsr, bits), *_build.launch_args(x),
-    )
-    _build.check(lib, code, "shift_gemm")
+    out = _launch_shift_gemm(x, w_packed, bits, _lo(fsr, bits), stream_plan(m, n, k, STAGE_K))
     shift_gemm.launches += 1
     return out
 
 
 shift_gemm.launches = 0
+
+
+def _launch_shift_gemm(x, w_packed, bits: int, lo: int, plan) -> torch.Tensor:
+    """shift_gemm's launch on checked CUDA tensors (x float32, contiguous)
+    under the launch plan (BM, splits, chunk); ``bench/stream_sweep.py``
+    times other plans through it."""
+    (m, k), (r, n) = x.shape, w_packed.shape
+    bm, splits, chunk = plan
+    index, stream = _build.launch_args(x)
+    ws = _build.scratch(stream_workspace_bytes(m, n, splits), index, stream) if splits > 1 else 0
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    lib = _lib()
+    code = lib.qt_shift_gemm(_GEMM_ARGS.pack(
+        x.data_ptr(), w_packed.data_ptr(), out.data_ptr(), ws, stream, m, n, k, r, bits, lo, bm,
+        splits, chunk, index,
+    ))
+    _build.check(lib, code, "shift_gemm")
+    return out
 
 
 def shift_gemm_ws_reference(x: torch.Tensor, w_packed: torch.Tensor, *, fsr: float, bits: int):
