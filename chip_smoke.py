@@ -21,8 +21,11 @@ on one NVIDIA GPU (built for Hopper, sm_90a).
    zeros); each check line shows the plan (BM, S), the main rows the host's
    microseconds per call. K10-K12 run at the JAX tests' shapes, 4096^3, a
    served conv as im2col and edges (every m_tiles, all-zero activations);
-   P1 at 256x512x256 and 4096^3 over every tiling. Prints kernel, plain,
-   library-call and bound times.
+   P1 at 256x512x256 and 4096^3 over every tiling (K12 and P1 bf16 run on
+   the TMA + wgmma tile of csrc/wgmma_tile.cuh). Prints kernel, plain,
+   library-call and bound times; the bf16 GEMMs' (K8, K12, P1 bf16) library
+   call is torch.mm of the bf16 operands with a float32 output, with
+   cuBLAS's float32 and bf16 matmuls beside it.
 4. Main path 1, BNN LeNet (``bnn_lenet``, width 128) from seeded random
    weights: bridge -> pack_model -> save_packed -> load_packed ->
    InferenceEngine over the unprepared artifact (K1, K2, K5) -> prepare ->
@@ -633,7 +636,9 @@ def log_cases(rng, dev):
     LM paths give them, conv3 as im2col, and edges (K off the 128-row group,
     N = 10, (fsr, bits) = (0, 3) and (1, 6)). Same dicts as
     :func:`kernel_cases`, plus ``abs_ref``, K8's |bf16(x)| @ |w| in float64,
-    and ``cublas_bf16``, the bf16 tensor-core yardstick."""
+    and, beside the library call (torch.mm of the bf16 values with a float32
+    output), ``cublas_f32`` and ``cublas_bf16``, cuBLAS's float32 matmul of
+    the bf16 values and its bf16 matmul."""
     import torch
 
     from pytorch_quantize_impls_tpu_torch.kernels import shift_matmul as sm
@@ -700,9 +705,11 @@ def log_cases(rng, dev):
             kernel="shift_gemm", label=label,
             fn=lambda x=x, wp=wp, f=fsr, b=bits: sm.shift_gemm(x, wp, fsr=f, bits=b),
             plain=lambda x=x, wp=wp, f=fsr, b=bits: sm.shift_gemm_reference(x, wp, fsr=f, bits=b),
-            # the same function in one PyTorch call: float32 matmul of the
-            # bf16 values (TF32 off)
-            library=lambda xf=xf, wf=wf: torch.matmul(xf, wf),
+            # the same function in one PyTorch call: bf16 products into a
+            # float32 output on the tensor cores; beside it cuBLAS's float32
+            # matmul of the bf16 values (TF32 off) and its bf16 matmul
+            library=bf16_library(xb, wb),
+            cublas_f32=lambda xf=xf, wf=wf: torch.matmul(xf, wf),
             cublas_bf16=lambda xb=xb, wb=wb: torch.matmul(xb, wb),
             abs_ref=lambda xf=xf, wf=wf: xf.abs().double() @ wf.abs().double(),
             bound=bound_ms(4 * m * k + 4 * wp.numel() + 4 * m * n, 2 * m * k * n,
@@ -720,7 +727,7 @@ def ws_cases(rng, dev):
     headline's 4096^3 (the main row), one served conv as im2col, and edges
     (M = 1, M = 64 R + 1 for the default R, N = 130, K = 300 off the group,
     every m_tiles, all-zero activations). Same dicts as :func:`log_cases`
-    (``abs_ref`` and ``cublas_bf16`` for K12)."""
+    (``abs_ref``, ``cublas_f32`` and ``cublas_bf16`` for K12)."""
     import torch
 
     from pytorch_quantize_impls_tpu_torch import ops
@@ -812,7 +819,8 @@ def ws_cases(rng, dev):
                 x, wp, fsr=f, bits=b, m_tiles=mt),
             plain=lambda x=x, wp=wp, f=fsr, b=bits: sm.shift_gemm_ws_reference(
                 x, wp, fsr=f, bits=b),
-            library=lambda xf=xf, wf=wf: torch.matmul(xf, wf),
+            library=bf16_library(xb, wb),
+            cublas_f32=lambda xf=xf, wf=wf: torch.matmul(xf, wf),
             cublas_bf16=lambda xb=xb, wb=wb: torch.matmul(xb, wb),
             abs_ref=lambda xf=xf, wf=wf: xf.abs().double() @ wf.abs().double(),
             bound=bound_ms(4 * m * k + 4 * wp.numel() + 4 * m * n, 2 * m * k * n,
@@ -836,6 +844,8 @@ def probe_cases(rng, dev):
         ops_by_dtype = mp.operands(m, n, k, dev, seed=int(rng.integers(2**31)))
         for dt, (x, w) in ops_by_dtype.items():
             lib = mp.library_call(dt, x, w)
+            if dt == "bf16":
+                xf, wf = x.to(torch.float32), w.to(torch.float32)
             nbytes = x.numel() * x.element_size() + w.numel() * w.element_size() + 4 * m * n
             rate = BF16_FLOPS_PER_S if dt == "bf16" else INT8_OPS_PER_S
             for tiles in mp.TILES:
@@ -851,8 +861,23 @@ def probe_cases(rng, dev):
                 )
                 if dt == "bf16":
                     case["abs_ref"] = lambda x=x, w=w: x.double().abs() @ w.double().abs()
+                    case["cublas_bf16"] = lambda x=x, w=w: torch.matmul(x, w)
+                    case["cublas_f32"] = lambda xf=xf, wf=wf: torch.matmul(xf, wf)
                 cases.append(case)
     return cases
+
+
+def bf16_library(xb, wb):
+    """The library call of the bf16 GEMMs (K8, K12, P1 bf16): torch.mm of the
+    bf16 operands with a float32 output, the same function in one call; bf16
+    torch.matmul where this torch lacks that overload (a yardstick only)."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch.bench import common
+
+    if common.mm_f32_out_supported(xb.device):
+        return lambda: torch.mm(xb, wb, out_dtype=torch.float32)
+    return lambda: torch.matmul(xb, wb)
 
 
 def sdpa_yardstick(args):
@@ -955,9 +980,13 @@ def check_kernels(card: str, timed: bool = True):
                          f"max |diff| {yard_err:.3g}; full-cache bound "
                          f"{c['full_bound'][0]:.4f} ms]")
                 extra["sdpa_dequantized_ms"] = sdpa_ms
+            if "cublas_f32" in c:
+                f32_ms = cuda_ms(c["cublas_f32"])
+                line += f"  [yardstick: cuBLAS f32 matmul of the bf16 values {f32_ms:.4f} ms]"
+                extra["cublas_f32_ms"] = f32_ms
             if "cublas_bf16" in c:
                 bf16_ms = cuda_ms(c["cublas_bf16"])
-                line += f"  [yardstick: cuBLAS bf16 matmul on decoded weights {bf16_ms:.4f} ms]"
+                line += f"  [yardstick: cuBLAS bf16 matmul (bf16 out) {bf16_ms:.4f} ms]"
                 extra["cublas_bf16_ms"] = bf16_ms
             line += f"  [{card}]"
             if c["main"]:
@@ -2734,7 +2763,8 @@ def main() -> None:
             "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
             "bound_ms": s["bound_ms"], "bound_by": s["bound_by"], "library_ms": s["library_ms"],
             **{k: v for k, v in s.items()
-               if k in ("shape", "device_ms", "sdpa_dequantized_ms", "cublas_bf16_ms", "also",
+               if k in ("shape", "device_ms", "sdpa_dequantized_ms", "cublas_f32_ms",
+                        "cublas_bf16_ms", "also",
                         "plan", "host_us")},
         })
     print(f"whole run from the kernel builds on: {time.perf_counter() - t0:.1f} s", flush=True)

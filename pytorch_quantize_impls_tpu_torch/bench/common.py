@@ -77,3 +77,17 @@ def seeded_inputs(m: int, n: int, k: int, seed: int = 0):
 
 def to(a, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def mm_f32_out_supported(device) -> bool:
+    """Whether this torch has ``torch.mm(x, w, out_dtype=torch.float32)``
+    for bf16 operands (``aten::mm.dtype``) on ``device``: bf16 products
+    summed into a float32 output on the tensor cores, the function of the
+    port's bf16 GEMMs in one call. Yardsticks only; the port never calls
+    it."""
+    probe = torch.zeros(16, 16, dtype=torch.bfloat16, device=device)
+    try:
+        torch.mm(probe, probe, out_dtype=torch.float32)
+    except (NotImplementedError, RuntimeError, TypeError):
+        return False
+    return True

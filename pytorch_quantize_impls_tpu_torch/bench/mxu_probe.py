@@ -11,8 +11,10 @@ PyTorch version ``tiled_mm_reference`` for CPU tensors;
     python -m pytorch_quantize_impls_tpu_torch.bench.mxu_probe
 
 runs 4096^3 for each dtype over the tilings and prints ms, T/s and the share
-of the data-sheet peak, beside ``torch.matmul`` (bf16) and ``torch._int_mm``
-(int8) as yardsticks; without a GPU it raises and prints no result.
+of the data-sheet peak, beside ``torch.mm(..., out_dtype=torch.float32)``
+and ``torch.matmul`` (bf16) and ``torch._int_mm`` (int8) as yardsticks;
+without a GPU it raises and prints no result. The bf16 kernel runs on the
+Hopper wgmma tile (``csrc/wgmma_tile.cuh``), int8 and int4 on ``mma.sync``.
 """
 
 from __future__ import annotations
@@ -64,7 +66,8 @@ def _dtype(x: torch.Tensor, int4: bool) -> str:
 def _check(x, w, tiles, int4: bool):
     """(dtype name, M, N, K in elements); raise unless the shapes divide the
     tiles, as the JAX function needs (it does not pad), and unless x is
-    16-byte and w 4-byte aligned, as the kernel loads them."""
+    16-byte aligned and w 16-byte (bf16: TMA's rule) or 4-byte aligned (int8,
+    int4), as the kernels load them."""
     if tuple(tiles) not in TILES:
         raise ValueError(f"tiles={tiles}: must be one of {TILES}")
     dt = _dtype(x, int4)
@@ -75,8 +78,9 @@ def _check(x, w, tiles, int4: bool):
     kw, n = w.shape
     if kx != kw:
         raise ValueError(f"inner dims differ: {kx} vs {kw}")
-    if x.data_ptr() % 16 or w.data_ptr() % 4:
-        raise ValueError("tiled_mm: x must be 16-byte and w 4-byte aligned")
+    w_align = 16 if dt == "bf16" else 4
+    if x.data_ptr() % 16 or w.data_ptr() % w_align:
+        raise ValueError(f"tiled_mm: x must be 16-byte and w {w_align}-byte aligned")
     k = 2 * kx if int4 else kx
     bm, bn = tiles
     if m % bm or n % bn or k % STAGE_K[dt]:
@@ -137,12 +141,25 @@ def operands(m: int, n: int, k: int, device, seed: int = 0) -> dict:
 
 def library_call(dt: str, x, w):
     """One PyTorch call on the same operands, as a yardstick only (never used
-    by the port): cuBLAS bf16 matmul, ``torch._int_mm``; none for int4."""
+    by the port): for bf16 ``torch.mm`` with a float32 output (the same
+    function: bf16 products, float32 sum and output), or bf16
+    ``torch.matmul`` (which rounds its output to bf16) where this torch lacks
+    that overload; ``torch._int_mm`` for int8; none for int4."""
     if dt == "bf16":
+        if common.mm_f32_out_supported(x.device):
+            return lambda: torch.mm(x, w, out_dtype=torch.float32)
         return lambda: torch.matmul(x, w)
     if dt == "int8":
         return lambda: torch._int_mm(x, w)
     return None
+
+
+def library_name(dt: str, x) -> str:
+    """The name of :func:`library_call`'s call for ``dt`` on x's device."""
+    if dt == "bf16":
+        f32 = common.mm_f32_out_supported(x.device)
+        return "torch.mm out_dtype=float32" if f32 else "torch.matmul bf16"
+    return {"int8": "torch._int_mm"}.get(dt, "none")
 
 
 def run(device="cuda", *, window_s: float = 0.25, repeats: int = 5, log=print) -> dict:
@@ -166,13 +183,18 @@ def run(device="cuda", *, window_s: float = 0.25, repeats: int = 5, log=print) -
         best = min(res["tiles"], key=res["tiles"].get)
         res["best"] = best
         res["best_tops"] = ops / (res["tiles"][best] / 1e3) / 1e12
-        lib = library_call(dt, x, w)
+        yard = {library_name(dt, x): library_call(dt, x, w)}
+        if dt == "bf16":
+            yard["torch.matmul bf16"] = lambda x=x, w=w: torch.matmul(x, w)
         res["library_ms"] = None
-        if lib is not None:
+        for name, lib in yard.items():
+            if lib is None:
+                continue
             med, spread = common.time_call(lib, window_s=window_s, repeats=repeats)
-            res["library_ms"] = med * 1e3
-            log(f"# {dt} library ({'torch.matmul' if dt == 'bf16' else 'torch._int_mm'}): "
-                f"{med * 1e3:.4f} ms {ops / med / 1e12:.1f} T/s "
+            res.setdefault("library", {})[name] = med * 1e3
+            if res["library_ms"] is None:
+                res["library_ms"] = med * 1e3
+            log(f"# {dt} library ({name}): {med * 1e3:.4f} ms {ops / med / 1e12:.1f} T/s "
                 f"({100 * ops / med / PEAK[dt]:.1f}% of peak, ±{100 * spread:.1f}%)")
         out[dt] = res
     if "int4" in out and "int8" in out:

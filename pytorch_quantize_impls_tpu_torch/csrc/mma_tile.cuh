@@ -1,6 +1,8 @@
-// Warp-level tensor-core tiles (mma.sync) shared by the tiled matmul of the
-// dtype probe (mxu_probe.cu) and the weight-stationary GEMMs
-// (binary_gemm_ws, dorefa_gemm_ws, shift_gemm_ws).
+// Warp-level tensor-core tiles (mma.sync) shared by the int8 and int4
+// tiled matmul of the dtype probe (mxu_probe.cu), the weight-stationary
+// GEMMs binary_gemm_ws and dorefa_gemm_ws, and the streamed GEMMs
+// (stream_tile.cuh). The bf16 probe and shift_gemm_ws run on the Hopper
+// tile of wgmma_tile.cuh instead.
 //
 // Shared memory holds both operands k-contiguous, one row per output row (A)
 // or output column (B), STAGE_BYTES = 64 bytes of k per stage, each row
@@ -148,75 +150,42 @@ __device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
          ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
 }
 
-// Stage columns [k0, k0 + 32) of rows [m0, m0 + rows) of a row-major float32
-// matrix x (M x K) into S as bf16 (round to nearest even, as PyTorch's and
-// XLA's convert); elements outside read as 0. `vec`: K % 4 == 0 and x
-// 16-byte aligned.
-__device__ __forceinline__ void load_rows_f32_as_bf16(uint32_t* S, const float* __restrict__ x,
-                                                      int m0, int rows, int M, int k0, int K,
-                                                      bool vec) {
-  for (int e = threadIdx.x; e < rows * 8; e += THREADS) {
-    const int r = e >> 3, c = e & 7;
-    const int m = m0 + r, k = k0 + 4 * c;
-    float f[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    if (m < M) {
-      const float* p = x + (size_t)m * K + k;
-      if (vec && k + 4 <= K) {
-        const float4 v = *reinterpret_cast<const float4*>(p);
-        f[0] = v.x, f[1] = v.y, f[2] = v.z, f[3] = v.w;
-      } else {
-        for (int i = 0; i < 4 && k + i < K; ++i) f[i] = p[i];
-      }
-    }
-    *reinterpret_cast<uint2*>(S + r * LDW + 2 * c) =
-        make_uint2(bf16_pair(f[0], f[1]), bf16_pair(f[2], f[3]));
-  }
-}
-
-// Stage the transpose of rows [kr0, kr0 + 64 / EB) of a row-major matrix w
-// (N elements of EB bytes per row; N % (4 / EB) == 0, w 4-byte aligned) for
-// columns [n0, n0 + cols), cols % 32 == 0, into S: word q of column n holds
-// rows kr0 + q (4 / EB) ... One unit is 4 / EB rows x 4 / EB columns, read
-// as one 32-bit word per row (8 neighbouring lanes cover 32 contiguous bytes
-// of a row) and transposed in registers.
-template <int EB>
+// Stage the transpose of byte rows [kr0, kr0 + 64) of a row-major byte
+// matrix w (N bytes per row; N % 4 == 0, w 4-byte aligned) for columns
+// [n0, n0 + cols), cols % 32 == 0, into S: word q of column n holds rows
+// kr0 + 4 q .. + 4. One unit is 4 rows x 4 columns, read as one 32-bit word
+// per row (8 neighbouring lanes cover 32 contiguous bytes of a row) and
+// transposed in registers.
 __device__ __forceinline__ void load_cols_transposed(uint32_t* S, const uint8_t* __restrict__ w,
                                                      int kr0, int n0, int cols, int N) {
-  constexpr int RU = 4 / EB;
-  const int cu = cols / RU, nb = cu / 8;
+  const int cu = cols / 4, nb = cu / 8;
   for (int e = threadIdx.x; e < 16 * cu; e += THREADS) {
     const int sub = e & 31, blk = e >> 5;
     const int u = (blk % nb) * 8 + (sub & 7), q = (blk / nb) * 4 + (sub >> 3);
-    const int n = n0 + RU * u, k = kr0 + RU * q;
-    uint32_t r[RU];
+    const int n = n0 + 4 * u, k = kr0 + 4 * q;
+    uint32_t r[4];
 #pragma unroll
-    for (int j = 0; j < RU; ++j)
-      r[j] = *reinterpret_cast<const uint32_t*>(w + ((size_t)(k + j) * N + n) * EB);
-    uint32_t* s = S + RU * u * LDW + q;
-    if constexpr (EB == 1) {  // 4 x 4 bytes
-      const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140), t1 = __byte_perm(r[2], r[3], 0x5140);
-      const uint32_t t2 = __byte_perm(r[0], r[1], 0x7362), t3 = __byte_perm(r[2], r[3], 0x7362);
-      s[0] = __byte_perm(t0, t1, 0x5410);
-      s[LDW] = __byte_perm(t0, t1, 0x7632);
-      s[2 * LDW] = __byte_perm(t2, t3, 0x5410);
-      s[3 * LDW] = __byte_perm(t2, t3, 0x7632);
-    } else {  // 2 x 2 halves
-      s[0] = __byte_perm(r[0], r[1], 0x5410);
-      s[LDW] = __byte_perm(r[0], r[1], 0x7632);
-    }
+    for (int j = 0; j < 4; ++j) r[j] = *reinterpret_cast<const uint32_t*>(w + (size_t)(k + j) * N + n);
+    uint32_t* s = S + 4 * u * LDW + q;
+    const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140), t1 = __byte_perm(r[2], r[3], 0x5140);
+    const uint32_t t2 = __byte_perm(r[0], r[1], 0x7362), t3 = __byte_perm(r[2], r[3], 0x7362);
+    s[0] = __byte_perm(t0, t1, 0x5410);
+    s[LDW] = __byte_perm(t0, t1, 0x7632);
+    s[2 * LDW] = __byte_perm(t2, t3, 0x5410);
+    s[3 * LDW] = __byte_perm(t2, t3, 0x7632);
   }
 }
 
-// The tiled matmul of the dtype probe: out (M x N, f32) = x (M x KB bytes,
-// row-major) @ w (KB / EB rows x N, row-major), with elements of EB bytes
-// (int8: 1; bf16: 2; int4: two per byte, low nibble first along K for x and
-// along the rows for w, passed as EB = 1). A block computes a BM x BN tile
+// The int8 and int4 tiled matmul of the dtype probe: out (M x N, f32) = x
+// (M x KB bytes, row-major) @ w (KB byte rows x N, row-major), in bytes
+// (int4: two values per byte, low nibble first along K for x and along the
+// rows for w). A block computes a BM x BN tile
 // and walks K in 64-byte stages, both operands staged in shared memory with
 // plain 16-byte (A) and 4-byte (B, transposed in registers) loads; 8 warps
 // as 2 (M) x 4 (N), each an (BM / 32) x (BN / 32) grid of fragments, the
 // accumulator in registers in Op's type, cast to f32 at the end. No padding:
 // M % BM == N % BN == KB % 64 == 0 (the caller checks).
-template <class Op, int EB, int BM, int BN>
+template <class Op, int BM, int BN>
 __global__ void __launch_bounds__(THREADS)
 tiled_mm_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
                 float* __restrict__ out, int M, int N, int KB) {
@@ -234,7 +203,7 @@ tiled_mm_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
       for (int c = 0; c < 4; ++c) acc[i][j][c] = 0;
   for (int kb0 = 0; kb0 < KB; kb0 += STAGE_BYTES) {
     load_rows_bytes(As, x, m0, BM, M, kb0, KB, true);
-    load_cols_transposed<EB>(Bs, w, kb0 / EB, n0, BN, N);
+    load_cols_transposed(Bs, w, kb0, n0, BN, N);
     __syncthreads();
     warp_stage<Op, MF, NF>(As, Bs, acc, arow0, 16, bcol0);
     __syncthreads();
@@ -243,8 +212,7 @@ tiled_mm_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
                        [&](int r, int c, auto v) { out[(size_t)r * N + c] = (float)v; });
 }
 
-// The weight-stationary schedule of binary_gemm_ws, dorefa_gemm_ws and
-// shift_gemm_ws. A block owns output columns [n0, n0 + 64) and R M-tiles of
+// The weight-stationary schedule of binary_gemm_ws and dorefa_gemm_ws. A block owns output columns [n0, n0 + 64) and R M-tiles of
 // 64 rows, [m0, m0 + 64 R). Walking K one 64-byte stage at a time, it
 //   - stages the packed words of the stage's 32-word group for its 64
 //     columns (8 KB) in Ws when the stage enters a new group,

@@ -31,18 +31,29 @@
 //
 // shift_gemm_ws replaces the Pallas kernel shift_matmul.py shift_gemm_ws
 // (pallas_call at :205): shift_gemm's contract, with each packed code tile
-// decoded to bf16 once for many M tiles. The schedule is binary_gemm_ws's
-// (mma_tile.cuh: ws_gemm): a block takes R M-tiles of 64 rows (m_tiles, R in
-// {1, 2, 4}) and 64 columns, decodes each 32-row stage (one byte plane) of
-// its codes once into bf16 ±2^e in shared memory with log_bf16_bits, rounds
-// the R M-tiles' x to bf16 as it stages them, and runs them all on the bf16
-// tensor cores (mma.sync m16n8k16, f32 accumulate), the f32 accumulators in
-// registers for the whole of K. Every block sums its K in one fixed order,
-// with no atomics and no split over K, so two launches give the same bits.
-// Products are exact; only the order and rounding of the tensor core's f32
-// sum differ from the plain version. Decodes per packed code tile:
-// ceil(M / (64 R)) (16 at M = 4096, R = 4). At 4096^3 it is bound by the bf16
-// tensor-core rate (0.139 ms at 989 TFLOP/s; its 155 MB take 0.046 ms).
+// decoded to bf16 once for many M tiles, on the Hopper tile of
+// wgmma_tile.cuh. As in JAX, the wrapper rounds x to bf16 (one cast, into a
+// row pitch of a multiple of 8 for TMA); a block takes R M-tiles of 64 rows
+// (m_tiles, R in {1, 2, 4}) and 128 columns and walks K in stages of 64.
+// Its last warpgroup is the decoder, one thread per weight column: per
+// stage it waits for an empty ring slot, has one thread issue the TMA load
+// of the R M-tiles' x (K-major, 128-byte swizzle; rows past M and columns
+// past K read as zero, so the -2^lo rows of the last group cancel), decodes
+// the stage's two byte planes of its column into bf16 +-2^e (log_bf16_pair,
+// two codes per 32-bit operation), written straight into the slot's K-major
+// swizzled B tile, and arrives on the slot's full barrier. A thread holds
+// the 32 packed words of its column for a 128-row group (two stages) in
+// registers and loads the next group's while it decodes. Warpgroups 0 ..
+// R-1 are consumers, one per M-tile: wgmma m64n128k16 on every stage, 64
+// f32 accumulators per thread for all of K, then a masked store. Every
+// block sums its K in one fixed order, with no atomics and no split over
+// K, so two launches give the same bits. Products are exact; only the
+// order and rounding of the tensor core's f32 sum differ from the plain
+// version. Decodes per packed code tile: ceil(M / (64 R)). At 4096^3 it is
+// bound by the bf16 tensor-core rate (0.139 ms at 989 TFLOP/s; its 155 MB
+// take 0.046 ms); the one decoder warp per SM sub-partition is what holds
+// it back (PERF.md): a stage's decode takes about as long as R = 4
+// M-tiles' products, so R = 4 is the default.
 //
 // decode_log_weights replaces shift_matmul.py decode_log_weights (pallas_call
 // at :260): packed (Kp/4, N) -> bf16 (Kp, N) bit patterns, the same decode.
@@ -54,10 +65,12 @@
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 #include "cuda_error.cuh"
 #include "mma_tile.cuh"
 #include "stream_tile.cuh"
+#include "wgmma_tile.cuh"
 
 namespace {
 
@@ -158,21 +171,149 @@ cudaError_t launch_gemm(const float* x, const uint32_t* wp, float* out, float* p
   return cudaGetLastError();
 }
 
+// Two codes, in bytes 0 and 2 of v (bytes 1 and 3 are ignored), -> their
+// bf16 bit patterns in the two 16-bit lanes: log_bf16_bits on both at once,
+// in 6 integer operations per pair with the byte selection. sign_shift =
+// 14 - bits moves each code's sign bit (bit bits + 1) to bit 15 of its lane;
+// bias7 = ((lo + 127) mod 512) << 7 in both lanes. A carry out of the low
+// lane lands in bit 16, which the mask clears, so each lane keeps bits 7..15
+// of (idx + lo + 127) << 7, as log_bf16_bits's & 0xFFFF does.
+__device__ __forceinline__ uint32_t log_bf16_pair(uint32_t v, int sign_shift, uint32_t idx_mask,
+                                                  uint32_t bias7) {
+  const uint32_t e = (v & idx_mask) * 128u + bias7;
+  return ((~(v << sign_shift) & 0x80008000u) | e) & 0xFF80FF80u;
+}
+
+// K12's tile; kernels/common.py shift_ws_plan is its mirror.
 template <int R>
-__global__ void __launch_bounds__(qt::mma::THREADS)
-shift_gemm_ws_kernel(const float* __restrict__ x, const uint32_t* __restrict__ wp,
-                     float* __restrict__ out, int M, int N, int K, int bits, int lo, bool vec) {
-  using namespace qt::mma;
-  auto load_a = [&](uint32_t* As, int m0, int k0) {
-    load_rows_f32_as_bf16(As, x, m0, 64 * R, M, k0, K, vec);
-  };
-  auto decode = [&](uint32_t* Bs, const uint32_t* Ws, int plane) {
-    decode_log_stage(Bs, Ws, plane, bits, lo);
-  };
-  auto store = [&](int m, int n, float acc) {
-    if (m < M && n < N) out[(size_t)m * N + n] = acc;
-  };
-  ws_gemm<BF16, R>(wp, N, K, GROUP_K, load_a, decode, store);
+struct ShiftWsTile {
+  static constexpr int BN = 128;                   // output columns per block
+  static constexpr int STAGES = 4;
+  static constexpr int BLOCKS = R == 1 ? 2 : 1;    // blocks per SM
+  static constexpr int A_BYTES = 64 * R * qt::wg::ROW_BYTES;
+  static constexpr int B_BYTES = BN * qt::wg::ROW_BYTES;
+  static constexpr int SMEM = qt::wg::smem_bytes(64 * R, BN, STAGES, 0);
+  static constexpr int THREADS = (R + 1) * qt::wg::WG_THREADS;
+  static_assert(qt::wg::STAGE_K * 2 == GROUP_K, "a group's words serve two stages");
+  static_assert(64 * R <= 256 && SMEM <= qt::wg::SMEM_LIMIT, "a TMA box has at most 256 rows");
+  static_assert(BLOCKS * (SMEM + 1024) <= 233472, "BLOCKS blocks share an SM's 228 KB");
+};
+
+// x: bf16 tensor map (M x K, row pitch a multiple of 8).
+template <int R>
+__global__ void __launch_bounds__(ShiftWsTile<R>::THREADS, ShiftWsTile<R>::BLOCKS)
+shift_gemm_ws_kernel(const __grid_constant__ CUtensorMap xmap, const uint32_t* __restrict__ wp,
+                     float* __restrict__ out, int M, int N, int K, int bits, int lo) {
+  using T = ShiftWsTile<R>;
+  using namespace qt::wg;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* As = align_atom(smem_raw);
+  uint8_t* Bs = As + T::STAGES * T::A_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(Bs + T::STAGES * T::B_BYTES);
+  uint64_t* empty = full + T::STAGES;
+  const int role = threadIdx.x / WG_THREADS;
+  const int m0 = blockIdx.y * 64 * R, n0 = blockIdx.x * T::BN;
+  const int stages = (K + qt::wg::STAGE_K - 1) / qt::wg::STAGE_K;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < T::STAGES; ++s) {
+      bar_init(&full[s], WG_THREADS + 1);  // the decoders, and the TMA's bytes
+      bar_init(&empty[s], 4 * R);
+    }
+    bar_init_fence();
+  }
+  __syncthreads();
+  if (role == R) {  // the decoder warpgroup; thread t decodes weight column n0 + t
+    const int t = threadIdx.x % WG_THREADS;
+    const int sign_shift = 14 - bits;
+    const uint32_t idx_mask = ((1u << (bits + 1)) - 1u) * 0x00010001u;
+    const uint32_t bias7 = (((uint32_t)(lo + 127) & 0x1FFu) << 7) * 0x00010001u;
+    // the 32 words of column n0 + t in group g, loaded a group ahead and
+    // unconditionally, so that nothing waits on them until they are
+    // decoded: past N they repeat column N - 1 (whose outputs are not
+    // stored), past the last group they repeat it (and are not decoded)
+    const int last_group = (stages - 1) / 2;
+    auto load_group = [&](uint32_t (&w)[GROUP_ROWS], int g) {
+      const uint32_t* src = wp + (size_t)min(g, last_group) * GROUP_ROWS * N + min(n0 + t, N - 1);
+#pragma unroll
+      for (int r = 0; r < GROUP_ROWS; ++r) w[r] = __ldg(src + (size_t)r * N);
+    };
+    // stage s, half HALF of its group: wait for its slot, load its x, and
+    // decode: k = 64 s + 32 p + r is byte plane 2 HALF + p of word row r;
+    // the 8 consecutive k of rows 8 j .. 8 j + 8 are swizzled chunk 4 p + j
+    // of the weight tile's row t
+    auto stage = [&](auto half, const uint32_t (&w)[GROUP_ROWS], int s) {
+      constexpr int HALF = decltype(half)::value;
+      const int slot = s % T::STAGES;
+      if (s >= T::STAGES) bar_wait(&empty[slot], (s / T::STAGES - 1) & 1);
+      if (t == 0) {
+        bar_arrive_tx(&full[slot], T::A_BYTES);
+        tma_load_2d(As + slot * T::A_BYTES, &xmap, &full[slot], qt::wg::STAGE_K * s, m0);
+      }
+      uint8_t* B = Bs + slot * T::B_BYTES;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          constexpr uint32_t plane0 = 2 * HALF;
+          const uint32_t sel = (plane0 + p) | ((plane0 + p + 4) << 8);
+          uint32_t q[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            q[i] = log_bf16_pair(__byte_perm(w[8 * j + 2 * i], w[8 * j + 2 * i + 1], sel),
+                                 sign_shift, idx_mask, bias7);
+          *reinterpret_cast<uint4*>(B + swizzle128(t, 4 * p + j)) = make_uint4(q[0], q[1], q[2], q[3]);
+        }
+      fence_async_shared();
+      bar_arrive(&full[slot]);
+    };
+    // group g from the words w, while group g + 1's load into w_next
+    auto group = [&](const uint32_t (&w)[GROUP_ROWS], uint32_t (&w_next)[GROUP_ROWS], int g) {
+      load_group(w_next, g + 1);
+      stage(std::integral_constant<int, 0>(), w, 2 * g);
+      if (2 * g + 1 < stages) stage(std::integral_constant<int, 1>(), w, 2 * g + 1);
+    };
+    uint32_t w0[GROUP_ROWS], w1[GROUP_ROWS];
+    load_group(w0, 0);
+    for (int g = 0; 2 * g < stages; g += 2) {
+      group(w0, w1, g);
+      if (2 * (g + 1) < stages) group(w1, w0, g + 1);
+    }
+  } else {  // consumer warpgroup `role`: M-tile rows m0 + 64 role .. + 64
+    float acc[1][1][64];
+    const uint32_t a0 = smem_u32(As) + role * 64 * ROW_BYTES, b0 = smem_u32(Bs);
+    consume<T::STAGES, 1, 1, 0>(
+        acc, stages, full, empty,
+        [&](int slot, int, int ks) { return desc_sw128(a0 + slot * T::A_BYTES + 32 * ks, 16, ATOM_BYTES); },
+        [&](int slot, int, int ks) { return desc_sw128(b0 + slot * T::B_BYTES + 32 * ks, 16, ATOM_BYTES); });
+    const int mt = m0 + 64 * role;
+    const bool pairs = N % 2 == 0;
+    for_each_acc(acc[0][0], [&](int r, int c, float v0, float v1) {
+      const int m = mt + r, n = n0 + c;
+      if (m >= M || n >= N) return;
+      float* o = out + (size_t)m * N + n;
+      if (pairs) {
+        *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+      } else {
+        o[0] = v0;
+        if (n + 1 < N) o[1] = v1;
+      }
+    });
+  }
+}
+
+template <int R>
+cudaError_t launch_ws(const void* xb, const uint32_t* wp, float* out, int M, int N, int K,
+                      int pitch, int bits, int lo, int device, cudaStream_t s) {
+  using T = ShiftWsTile<R>;
+  CUtensorMap xmap;
+  cudaError_t err = qt::wg::bf16_map(&xmap, xb, M, K, pitch, 64 * R, qt::wg::STAGE_K);
+  static bool smem_set[16] = {};
+  if (err == cudaSuccess)
+    err = qt::wg::allow_smem(shift_gemm_ws_kernel<R>, T::SMEM, device, smem_set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + T::BN - 1) / T::BN, (M + 64 * R - 1) / (64 * R));
+  shift_gemm_ws_kernel<R><<<grid, T::THREADS, T::SMEM, s>>>(xmap, wp, out, M, N, K, bits, lo);
+  return cudaGetLastError();
 }
 
 __global__ void decode_log_kernel(const uint32_t* __restrict__ wp, uint16_t* __restrict__ out,
@@ -228,25 +369,27 @@ extern "C" int qt_shift_gemm(const ShiftGemmArgs* a) {
                 a->device, a->stream);
 }
 
+// x: bf16 (M, pitch) with the data in columns [0, K), pitch % 8 == 0,
+// 16-byte aligned (what TMA reads); R = rows of the packed weight.
 extern "C" int qt_shift_gemm_ws(const void* x, const void* wp, void* out, int M, int N, int K,
-                                int R, int bits, int lo, int m_tiles, int device, void* stream) {
+                                int pitch, int R, int bits, int lo, int m_tiles, int device,
+                                void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (!valid(R, bits) || K > R * 4) return (int)cudaErrorInvalidValue;
+  if (!valid(R, bits) || K > R * 4 || pitch < K || pitch % 8 ||
+      reinterpret_cast<uintptr_t>(x) % 16)
+    return (int)cudaErrorInvalidValue;
   if (M == 0 || N == 0) return (int)cudaSuccess;
-  const bool vec = (K % 4 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
-  const dim3 grid((N + 63) / 64, (M + 64 * m_tiles - 1) / (64 * m_tiles));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* xp = static_cast<const float*>(x);
-  const auto* w = static_cast<const uint32_t*>(wp);
   auto* o = static_cast<float*>(out);
+  if (K == 0) return (int)cudaMemsetAsync(o, 0, (size_t)M * N * sizeof(float), s);
+  const auto* w = static_cast<const uint32_t*>(wp);
   switch (m_tiles) {
-    case 1: shift_gemm_ws_kernel<1><<<grid, qt::mma::THREADS, 0, s>>>(xp, w, o, M, N, K, bits, lo, vec); break;
-    case 2: shift_gemm_ws_kernel<2><<<grid, qt::mma::THREADS, 0, s>>>(xp, w, o, M, N, K, bits, lo, vec); break;
-    case 4: shift_gemm_ws_kernel<4><<<grid, qt::mma::THREADS, 0, s>>>(xp, w, o, M, N, K, bits, lo, vec); break;
+    case 1: return (int)launch_ws<1>(x, w, o, M, N, K, pitch, bits, lo, device, s);
+    case 2: return (int)launch_ws<2>(x, w, o, M, N, K, pitch, bits, lo, device, s);
+    case 4: return (int)launch_ws<4>(x, w, o, M, N, K, pitch, bits, lo, device, s);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 extern "C" int qt_decode_log(const void* wp, void* out, int R, int N, int bits, int lo, int device,

@@ -14,7 +14,67 @@ from pytorch_quantize_impls_tpu_torch.ops import pack as packlib
 # against each decoded weight tile: the instantiated set, and each kernel's
 # default, the fastest in the 4096^3 kernel-bench sweep on the H100 (PERF.md)
 WS_M_TILES = (1, 2, 4)
-WS_DEFAULT_M_TILES = {"binary_gemm_ws": 2, "dorefa_gemm_ws": 2, "shift_gemm_ws": 1}
+WS_DEFAULT_M_TILES = {"binary_gemm_ws": 2, "dorefa_gemm_ws": 2, "shift_gemm_ws": 4}
+
+
+# The Hopper bf16 tile (csrc/wgmma_tile.cuh) of shift_gemm_ws (K12) and the
+# probe's bf16 tiled_mm (P1): stages of 64 bf16 of k, each row 128 bytes in
+# the 128-byte swizzle, warpgroups of 128 threads, m64n128 products, and the
+# dynamic shared memory one block may use on the H100 (227 KB).
+WGMMA_STAGE_K = 64
+WGMMA_ROW_BYTES = 128
+WGMMA_ATOM_BYTES = 1024
+WGMMA_SMEM_LIMIT = 232448
+WGMMA_WG_THREADS = 128
+WGMMA_N_TILE = 128
+SHIFT_WS_BN = WGMMA_N_TILE
+
+
+def wgmma_smem_bytes(a_rows: int, b_rows: int, stages: int, extra: int) -> int:
+    """Dynamic shared memory of a wgmma ring (``csrc/wgmma_tile.cuh``
+    ``smem_bytes``, which the kernels ``static_assert`` against
+    WGMMA_SMEM_LIMIT): ``stages`` slots of ``a_rows`` + ``b_rows`` 128-byte
+    rows, ``extra`` bytes, two 8-byte mbarriers per stage and 1024 bytes to
+    align the first slot to the swizzle atom."""
+    return (WGMMA_ATOM_BYTES + stages * (a_rows + b_rows) * WGMMA_ROW_BYTES + extra
+            + 2 * stages * 8)
+
+
+def swizzle128(row: int, chunk: int) -> int:
+    """Byte offset of 16-byte chunk ``chunk`` (0..7) of row ``row`` of a tile
+    of 128-byte rows in the 128-byte swizzle that TMA writes and wgmma reads
+    (``csrc/wgmma_tile.cuh`` ``swizzle128``)."""
+    return row * WGMMA_ROW_BYTES + ((chunk ^ (row & 7)) << 4)
+
+
+def shift_ws_plan(m_tiles: int) -> dict:
+    """The launch of shift_gemm_ws (``csrc/shift_gemm.cu`` ShiftWsTile) for
+    ``m_tiles`` (one of WS_M_TILES): a block of 64 ``m_tiles`` rows x 128
+    columns, one consumer warpgroup per 64-row M-tile plus the decoder
+    warpgroup, a ring of 4 stages of x and of the decoded weight tile; two
+    blocks share an SM at m_tiles 1."""
+    if m_tiles not in WS_M_TILES:
+        raise ValueError(f"m_tiles={m_tiles!r}: must be one of {WS_M_TILES}")
+    rows = 64 * m_tiles
+    return dict(bm=rows, bn=SHIFT_WS_BN, consumers=m_tiles, stages=4,
+                blocks_per_sm=2 if m_tiles == 1 else 1,
+                threads=(m_tiles + 1) * WGMMA_WG_THREADS,
+                smem=wgmma_smem_bytes(rows, SHIFT_WS_BN, 4, 0))
+
+
+def tiled_mm_bf16_plan(bm: int, bn: int) -> dict:
+    """The launch of the probe's bf16 tiled_mm (``csrc/mxu_probe.cu``
+    Bf16Tile) for a (BM, BN) tiling: two consumer warpgroups (one for BM =
+    64), each running BM / 64 / consumers 64-row tiles x BN / 128 column
+    tiles of m64n128 products (64 f32 accumulators each per thread), one
+    producer warpgroup, a ring of 4 stages."""
+    consumers = 2 if bm >= 128 else 1
+    if bm % 64 or bm > 256 or (bm // 64) % consumers or bn % WGMMA_N_TILE:
+        raise ValueError(f"tiles ({bm}, {bn}): no bf16 wgmma tile")
+    mi, ni = bm // 64 // consumers, bn // WGMMA_N_TILE
+    return dict(consumers=consumers, mi=mi, ni=ni, acc_per_thread=64 * mi * ni, stages=4,
+                threads=(consumers + 1) * WGMMA_WG_THREADS,
+                smem=wgmma_smem_bytes(bm, bn, 4, 0))
 
 
 def ws_m_tiles(m_tiles, kernel: str) -> int:

@@ -14,8 +14,9 @@ level (``ops.log_quant`` takes the float ``fsr - 2^bits``; the two agree for
 an integer ``fsr``). Code 0 is ``-2^lo``, not 0: K-padding rows decode to
 that level and cancel only against zero activations.
 
-``shift_gemm`` (K8), its weight-stationary variant ``shift_gemm_ws`` (K12)
-and ``decode_log_weights`` (K9) launch the hand-written CUDA kernels in
+``shift_gemm`` (K8), its weight-stationary variant ``shift_gemm_ws`` (K12,
+on the Hopper wgmma tile of ``csrc/wgmma_tile.cuh``) and
+``decode_log_weights`` (K9) launch the hand-written CUDA kernels in
 ``csrc/shift_gemm.cu`` for CUDA tensors and take their plain PyTorch
 versions (``*_reference``) for CPU tensors; each counts its kernel launches
 in ``.launches``. ``shift_gemm_decoded`` is the JAX package's plain matmul
@@ -52,8 +53,9 @@ def _lib() -> ctypes.CDLL:
         "shift_gemm",
         # one packed ShiftGemmArgs (_GEMM_ARGS)
         qt_shift_gemm=[ctypes.c_char_p],
-        # (x, w_packed, out, M, N, K, R, bits, lo, m_tiles, device, stream)
-        qt_shift_gemm_ws=[p, p, p, i, i, i, i, i, i, i, i, p],
+        # (x bf16, w_packed, out, M, N, K, x's row pitch, R, bits, lo, m_tiles,
+        # device, stream)
+        qt_shift_gemm_ws=[p, p, p, i, i, i, i, i, i, i, i, i, p],
         # (w_packed, out, R, N, bits, lo, device, stream)
         qt_decode_log=[p, p, i, i, i, i, i, p],
     )
@@ -181,9 +183,12 @@ def shift_gemm_ws(
 ) -> torch.Tensor:
     """:func:`shift_gemm`'s contract, weight-stationary: each packed code
     tile is decoded to bf16 once for ``m_tiles`` M-tiles of 64 rows (one of
-    ``common.WS_M_TILES``) and the product runs on the bf16 tensor cores with
-    a float32 sum in a fixed order (deterministic; it differs from
-    :func:`shift_gemm` in the order and rounding of that sum only)."""
+    ``common.WS_M_TILES``) and the product runs on the bf16 tensor cores
+    (wgmma) with a float32 sum in a fixed order (deterministic; it differs
+    from :func:`shift_gemm` in the order and rounding of that sum only). On
+    the card x is rounded to bf16 here, as the JAX wrapper does, into rows of
+    a multiple of 8 values (TMA's row pitch); the kernel reads columns past
+    K as zero."""
     _check_bits(bits)
     r_tiles = ws_m_tiles(m_tiles, "shift_gemm_ws")
     m, k = x.shape
@@ -194,13 +199,12 @@ def shift_gemm_ws(
         return shift_gemm_ws_reference(x, w_packed, fsr=fsr, bits=bits)
     if dev.type != "cuda":
         raise ValueError(f"shift_gemm_ws: unsupported device {dev}")
-    # the kernel rounds float32 to bf16 as it loads; bf16 x is exact in float32
-    x = x.to(torch.float32).contiguous()
+    xb = _bf16_rows(x)
     _build.require("w_packed", w_packed, torch.int32, (r, n), dev)
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     lib = _lib()
     code = lib.qt_shift_gemm_ws(
-        _build.ptr(x), _build.ptr(w_packed), _build.ptr(out), m, n, k, r, bits,
+        _build.ptr(xb), _build.ptr(w_packed), _build.ptr(out), m, n, k, xb.shape[1], r, bits,
         _lo(fsr, bits), r_tiles, *_build.launch_args(x),
     )
     _build.check(lib, code, "shift_gemm_ws")
@@ -209,6 +213,22 @@ def shift_gemm_ws(
 
 
 shift_gemm_ws.launches = 0
+
+
+def _bf16_rows(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (round to nearest even, as XLA's convert) as
+    shift_gemm_ws's TMA reads it: 16-byte aligned, with a row pitch of K
+    rounded up to a multiple of 8. One cast where K % 8 == 0 (x itself if it
+    is bf16 already and aligned); else the cast into the first K columns of
+    a wider buffer (the columns past K are never read)."""
+    m, k = x.shape
+    pitch = -(-k // 8) * 8
+    if pitch == k:
+        xb = x.to(torch.bfloat16, memory_format=torch.contiguous_format)
+        return xb if xb.data_ptr() % 16 == 0 else xb.clone()
+    xb = torch.empty((m, pitch), dtype=torch.bfloat16, device=x.device)
+    xb[:, :k] = x
+    return xb
 
 
 def shift_gemm_decoded(x: torch.Tensor, w_bf16: torch.Tensor) -> torch.Tensor:

@@ -138,7 +138,7 @@ def test_port_imports_without_jax():
         "from pytorch_quantize_impls_tpu_torch.nn import log_lin\n"
         "from pytorch_quantize_impls_tpu_torch.ops import log_lin\n"
         "from pytorch_quantize_impls_tpu_torch.bench import headline, kernel_bench, mxu_probe\n"
-        "from pytorch_quantize_impls_tpu_torch.bench import host_cost, stream_sweep\n"
+        "from pytorch_quantize_impls_tpu_torch.bench import host_cost, stream_sweep, ws_decode_cost\n"
         "assert len(headline.build_rows(16, 16, 64, 'cpu')) == 8\n"
         "assert len(kernel_bench.build('shift_ws', (16, 16, 64), 4, 'cpu')) == 3\n"
         "i8 = torch.ones(64, 128, dtype=torch.int8)\n"
