@@ -15,12 +15,18 @@ on one NVIDIA GPU (built for Hopper, sm_90a).
    tiled_mm (int8, int4) bit for bit, K9 decode_log_weights bit for bit as
    int16 patterns, K4 decode_attention within a float32 tolerance, K8
    shift_gemm, K12 shift_gemm_ws and P1 tiled_mm (bf16) within 1e-5 of
-   |bf16(x)| @ |w| per element and deterministic. K6 and K8 also run at the
-   VGG head's shape and 4096^3 (timed beside their main rows) and at cases
-   whose launch plan splits K (ragged last chunks, M = 1 and 65, N = 10,
-   zeros); each check line shows the plan (BM, S), the main rows the host's
-   microseconds per call. K10-K12 run at the JAX tests' shapes, 4096^3, a
-   served conv as im2col and edges (every m_tiles, all-zero activations);
+   |bf16(x)| @ |w| per element and deterministic. K3, K6 and K8 (the
+   streamed tensor-core schedule of csrc/stream_tile.cuh) also run at
+   4096^3 and, K6 and K8, the VGG head's shape, K3 the decode LM's four
+   projections at M = 32 (timed beside their main rows), and at cases whose
+   launch plan splits K (ragged last chunks, M = 1 and 65, N = 10, zeros,
+   unaligned x); each check line shows the plan (BM, S), the main rows (and
+   K3's M = 32 rows) the host's microseconds per call. K5 runs at the
+   ResNet's block convs at b = 256 and b = 1 and shows its tile. Device
+   times are read after every CUDA-event time (a torch.profiler session
+   slows each later launch on the host). K10-K12 run at the JAX tests'
+   shapes, 4096^3, a served conv as im2col and edges (every m_tiles,
+   all-zero activations);
    P1 at 256x512x256 and 4096^3 over every tiling (K12 and P1 bf16 run on
    the TMA + wgmma tile of csrc/wgmma_tile.cuh). Prints kernel, plain,
    library-call and bound times; the bf16 GEMMs' (K8, K12, P1 bf16) library
@@ -209,21 +215,26 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean time of ``fn`` per call on the card, by CUDA events over
-    ``iters`` back-to-back calls (wrapper overhead included)."""
+    """Time of ``fn`` per call on the card, by CUDA events over ``iters``
+    back-to-back calls (wrapper overhead included): the median of three
+    such runs, so that one stalled by the shared host's load does not set
+    it."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    runs = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        runs.append(start.elapsed_time(end) / iters)
+    return sorted(runs)[len(runs) // 2]
 
 
 def host_us(fn, calls: int = 2000) -> float:
@@ -331,6 +342,30 @@ def attention_bound(b, h, cl, hd, lens):
     return bound_ms(nbytes, 4 * valid * hd, F32_FLOPS_PER_S)
 
 
+def int8_gemm_case(label, xi, wi, alpha, row, main, lib, also=False):
+    """A K3 check: int8_gemm against its plain version, ``torch._int_mm``
+    as the library call where it runs (no scales, its shape rules), the
+    launch plan (BM, S) of ``stream_plan``; ``also`` rows are timed beside
+    the main row (the M=32 ones with the host's us per call)."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch.kernels import int8_matmul as im
+    from pytorch_quantize_impls_tpu_torch.kernels.common import stream_plan
+
+    (m, k), n = xi.shape, wi.shape[1]
+    nscale = 4 * ((0 if alpha is None else n) + (0 if row is None else m))
+    plan = stream_plan(m, n, k, im.STAGE_K)[:2]
+    return dict(
+        kernel="int8_gemm", label=label,
+        fn=lambda: im.int8_gemm(xi, wi, alpha, row),
+        plain=lambda: im.int8_gemm_reference(xi, wi, alpha, row),
+        library=(lambda: torch._int_mm(xi, wi)) if lib else None,
+        bound=gemm_bound(m, k, n, k * n, nscale), main=main, plan=plan,
+        split=label.startswith("edge"),
+        also=also, host=main or (also and m <= 32),
+    )
+
+
 def kernel_cases(rng, dev):
     """Every comparison: dicts with the kernel, a label, the kernel call, its
     plain version, the library call (or None), the bound and whether it is
@@ -338,7 +373,6 @@ def kernel_cases(rng, dev):
     import torch
 
     from pytorch_quantize_impls_tpu_torch.kernels import decode_attention as da
-    from pytorch_quantize_impls_tpu_torch.kernels import int8_matmul as im
     from pytorch_quantize_impls_tpu_torch.kernels import xnor_gemm as bg
 
     def t(a):
@@ -386,7 +420,8 @@ def kernel_cases(rng, dev):
                         ("qkv", 1024, 3072, (1, 32)), ("out", 1024, 1024, (32,)),
                         ("ffn_in", 1024, 4096, (32,)), ("ffn_out", 4096, 1024, (1, 32)))
                     for m in ms]
-    # edges: odd M, N=10 and odd N, un-padded K, K % 4 != 0, scales on/off
+    # edges: odd M, N=10 and odd N, un-padded K, K % 4 != 0, scales on/off;
+    # every one of them splits K (S 2 to 9, ragged last chunks)
     gemm_shapes += [
         ("edge M=33 K=300 N=130 alpha+row", 33, 300, 130, True, True),
         ("edge M=255 K=2100 N=257 alpha", 255, 2100, 257, True, False),
@@ -412,13 +447,26 @@ def kernel_cases(rng, dev):
         ))
         xi = t(rng.integers(-127, 128, size=(m, k)).astype(np.int8))
         wi = t(rng.integers(-127, 128, size=(k, n)).astype(np.int8))
-        cases.append(dict(
-            kernel="int8_gemm", label=label,
-            fn=lambda x=xi, w=wi, a=alpha, r=row: im.int8_gemm(x, w, a, r),
-            plain=lambda x=xi, w=wi, a=alpha, r=row: im.int8_gemm_reference(x, w, a, r),
-            library=(lambda x=xi, w=wi: torch._int_mm(x, w)) if lib else None,
-            bound=gemm_bound(m, k, n, k * n, nscale), main=main,
-        ))
+        # beside K3's main row in the JSON line: the LM's projections at M=32
+        # (with the host's us per call)
+        beside = label.startswith("lm") and label.endswith(f"M={SLOTS}")
+        cases.append(int8_gemm_case(label, xi, wi, alpha, row, main, lib, also=beside))
+    # K3 at the headline's 4096^3, beside the main row; then the copy paths
+    # of unaligned operands (x's rows at an odd address: byte loads; K % 16
+    # != 0 and N % 16 != 0 with K, N % 4 == 0: 4-byte copies), each split
+    big = HEADLINE_SHAPE
+    xi = t(rng.integers(-127, 128, size=(big, big)).astype(np.int8))
+    wi = t(rng.integers(-127, 128, size=(big, big)).astype(np.int8))
+    cases.append(int8_gemm_case(f"{big}^3", xi, wi, None, None, False, True, also=True))
+    for label, m, k, n, ua, ur in (("edge unaligned x M=32 K=1024 N=256 alpha", 32, 1024, 256,
+                                    True, False),
+                                   ("edge 4-byte M=8 K=1028 N=260 alpha+row", 8, 1028, 260,
+                                    True, True)):
+        flat = t(rng.integers(-127, 128, size=m * k + 1).astype(np.int8))
+        xi = flat[1:].view(m, k) if "unaligned" in label else flat[:-1].view(m, k)
+        wi = t(rng.integers(-127, 128, size=(k, n)).astype(np.int8))
+        alpha, row = scales(m, n, ua, ur)
+        cases.append(int8_gemm_case(label, xi, wi, alpha, row, False, False))
     # K4 at the decode LM's shapes (h 8, cache 1024, hd 128) with per-slot
     # cursors: as the engine has them (prompt 16..128 + up to 32 new), spread
     # over the whole cache, and full; then edge shapes
@@ -484,7 +532,7 @@ def kbit_cases(rng, dev):
     from pytorch_quantize_impls_tpu_torch import ops
     from pytorch_quantize_impls_tpu_torch.kernels import int8_conv as ic
     from pytorch_quantize_impls_tpu_torch.kernels import packed_matmul as pm
-    from pytorch_quantize_impls_tpu_torch.kernels.common import stream_plan
+    from pytorch_quantize_impls_tpu_torch.kernels.common import conv_plan, stream_plan
     from pytorch_quantize_impls_tpu_torch.kernels.conv import conv_pads
 
     def t(a):
@@ -553,9 +601,9 @@ def kbit_cases(rng, dev):
             plan=stream_plan(m, n, k, pm.STAGE_K)[:2], split="split" in label,
             also=label.startswith(("vgg head", f"{big}^3")),
         ))
-    # K5 at the ResNet's block convs (b = RESNET_BATCH): the packed path's
-    # scale epilogue at every shape, the fused path's codes and affine ones
-    # at stage 1; BNN LeNet's conv2 (±1, no scale); then edges
+    # K5 at the ResNet's block convs (b = RESNET_BATCH, and b = 1): the
+    # packed path's scale epilogue at every shape, the fused path's codes and
+    # affine ones at stage 1; BNN LeNet's conv2 (±1, no scale); then edges
     n_a = 15
     conv_cases = [(label, RESNET_BATCH, h, cin, cout, 3, (s, s), "SAME", "scale")
                   for label, h, cin, cout, s in resnet_convs()]
@@ -563,6 +611,8 @@ def kbit_cases(rng, dev):
                     (1, 1), "SAME", epi) for epi in ("codes", "affine")]
     conv_cases += [(f"bnn_lenet conv2 12x12x{WIDTH}", BUCKETS[-1], 12, WIDTH, 2 * WIDTH, 5,
                     (1, 1), "VALID", "none")]
+    conv_cases += [(f"b=1 {label}", 1, h, cin, cout, 3, (s, s), "SAME", "scale")
+                   for label, h, cin, cout, s in resnet_convs()]
     conv_cases += [
         ("edge b=1 3x3 VALID C=5 N=7 -> 1x1", 1, 3, 5, 7, 3, (1, 1), "VALID", "scale"),
         ("edge 5x5 VALID C=6 N=10 codes", 2, 12, 6, 10, 5, (1, 1), "VALID", "codes"),
@@ -607,6 +657,7 @@ def kbit_cases(rng, dev):
 
         out_bytes = m * cout * (1 if kind == "codes" else 4)
         nvec = (a is not None) + (b_ is not None)
+        plan = conv_plan(m, cout)
         cases.append(dict(
             kernel="int8_conv2d", label=label,
             fn=lambda args=args: ic.int8_conv2d(*args),
@@ -614,7 +665,8 @@ def kbit_cases(rng, dev):
             library=cudnn,
             bound=bound_ms(x.numel() + wc.numel() + out_bytes + 4 * cout * nvec,
                            2 * m * kk * cout, INT8_OPS_PER_S),
-            main=label == f"stage1 conv 16x16x{2 * w}",
+            main=label == f"stage1 conv 16x16x{2 * w}", tile=(plan["bm"], plan["bn"]),
+            also=not label.startswith("edge"),
         ))
     return cases
 
@@ -900,9 +952,9 @@ def hold(kernel: str, label: str, fn, plain, abs_ref=None):
     over up to 1024 positions in another order; exp carries an ulp of a
     score near 20, 2e-6, into every probability); where ``abs_ref`` is given
     (K8, K12, P1 bf16) within ``SHIFT_RTOL * abs_ref()`` per element; K9 bit
-    for bit as int16 patterns; anything else bit for bit. K4 and the
-    ``abs_ref`` kernels must also give the same bits twice. Returns (max
-    |err|, verdict)."""
+    for bit as int16 patterns; anything else bit for bit. K4, the
+    ``abs_ref`` kernels and the bit-exact ones must also give the same bits
+    twice. Returns (max |err|, verdict)."""
     import torch
 
     got, ref = fn(), plain()
@@ -934,6 +986,8 @@ def hold(kernel: str, label: str, fn, plain, abs_ref=None):
         return err, "bit-equal (int16 patterns)"
     if not torch.equal(got, ref):
         fail(f"{kernel} {label}: differs from its plain version, max |err| {err}")
+    if not torch.equal(got, fn()):
+        fail(f"{kernel} {label}: two launches gave different bits")
     return err, "bit-equal"
 
 
@@ -942,61 +996,71 @@ def check_kernels(card: str, timed: bool = True):
     K1-K3, K5-K7, K10, K11 and P1 int8/int4 bit for bit, K9 bit for bit as
     int16 patterns, K4 within a float32 tolerance, K8, K12 and P1 bf16
     within ``SHIFT_RTOL * (|bf16(x)| @ |w|)`` per element and deterministic.
-    Returns {kernel: summary for the JSON line}."""
+    The timed rows' device times (torch.profiler) are read last, after every
+    CUDA-event and host-clock time: once a profiler session has run, every
+    later launch in the process costs the host several us more. Returns
+    {kernel: summary for the JSON line}."""
     dev = cuda()
     rng = np.random.default_rng(SEED)
     summary = {}
     cases = (kernel_cases(rng, dev) + kbit_cases(rng, dev) + log_cases(rng, dev)
              + ws_cases(rng, dev) + probe_cases(rng, dev))
+    deferred = []  # timed rows awaiting their device time
     for c in cases:
         kernel, label, fn, plain = c["kernel"], c["label"], c["fn"], c["plain"]
         err, verdict = hold(kernel, label, fn, plain, c.get("abs_ref"))
         s = summary.setdefault(kernel, {"max_abs_err": 0.0})
         s["max_abs_err"] = max(s["max_abs_err"], err)
-        if "plan" in c:  # K6, K8: the launch plan (BM, splits over K)
+        if "plan" in c:  # K3, K6, K8: the launch plan (BM, splits over K)
             if c["split"] and c["plan"][1] == 1:
                 fail(f"{kernel} {label}: the launch plan does not split K")
             verdict += f", plan BM {c['plan'][0]} S {c['plan'][1]}"
+        if "tile" in c:  # K5: the output tile (pixels x channels)
+            verdict += f", tile {c['tile'][0]}x{c['tile'][1]}"
         line = f"check {kernel:22s} {label:32s} {verdict}"
-        if timed and c.get("timed", not label.startswith("edge")):
-            ms, plain_ms = cuda_ms(fn), cuda_ms(plain)
-            dev_ms = kernel_device_ms(fn, kernel)
-            bms, by = c["bound"]
-            lib_ms = cuda_ms(c["library"]) if c["library"] else None
-            line += (f"  kernel {ms:.4f} ms (device "
-                     f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'})  plain "
-                     f"{plain_ms:.4f} ms  bound {bms:.4f} ms ({by})  library "
-                     f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}")
-            extra = {"device_ms": dev_ms}
-            if "plan" in c:
-                extra["plan"] = {"bm": c["plan"][0], "splits": c["plan"][1]}
-            if c["main"] and "plan" in c:
-                extra["host_us"] = host_us(fn)
-                line += f"  host {extra['host_us']:.2f} us/call (CPU clock, 2000 calls)"
-            if "sdpa" in c:
-                sdpa_ms = cuda_ms(c["sdpa"])
-                yard_err = (c["sdpa"]() - plain()).abs().max().item()
-                line += (f"  [yardstick: SDPA on dequantized f32 K/V {sdpa_ms:.4f} ms, "
-                         f"max |diff| {yard_err:.3g}; full-cache bound "
-                         f"{c['full_bound'][0]:.4f} ms]")
-                extra["sdpa_dequantized_ms"] = sdpa_ms
-            if "cublas_f32" in c:
-                f32_ms = cuda_ms(c["cublas_f32"])
-                line += f"  [yardstick: cuBLAS f32 matmul of the bf16 values {f32_ms:.4f} ms]"
-                extra["cublas_f32_ms"] = f32_ms
-            if "cublas_bf16" in c:
-                bf16_ms = cuda_ms(c["cublas_bf16"])
-                line += f"  [yardstick: cuBLAS bf16 matmul (bf16 out) {bf16_ms:.4f} ms]"
-                extra["cublas_bf16_ms"] = bf16_ms
-            line += f"  [{card}]"
-            if c["main"]:
-                s.update(ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
-                         library_ms=lib_ms, shape=label, **extra)
-            elif c.get("also"):  # timed beside the main row, in its JSON row
-                s.setdefault("also", {})[label] = dict(
-                    ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=lib_ms,
-                    **extra)
-        print(line, flush=True)
+        if not (timed and c.get("timed", not label.startswith("edge"))):
+            print(line, flush=True)
+            continue
+        bms, by = c["bound"]
+        record = dict(ms=cuda_ms(fn), plain_ms=cuda_ms(plain), bound_ms=bms, bound_by=by,
+                      library_ms=cuda_ms(c["library"]) if c["library"] else None)
+        tail = ""
+        if "plan" in c:
+            record["plan"] = {"bm": c["plan"][0], "splits": c["plan"][1]}
+        if "tile" in c:
+            record["tile"] = {"bm": c["tile"][0], "bn": c["tile"][1]}
+        if c.get("host", c["main"]) and "plan" in c:
+            record["host_us"] = host_us(fn)
+            tail += f"  host {record['host_us']:.2f} us/call (CPU clock, 2000 calls)"
+        if "sdpa" in c:
+            sdpa_ms = cuda_ms(c["sdpa"])
+            yard_err = (c["sdpa"]() - plain()).abs().max().item()
+            tail += (f"  [yardstick: SDPA on dequantized f32 K/V {sdpa_ms:.4f} ms, "
+                     f"max |diff| {yard_err:.3g}; full-cache bound "
+                     f"{c['full_bound'][0]:.4f} ms]")
+            record["sdpa_dequantized_ms"] = sdpa_ms
+        if "cublas_f32" in c:
+            f32_ms = cuda_ms(c["cublas_f32"])
+            tail += f"  [yardstick: cuBLAS f32 matmul of the bf16 values {f32_ms:.4f} ms]"
+            record["cublas_f32_ms"] = f32_ms
+        if "cublas_bf16" in c:
+            bf16_ms = cuda_ms(c["cublas_bf16"])
+            tail += f"  [yardstick: cuBLAS bf16 matmul (bf16 out) {bf16_ms:.4f} ms]"
+            record["cublas_bf16_ms"] = bf16_ms
+        deferred.append((c, line, tail, record, s))
+    for c, line, tail, record, s in deferred:
+        dev_ms = kernel_device_ms(c["fn"], c["kernel"])
+        record["device_ms"] = dev_ms
+        lib_ms = record["library_ms"]
+        print(f"{line}  kernel {record['ms']:.4f} ms (device "
+              f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'})  plain "
+              f"{record['plain_ms']:.4f} ms  bound {record['bound_ms']:.4f} ms "
+              f"({record['bound_by']})  library {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}"
+              f"{tail}  [{card}]", flush=True)
+        if c["main"]:
+            s.update(shape=c["label"], **record)
+        elif c.get("also"):  # timed beside the main row, in its JSON row
+            s.setdefault("also", {})[c["label"]] = record
     return summary
 
 
@@ -2709,7 +2773,7 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, report in reports.items():
         for line in report.splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
 
     def phase(name, fn, *args):
@@ -2765,7 +2829,7 @@ def main() -> None:
             **{k: v for k, v in s.items()
                if k in ("shape", "device_ms", "sdpa_dequantized_ms", "cublas_f32_ms",
                         "cublas_bf16_ms", "also",
-                        "plan", "host_us")},
+                        "plan", "tile", "host_us")},
         })
     print(f"whole run from the kernel builds on: {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

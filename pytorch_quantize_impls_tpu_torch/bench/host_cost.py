@@ -2,8 +2,9 @@
 
     python pytorch_quantize_impls_tpu_torch/bench/host_cost.py [--calls N]
 
-Times back-to-back calls of ``dorefa_gemm`` (K6, w4a4) and ``shift_gemm``
-(K8, fsr 0, 4 bits) at the serving LM's ffn_in shape (M 32, K 1024, N 4096)
+Times back-to-back calls of ``dorefa_gemm`` (K6, w4a4), ``shift_gemm`` (K8,
+fsr 0, 4 bits) and ``int8_gemm`` (K3, on K6's weights decoded to int8) at
+the serving LM's ffn_in shape (M 32, K 1024, N 4096)
 by the CPU clock, the card synchronized after the clock stops: 200 calls,
 which fit the launch queue, so a kernel slower on the card than its wrapper
 on the host does not hold the clock, and ``calls``. Then it profiles
@@ -47,6 +48,7 @@ def main() -> None:
         print("host_cost: no CUDA device", file=sys.stderr)
         sys.exit(1)
     from pytorch_quantize_impls_tpu_torch import ops
+    from pytorch_quantize_impls_tpu_torch.kernels import int8_matmul as im
     from pytorch_quantize_impls_tpu_torch.kernels import packed_matmul as pm
     from pytorch_quantize_impls_tpu_torch.kernels import shift_matmul as sm
 
@@ -64,6 +66,7 @@ def main() -> None:
     wrappers = {
         "dorefa_gemm": lambda: pm.dorefa_gemm(codes, wp4, w_bits=4, a_bits=4),
         "shift_gemm": lambda: sm.shift_gemm(x, wpl, fsr=0.0, bits=4),
+        "int8_gemm": lambda: im.int8_gemm(codes, w8),
         "torch._int_mm": lambda: torch._int_mm(codes, w8),
         "torch.matmul f32": lambda: torch.matmul(xf, wf),
     }

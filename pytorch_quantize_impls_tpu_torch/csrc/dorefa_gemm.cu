@@ -85,23 +85,14 @@ template <int BITS, int BM>
 __global__ void __launch_bounds__(qt::mma::THREADS)
 dorefa_gemm_kernel(const int8_t* __restrict__ x, const uint32_t* __restrict__ wp,
                    float* __restrict__ out, int32_t* __restrict__ part, int M, int N, int K,
-                   float inv_scale, int k_stages, int chunk, bool xvec, bool wvec) {
+                   float inv_scale, int k_stages, int chunk, int xmode, bool wvec) {
   using namespace qt::mma;
   const auto* xb = reinterpret_cast<const uint8_t*>(x);
-  // xvec: K % 16 == 0 and x 16-byte aligned, so 16 codes are one copy;
-  // else plain loads (load_rows_bytes), which the next barrier publishes
+  // xmode: qt::stream::load_rows's 16, 4 or 1 (plain loads)
   auto load_a = [&](uint32_t* S, int m0, int k0) {
-    if (xvec) {
-      for (int e = threadIdx.x; e < BM * 4; e += THREADS) {
-        const int r = e >> 2, c = 16 * (e & 3);
-        const bool in = m0 + r < M && k0 + c < K;
-        qt::stream::cp_async16(S + r * LDW + c / 4, in ? xb + (size_t)(m0 + r) * K + k0 + c : xb,
-                               in ? 16 : 0);
-      }
-    } else {
-      load_rows_bytes(S, xb, m0, BM, M, k0, K, false);
-    }
+    qt::stream::load_rows<BM>(S, xb, m0, M, k0, K, xmode);
   };
+  auto load_w = [&](uint32_t* W, int g, int n0) { qt::stream::load_words(W, wp, g, n0, N, wvec); };
   auto prep = [](const uint32_t*, const uint32_t* W, int stage, uint32_t* Bs, uint32_t*) {
     decode_dorefa_stage<BITS>(Bs, W, 2 * stage);
   };
@@ -113,8 +104,8 @@ dorefa_gemm_kernel(const int8_t* __restrict__ x, const uint32_t* __restrict__ wp
       out[(size_t)m * N + n] = (float)acc * inv_scale;
   };
   constexpr int GROUP_K = (32 / BITS) * GROUP_ROWS;
-  qt::stream::stream_gemm<S8, BM, BM * LDW, false>(wp, N, GROUP_K / STAGE_BYTES, k_stages, chunk,
-                                                  wvec, load_a, prep, store);
+  qt::stream::stream_gemm<S8, qt::stream::PackedTile<BM, BM * LDW, false>>(
+      GROUP_K / STAGE_BYTES, k_stages, chunk, load_a, load_w, prep, store);
 }
 
 // The split's second pass: the int32 partials summed (exact in any order),
@@ -177,13 +168,13 @@ __global__ void decode_dorefa_kernel(const uint32_t* __restrict__ wp, int8_t* __
 template <int BITS, int BM>
 cudaError_t launch_gemm(const void* x, const void* wp, void* out, void* ws, int M, int N, int K,
                         float inv_scale, int splits, int chunk, int device, cudaStream_t stream) {
-  constexpr size_t smem = qt::stream::smem_bytes<BM, BM * qt::mma::LDW, false>();
+  constexpr size_t smem = qt::stream::PackedTile<BM, BM * qt::mma::LDW, false>::SMEM;
   constexpr int STAGE_K = qt::mma::STAGE_BYTES;
   static bool smem_set[16] = {};
   const cudaError_t err =
       qt::stream::allow_smem(dorefa_gemm_kernel<BITS, BM>, smem, device, smem_set);
   if (err != cudaSuccess) return err;
-  const bool xvec = K % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int xmode = qt::stream::copy_mode(x, K);
   const bool wvec = N % 4 == 0 && reinterpret_cast<uintptr_t>(wp) % 16 == 0;
   const dim3 grid((N + qt::stream::BN - 1) / qt::stream::BN, (M + BM - 1) / BM, splits);
   auto* o = static_cast<float*>(out);
@@ -191,7 +182,7 @@ cudaError_t launch_gemm(const void* x, const void* wp, void* out, void* ws, int 
   dorefa_gemm_kernel<BITS, BM><<<grid, qt::mma::THREADS, smem, stream>>>(
       static_cast<const int8_t*>(x), static_cast<const uint32_t*>(wp), o,
       splits > 1 ? part : nullptr, M, N, K, inv_scale, (K + STAGE_K - 1) / STAGE_K,
-      chunk / STAGE_K, xvec, wvec);
+      chunk / STAGE_K, xmode, wvec);
   const cudaError_t launched = cudaGetLastError();
   if (launched != cudaSuccess || splits == 1) return launched;
   const size_t mn = (size_t)M * N;

@@ -1,8 +1,9 @@
 // Warp-level tensor-core tiles (mma.sync) shared by the int8 and int4
 // tiled matmul of the dtype probe (mxu_probe.cu), the weight-stationary
-// GEMMs binary_gemm_ws and dorefa_gemm_ws, and the streamed GEMMs
-// (stream_tile.cuh). The bf16 probe and shift_gemm_ws run on the Hopper
-// tile of wgmma_tile.cuh instead.
+// GEMMs binary_gemm_ws and dorefa_gemm_ws, and the streamed GEMMs and conv
+// (stream_tile.cuh: dorefa_gemm, shift_gemm, int8_gemm, int8_conv2d). The
+// bf16 probe and shift_gemm_ws run on the Hopper tile of wgmma_tile.cuh
+// instead.
 //
 // Shared memory holds both operands k-contiguous, one row per output row (A)
 // or output column (B), STAGE_BYTES = 64 bytes of k per stage, each row
@@ -101,6 +102,53 @@ __device__ __forceinline__ void warp_stage(const uint32_t* As, const uint32_t* B
     for (int i = 0; i < MF; ++i) {
       const uint32_t* p = As + (arow0 + i * astep + gid) * LDW + kw;
       const uint32_t a[4] = {p[0], p[8 * LDW], p[4], p[8 * LDW + 4]};
+#pragma unroll
+      for (int j = 0; j < NF; ++j) Op::run(acc[i][j], a, b[j]);
+    }
+  }
+}
+
+// Four 8 x 8 matrices of 16-bit elements from shared memory: lanes 8 i ..
+// 8 i + 7 give the addresses of matrix i's 8 rows (16 bytes each, 16-byte
+// aligned); lane l gets the 32-bit word l % 4 of row l / 4 of each.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&d)[4], const uint32_t* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+               : "r"((uint32_t)__cvta_generic_to_shared(p)));
+}
+
+// warp_stage with the fragments loaded by ldmatrix (the streamed schedule,
+// stream_tile.cuh): in 32-bit words, the
+// A fragment of a 16-row tile is the four 8 x 4-word matrices (rows 0-7,
+// words 0-3), (rows 8-15, words 0-3), (rows 0-7, words 4-7), (rows 8-15,
+// words 4-7), and two B fragments are (columns 0-7 of fragment j, words
+// 0-3), (words 4-7), and the same of fragment j + 1. One instruction per
+// four registers instead of four loads; at LDW = 20 the eight rows of a
+// matrix fall in distinct banks. NF is even.
+template <class Op, int MF, int NF>
+__device__ __forceinline__ void warp_stage_ldsm(const uint32_t* As, const uint32_t* Bs,
+                                                typename Op::acc_t (&acc)[MF][NF][4], int arow0,
+                                                int astep, int bcol0) {
+  static_assert(NF % 2 == 0, "ldmatrix.x4 loads two B fragments");
+  const int lane = threadIdx.x & 31, mi = lane >> 3, r = lane & 7;
+  const uint32_t* a0 = As + (arow0 + (mi & 1) * 8 + r) * LDW + (mi >> 1) * 4;
+  const uint32_t* b0 = Bs + (bcol0 + (mi >> 1) * 8 + r) * LDW + (mi & 1) * 4;
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks) {
+    uint32_t b[NF][2];
+#pragma unroll
+    for (int j = 0; j < NF; j += 2) {
+      uint32_t d[4];
+      ldsm_x4(d, b0 + 8 * j * LDW + 8 * ks);
+      b[j][0] = d[0];
+      b[j][1] = d[1];
+      b[j + 1][0] = d[2];
+      b[j + 1][1] = d[3];
+    }
+#pragma unroll
+    for (int i = 0; i < MF; ++i) {
+      uint32_t a[4];
+      ldsm_x4(a, a0 + i * astep * LDW + 8 * ks);
 #pragma unroll
       for (int j = 0; j < NF; ++j) Op::run(acc[i][j], a, b[j]);
     }

@@ -141,8 +141,9 @@ shift_gemm_kernel(const float* __restrict__ x, const uint32_t* __restrict__ wp,
   auto store = [&](int m, int n, float acc) {
     if (m < M && n < N) dst[(size_t)m * N + n] = acc;
   };
-  qt::stream::stream_gemm<BF16, BM, BM * STAGE_K, true>(wp, N, GROUP_K / STAGE_K, k_stages, chunk,
-                                                       wvec, load_a, prep, store);
+  auto load_w = [&](uint32_t* W, int g, int n0) { qt::stream::load_words(W, wp, g, n0, N, wvec); };
+  qt::stream::stream_gemm<BF16, qt::stream::PackedTile<BM, BM * STAGE_K, true>>(
+      GROUP_K / STAGE_K, k_stages, chunk, load_a, load_w, prep, store);
 }
 
 __global__ void shift_gemm_kernel_sum(const float* __restrict__ part, float* __restrict__ out,
@@ -154,7 +155,7 @@ template <int BM>
 cudaError_t launch_gemm(const float* x, const uint32_t* wp, float* out, float* part, int M, int N,
                         int K, int bits, int lo, int splits, int chunk, int device,
                         cudaStream_t s) {
-  constexpr size_t smem = qt::stream::smem_bytes<BM, BM * STAGE_K, true>();
+  constexpr size_t smem = qt::stream::PackedTile<BM, BM * STAGE_K, true>::SMEM;
   static bool smem_set[16] = {};
   const cudaError_t err = qt::stream::allow_smem(shift_gemm_kernel<BM>, smem, device, smem_set);
   if (err != cudaSuccess) return err;

@@ -87,10 +87,10 @@ def ws_m_tiles(m_tiles, kernel: str) -> int:
 
 
 # The streamed GEMMs' launch plan (csrc/stream_tile.cuh: shift_gemm,
-# dorefa_gemm): the SM count of the H100 SXM that a split over K fills, the
-# output tile's columns, the fewest stages a split's chunk holds (the ring's
-# depth: a shorter chunk cannot overlap its loads with its arithmetic), and
-# a cap on the split's workspace. A split is taken only while the tile grid
+# dorefa_gemm, int8_gemm): the SM count of the H100 SXM that a split over K
+# fills, the output tile's columns, the fewest stages a split's chunk holds
+# (the ring's depth: a shorter chunk cannot overlap its loads with its
+# arithmetic), and a cap on the split's workspace. A split is taken only while the tile grid
 # is at most half of STREAM_SMS, and it makes S < 2 ceil(STREAM_SMS / grid)
 # chunks, so S * grid < 2 (STREAM_SMS + grid) <= 3 STREAM_SMS tiles of at
 # most 64 x STREAM_BN four-byte partials.
@@ -98,6 +98,45 @@ STREAM_SMS = 132
 STREAM_BN = 64
 STREAM_MIN_CHUNK = 4
 STREAM_WORKSPACE_CAP = 3 * STREAM_SMS * 64 * STREAM_BN * 4
+
+
+# The raw int8 tiles on the same schedule (csrc/stream_tile.cuh BytesTile:
+# int8_gemm, int8_conv2d): shared-memory rows of STREAM_LDW words (64 bytes of
+# k and 16 of pad), STREAM_RING stages in flight, each weight stage 64
+# k-rows of BN bytes plus STREAM_RAW_PAD; the conv's tiles are CONV_BM
+# output pixels by one of CONV_BNS channels.
+STREAM_STAGE_BYTES = 64
+STREAM_LDW = 20
+STREAM_RING = 4
+STREAM_RAW_PAD = 16
+STREAM_SMEM_LIMIT = WGMMA_SMEM_LIMIT
+CONV_BM = 128
+CONV_BNS = (64, 128)
+
+
+def bytes_tile_smem(bm: int, bn: int) -> int:
+    """Dynamic shared memory of a raw int8 streamed tile of ``bm`` x ``bn``
+    (``csrc/stream_tile.cuh`` ``Tile::SMEM`` of ``BytesTile``): the ring of
+    activation rows, a ring of weight stages and two transposed weight
+    stages."""
+    words = (STREAM_RING * bm * STREAM_LDW
+             + STREAM_RING * STREAM_STAGE_BYTES * (bn + STREAM_RAW_PAD) // 4
+             + 2 * bn * STREAM_LDW)
+    return 4 * words
+
+
+@functools.lru_cache(maxsize=None)
+def conv_plan(m: int, n: int) -> dict:
+    """The launch of int8_conv2d (K5, ``csrc/int8_conv.cu``) for M = B HO
+    WO output pixels and N output channels: tiles of CONV_BM pixels by
+    min(N, 128) channels, rounded up to the 64 or 128 the kernel has; the
+    grid (M tiles, N tiles); the dynamic shared memory (the tile's and the
+    per-row pixel table's); the blocks that share an SM (three 64-wide, two
+    128-wide: the kernel's launch bounds). No split over K."""
+    bn = CONV_BNS[0] if n <= CONV_BNS[0] else CONV_BNS[1]
+    return dict(bm=CONV_BM, bn=bn, grid=(-(-m // CONV_BM), -(-n // bn)),
+                smem=bytes_tile_smem(CONV_BM, bn) + 3 * CONV_BM * 4,
+                blocks_per_sm=3 if bn == CONV_BNS[0] else 2)
 
 
 def stream_workspace_bytes(m: int, n: int, splits: int) -> int:

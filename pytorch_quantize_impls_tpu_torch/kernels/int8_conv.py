@@ -4,9 +4,11 @@ The JAX package leaves its int8 convolutions to XLA
 (``conv_general_dilated(..., preferred_element_type=int32)`` in
 ``kernels/conv.py`` direct mode and ``infer/fused_chain.py``). PyTorch has
 no int8 convolution on CUDA, so ``int8_conv2d`` launches the hand-written
-implicit-GEMM kernel in ``csrc/int8_conv.cu`` for CUDA tensors and takes its
-plain PyTorch version ``int8_conv2d_reference`` for CPU tensors;
-``int8_conv2d.launches`` counts the kernel launches.
+implicit-GEMM kernel in ``csrc/int8_conv.cu`` (int8 tensor cores on the
+streamed schedule of ``csrc/stream_tile.cuh``, tiles from
+``common.conv_plan``) for CUDA tensors and takes its plain PyTorch version
+``int8_conv2d_reference`` for CPU tensors; ``int8_conv2d.launches`` counts
+the kernel launches.
 
 Layouts are the JAX package's: x is NHWC int8 codes, the weight is the HWIO
 kernel flattened to ``(cin * kh * kw, cout)`` in (cin, kh, kw) order, which
@@ -26,24 +28,28 @@ rounded on its own:
 from __future__ import annotations
 
 import ctypes
+import functools
+import struct
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from pytorch_quantize_impls_tpu_torch.kernels import _build
+from pytorch_quantize_impls_tpu_torch.kernels.common import conv_plan
 
 EPILOGUES = ("scale", "codes", "affine")
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]
+# csrc/int8_conv.cu Int8ConvArgs: (x, w, a, b, out, stream) addresses, the
+# shape (B, H, W, C, KH, KW, HO, WO, N, SH, SW, pad_top, pad_left), then
+# (epilogue, n_a, bn, device)
+_CONV_ARGS = struct.Struct("=6Q17i")
 
 
+@functools.lru_cache(maxsize=None)  # the argtypes list is built once
 def _lib() -> ctypes.CDLL:
-    p, i = ctypes.c_void_p, ctypes.c_int
-    return _build.library(
-        "int8_conv",
-        # (x, w, shape[13], epilogue, a, b, n_a, out, device, stream)
-        qt_int8_conv2d=[p, p, ctypes.POINTER(ctypes.c_int), i, p, p, i, p, i, p],
-    )
+    # one packed Int8ConvArgs (_CONV_ARGS)
+    return _build.library("int8_conv", qt_int8_conv2d=[ctypes.c_char_p])
 
 
 def out_size(n: int, k: int, stride: int, pad: Tuple[int, int]) -> int:
@@ -127,12 +133,14 @@ def int8_conv2d(
     out = torch.empty(
         (bsz, ho, wo, n), dtype=torch.int8 if epilogue == "codes" else torch.float32, device=dev
     )
-    shape = (ctypes.c_int * 13)(bsz, h, w, c, kh, kw, ho, wo, n, sh, sw, pads[0][0], pads[1][0])
+    index, stream = _build.launch_args(x_i8)
     lib = _lib()
-    code = lib.qt_int8_conv2d(
-        _build.ptr(x_i8), _build.ptr(w_i8), shape, EPILOGUES.index(epilogue),
-        _build.ptr(a), _build.ptr(b), n_a, _build.ptr(out), *_build.launch_args(x_i8),
-    )
+    code = lib.qt_int8_conv2d(_CONV_ARGS.pack(
+        x_i8.data_ptr(), w_i8.data_ptr(), 0 if a is None else a.data_ptr(),
+        0 if b is None else b.data_ptr(), out.data_ptr(), stream,
+        bsz, h, w, c, kh, kw, ho, wo, n, sh, sw, pads[0][0], pads[1][0],
+        EPILOGUES.index(epilogue), n_a, conv_plan(bsz * ho * wo, n)["bn"], index,
+    ))
     _build.check(lib, code, "int8_conv2d")
     int8_conv2d.launches += 1
     return out

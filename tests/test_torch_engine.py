@@ -130,7 +130,8 @@ def test_port_imports_without_jax():
         "from pytorch_quantize_impls_tpu_torch.ops import kv_cache\n"
         "from pytorch_quantize_impls_tpu_torch.serve import decode_engine, generate\n"
         "from pytorch_quantize_impls_tpu_torch.infer import fused_chain\n"
-        "from pytorch_quantize_impls_tpu_torch.kernels import int8_conv, packed_matmul\n"
+        "from pytorch_quantize_impls_tpu_torch.kernels import common, int8_conv, int8_matmul\n"
+        "from pytorch_quantize_impls_tpu_torch.kernels import packed_matmul\n"
         "from pytorch_quantize_impls_tpu_torch.nn import dorefa, pact\n"
         "from pytorch_quantize_impls_tpu_torch.ops import dorefa, pact\n"
         "from pytorch_quantize_impls_tpu_torch.kernels import shift_matmul\n"
@@ -139,6 +140,7 @@ def test_port_imports_without_jax():
         "from pytorch_quantize_impls_tpu_torch.ops import log_lin\n"
         "from pytorch_quantize_impls_tpu_torch.bench import headline, kernel_bench, mxu_probe\n"
         "from pytorch_quantize_impls_tpu_torch.bench import host_cost, stream_sweep, ws_decode_cost\n"
+        "from pytorch_quantize_impls_tpu_torch.bench import int8_tc_cost\n"
         "assert len(headline.build_rows(16, 16, 64, 'cpu')) == 8\n"
         "assert len(kernel_bench.build('shift_ws', (16, 16, 64), 4, 'cpu')) == 3\n"
         "i8 = torch.ones(64, 128, dtype=torch.int8)\n"
