@@ -15,23 +15,24 @@ on one NVIDIA GPU (built for Hopper, sm_90a).
    tiled_mm (int8, int4) bit for bit, K9 decode_log_weights bit for bit as
    int16 patterns, K4 decode_attention within a float32 tolerance, K8
    shift_gemm, K12 shift_gemm_ws and P1 tiled_mm (bf16) within 1e-5 of
-   |bf16(x)| @ |w| per element and deterministic. K3, K6 and K8 (the
+   |bf16(x)| @ |w| per element and deterministic. K1, K3, K6 and K8 (the
    streamed tensor-core schedule of csrc/stream_tile.cuh) also run at
-   4096^3 and, K6 and K8, the VGG head's shape, K3 the decode LM's four
-   projections at M = 32 (timed beside their main rows), and at cases whose
-   launch plan splits K (ragged last chunks, M = 1 and 65, N = 10, zeros,
-   unaligned x); each check line shows the plan (BM, S), the main rows (and
-   K3's M = 32 rows) the host's microseconds per call. K5 runs at the
-   ResNet's block convs at b = 256 and b = 1 and shows its tile. Device
-   times are read after every CUDA-event time (a torch.profiler session
-   slows each later launch on the host). K10-K12 run at the JAX tests'
-   shapes, 4096^3, a served conv as im2col and edges (every m_tiles,
-   all-zero activations);
-   P1 at 256x512x256 and 4096^3 over every tiling (K12 and P1 bf16 run on
-   the TMA + wgmma tile of csrc/wgmma_tile.cuh). Prints kernel, plain,
-   library-call and bound times; the bf16 GEMMs' (K8, K12, P1 bf16) library
-   call is torch.mm of the bf16 operands with a float32 output, with
-   cuBLAS's float32 and bf16 matmuls beside it.
+   4096^3 and, K6 and K8, the VGG head's shape, K1 and K3 the decode LM's
+   four projections at M = 32 (timed beside their main rows), and at cases
+   whose launch plan splits K (ragged last chunks, M = 1 and 65, N = 10,
+   zeros, unaligned x); each check line shows the plan (BM, S), the main
+   rows (and K1's and K3's M = 32 rows) the host's microseconds per call.
+   K5 runs at the ResNet's block convs at b = 256 and b = 1 and shows its
+   tile. Device times are read after every CUDA-event time (a
+   torch.profiler session slows each later launch on the host). K10-K12
+   run at the JAX tests' shapes, 4096^3, a served conv as im2col and edges
+   (every m_tiles, all-zero activations), K10's lines with its tile (rows
+   x columns); P1 at 256x512x256 and 4096^3 over every tiling (K12, P1
+   bf16 and, on its s8 path, K10 run on the TMA + wgmma tile of
+   csrc/wgmma_tile.cuh). Prints kernel, plain, library-call and bound
+   times; the bf16 GEMMs' (K8, K12, P1 bf16) library call is torch.mm of
+   the bf16 operands with a float32 output, with cuBLAS's float32 and bf16
+   matmuls beside it.
 4. Main path 1, BNN LeNet (``bnn_lenet``, width 128) from seeded random
    weights: bridge -> pack_model -> save_packed -> load_packed ->
    InferenceEngine over the unprepared artifact (K1, K2, K5) -> prepare ->
@@ -81,7 +82,8 @@ on one NVIDIA GPU (built for Hopper, sm_90a).
 11. Path 8, the kernel bench (bench.kernel_bench.run) of binary_ws,
     dorefa_ws and shift_ws at 4096^3 over every m_tiles (K10, K11, K12).
 12. Path 9, the dtype probe (bench.mxu_probe.run): P1 at 4096^3 for bf16,
-    int8 and int4 over every tiling, beside torch.matmul and torch._int_mm.
+    int8 and int4 over every tiling, beside torch.matmul and torch._int_mm;
+    prints its launches by dtype.
 13. For each path the kernels' launch counters are zeroed just before it
     and read just after; each kernel of the path must be > 0.
 14. Prints engine images/s, decode prefill ms and tokens/s, one JSON line
@@ -255,8 +257,8 @@ def host_us(fn, calls: int = 2000) -> float:
 
 
 # the CUDA function each wrapper launches, as torch.profiler names it: a
-# substring of the name, so dorefa_gemm's and shift_gemm's second pass over
-# a split K (*_kernel_sum) counts with them
+# substring of the name, so binary_gemm's, dorefa_gemm's and shift_gemm's
+# second pass over a split K (*_kernel_sum) counts with them
 KERNEL_SYMBOLS = {
     "binary_gemm": "binary_gemm_kernel", "decode_binary_weights": "decode_binary_kernel",
     "int8_gemm": "int8_gemm_kernel", "decode_attention": "decode_attention_kernel",
@@ -374,6 +376,7 @@ def kernel_cases(rng, dev):
 
     from pytorch_quantize_impls_tpu_torch.kernels import decode_attention as da
     from pytorch_quantize_impls_tpu_torch.kernels import xnor_gemm as bg
+    from pytorch_quantize_impls_tpu_torch.kernels.common import stream_plan
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -428,33 +431,58 @@ def kernel_cases(rng, dev):
         ("edge M=1 K=1000 N=10 row", 1, 1000, 10, False, True),
         ("edge M=17 K=301 N=64 alpha+row", 17, 301, 64, True, True),
     ]
-    for label, m, k, n, ua, ur in gemm_shapes:
-        main = label == "fc1 M=256"
+    def binary_case(label, m, k, n, ua, ur, main=False, also=False, zeros=False):
+        """A K1 check: binary_gemm against its plain version, torch._int_mm
+        on K2's decoded weights as the library call where it runs (no
+        scales, its shape rules), the launch plan (BM, S) of stream_plan;
+        ``also`` rows are timed beside the main row (the M=32 ones with the
+        host's us per call)."""
         x = pm1(m, k)
-        if label.startswith("edge M=17"):  # zeros, as in padding
+        if zeros:  # as in padding
             x = x * t(rng.integers(0, 2, size=(m, k)).astype(np.int8))
         wp = packed(k, n)
         alpha, row = scales(m, n, ua, ur)
         nscale = 4 * ((n if ua else 0) + (m if ur else 0))
         lib = int_mm(m, k, n) and not (ua or ur)
         w8 = bg.decode_binary_weights(wp)[:k].contiguous() if lib else None
-        cases.append(dict(
+        return dict(
             kernel="binary_gemm", label=label,
             fn=lambda x=x, wp=wp, a=alpha, r=row: bg.binary_gemm(x, wp, a, r),
             plain=lambda x=x, wp=wp, a=alpha, r=row: bg.binary_gemm_reference(x, wp, a, r),
             library=(lambda x=x, w=w8: torch._int_mm(x, w)) if lib else None,
             bound=gemm_bound(m, k, n, 4 * wp.numel(), nscale), main=main,
-        ))
+            plan=stream_plan(m, n, k, bg.STAGE_K)[:2], split=label.startswith("edge"),
+            also=also, host=main or (also and m <= 32),
+        ), alpha, row
+
+    for label, m, k, n, ua, ur in gemm_shapes:
+        main = label == "fc1 M=256"
+        # beside the main rows of K1 and K3 in the JSON line: the LM's
+        # projections at M=32 (with the host's us per call)
+        beside = label.startswith("lm") and label.endswith(f"M={SLOTS}")
+        case, alpha, row = binary_case(label, m, k, n, ua, ur, main=main, also=beside,
+                                       zeros=label.startswith("edge M=17"))
+        cases.append(case)
+        lib = case["library"] is not None
         xi = t(rng.integers(-127, 128, size=(m, k)).astype(np.int8))
         wi = t(rng.integers(-127, 128, size=(k, n)).astype(np.int8))
-        # beside K3's main row in the JSON line: the LM's projections at M=32
-        # (with the host's us per call)
-        beside = label.startswith("lm") and label.endswith(f"M={SLOTS}")
         cases.append(int8_gemm_case(label, xi, wi, alpha, row, main, lib, also=beside))
+    # K1 at the headline's 4096^3, beside the main row; then splits over K at
+    # ragged K (the last chunk short, K % 4 != 0 at 1501: byte loads), M = 1
+    # and 65, N = 10, and zeros
+    big = HEADLINE_SHAPE
+    cases.append(binary_case(f"{big}^3", big, big, big, False, False, also=True)[0])
+    for label, m, k, n, ua, ur in (("edge split M=1 K=300 N=10", 1, 300, 10, False, False),
+                                   ("edge split M=65 K=1500 N=10 alpha", 65, 1500, 10, True, False),
+                                   ("edge split M=65 K=1501 N=10 row", 65, 1501, 10, False, True),
+                                   ("edge split M=1 K=2100 N=10 alpha+row", 1, 2100, 10, True,
+                                    True),
+                                   ("edge split zeros M=65 K=2100 N=10", 65, 2100, 10, False,
+                                    False)):
+        cases.append(binary_case(label, m, k, n, ua, ur, zeros="zeros" in label)[0])
     # K3 at the headline's 4096^3, beside the main row; then the copy paths
     # of unaligned operands (x's rows at an odd address: byte loads; K % 16
     # != 0 and N % 16 != 0 with K, N % 4 == 0: 4-byte copies), each split
-    big = HEADLINE_SHAPE
     xi = t(rng.integers(-127, 128, size=(big, big)).astype(np.int8))
     wi = t(rng.integers(-127, 128, size=(big, big)).astype(np.int8))
     cases.append(int8_gemm_case(f"{big}^3", xi, wi, None, None, False, True, also=True))
@@ -786,7 +814,8 @@ def ws_cases(rng, dev):
     from pytorch_quantize_impls_tpu_torch.kernels import packed_matmul as pm
     from pytorch_quantize_impls_tpu_torch.kernels import shift_matmul as sm
     from pytorch_quantize_impls_tpu_torch.kernels import xnor_gemm as bg
-    from pytorch_quantize_impls_tpu_torch.kernels.common import WS_DEFAULT_M_TILES, WS_M_TILES
+    from pytorch_quantize_impls_tpu_torch.kernels.common import (
+        WS_DEFAULT_M_TILES, WS_M_TILES, binary_ws_plan)
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -814,6 +843,7 @@ def ws_cases(rng, dev):
     # library call (_int_mm on K2's output) computes the unscaled product
     for label, m, k, n, mt, zeros in shapes("binary_gemm_ws", (
             "bnn_lenet conv2 im2col b=16", 16 * 8 * 8, 25 * WIDTH, 2 * WIDTH)):
+        plan = binary_ws_plan(WS_DEFAULT_M_TILES["binary_gemm_ws"] if mt is None else mt)
         x = bg.binarize_to_int8(normal(m, k)) * (0 if zeros else 1)
         wp = bg.pack_binary_weights(normal(k, n))
         scaled = not (label.startswith("main") or "im2col" in label)
@@ -827,7 +857,7 @@ def ws_cases(rng, dev):
             plain=lambda x=x, wp=wp, a=alpha, r=row: bg.binary_gemm_ws_reference(x, wp, a, r),
             library=(lambda x=x, w=w8: torch._int_mm(x, w)) if lib else None,
             bound=gemm_bound(m, k, n, 4 * wp.numel(), 4 * (n + m) if scaled else 0),
-            main=label.startswith("main"),
+            main=label.startswith("main"), tile=(plan["bm"], plan["bn"]),
         ))
     # K11: w2a2 and w4a4 at the JAX tests' shapes, w4a4 elsewhere
     w = RESNET_WIDTH
@@ -1011,11 +1041,11 @@ def check_kernels(card: str, timed: bool = True):
         err, verdict = hold(kernel, label, fn, plain, c.get("abs_ref"))
         s = summary.setdefault(kernel, {"max_abs_err": 0.0})
         s["max_abs_err"] = max(s["max_abs_err"], err)
-        if "plan" in c:  # K3, K6, K8: the launch plan (BM, splits over K)
+        if "plan" in c:  # K1, K3, K6, K8: the launch plan (BM, splits over K)
             if c["split"] and c["plan"][1] == 1:
                 fail(f"{kernel} {label}: the launch plan does not split K")
             verdict += f", plan BM {c['plan'][0]} S {c['plan'][1]}"
-        if "tile" in c:  # K5: the output tile (pixels x channels)
+        if "tile" in c:  # K5: the output tile (pixels x channels); K10: rows x columns
             verdict += f", tile {c['tile'][0]}x{c['tile'][1]}"
         line = f"check {kernel:22s} {label:32s} {verdict}"
         if not (timed and c.get("timed", not label.startswith("edge"))):
@@ -2751,6 +2781,8 @@ def probe_path(card: str) -> dict:
     zero_launches()
     res = mp.run(cuda(), window_s=0.1, repeats=3, log=lambda s: print(s, flush=True))
     print(json.dumps({"probe": res, "device": card}), flush=True)
+    print("probe launches by dtype: " + json.dumps({dt: r["launches"] for dt, r in res.items()}),
+          flush=True)
     return read_launches("probe", (mp.tiled_mm,))
 
 

@@ -3,7 +3,8 @@
     python pytorch_quantize_impls_tpu_torch/bench/host_cost.py [--calls N]
 
 Times back-to-back calls of ``dorefa_gemm`` (K6, w4a4), ``shift_gemm`` (K8,
-fsr 0, 4 bits) and ``int8_gemm`` (K3, on K6's weights decoded to int8) at
+fsr 0, 4 bits), ``binary_gemm`` (K1, ±1 activations) and ``int8_gemm`` (K3,
+on K6's weights decoded to int8) at
 the serving LM's ffn_in shape (M 32, K 1024, N 4096)
 by the CPU clock, the card synchronized after the clock stops: 200 calls,
 which fit the launch queue, so a kernel slower on the card than its wrapper
@@ -51,6 +52,7 @@ def main() -> None:
     from pytorch_quantize_impls_tpu_torch.kernels import int8_matmul as im
     from pytorch_quantize_impls_tpu_torch.kernels import packed_matmul as pm
     from pytorch_quantize_impls_tpu_torch.kernels import shift_matmul as sm
+    from pytorch_quantize_impls_tpu_torch.kernels import xnor_gemm as bg
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
@@ -62,10 +64,12 @@ def main() -> None:
     w8 = pm.decode_dorefa_weights(wp4, w_bits=4)
     wf = sm.decode_log_weights(wpl, fsr=0.0, bits=4).to(torch.float32)
     xf = x.to(torch.bfloat16).to(torch.float32)
+    xi, wp1 = bg.binarize_to_int8(x), bg.pack_binary_weights(w)
     # and, as yardsticks, the PyTorch call that computes each one's function
     wrappers = {
         "dorefa_gemm": lambda: pm.dorefa_gemm(codes, wp4, w_bits=4, a_bits=4),
         "shift_gemm": lambda: sm.shift_gemm(x, wpl, fsr=0.0, bits=4),
+        "binary_gemm": lambda: bg.binary_gemm(xi, wp1),
         "int8_gemm": lambda: im.int8_gemm(codes, w8),
         "torch._int_mm": lambda: torch._int_mm(codes, w8),
         "torch.matmul f32": lambda: torch.matmul(xf, wf),

@@ -39,7 +39,6 @@ from pytorch_quantize_impls_tpu_torch.kernels.common import WS_M_TILES
 
 # the GEMMs, timed at --shape; int8_conv times the conv K5 at CONVS
 KERNELS = ("binary", "binary_ws", "binary_decoded", "dorefa", "dorefa_ws", "shift", "shift_ws")
-FIXED = "one configuration: 64 x 64 output tiles (CUDA cores)"
 STREAMED = "one configuration: the streamed tensor-core schedule, plan common.stream_plan"
 # int8_conv's convs: (label, input size, cin, cout, kernel, stride, padding),
 # the ResNet-20's at width 64 (DoReFa codes, scale epilogue) and BNN
@@ -103,7 +102,7 @@ def build(kernel: str, shape=(common.SHAPE,) * 3, bits: int = 4, device="cuda"):
         alpha = w.abs().mean(0)
         plain = lambda: bg.binary_gemm_reference(xi, wp, alpha)  # noqa: E731
         if kernel == "binary":
-            return [({"config": FIXED}, lambda: bg.binary_gemm(xi, wp, alpha), plain)]
+            return [({"config": STREAMED}, lambda: bg.binary_gemm(xi, wp, alpha), plain)]
         if kernel == "binary_decoded":
             w8 = bg.decode_binary_weights(wp)[:k].contiguous()
             return [({"config": f"int8_gemm: {STREAMED}"},

@@ -165,7 +165,8 @@ def library_name(dt: str, x) -> str:
 def run(device="cuda", *, window_s: float = 0.25, repeats: int = 5, log=print) -> dict:
     """Times :func:`tiled_mm` at 4096^3 (``scripts/mxu_probe.py:74``) for
     each dtype over every tiling, and the library yardsticks; returns
-    {dtype: {"tiles": {..: ms}, "best": .., "library_ms": ..}}."""
+    {dtype: {"tiles": {..: ms}, "launches": .., "best": .., "library_ms": ..}}
+    (``launches``: the dtype's kernel launches in its timing windows)."""
     dev = common.require_card(device)
     m = n = k = common.SHAPE
     ops = 2 * m * n * k
@@ -173,6 +174,7 @@ def run(device="cuda", *, window_s: float = 0.25, repeats: int = 5, log=print) -
     out = {}
     for dt, (x, w) in cases.items():
         res = {"tiles": {}}
+        before = tiled_mm.launches
         for tl in TILES:
             med, spread = common.time_call(lambda: tiled_mm(x, w, tiles=tl, int4=dt == "int4"),
                                            window_s=window_s, repeats=repeats)
@@ -180,6 +182,7 @@ def run(device="cuda", *, window_s: float = 0.25, repeats: int = 5, log=print) -
             log(f"# {dt} tiles {tl}: {med * 1e3:.4f} ms {ops / med / 1e12:.1f} T/s "
                 f"({100 * ops / med / PEAK[dt]:.1f}% of the {PEAK[dt] / 1e12:.0f} T/s peak, "
                 f"±{100 * spread:.1f}%)")
+        res["launches"] = tiled_mm.launches - before  # this dtype's, all tilings
         best = min(res["tiles"], key=res["tiles"].get)
         res["best"] = best
         res["best_tops"] = ops / (res["tiles"][best] / 1e3) / 1e12

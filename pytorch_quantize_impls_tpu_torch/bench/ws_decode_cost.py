@@ -1,9 +1,12 @@
-"""What holds shift_gemm_ws (K12) back: its decoder, measured on the card.
+"""What holds the weight-stationary wgmma GEMMs back: their decoder, measured
+on the card.
 
-K12's decoder warpgroup turns packed log codes into the bf16 weight tile of
-each stage while the consumer warpgroups run wgmma on the stage before
-(``csrc/shift_gemm.cu``). This script builds two variants of that source
-beside the real kernel and times all three at 4096^3 for every m_tiles:
+In shift_gemm_ws (K12, ``csrc/shift_gemm.cu``) and binary_gemm_ws (K10,
+``csrc/xnor_gemm.cu``) a decoder warpgroup turns the packed codes into the
+weight tile of each stage (K12: log codes into bf16; K10: bits into ±1 int8)
+while the consumer warpgroups run wgmma on the stage before. This script
+builds two variants of each source beside the real kernel and times all
+three at 4096^3 for every m_tiles:
 
 - ``kernel``: the source as it is;
 - ``no_decode``: the decode left out (the weight tile is never written, so
@@ -13,14 +16,15 @@ beside the real kernel and times all three at 4096^3 for every m_tiles:
   block: per stage, the cycles it waits for an empty slot and the cycles it
   spends decoding, and the block's cycles per stage in all.
 
-    python -m pytorch_quantize_impls_tpu_torch.bench.ws_decode_cost
+    python -m pytorch_quantize_impls_tpu_torch.bench.ws_decode_cost [--kernel binary_gemm_ws]
 
-prints one JSON line per variant and m_tiles, then the card; without a GPU
-it raises and prints no result.
+prints one JSON line per kernel, variant and m_tiles, then the card; without
+a GPU it raises and prints no result.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import subprocess
@@ -30,6 +34,7 @@ import torch
 from pytorch_quantize_impls_tpu_torch.bench import common
 from pytorch_quantize_impls_tpu_torch.kernels import _build
 from pytorch_quantize_impls_tpu_torch.kernels import shift_matmul as sm
+from pytorch_quantize_impls_tpu_torch.kernels import xnor_gemm as bg
 from pytorch_quantize_impls_tpu_torch.kernels.common import WS_M_TILES
 
 VARIANT_DIR = _build.BUILD_DIR / "ws_decode_cost"
@@ -39,7 +44,12 @@ _DECODE_START = "      uint8_t* B = Bs + slot * T::B_BYTES;\n"
 _DECODE_END = "      fence_async_shared();\n      bar_arrive(&full[slot]);\n    };\n"
 _WAIT = "      if (s >= T::STAGES) bar_wait(&empty[slot], (s / T::STAGES - 1) & 1);\n"
 _DECODER = "    const int t = threadIdx.x % WG_THREADS;\n"
-_LOOP_END = "      if (2 * (g + 1) < stages) group(w1, w0, g + 1);\n    }\n"
+# each kernel's source and the last line of its decoder's loop over groups
+KERNELS = {
+    "shift_gemm_ws": ("shift_gemm.cu", "      if (2 * (g + 1) < stages) group(w1, w0, g + 1);\n    }\n"),
+    "binary_gemm_ws": ("xnor_gemm.cu",
+                       "      if (T::SPG * (g + 1) < stages) group(w1, w0, g + 1);\n    }\n"),
+}
 # the counters: wait cycles, decode cycles, stages, block cycles
 _COUNTERS = "__device__ unsigned long long qt_decode_cycles[4];\n"
 _READ = ('\nextern "C" int qt_read_cycles(void* host) {\n'
@@ -48,12 +58,14 @@ _READ = ('\nextern "C" int qt_read_cycles(void* host) {\n'
          "  return (int)cudaMemcpyToSymbol(qt_decode_cycles, z, sizeof(z));\n}\n")
 
 
-def variants(src: str) -> dict:
-    """{name: source} of the three variants of ``csrc/shift_gemm.cu``'s text
-    ``src``; raises if the decoder no longer has the lines they edit."""
-    for mark in (_DECODE_START, _DECODE_END, _WAIT, _DECODER, _LOOP_END):
+def variants(src: str, kernel: str = "shift_gemm_ws") -> dict:
+    """{name: source} of the three variants of ``kernel``'s source text
+    ``src`` (KERNELS); raises if the decoder no longer has the lines they
+    edit."""
+    source, loop_end = KERNELS[kernel]
+    for mark in (_DECODE_START, _DECODE_END, _WAIT, _DECODER, loop_end):
         if src.count(mark) != 1:
-            raise ValueError(f"shift_gemm.cu: expected the line {mark!r} once")
+            raise ValueError(f"{source}: expected the line {mark!r} once")
     a, b = src.index(_DECODE_START), src.index(_DECODE_END)
     no_decode = src[:a] + src[b:]
     probe = "blockIdx.x == 5 && blockIdx.y == 3 && t == 0"
@@ -66,72 +78,99 @@ def variants(src: str) -> dict:
         "    };\n", "      if (probe) {\n        qt_decode_cycles[0] += c1 - c0;\n"
         "        qt_decode_cycles[1] += clock64() - c1;\n        qt_decode_cycles[2] += 1;\n"
         "      }\n    };\n"))
-    inst = inst.replace(_LOOP_END, _LOOP_END + "    if (probe) qt_decode_cycles[3] += clock64() - start;\n")
+    inst = inst.replace(loop_end, loop_end + "    if (probe) qt_decode_cycles[3] += clock64() - start;\n")
     return {"kernel": src, "no_decode": no_decode, "instrumented": inst + _READ}
 
 
-def build() -> dict:
-    """Compile the variants (all at once) into VARIANT_DIR; returns {name:
-    loaded library}."""
-    src = (_build.CSRC / "shift_gemm.cu").read_text()
+def build(kernel: str = "shift_gemm_ws") -> dict:
+    """Compile ``kernel``'s variants (all at once) into VARIANT_DIR; returns
+    {name: loaded library}."""
+    source, _ = KERNELS[kernel]
+    src = (_build.CSRC / source).read_text()
     procs = {}
-    for name, text in variants(src).items():
-        d = VARIANT_DIR / name
+    for name, text in variants(src, kernel).items():
+        d = VARIANT_DIR / kernel / name
         d.mkdir(parents=True, exist_ok=True)
         for h in _build.CSRC.glob("*.cuh"):
             (d / h.name).write_text(h.read_text())
-        (d / "shift_gemm.cu").write_text(text)
-        cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "lib.so"), str(d / "shift_gemm.cu")]
+        (d / source).write_text(text)
+        cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "lib.so"), str(d / source)]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                        text=True)
     libs = {}
+    p, i = ctypes.c_void_p, ctypes.c_int
     for name, proc in procs.items():
         out, _ = proc.communicate(timeout=_build.BUILD_TIMEOUT_S)
         if proc.returncode != 0:
-            raise RuntimeError(f"{name}: nvcc exited {proc.returncode}\n{out}")
-        lib = ctypes.CDLL(str(VARIANT_DIR / name / "lib.so"))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.qt_shift_gemm_ws.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, p]
+            raise RuntimeError(f"{kernel} {name}: nvcc exited {proc.returncode}\n{out}")
+        lib = ctypes.CDLL(str(VARIANT_DIR / kernel / name / "lib.so"))
+        if kernel == "shift_gemm_ws":
+            lib.qt_shift_gemm_ws.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, p]
+        else:
+            lib.qt_binary_gemm_ws.argtypes = [p] * 5 + [i] * 7 + [p]
         libs[name] = lib
     return libs
 
 
-def run(device="cuda", *, window_s: float = 0.25, repeats: int = 5, log=print) -> list:
-    dev = common.require_card(device)
+def _caller(kernel: str, dev):
+    """(call(lib, m_tiles) -> CUDA error code) of ``kernel``'s entry point on
+    seeded 4096^3 inputs (K12: fsr 1, 4 bits)."""
     n = common.SHAPE
     _, xn, wn = common.seeded_inputs(n, n, n)
-    x = common.to(xn, dev).to(torch.bfloat16)
-    wp = sm.pack_log_weights(common.to(wn, dev), FSR, BITS)
+    x, w = common.to(xn, dev), common.to(wn, dev)
     out = torch.empty((n, n), dtype=torch.float32, device=dev)
-    index, stream = _build.launch_args(x)
+    index, stream = _build.launch_args(out)
+    if kernel == "shift_gemm_ws":
+        xb, wp = x.to(torch.bfloat16), sm.pack_log_weights(w, FSR, BITS)
+        return lambda lib, r: lib.qt_shift_gemm_ws(
+            xb.data_ptr(), wp.data_ptr(), out.data_ptr(), n, n, n, n, wp.shape[0], BITS,
+            int(FSR) - 2**BITS, r, index, stream)
+    xi, wp = bg.binarize_to_int8(x), bg.pack_binary_weights(w)
+    alpha = w.abs().mean(0)
+    return lambda lib, r: lib.qt_binary_gemm_ws(
+        xi.data_ptr(), wp.data_ptr(), alpha.data_ptr(), None, out.data_ptr(), n, n, n, n,
+        wp.shape[0], r, index, stream)
+
+
+def run(device="cuda", *, kernels=tuple(KERNELS), window_s: float = 0.25, repeats: int = 5,
+        log=print) -> list:
+    dev = common.require_card(device)
     rows = []
-    for name, lib in build().items():
-        for r in WS_M_TILES:
-            def call(lib=lib, r=r):
-                code = lib.qt_shift_gemm_ws(x.data_ptr(), wp.data_ptr(), out.data_ptr(), n, n, n, n,
-                                            wp.shape[0], BITS, int(FSR) - 2**BITS, r, index,
-                                            stream)
-                if code:
-                    raise RuntimeError(f"{name} m_tiles {r}: CUDA error {code}")
-            row = {"variant": name, "m_tiles": r}
-            if name == "instrumented":
-                lib.qt_zero_cycles()
-                call()
-                torch.cuda.synchronize()
-                c = (ctypes.c_ulonglong * 4)()
-                lib.qt_read_cycles(c)
-                stages = max(c[2], 1)
-                row.update(wait_cycles_per_stage=c[0] / stages,
-                           decode_cycles_per_stage=c[1] / stages,
-                           block_cycles_per_stage=c[3] / stages)
-            else:
-                med, spread = common.time_call(call, window_s=window_s, repeats=repeats)
-                row.update(ms=med * 1e3, spread_pct=100 * spread)
-            rows.append(row)
-            log(json.dumps(row))
-    log(json.dumps({"shape": n, "device": common.card_line()}))
+    for kernel in kernels:
+        launch = _caller(kernel, dev)
+        for name, lib in build(kernel).items():
+            for r in WS_M_TILES:
+                def call(lib=lib, r=r, name=name):
+                    code = launch(lib, r)
+                    if code:
+                        raise RuntimeError(f"{kernel} {name} m_tiles {r}: CUDA error {code}")
+                row = {"kernel": kernel, "variant": name, "m_tiles": r}
+                if name == "instrumented":
+                    lib.qt_zero_cycles()
+                    call()
+                    torch.cuda.synchronize()
+                    c = (ctypes.c_ulonglong * 4)()
+                    lib.qt_read_cycles(c)
+                    stages = max(c[2], 1)
+                    row.update(wait_cycles_per_stage=c[0] / stages,
+                               decode_cycles_per_stage=c[1] / stages,
+                               block_cycles_per_stage=c[3] / stages)
+                else:
+                    med, spread = common.time_call(call, window_s=window_s, repeats=repeats)
+                    row.update(ms=med * 1e3, spread_pct=100 * spread)
+                rows.append(row)
+                log(json.dumps(row))
+    log(json.dumps({"shape": common.SHAPE, "device": common.card_line()}))
     return rows
 
 
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--kernel", choices=tuple(KERNELS), action="append",
+                   help="the kernels to measure (default: both)")
+    a = p.parse_args(argv)
+    run(kernels=tuple(a.kernel or KERNELS))
+
+
 if __name__ == "__main__":
-    run()
+    main()

@@ -13,7 +13,7 @@
 // stream_tile.cuh's: a block owns a BM x 64 output tile (BM 32 or 64) and one
 // chunk of K; cp.async keeps two 64-deep stages of activation codes and the
 // 32-word groups they need in flight; each stage's two bit planes are decoded
-// ONCE into centered int8 (decode_dorefa_stage) for the int8 tensor cores
+// ONCE into centered int8 (decode_packed_stage) for the int8 tensor cores
 // (mma.sync m16n8k32, exact int32 sums). Weights cross device memory at BITS
 // bits each: at serving batch sizes those bytes bound it (M = 32, K = 1024,
 // N = 4096 at 4 bits: 2.1 MB, 0.6 us at 3.35 TB/s), so where the tile grid
@@ -27,8 +27,8 @@
 // dorefa_gemm_ws replaces the Pallas kernel packed_matmul.py dorefa_gemm_ws
 // (pallas_call at :257): dorefa_gemm's contract and epilogue (so it equals
 // dorefa_gemm and dorefa_gemm_decoded bit for bit), with each packed weight
-// tile decoded once for many M tiles. The schedule is binary_gemm_ws's
-// (mma_tile.cuh: ws_gemm): a block takes R M-tiles of 64 rows (m_tiles, R in
+// tile decoded once for many M tiles. The schedule is mma_tile.cuh's
+// ws_gemm: a block takes R M-tiles of 64 rows (m_tiles, R in
 // {1, 2, 4}) and 64 columns, decodes each 64-row stage (two bit planes) of
 // its weights once into centered int8 in shared memory, and runs all R
 // M-tiles against it on the int8 tensor cores (mma.sync m16n8k32), the int32
@@ -50,62 +50,23 @@ namespace {
 
 constexpr int GROUP_ROWS = 32;  // words per self-contained group
 
-template <int BITS>
-__device__ __forceinline__ uint32_t centered_byte(uint32_t word, int plane) {
-  constexpr int NW = (1 << BITS) - 1;
-  const int c = (int)((word >> (BITS * plane)) & (uint32_t)NW);
-  return (uint32_t)(uint8_t)(int8_t)(2 * c - NW);
-}
+using qt::stream::centered_byte;
 
-// The stage's weights, centered int8: word q of column c holds weight rows
-// k0 + 4q .. + 3, bit field plane0 + q / 8 of word rows 4 (q % 8) .. + 3. One
-// thread reads the four words of rows 4j .. 4j + 3 of a column once and
-// writes both planes' words (q = j and j + 8).
-template <int BITS>
-__device__ __forceinline__ void decode_dorefa_stage(uint32_t* Bs, const uint32_t* Ws, int plane0) {
-  for (int e = threadIdx.x; e < 8 * 64; e += qt::mma::THREADS) {
-    const int c = e % 64, j = e / 64;
-    uint32_t w[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) w[i] = Ws[(4 * j + i) * 64 + c];
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      uint32_t v = 0;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) v |= centered_byte<BITS>(w[i], plane0 + p) << (8 * i);
-      Bs[c * qt::mma::LDW + 8 * p + j] = v;
-    }
-  }
-}
-
-// K6 on stream_tile.cuh's schedule: a ring slot holds the stage's BM rows of
-// codes in the MMA's layout (LDW words a row). part: the split's workspace
-// of int32 partials (splits, M, N), null when K is not split.
+// K6 on stream_tile.cuh's schedule (packed_code_gemm). part: the split's
+// workspace of int32 partials (splits, M, N), null when K is not split.
 template <int BITS, int BM>
 __global__ void __launch_bounds__(qt::mma::THREADS)
 dorefa_gemm_kernel(const int8_t* __restrict__ x, const uint32_t* __restrict__ wp,
                    float* __restrict__ out, int32_t* __restrict__ part, int M, int N, int K,
                    float inv_scale, int k_stages, int chunk, int xmode, bool wvec) {
-  using namespace qt::mma;
-  const auto* xb = reinterpret_cast<const uint8_t*>(x);
-  // xmode: qt::stream::load_rows's 16, 4 or 1 (plain loads)
-  auto load_a = [&](uint32_t* S, int m0, int k0) {
-    qt::stream::load_rows<BM>(S, xb, m0, M, k0, K, xmode);
-  };
-  auto load_w = [&](uint32_t* W, int g, int n0) { qt::stream::load_words(W, wp, g, n0, N, wvec); };
-  auto prep = [](const uint32_t*, const uint32_t* W, int stage, uint32_t* Bs, uint32_t*) {
-    decode_dorefa_stage<BITS>(Bs, W, 2 * stage);
-  };
-  auto store = [&](int m, int n, int32_t acc) {
-    if (m >= M || n >= N) return;
-    if (part)
-      part[((size_t)blockIdx.z * M + m) * N + n] = acc;
-    else
-      out[(size_t)m * N + n] = (float)acc * inv_scale;
-  };
-  constexpr int GROUP_K = (32 / BITS) * GROUP_ROWS;
-  qt::stream::stream_gemm<S8, qt::stream::PackedTile<BM, BM * LDW, false>>(
-      GROUP_K / STAGE_BYTES, k_stages, chunk, load_a, load_w, prep, store);
+  qt::stream::packed_code_gemm<BITS, BM>(
+      x, wp, M, N, K, k_stages, chunk, xmode, wvec, [&](int m, int n, int32_t acc) {
+        if (m >= M || n >= N) return;
+        if (part)
+          part[((size_t)blockIdx.z * M + m) * N + n] = acc;
+        else
+          out[(size_t)m * N + n] = (float)acc * inv_scale;
+      });
 }
 
 // The split's second pass: the int32 partials summed (exact in any order),

@@ -1,9 +1,9 @@
 // Warp-level tensor-core tiles (mma.sync) shared by the int8 and int4
 // tiled matmul of the dtype probe (mxu_probe.cu), the weight-stationary
-// GEMMs binary_gemm_ws and dorefa_gemm_ws, and the streamed GEMMs and conv
-// (stream_tile.cuh: dorefa_gemm, shift_gemm, int8_gemm, int8_conv2d). The
-// bf16 probe and shift_gemm_ws run on the Hopper tile of wgmma_tile.cuh
-// instead.
+// GEMM dorefa_gemm_ws, and the streamed GEMMs and conv (stream_tile.cuh:
+// binary_gemm, dorefa_gemm, shift_gemm, int8_gemm, int8_conv2d). The bf16
+// probe, shift_gemm_ws and binary_gemm_ws run on the Hopper tile of
+// wgmma_tile.cuh instead.
 //
 // Shared memory holds both operands k-contiguous, one row per output row (A)
 // or output column (B), STAGE_BYTES = 64 bytes of k per stage, each row
@@ -260,7 +260,8 @@ tiled_mm_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ w,
                        [&](int r, int c, auto v) { out[(size_t)r * N + c] = (float)v; });
 }
 
-// The weight-stationary schedule of binary_gemm_ws and dorefa_gemm_ws. A block owns output columns [n0, n0 + 64) and R M-tiles of
+// The weight-stationary schedule of dorefa_gemm_ws. A block owns output
+// columns [n0, n0 + 64) and R M-tiles of
 // 64 rows, [m0, m0 + 64 R). Walking K one 64-byte stage at a time, it
 //   - stages the packed words of the stage's 32-word group for its 64
 //     columns (8 KB) in Ws when the stage enters a new group,

@@ -113,8 +113,8 @@ cudaError_t launch_bf16_tile(const void* x, const void* w, float* out, int M, in
                              int device, cudaStream_t s) {
   using T = Bf16Tile<BM, BN>;
   CUtensorMap xmap, wmap;
-  cudaError_t err = qt::wg::bf16_map(&xmap, x, M, K, K, BM, 64);
-  if (err == cudaSuccess) err = qt::wg::bf16_map(&wmap, w, K, N, N, 64, 64);
+  cudaError_t err = qt::wg::tile_map(&xmap, 2, x, M, K, K, BM, 64);
+  if (err == cudaSuccess) err = qt::wg::tile_map(&wmap, 2, w, K, N, N, 64, 64);
   static bool smem_set[16] = {};
   if (err == cudaSuccess)
     err = qt::wg::allow_smem(tiled_mm_kernel_wgmma<BM, BN>, T::SMEM, device, smem_set);

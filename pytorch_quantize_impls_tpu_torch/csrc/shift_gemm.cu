@@ -307,7 +307,7 @@ cudaError_t launch_ws(const void* xb, const uint32_t* wp, float* out, int M, int
                       int pitch, int bits, int lo, int device, cudaStream_t s) {
   using T = ShiftWsTile<R>;
   CUtensorMap xmap;
-  cudaError_t err = qt::wg::bf16_map(&xmap, xb, M, K, pitch, 64 * R, qt::wg::STAGE_K);
+  cudaError_t err = qt::wg::tile_map(&xmap, 2, xb, M, K, pitch, 64 * R, qt::wg::STAGE_K);
   static bool smem_set[16] = {};
   if (err == cudaSuccess)
     err = qt::wg::allow_smem(shift_gemm_ws_kernel<R>, T::SMEM, device, smem_set);

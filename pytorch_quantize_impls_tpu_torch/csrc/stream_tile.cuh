@@ -1,7 +1,7 @@
 // The streamed schedule of the tensor-core GEMMs whose weights stream from
 // device memory once per output tile: the packed-weight GEMMs shift_gemm
-// (K8) and dorefa_gemm (K6), out (M x N) = x (M x K) @ decode(packed
-// words), and the raw int8 GEMM int8_gemm (K3) and implicit-GEMM conv
+// (K8), dorefa_gemm (K6) and binary_gemm (K1), out (M x N) = x (M x K) @
+// decode(packed words), and the raw int8 GEMM int8_gemm (K3) and implicit-GEMM conv
 // int8_conv2d (K5), on the tensor cores (mma.sync, mma_tile.cuh).
 //
 // A block owns a BM x BN output tile (BM = 32, 64 or 128, BN = 64 or 128;
@@ -18,10 +18,10 @@
 //         is multiplied and t + 1 prepared
 //   Wg    W_SLOTS slots of W_SLOT_WORDS weights, filled by cp.async
 //         (load_w) with the first stage of each weight group: 2 slots of a
-//         32 x 64 packed-word group (K6, K8: a group spans >= 2 stages), or
+//         32 x 64 packed-word group (K1, K6, K8: a group spans >= 2 stages), or
 //         RING slots of one raw int8 stage each (K3, K5: a group is a stage,
 //         64 k-rows x BN bytes, RAW_PAD bytes of pad a row)
-//   Bs    2 x (BN x LDW) prepared weights, one stage each: decoded (K6, K8)
+//   Bs    2 x (BN x LDW) prepared weights, one stage each: decoded (K1, K6, K8)
 //         or transposed to K-major (K3, K5: transpose_stage)
 //   As    2 x (BM x LDW) activations in the MMA's type, where the ring holds
 //         another (CONVERT: float32 x rounded to bf16 by prep)
@@ -47,7 +47,7 @@ using mma::LDW;
 using mma::STAGE_BYTES;
 using mma::THREADS;
 
-constexpr int BN = 64;          // output columns per block of K3, K6 and K8
+constexpr int BN = 64;          // output columns per block of K1, K3, K6 and K8
 constexpr int RING = 4;         // activation stages in shared memory
 constexpr int GROUP_ROWS = 32;  // words per self-contained packed group
 constexpr int W_WORDS = GROUP_ROWS * BN;
@@ -74,7 +74,7 @@ struct Tile {
   static_assert(MF >= 1 && NF >= 1 && SMEM <= SMEM_LIMIT, "no such streamed tile");
 };
 
-// K6 and K8: packed 32-word groups of 64 columns, two slots.
+// K1, K6 and K8: packed 32-word groups of 64 columns, two slots.
 template <int BM, int A_WORDS, bool CONVERT>
 using PackedTile = Tile<BM, BN, A_WORDS, 2, W_WORDS, CONVERT>;
 // K3 and K5: raw int8 weights, one stage a slot, RING slots; the ring holds
@@ -125,6 +125,38 @@ __device__ __forceinline__ void load_words(uint32_t* W, const uint32_t* __restri
       const bool in = n0 + c < N;
       cp_async4(W + r * BN + c, in ? wp + (size_t)(g * GROUP_ROWS + r) * N + n0 + c : wp,
                 in ? 4 : 0);
+    }
+  }
+}
+
+// Bit field `plane` of a packed word of BITS-bit codes c, as the centered
+// int8 2c - (2^BITS - 1) in the low byte: ±1 at one bit (binary_gemm),
+// odd and within ±15 at up to four (dorefa_gemm).
+template <int BITS>
+__device__ __forceinline__ uint32_t centered_byte(uint32_t word, int plane) {
+  constexpr int NW = (1 << BITS) - 1;
+  const int c = (int)((word >> (BITS * plane)) & (uint32_t)NW);
+  return (uint32_t)(uint8_t)(int8_t)(2 * c - NW);
+}
+
+// A packed group's stage, centered int8, into Bs (64 columns x LDW words,
+// K-major): word q of column c holds weight rows k0 + 4q .. + 3, bit field
+// plane0 + q / 8 of word rows 4 (q % 8) .. + 3 of Ws (a 32 x 64 group,
+// load_words). One thread reads the four words of rows 4j .. 4j + 3 of a
+// column once and writes both planes' words (q = j and j + 8).
+template <int BITS>
+__device__ __forceinline__ void decode_packed_stage(uint32_t* Bs, const uint32_t* Ws, int plane0) {
+  for (int e = threadIdx.x; e < 8 * BN; e += THREADS) {
+    const int c = e % BN, j = e / BN;
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) w[i] = Ws[(4 * j + i) * BN + c];
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      uint32_t v = 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) v |= centered_byte<BITS>(w[i], plane0 + p) << (8 * i);
+      Bs[c * LDW + 8 * p + j] = v;
     }
   }
 }
@@ -326,6 +358,28 @@ __device__ __forceinline__ void stream_gemm(int spg, int k_stages, int chunk, Lo
   const int warp = threadIdx.x >> 5, wm = warp % T::WM, wn = warp / T::WM;
   mma::for_each_acc<T::MF, T::NF>(acc, blockIdx.y * T::BM + 16 * wm, 16 * T::WM,
                                   blockIdx.x * T::BN + T::NF * 8 * wn, store);
+}
+
+// The packed-code GEMM on this schedule (K1 at one bit, K6 at two or four):
+// x (M rows of K int8, copied in load_rows's `xmode`) times the
+// grouped-planar BITS-bit codes wp (load_words, `wvec`), each stage's two
+// bit fields decoded once into centered int8 (decode_packed_stage) for
+// mma.sync; store(row, col, acc) as stream_gemm's.
+template <int BITS, int BM, class Store>
+__device__ __forceinline__ void packed_code_gemm(const int8_t* __restrict__ x,
+                                                 const uint32_t* __restrict__ wp, int M, int N,
+                                                 int K, int k_stages, int chunk, int xmode,
+                                                 bool wvec, Store store) {
+  const auto* xb = reinterpret_cast<const uint8_t*>(x);
+  auto load_a = [&](uint32_t* S, int m0, int k0) { load_rows<BM>(S, xb, m0, M, k0, K, xmode); };
+  auto load_w = [&](uint32_t* W, int g, int n0) { load_words(W, wp, g, n0, N, wvec); };
+  // stage s of a group: bit fields 2s and 2s + 1
+  auto prep = [](const uint32_t*, const uint32_t* W, int stage, uint32_t* Bs, uint32_t*) {
+    decode_packed_stage<BITS>(Bs, W, 2 * stage);
+  };
+  constexpr int GROUP_K = (32 / BITS) * GROUP_ROWS;
+  stream_gemm<mma::S8, PackedTile<BM, BM * LDW, false>>(GROUP_K / STAGE_BYTES, k_stages, chunk,
+                                                        load_a, load_w, prep, store);
 }
 
 // The split's second pass: out[i] = sum over z of part[z][i] (part: S

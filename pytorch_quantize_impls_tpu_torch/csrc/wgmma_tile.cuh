@@ -1,10 +1,14 @@
-// Hopper bf16 x bf16 -> f32 GEMM tile: TMA loads, wgmma and a
-// warp-specialised ring of shared-memory stages (sm_90a). Two kernels run on
-// it: the bf16 path of the dtype probe's tiled matmul (P1, mxu_probe.cu) and
-// the weight-stationary shift GEMM (K12, shift_gemm.cu).
+// Hopper GEMM tile: TMA loads, wgmma and a warp-specialised ring of
+// shared-memory stages (sm_90a), over two operand types: bf16 x bf16 -> f32
+// (m64n128k16) and s8 x s8 -> s32 (m64n128k32). The accumulator's type picks
+// the instruction. Three kernels run on it: the bf16 path of the dtype
+// probe's tiled matmul (P1, mxu_probe.cu), the weight-stationary shift GEMM
+// (K12, shift_gemm.cu) and, on the s8 path, the weight-stationary binary
+// GEMM (K10, xnor_gemm.cu).
 //
-// A stage holds STAGE_K = 64 bf16 of k for every row of the block's A tile
-// (output rows, k contiguous) and of its B tile, each row 128 bytes in the
+// A stage holds 128 bytes of k (STAGE_K = 64 bf16, or 128 int8) for every
+// row of the block's A tile (output rows, k contiguous) and of its B tile,
+// each row 128 bytes in the
 // 128-byte swizzle that TMA writes (CU_TENSOR_MAP_SWIZZLE_128B) and wgmma
 // reads: within an atom of 8 rows x 128 bytes (1024 bytes, 1024-aligned),
 // the 16-byte chunk c of row r sits at r * 128 + ((c ^ r) * 16)
@@ -15,19 +19,22 @@
 //     "full" mbarrier with their byte count; K12's decoders also write the
 //     decoded B into the slot and then arrive on the same barrier;
 //   - consumer warpgroups wait until a slot is full, issue the stage's
-//     wgmma.mma_async m64n128k16 products (four 16-deep k-steps), keep one
+//     wgmma.mma_async products (four k-steps of 32 bytes: m64n128k16 in
+//     bf16, m64n128k32 in s8), keep one
 //     stage's products in flight (wgmma.wait_group 1) and release the
 //     previous slot on its "empty" mbarrier.
-// The f32 accumulators stay in registers for all of K, and every output is
+// The accumulators stay in registers for all of K, and every output is
 // summed in one fixed order (no split over K, no atomics), so two launches
 // give the same bits.
 //
 // Operand layouts for wgmma (PTX ISA, "Matrix Descriptor Format"; CUTLASS's
 // canonical GMMA layouts, in 16-byte units T = 8 bf16):
 //   K-major, 128B swizzle: ((8, m), (T, 2k)) : ((8T, SBO), (1, T)); SBO =
-//     1024 bytes from one 8-row atom to the next; a 16-deep k-step moves the
-//     start address by 32 bytes inside the atom (the hardware applies the
-//     swizzle to the final address). A always, and K12's decoded B.
+//     1024 bytes from one 8-row atom to the next; a k-step (16 bf16, 32
+//     int8) moves the start address by 32 bytes inside the atom (the
+//     hardware applies the swizzle to the final address). A always, and the
+//     decoded B of K12 and K10. PTX allows no transpose for .s8: both s8
+//     operands are K-major.
 //   MN-major, 128B swizzle: ((T, 8, m), (8, k)) : ((1, T, LBO), (8T, SBO));
 //     one TMA box of 64 k-rows x 64 columns (8 KB) per atom column, LBO =
 //     8192 bytes to the next 64 columns, SBO = 1024 bytes to the next 8
@@ -45,7 +52,8 @@ namespace wg {
 
 constexpr int WG_THREADS = 128;       // threads per warpgroup
 constexpr int STAGE_K = 64;           // bf16 k per stage
-constexpr int ROW_BYTES = 128;        // one row of a stage: 64 bf16, one swizzle span
+constexpr int ROW_BYTES = 128;        // one row of a stage: 64 bf16 or 128 int8, one swizzle span
+constexpr int K_STEPS = 4;            // wgmma k-steps of 32 bytes per stage
 constexpr int ATOM_BYTES = 1024;      // 8 rows x 128 bytes: the swizzle's period
 constexpr int SMEM_LIMIT = 232448;    // dynamic shared memory a block may use (227 KB)
 
@@ -171,30 +179,59 @@ __device__ __forceinline__ void fence_acc(float (&d)[64]) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+__device__ __forceinline__ void fence_acc(int32_t (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// The 64 accumulator registers of an m64n128 product, as asm operands %0 ..
+// %63 with the constraint C ("+f" or "+r").
+#define QT_WG_D64(C)                                                                             \
+  C(d[0]), C(d[1]), C(d[2]), C(d[3]), C(d[4]), C(d[5]), C(d[6]), C(d[7]), C(d[8]), C(d[9]),     \
+      C(d[10]), C(d[11]), C(d[12]), C(d[13]), C(d[14]), C(d[15]), C(d[16]), C(d[17]), C(d[18]), \
+      C(d[19]), C(d[20]), C(d[21]), C(d[22]), C(d[23]), C(d[24]), C(d[25]), C(d[26]), C(d[27]), \
+      C(d[28]), C(d[29]), C(d[30]), C(d[31]), C(d[32]), C(d[33]), C(d[34]), C(d[35]), C(d[36]), \
+      C(d[37]), C(d[38]), C(d[39]), C(d[40]), C(d[41]), C(d[42]), C(d[43]), C(d[44]), C(d[45]), \
+      C(d[46]), C(d[47]), C(d[48]), C(d[49]), C(d[50]), C(d[51]), C(d[52]), C(d[53]), C(d[54]), \
+      C(d[55]), C(d[56]), C(d[57]), C(d[58]), C(d[59]), C(d[60]), C(d[61]), C(d[62]), C(d[63])
+#define QT_WG_D64_LIST                                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                     \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "            \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "            \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
 
 // d (64 x 128, f32, 64 registers a thread) += A (64 x 16, bf16) B (16 x
 // 128, bf16), both from shared memory; TRANS_B = 1: B is MN-major.
 template <int TRANS_B>
 __device__ __forceinline__ void mma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
   asm volatile(
-    "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-    "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-    "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-    "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-    "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-    "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-    "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
-    : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-      "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-      "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-      "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
-      "+f"(d[63])
-    : "l"(da), "l"(db), "r"(1), "n"(TRANS_B));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " QT_WG_D64_LIST
+      ", %64, %65, p, 1, 1, 0, %67;\n}\n"
+      : QT_WG_D64("+f")
+      : "l"(da), "l"(db), "r"(1), "n"(TRANS_B));
+}
+
+// d (64 x 128, s32, 64 registers a thread) += A (64 x 32, s8) B (32 x 128,
+// s8), both K-major in shared memory; the int32 sums are exact.
+__device__ __forceinline__ void mma_m64n128k32(int32_t (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " QT_WG_D64_LIST
+      ", %64, %65, p;\n}\n"
+      : QT_WG_D64("+r")
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// One 32-byte k-step into the accumulator d: bf16 into f32, s8 into s32.
+template <int TRANS_B>
+__device__ __forceinline__ void mma_k_step(float (&d)[64], uint64_t da, uint64_t db) {
+  mma_m64n128k16<TRANS_B>(d, da, db);
+}
+template <int TRANS_B>
+__device__ __forceinline__ void mma_k_step(int32_t (&d)[64], uint64_t da, uint64_t db) {
+  static_assert(TRANS_B == 0, "wgmma has no transpose for s8: B is K-major");
+  mma_m64n128k32(d, da, db);
 }
 
 // Register budgets of a warpgroup (setmaxnreg): the producer gives back what
@@ -210,19 +247,20 @@ __device__ __forceinline__ void reg_dealloc() {
 }
 
 // The consumer warpgroup's side of the ring over `stages` stages: wait for
-// slot s % STAGES, run its MI x NI m64n128k16 products of each 16-deep
-// k-step (descriptors desc_a(slot, mi, ks), desc_b(slot, ni, ks)), keep one
-// stage's products in flight, and release the previous slot with one
-// arrival per warp (empty barriers count 4 per consumer warpgroup).
-template <int STAGES, int MI, int NI, int TRANS_B, class DescA, class DescB>
-__device__ __forceinline__ void consume(float (&acc)[MI][NI][64], int stages, uint64_t* full,
+// slot s % STAGES, run its MI x NI m64n128 products of each 32-byte k-step
+// (descriptors desc_a(slot, mi, ks), desc_b(slot, ni, ks); Acc float: bf16
+// operands, int32_t: s8), keep one stage's products in flight, and release
+// the previous slot with one arrival per warp (empty barriers count 4 per
+// consumer warpgroup).
+template <int STAGES, int MI, int NI, int TRANS_B, class Acc, class DescA, class DescB>
+__device__ __forceinline__ void consume(Acc (&acc)[MI][NI][64], int stages, uint64_t* full,
                                         uint64_t* empty, DescA desc_a, DescB desc_b) {
 #pragma unroll
   for (int i = 0; i < MI; ++i)
 #pragma unroll
     for (int j = 0; j < NI; ++j) {
 #pragma unroll
-      for (int c = 0; c < 64; ++c) acc[i][j][c] = 0.0f;
+      for (int c = 0; c < 64; ++c) acc[i][j][c] = 0;
       fence_acc(acc[i][j]);
     }
   const bool lead = (threadIdx.x & 31) == 0;
@@ -231,12 +269,12 @@ __device__ __forceinline__ void consume(float (&acc)[MI][NI][64], int stages, ui
     bar_wait(&full[slot], (s / STAGES) & 1);
     mma_fence();
 #pragma unroll
-    for (int ks = 0; ks < STAGE_K / 16; ++ks)
+    for (int ks = 0; ks < K_STEPS; ++ks)
 #pragma unroll
       for (int i = 0; i < MI; ++i)
 #pragma unroll
         for (int j = 0; j < NI; ++j)
-          mma_m64n128k16<TRANS_B>(acc[i][j], desc_a(slot, i, ks), desc_b(slot, j, ks));
+          mma_k_step<TRANS_B>(acc[i][j], desc_a(slot, i, ks), desc_b(slot, j, ks));
     mma_commit();
 #pragma unroll
     for (int i = 0; i < MI; ++i)
@@ -255,8 +293,8 @@ __device__ __forceinline__ void consume(float (&acc)[MI][NI][64], int stages, ui
 // f(row, col, v0, v1) for each pair of neighbouring columns (col, col + 1)
 // of a warpgroup's m64n128 accumulator: warp w holds rows 16 w .. + 16,
 // lane 4 g + t rows 16 w + g and + 8, columns 8 j + 2 t, + 1 (j < 16).
-template <class F>
-__device__ __forceinline__ void for_each_acc(const float (&d)[64], F f) {
+template <class Acc, class F>
+__device__ __forceinline__ void for_each_acc(const Acc (&d)[64], F f) {
   const int t = threadIdx.x % WG_THREADS, lane = t & 31;
   const int r = 16 * (t >> 5) + (lane >> 2), c = 2 * (lane & 3);
 #pragma unroll
@@ -291,24 +329,27 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// Tensor map of a row-major bf16 matrix (rows x cols, `pitch` elements from
-// one row to the next; base 16-byte aligned, pitch % 8 == 0), read in boxes
-// of box_rows x box_cols (box_cols * 2 = 128 bytes) in the 128-byte swizzle;
-// elements outside the matrix read as zero.
-inline cudaError_t bf16_map(CUtensorMap* map, const void* base, int rows, int cols, int pitch,
-                            int box_rows, int box_cols) {
+// Tensor map of a row-major matrix of bf16 (elem_bytes 2) or uint8
+// (elem_bytes 1) elements (rows x cols, `pitch` elements from one row to
+// the next; base 16-byte aligned, pitch * elem_bytes % 16 == 0), read in
+// boxes of box_rows x box_cols (box_cols * elem_bytes = 128 bytes) in the
+// 128-byte swizzle; elements outside the matrix read as zero.
+inline cudaError_t tile_map(CUtensorMap* map, int elem_bytes, const void* base, int rows,
+                            int cols, int pitch, int box_rows, int box_cols) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)pitch * 2};
+  const cuuint64_t strides[1] = {(cuuint64_t)pitch * elem_bytes};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t unit[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
-                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = encode(
+      map, elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+      const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
+
 
 // Set a kernel's dynamic shared-memory limit once per device.
 template <class Kernel>

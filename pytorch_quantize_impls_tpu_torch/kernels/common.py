@@ -14,13 +14,14 @@ from pytorch_quantize_impls_tpu_torch.ops import pack as packlib
 # against each decoded weight tile: the instantiated set, and each kernel's
 # default, the fastest in the 4096^3 kernel-bench sweep on the H100 (PERF.md)
 WS_M_TILES = (1, 2, 4)
-WS_DEFAULT_M_TILES = {"binary_gemm_ws": 2, "dorefa_gemm_ws": 2, "shift_gemm_ws": 4}
+WS_DEFAULT_M_TILES = {"binary_gemm_ws": 4, "dorefa_gemm_ws": 2, "shift_gemm_ws": 4}
 
 
-# The Hopper bf16 tile (csrc/wgmma_tile.cuh) of shift_gemm_ws (K12) and the
-# probe's bf16 tiled_mm (P1): stages of 64 bf16 of k, each row 128 bytes in
-# the 128-byte swizzle, warpgroups of 128 threads, m64n128 products, and the
-# dynamic shared memory one block may use on the H100 (227 KB).
+# The Hopper tile (csrc/wgmma_tile.cuh) of shift_gemm_ws (K12), the probe's
+# bf16 tiled_mm (P1) and, on its s8 path, binary_gemm_ws (K10): stages of
+# 128 bytes of k (64 bf16, or 128 int8), each row 128 bytes in the 128-byte
+# swizzle, warpgroups of 128 threads, m64n128 products, and the dynamic
+# shared memory one block may use on the H100 (227 KB).
 WGMMA_STAGE_K = 64
 WGMMA_ROW_BYTES = 128
 WGMMA_ATOM_BYTES = 1024
@@ -28,6 +29,7 @@ WGMMA_SMEM_LIMIT = 232448
 WGMMA_WG_THREADS = 128
 WGMMA_N_TILE = 128
 SHIFT_WS_BN = WGMMA_N_TILE
+BINARY_WS_STAGE_K = WGMMA_ROW_BYTES  # int8 k per stage of binary_gemm_ws
 
 
 def wgmma_smem_bytes(a_rows: int, b_rows: int, stages: int, extra: int) -> int:
@@ -62,6 +64,15 @@ def shift_ws_plan(m_tiles: int) -> dict:
                 smem=wgmma_smem_bytes(rows, SHIFT_WS_BN, 4, 0))
 
 
+def binary_ws_plan(m_tiles: int) -> dict:
+    """The launch of binary_gemm_ws (``csrc/xnor_gemm.cu`` BinaryWsTile) for
+    ``m_tiles``: :func:`shift_ws_plan`'s tile (consumers running wgmma
+    m64n128k32 s8, the decoder a thread per column) with stages of 128
+    int8 of k, 8 to a 1024-row packed group."""
+    return dict(shift_ws_plan(m_tiles), stage_k=BINARY_WS_STAGE_K,
+                stages_per_group=packlib.GROUP_ROWS * 32 // BINARY_WS_STAGE_K)
+
+
 def tiled_mm_bf16_plan(bm: int, bn: int) -> dict:
     """The launch of the probe's bf16 tiled_mm (``csrc/mxu_probe.cu``
     Bf16Tile) for a (BM, BN) tiling: two consumer warpgroups (one for BM =
@@ -87,8 +98,8 @@ def ws_m_tiles(m_tiles, kernel: str) -> int:
 
 
 # The streamed GEMMs' launch plan (csrc/stream_tile.cuh: shift_gemm,
-# dorefa_gemm, int8_gemm): the SM count of the H100 SXM that a split over K
-# fills, the output tile's columns, the fewest stages a split's chunk holds
+# dorefa_gemm, binary_gemm, int8_gemm): the SM count of the H100 SXM that a
+# split over K fills, the output tile's columns, the fewest stages a split's chunk holds
 # (the ring's depth: a shorter chunk cannot overlap its loads with its
 # arithmetic), and a cap on the split's workspace. A split is taken only while the tile grid
 # is at most half of STREAM_SMS, and it makes S < 2 ceil(STREAM_SMS / grid)

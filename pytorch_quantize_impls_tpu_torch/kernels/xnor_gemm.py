@@ -4,33 +4,46 @@ Counterpart of ``pytorch_quantize_impls_tpu/kernels/xnor_gemm.py``. Weights
 are stored grouped-planar (``ops.pack.pack_bitplanes``, 1 bit each, K padded
 to the 1024-row group); activations are ±1 int8 (0 in padding).
 
-``binary_gemm``, its weight-stationary variant ``binary_gemm_ws`` and
-``decode_binary_weights`` launch the hand-written CUDA kernels in
-``csrc/xnor_gemm.cu`` for CUDA tensors and take their plain PyTorch versions
-(``*_reference``) for CPU tensors. Each counts its kernel launches in
-``.launches``.
+``binary_gemm`` (K1), its weight-stationary variant ``binary_gemm_ws``
+(K10) and ``decode_binary_weights`` (K2) launch the hand-written CUDA
+kernels in ``csrc/xnor_gemm.cu`` for CUDA tensors and take their plain
+PyTorch versions (``*_reference``) for CPU tensors. Each counts its kernel
+launches in ``.launches``. K1 runs on the streamed int8 tensor-core schedule
+(``csrc/stream_tile.cuh``, plan ``common.stream_plan``), K10 on the s8 path
+of the Hopper ``wgmma`` tile (``csrc/wgmma_tile.cuh``, ``common.binary_ws_plan``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import struct
 from typing import Optional
 
 import torch
 
 from pytorch_quantize_impls_tpu_torch.kernels import _build, int8_matmul
-from pytorch_quantize_impls_tpu_torch.kernels.common import pad_dim, ws_m_tiles
+from pytorch_quantize_impls_tpu_torch.kernels.common import (
+    pad_dim, stream_plan, stream_workspace_bytes, ws_m_tiles,
+)
 from pytorch_quantize_impls_tpu_torch.ops import pack as packlib
 
+STAGE_K = 64  # k per shared-memory stage of binary_gemm: 64 int8 activations
+# csrc/xnor_gemm.cu BinaryGemmArgs: (x, w_packed, alpha, row_scale, out,
+# workspace, stream) addresses, then (M, N, K, R, bm, splits, chunk, device)
+_GEMM_ARGS = struct.Struct("=7Q8i")
+TMA_PITCH = 16  # bytes: binary_gemm_ws's TMA reads rows of x at a multiple of this
 
+
+@functools.lru_cache(maxsize=None)  # the argtypes lists are built once
 def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     return _build.library(
         "xnor_gemm",
-        # (x, w_packed, alpha, row_scale, out, M, N, K, R, device, stream)
-        qt_binary_gemm=[p] * 5 + [i] * 5 + [p],
-        # (x, w_packed, alpha, row_scale, out, M, N, K, R, m_tiles, device, stream)
-        qt_binary_gemm_ws=[p] * 5 + [i] * 6 + [p],
+        # one packed BinaryGemmArgs (_GEMM_ARGS)
+        qt_binary_gemm=[ctypes.c_char_p],
+        # (x, w_packed, alpha, row_scale, out, M, N, K, pitch, R, m_tiles, device, stream)
+        qt_binary_gemm_ws=[p] * 5 + [i] * 7 + [p],
         # (w_packed, out, R, N, device, stream)
         qt_decode_binary=[p, p, i, i, i, p],
     )
@@ -80,6 +93,8 @@ def binary_gemm(
 
     ``alpha``: (N,) per-out-channel scale; ``row_scale``: (M,) per-row scale.
     K may be less than the packed Kp: the missing columns of x count as 0.
+    On the card K may be split (``common.stream_plan``); the int32 sum is
+    exact, so the result is the same whatever the split.
     """
     m, k = x_i8.shape
     r = _packed_rows(w_packed, k)
@@ -95,13 +110,16 @@ def binary_gemm(
         _build.require("alpha", alpha, torch.float32, (n,), dev)
     if row_scale is not None:
         _build.require("row_scale", row_scale, torch.float32, (m,), dev)
+    bm, splits, chunk = stream_plan(m, n, k, STAGE_K)
+    index, stream = _build.launch_args(x_i8)
+    ws = _build.scratch(stream_workspace_bytes(m, n, splits), index, stream) if splits > 1 else 0
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     lib = _lib()
-    code = lib.qt_binary_gemm(
-        _build.ptr(x_i8), _build.ptr(w_packed), _build.ptr(alpha),
-        _build.ptr(row_scale), _build.ptr(out), m, n, k, r,
-        *_build.launch_args(x_i8),
-    )
+    code = lib.qt_binary_gemm(_GEMM_ARGS.pack(
+        x_i8.data_ptr(), w_packed.data_ptr(), 0 if alpha is None else alpha.data_ptr(),
+        0 if row_scale is None else row_scale.data_ptr(), out.data_ptr(), ws, stream,
+        m, n, k, r, bm, splits, chunk, index,
+    ))
     _build.check(lib, code, "binary_gemm")
     binary_gemm.launches += 1
     return out
@@ -127,8 +145,10 @@ def binary_gemm_ws(
     """:func:`binary_gemm`'s contract, weight-stationary: each packed weight
     tile is unpacked once for ``m_tiles`` M-tiles of 64 rows (one of
     ``common.WS_M_TILES``; the JAX function's ``tiles=``) and the product
-    runs on the int8 tensor cores. Output float32, equal to
-    :func:`binary_gemm` bit for bit."""
+    runs on the int8 tensor cores (wgmma). Output float32, equal to
+    :func:`binary_gemm` bit for bit. On the card x is read by TMA from rows
+    of a multiple of 16 bytes (:func:`_int8_rows`); the kernel reads columns
+    past K as zero."""
     r_tiles = ws_m_tiles(m_tiles, "binary_gemm_ws")
     m, k = x_i8.shape
     r = _packed_rows(w_packed, k)
@@ -144,11 +164,12 @@ def binary_gemm_ws(
         _build.require("alpha", alpha, torch.float32, (n,), dev)
     if row_scale is not None:
         _build.require("row_scale", row_scale, torch.float32, (m,), dev)
+    xq = _int8_rows(x_i8)
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     lib = _lib()
     code = lib.qt_binary_gemm_ws(
-        _build.ptr(x_i8), _build.ptr(w_packed), _build.ptr(alpha),
-        _build.ptr(row_scale), _build.ptr(out), m, n, k, r, r_tiles,
+        _build.ptr(xq), _build.ptr(w_packed), _build.ptr(alpha),
+        _build.ptr(row_scale), _build.ptr(out), m, n, k, xq.shape[1], r, r_tiles,
         *_build.launch_args(x_i8),
     )
     _build.check(lib, code, "binary_gemm_ws")
@@ -157,6 +178,21 @@ def binary_gemm_ws(
 
 
 binary_gemm_ws.launches = 0
+
+
+def _int8_rows(x: torch.Tensor) -> torch.Tensor:
+    """x as binary_gemm_ws's TMA reads it: 16-byte aligned, with a row pitch
+    of K rounded up to a multiple of TMA_PITCH bytes. x itself where K is a
+    multiple already and x is aligned (a copy if it is not aligned); else a
+    copy into the first K columns of a wider buffer (the columns past K are
+    never read: the kernel's tensor map is K wide)."""
+    m, k = x.shape
+    pitch = -(-k // TMA_PITCH) * TMA_PITCH
+    if pitch == k:
+        return x if x.data_ptr() % 16 == 0 else x.clone()
+    xq = torch.empty((m, pitch), dtype=x.dtype, device=x.device)
+    xq[:, :k] = x
+    return xq
 
 
 def decode_binary_weights_reference(w_packed: torch.Tensor) -> torch.Tensor:

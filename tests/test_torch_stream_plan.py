@@ -1,5 +1,6 @@
-"""The launch plan of the streamed GEMMs K6 ``dorefa_gemm`` and K8
-``shift_gemm`` (``kernels/common.py`` ``stream_plan``), on the CPU.
+"""The launch plan of the streamed GEMMs K1 ``binary_gemm``, K6
+``dorefa_gemm`` and K8 ``shift_gemm`` (``kernels/common.py``
+``stream_plan``), on the CPU.
 
 The CUDA kernels (``csrc/stream_tile.cuh``) split K into the plan's chunks
 where the output grid is small and sum the chunks' partials in index order.
@@ -27,10 +28,11 @@ from pytorch_quantize_impls_tpu_torch.bench import stream_sweep
 from pytorch_quantize_impls_tpu_torch.kernels import common
 from pytorch_quantize_impls_tpu_torch.kernels import packed_matmul as tpm
 from pytorch_quantize_impls_tpu_torch.kernels import shift_matmul as tsm
+from pytorch_quantize_impls_tpu_torch.kernels import xnor_gemm as tbg
 
 jpm = sys.modules["pytorch_quantize_impls_tpu.kernels.packed_matmul"]
 jsm = sys.modules["pytorch_quantize_impls_tpu.kernels.shift_matmul"]
-STAGE_K = {"dorefa_gemm": tpm.STAGE_K, "shift_gemm": tsm.STAGE_K}
+STAGE_K = {"dorefa_gemm": tpm.STAGE_K, "shift_gemm": tsm.STAGE_K, "binary_gemm": tbg.STAGE_K}
 
 
 def _lm_shapes():
@@ -39,8 +41,11 @@ def _lm_shapes():
             for m in (1, 8, 32, 128)] + [("lm d", 32, d, ff)]
 
 
-# (label, M, K, N): every shape the port's paths and chip_smoke.py give K6 and K8
+# (label, M, K, N): every shape the port's paths and chip_smoke.py give K1, K6
+# and K8 (BNN LeNet's fc1 and head: K1's)
 SHAPES = _lm_shapes() + [
+    *[(f"lenet {name} M={m}", m, k, n) for name, k, n in (("fc1", 4096, 1024), ("head", 1024, 10))
+      for m in (1, 16, 256)],
     *[(f"vgg head M={m}", m, 512 * 4 * 4, 10) for m in (1, 16, 256)],
     ("resnet im2col stage1 conv1", chip_smoke.RESNET_IM2COL_BATCH * 256,
      9 * chip_smoke.RESNET_WIDTH, 2 * chip_smoke.RESNET_WIDTH),
@@ -56,6 +61,8 @@ SHAPES = _lm_shapes() + [
     ("split M=65 K=1500 N=130", 65, 1500, 130), ("split M=65 K=2100 N=130", 65, 2100, 130),
     ("split M=8 K=2100 N=64", 8, 2100, 64), ("split M=65 K=1501 N=130", 65, 1501, 130),
     ("split M=256 K=8192 N=10", 256, 8192, 10), ("split M=32 K=1024 N=1024", 32, 1024, 1024),
+    ("split M=65 K=300 N=10", 65, 300, 10), ("split M=1 K=1500 N=10", 1, 1500, 10),
+    ("split M=1 K=1501 N=10", 1, 1501, 10), ("split M=1 K=2100 N=10", 1, 2100, 10),
 ]
 
 

@@ -1,5 +1,6 @@
-"""PyTorch port, the Hopper bf16 tile (csrc/wgmma_tile.cuh) of shift_gemm_ws
-(K12) and the probe's bf16 tiled_mm (P1), on the CPU.
+"""PyTorch port, the Hopper tile (csrc/wgmma_tile.cuh) of shift_gemm_ws (K12),
+the probe's bf16 tiled_mm (P1) and, on its s8 path, binary_gemm_ws (K10), on
+the CPU.
 
 The CUDA kernels run on the card only (chip_smoke.py holds them against
 their plain versions). Here: the Python side of their launch, which the CUDA
@@ -83,6 +84,68 @@ def test_the_shift_ws_plan_is_the_kernels_tile():
     assert "smem_bytes(64 * R, BN, STAGES, 0)" in tile
     assert {common.shift_ws_plan(r)["blocks_per_sm"] for r in common.WS_M_TILES} == {1, 2}
     assert common.shift_ws_plan(1)["blocks_per_sm"] == 2
+
+
+@pytest.mark.parametrize("m_tiles", common.WS_M_TILES)
+def test_every_m_tiles_has_a_binary_ws_plan_that_fits(m_tiles):
+    """K10's s8 tile: 128-byte stages of 128 int8 of k, 8 to a 1024-row packed
+    group, one consumer warpgroup per 64-row M-tile and one decoder
+    warpgroup of a thread per column."""
+    plan = common.binary_ws_plan(m_tiles)
+    assert plan["bm"] == 64 * m_tiles and plan["bn"] == common.SHIFT_WS_BN == 128
+    assert plan["stage_k"] == common.WGMMA_ROW_BYTES == 128
+    assert plan["stages_per_group"] * plan["stage_k"] == 1024
+    assert plan["consumers"] == m_tiles
+    assert plan["threads"] == (m_tiles + 1) * 128 and plan["bn"] == common.WGMMA_WG_THREADS
+    assert plan["bm"] <= 256  # a TMA box has at most 256 rows
+    assert plan["smem"] == common.wgmma_smem_bytes(plan["bm"], 128, plan["stages"], 0)
+    assert plan["smem"] <= common.WGMMA_SMEM_LIMIT
+    assert plan["blocks_per_sm"] * (plan["smem"] + BLOCK_RESERVED_BYTES) <= SM_SHARED_BYTES
+    assert plan["blocks_per_sm"] * plan["threads"] * 64 <= 65536
+
+
+def test_the_binary_ws_plan_is_the_kernels_tile():
+    """csrc/xnor_gemm.cu BinaryWsTile has the plan's stage depth, stages,
+    blocks per SM, column width and thread count, and static_asserts them."""
+    text = (CSRC / "xnor_gemm.cu").read_text()
+    tile = text[text.index("struct BinaryWsTile {"):]
+    tile = tile[:tile.index("};")]
+    assert "static constexpr int BN = 128;" in tile
+    assert "static constexpr int STAGE_K = qt::wg::ROW_BYTES;" in tile
+    assert "static constexpr int STAGES = 4;" in tile
+    assert "static constexpr int BLOCKS = R == 1 ? 2 : 1;" in tile
+    assert "static constexpr int THREADS = (R + 1) * qt::wg::WG_THREADS;" in tile
+    assert "smem_bytes(64 * R, BN, STAGES, 0)" in tile
+    assert "static_assert(SPG == 8 && BN == qt::wg::WG_THREADS" in tile
+    assert "BLOCKS * (SMEM + 1024) <= 233472" in tile
+    assert [common.binary_ws_plan(r)["blocks_per_sm"] for r in common.WS_M_TILES] == [2, 1, 1]
+
+
+def test_the_header_has_an_s8_path():
+    """wgmma_tile.cuh's s8 product (m64n128k32, s32 accumulators, both
+    operands K-major: PTX allows no transpose for .s8), picked by the
+    accumulator's type, and its uint8 tensor map; a stage is four 32-byte
+    k-steps for either type."""
+    text = (CSRC / "wgmma_tile.cuh").read_text()
+    assert "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " in text
+    assert "void mma_k_step(int32_t (&d)[64], uint64_t da, uint64_t db)" in text
+    assert 'static_assert(TRANS_B == 0, "wgmma has no transpose for s8: B is K-major");' in text
+    assert "CU_TENSOR_MAP_DATA_TYPE_UINT8" in text
+    assert "for (int ks = 0; ks < K_STEPS; ++ks)" in text
+    assert _header_constant("K_STEPS") * 32 == common.WGMMA_ROW_BYTES
+    src = (CSRC / "xnor_gemm.cu").read_text()
+    assert "qt::wg::tile_map(&xmap, 1, x, M, K, pitch, 64 * R, T::STAGE_K)" in src
+    assert "int32_t acc[1][1][64];" in src
+
+
+@pytest.mark.parametrize("m_tiles", [0, 3, 8])
+def test_binary_ws_plan_refuses_other_m_tiles(m_tiles):
+    with pytest.raises(ValueError, match="m_tiles"):
+        common.binary_ws_plan(m_tiles)
+
+
+def test_binary_gemm_ws_default_m_tiles_is_in_the_set():
+    assert common.WS_DEFAULT_M_TILES["binary_gemm_ws"] in common.WS_M_TILES
 
 
 @pytest.mark.parametrize("tiles", tmp.TILES)
@@ -224,6 +287,21 @@ def test_the_decode_cost_variants_edit_the_kernel_source():
     assert 'extern "C" int qt_read_cycles' in v["instrumented"]
     with pytest.raises(ValueError, match="expected the line"):
         ws_decode_cost.variants(src.replace("fence_async_shared();", ""))
+
+
+def test_the_decode_cost_variants_edit_k10s_source():
+    """bench/ws_decode_cost.py's variants of csrc/xnor_gemm.cu: the no-decode
+    one writes no weight tile, the instrumented one counts."""
+    src = (CSRC / "xnor_gemm.cu").read_text()
+    v = ws_decode_cost.variants(src, "binary_gemm_ws")
+    assert v["kernel"] == src
+    assert "pm1_bytes((b >>" in src and "pm1_bytes((b >>" not in v["no_decode"]
+    assert v["no_decode"].count("bar_arrive(&full[slot]);") == 1
+    assert v["instrumented"].count("clock64()") == 5
+    assert 'extern "C" int qt_read_cycles' in v["instrumented"]
+    assert set(ws_decode_cost.KERNELS) == {"shift_gemm_ws", "binary_gemm_ws"}
+    with pytest.raises(ValueError, match="xnor_gemm.cu: expected the line"):
+        ws_decode_cost.variants(src.replace("T::SPG * (g + 1) < stages", "0"), "binary_gemm_ws")
 
 
 def test_the_decode_cost_bench_refuses_without_a_card():
