@@ -26,10 +26,12 @@ on one NVIDIA GPU (built for Hopper, sm_90a).
    tile. Device times are read after every CUDA-event time (a
    torch.profiler session slows each later launch on the host). K10-K12
    run at the JAX tests' shapes, 4096^3, a served conv as im2col and edges
-   (every m_tiles, all-zero activations), K10's lines with its tile (rows
-   x columns); P1 at 256x512x256 and 4096^3 over every tiling (K12, P1
-   bf16 and, on its s8 path, K10 run on the TMA + wgmma tile of
-   csrc/wgmma_tile.cuh). Prints kernel, plain, library-call and bound
+   (every m_tiles, all-zero activations, K off the 16-byte pitch; K11 there
+   at 1, 2 and 4 bits), K10's lines with its tile (rows x columns); P1 at
+   256x512x256 and 4096^3 over every tiling (every one of them runs on the
+   TMA + wgmma tile of csrc/wgmma_tile.cuh: K12 and P1 bf16 on its bf16
+   path; K10, K11 and P1 int8/int4 on its s8 path, K10 and K11 through the
+   shared body of csrc/packed_ws.cuh). Prints kernel, plain, library-call and bound
    times; the bf16 GEMMs' (K8, K12, P1 bf16) library call is torch.mm of
    the bf16 operands with a float32 output, with cuBLAS's float32 and bf16
    matmuls beside it.
@@ -859,13 +861,16 @@ def ws_cases(rng, dev):
             bound=gemm_bound(m, k, n, 4 * wp.numel(), 4 * (n + m) if scaled else 0),
             main=label.startswith("main"), tile=(plan["bm"], plan["bn"]),
         ))
-    # K11: w2a2 and w4a4 at the JAX tests' shapes, w4a4 elsewhere
+    # K11: w2a2 and w4a4 at the JAX tests' shapes, w1a2, w2a2 and w4a4 at
+    # the edges (K 1000, 300 and 2100: off the 128-deep stage, the 16-byte
+    # pitch and the group), w4a4 elsewhere
     w = RESNET_WIDTH
     k11 = []
     for label, m, k, n, mt, zeros in shapes("dorefa_gemm_ws", (
             f"resnet im2col stage1 conv1 b={RESNET_IM2COL_BATCH}",
             RESNET_IM2COL_BATCH * 16 * 16, 9 * w, 2 * w)):
-        bits = ((2, 2), (4, 4)) if label.startswith("jax") else ((4, 4),)
+        bits = (((2, 2), (4, 4)) if label.startswith("jax")
+                else ((1, 2), (2, 2), (4, 4)) if label.startswith("edge") else ((4, 4),))
         k11 += [(f"{label} w{wb}a{ab}", m, k, n, mt, zeros, wb, ab) for wb, ab in bits]
     for label, m, k, n, mt, zeros, wb, ab in k11:
         a = t(rng.integers(0, 2**ab, size=(m, k)).astype(np.int8)) * (0 if zeros else 1)

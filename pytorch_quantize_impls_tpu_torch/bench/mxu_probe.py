@@ -2,8 +2,8 @@
 
 Counterpart of ``scripts/mxu_probe.py``, which asks at which operand dtype
 the TPU's matrix unit peaks. Here the question is which of the H100's
-tensor-core dtypes peaks, and how near a hand-written ``mma.sync`` tile
-comes to the library's rate. ``tiled_mm`` (P1) launches the CUDA kernel in
+tensor-core dtypes peaks, and how near a hand-written ``wgmma`` tile comes
+to the library's rate. ``tiled_mm`` (P1) launches the CUDA kernel in
 ``csrc/mxu_probe.cu`` (bf16, int8, int4) for CUDA tensors and takes its plain
 PyTorch version ``tiled_mm_reference`` for CPU tensors;
 ``tiled_mm.launches`` counts the kernel launches.
@@ -12,9 +12,12 @@ PyTorch version ``tiled_mm_reference`` for CPU tensors;
 
 runs 4096^3 for each dtype over the tilings and prints ms, T/s and the share
 of the data-sheet peak, beside ``torch.mm(..., out_dtype=torch.float32)``
-and ``torch.matmul`` (bf16) and ``torch._int_mm`` (int8) as yardsticks;
-without a GPU it raises and prints no result. The bf16 kernel runs on the
-Hopper wgmma tile (``csrc/wgmma_tile.cuh``), int8 and int4 on ``mma.sync``.
+and ``torch.matmul`` (bf16) and ``torch._int_mm`` (int8) as yardsticks,
+then the dtypes ranked by their best rate; without a GPU it raises and
+prints no result. Every dtype runs on the Hopper wgmma tile
+(``csrc/wgmma_tile.cuh``): bf16 on its bf16 path, int8 and int4 on its s8
+path, with a transposer warpgroup that writes w K-major (int4: each nibble
+sign-extended to a byte).
 """
 
 from __future__ import annotations
@@ -27,9 +30,11 @@ import torch
 
 from pytorch_quantize_impls_tpu_torch.bench import common
 from pytorch_quantize_impls_tpu_torch.kernels import _build
+from pytorch_quantize_impls_tpu_torch.kernels.common import int8_rows
 
-# (BM, BN) block tilings with a kernel instantiation; K is walked in stages
-# of 64 bytes: 32 bf16, 64 int8 or 128 int4 values
+# (BM, BN) block tilings with a kernel instantiation, and the multiple of K
+# each dtype takes (the kernels walk K in stages of 64 bf16 or 128 int8 and
+# int4 values; TMA zero-fills a last int8 stage that K does not fill)
 TILES = ((128, 128), (128, 256), (256, 128), (64, 128))
 DTYPES = ("bf16", "int8", "int4")
 STAGE_K = {"bf16": 32, "int8": 64, "int4": 128}
@@ -66,8 +71,9 @@ def _dtype(x: torch.Tensor, int4: bool) -> str:
 def _check(x, w, tiles, int4: bool):
     """(dtype name, M, N, K in elements); raise unless the shapes divide the
     tiles, as the JAX function needs (it does not pad), and unless x is
-    16-byte aligned and w 16-byte (bf16: TMA's rule) or 4-byte aligned (int8,
-    int4), as the kernels load them."""
+    16-byte aligned and w 16-byte (bf16) or 4-byte aligned (int8, int4:
+    :func:`tiled_mm` copies such a w for TMA, which reads 16-byte aligned
+    rows)."""
     if tuple(tiles) not in TILES:
         raise ValueError(f"tiles={tiles}: must be one of {TILES}")
     dt = _dtype(x, int4)
@@ -101,7 +107,8 @@ def tiled_mm(x: torch.Tensor, w: torch.Tensor, *, tiles=TILES[0], int4: bool = F
     """(M, K) @ (K, N) -> (M, N) float32 on the tensor cores: bf16 operands
     with a float32 accumulator, int8 (or ``int4``, packed by
     :func:`pack_int4` along K) with an int32 accumulator. ``tiles`` = (BM,
-    BN), one of TILES; the shapes must divide them."""
+    BN), one of TILES; the shapes must divide them. On the card an int8 or
+    int4 w that is not 16-byte aligned is copied (``common.int8_rows``)."""
     dt, m, n, k = _check(x, w, tiles, int4)
     dev = x.device
     if dev.type == "cpu":
@@ -110,6 +117,8 @@ def tiled_mm(x: torch.Tensor, w: torch.Tensor, *, tiles=TILES[0], int4: bool = F
         raise ValueError(f"tiled_mm: unsupported device {dev}")
     _build.require("x", x, x.dtype, tuple(x.shape), dev)
     _build.require("w", w, x.dtype, tuple(w.shape), dev)
+    if dt != "bf16":
+        w = int8_rows(w)
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib = _build.library("mxu_probe", qt_tiled_mm=[p, p, p, i, i, i, i, i, i, i, p])
@@ -203,7 +212,15 @@ def run(device="cuda", *, window_s: float = 0.25, repeats: int = 5, log=print) -
     if "int4" in out and "int8" in out:
         log(f"# int4 / int8 rate of the best tiles: "
             f"{out['int4']['best_tops'] / out['int8']['best_tops']:.3f}")
+    log("# dtype ranking by the best tiles' rate: " + ranking(out))
     return out
+
+
+def ranking(res: dict) -> str:
+    """The dtypes of :func:`run`'s result from the fastest rate down, each
+    with its T/s and tiling, e.g. ``int8 1100.0 T/s (256x128) > ...``."""
+    order = sorted(res, key=lambda dt: -res[dt]["best_tops"])
+    return " > ".join(f"{dt} {res[dt]['best_tops']:.1f} T/s ({res[dt]['best']})" for dt in order)
 
 
 def main() -> None:

@@ -27,15 +27,16 @@
 // dorefa_gemm_ws replaces the Pallas kernel packed_matmul.py dorefa_gemm_ws
 // (pallas_call at :257): dorefa_gemm's contract and epilogue (so it equals
 // dorefa_gemm and dorefa_gemm_decoded bit for bit), with each packed weight
-// tile decoded once for many M tiles. The schedule is mma_tile.cuh's
-// ws_gemm: a block takes R M-tiles of 64 rows (m_tiles, R in
-// {1, 2, 4}) and 64 columns, decodes each 64-row stage (two bit planes) of
-// its weights once into centered int8 in shared memory, and runs all R
-// M-tiles against it on the int8 tensor cores (mma.sync m16n8k32), the int32
-// accumulators in registers for the whole of K. Decodes per packed weight
-// tile: ceil(M / (64 R)) (16 at M = 4096, R = 4). At 4096^3 it is bound by
-// the int8 tensor-core rate (0.069 ms at 1979 TOP/s; its 88 MB at 4 bits take
-// 0.026 ms), and below that by its unpipelined shared-memory stages.
+// tile decoded once for R M-tiles of 64 rows (m_tiles, R in {1, 2, 4}). A
+// block takes R M-tiles and 128 columns on the weight-stationary s8 tile
+// body of packed_ws.cuh (binary_gemm_ws's, at BITS bits): TMA loads x's
+// 128-byte stages, a decoder warpgroup turns four bit fields of each
+// column's 32 words into the centered int8 weight stage (2c - n_w, four
+// bytes at a time with no carry between them) K-major in the 128-byte
+// swizzle, and R consumer warpgroups run wgmma m64n128k32 s8 on it, the
+// int32 sums in registers for the whole of K. Decodes per packed weight
+// tile: ceil(M / (64 R)). At 4096^3 it is bound by the int8 tensor-core
+// rate (0.069 ms at 1979 TOP/s; its 88 MB at 4 bits take 0.026 ms).
 //
 // decode_dorefa_weights replaces packed_matmul.py decode_dorefa_weights
 // (pallas_call at :315): packed (Kp/f, N) -> centered int8 (Kp, N). An
@@ -44,11 +45,12 @@
 // hold them and writes one 32-bit word; neighbouring threads take
 // neighbouring quads, so loads and stores coalesce.
 #include "mma_tile.cuh"
+#include "packed_ws.cuh"
 #include "stream_tile.cuh"
 
 namespace {
 
-constexpr int GROUP_ROWS = 32;  // words per self-contained group
+using qt::ws::GROUP_ROWS;  // words per self-contained group
 
 using qt::stream::centered_byte;
 
@@ -77,30 +79,22 @@ __global__ void dorefa_gemm_kernel_sum(const int32_t* __restrict__ part, float* 
                          [&](size_t i, int32_t s) { out[i] = (float)s * inv_scale; });
 }
 
+// K11's epilogue: the dequantization, once.
+struct DorefaEpilogue {
+  float inv_scale;
+  __device__ __forceinline__ float operator()(int32_t acc, int, int) const {
+    return (float)acc * inv_scale;
+  }
+};
+
+// K11: packed_ws.cuh's tile body at BITS bits; x: uint8 tensor map (M x K,
+// row pitch a multiple of 16 bytes).
 template <int BITS, int R>
-__global__ void __launch_bounds__(qt::mma::THREADS)
-dorefa_gemm_ws_kernel(const int8_t* __restrict__ x, const uint32_t* __restrict__ wp,
-                      float* __restrict__ out, int M, int N, int K, float inv_scale, bool vec) {
-  using namespace qt::mma;
-  auto load_a = [&](uint32_t* As, int m0, int k0) {
-    load_rows_bytes(As, reinterpret_cast<const uint8_t*>(x), m0, 64 * R, M, k0, K, vec);
-  };
-  // word q of column c: bit field plane0 + q / 8 of word rows 4 (q % 8) ..
-  // + 3, i.e. weight rows k0 + 4q .. k0 + 4q + 3, as centered int8
-  auto decode = [](uint32_t* Bs, const uint32_t* Ws, int plane0) {
-    for (int e = threadIdx.x; e < 16 * 64; e += THREADS) {
-      const int c = e % 64, q = e / 64;
-      const int plane = plane0 + (q >> 3), r = 4 * (q & 7);
-      uint32_t v = 0;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) v |= centered_byte<BITS>(Ws[(r + j) * 64 + c], plane) << (8 * j);
-      Bs[c * LDW + q] = v;
-    }
-  };
-  auto store = [&](int m, int n, int32_t acc) {
-    if (m < M && n < N) out[(size_t)m * N + n] = (float)acc * inv_scale;
-  };
-  ws_gemm<S8, R>(wp, N, K, (32 / BITS) * GROUP_ROWS, load_a, decode, store);
+__global__ void __launch_bounds__(qt::ws::PackedWsTile<BITS, R>::THREADS,
+                                  qt::ws::PackedWsTile<BITS, R>::BLOCKS)
+dorefa_gemm_ws_kernel(const __grid_constant__ CUtensorMap xmap, const uint32_t* __restrict__ wp,
+                      DorefaEpilogue epi, float* __restrict__ out, int M, int N, int K) {
+  qt::ws::packed_ws_gemm<BITS, R>(xmap, wp, epi, out, M, N, K);
 }
 
 template <int BITS>
@@ -153,20 +147,15 @@ cudaError_t launch_gemm(const void* x, const void* wp, void* out, void* ws, int 
 }
 
 template <int BITS>
-cudaError_t launch_gemm_ws(const void* x, const void* wp, void* out, int M, int N, int K,
-                           float inv_scale, int m_tiles, cudaStream_t stream) {
-  const bool vec = (K % 16 == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
-  const dim3 grid((N + 63) / 64, (M + 64 * m_tiles - 1) / (64 * m_tiles));
-  const auto* xp = static_cast<const int8_t*>(x);
-  const auto* w = static_cast<const uint32_t*>(wp);
-  auto* o = static_cast<float*>(out);
+cudaError_t launch_gemm_ws(const void* x, int pitch, const uint32_t* wp, float* out, int M, int N,
+                           int K, float inv_scale, int m_tiles, int device, cudaStream_t s) {
+  const DorefaEpilogue epi{inv_scale};
   switch (m_tiles) {
-    case 1: dorefa_gemm_ws_kernel<BITS, 1><<<grid, qt::mma::THREADS, 0, stream>>>(xp, w, o, M, N, K, inv_scale, vec); break;
-    case 2: dorefa_gemm_ws_kernel<BITS, 2><<<grid, qt::mma::THREADS, 0, stream>>>(xp, w, o, M, N, K, inv_scale, vec); break;
-    case 4: dorefa_gemm_ws_kernel<BITS, 4><<<grid, qt::mma::THREADS, 0, stream>>>(xp, w, o, M, N, K, inv_scale, vec); break;
+    case 1: return qt::ws::launch<BITS, 1>(dorefa_gemm_ws_kernel<BITS, 1>, x, pitch, wp, epi, out, M, N, K, device, s);
+    case 2: return qt::ws::launch<BITS, 2>(dorefa_gemm_ws_kernel<BITS, 2>, x, pitch, wp, epi, out, M, N, K, device, s);
+    case 4: return qt::ws::launch<BITS, 4>(dorefa_gemm_ws_kernel<BITS, 4>, x, pitch, wp, epi, out, M, N, K, device, s);
     default: return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
 template <int BITS>
@@ -218,19 +207,25 @@ extern "C" int qt_dorefa_gemm(const DorefaGemmArgs* a) {
                 a->device, a->stream);
 }
 
+// x: int8 (M, pitch) with the data in columns [0, K), pitch % 16 == 0,
+// 16-byte aligned (what TMA reads); R = rows of the packed weight.
 extern "C" int qt_dorefa_gemm_ws(const void* x, const void* wp, void* out, int M, int N, int K,
-                                 int R, int bits, float inv_scale, int m_tiles, int device,
-                                 void* stream) {
+                                 int pitch, int R, int bits, float inv_scale, int m_tiles,
+                                 int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (R % GROUP_ROWS != 0 || (bits != 1 && bits != 2 && bits != 4) || K > R * (32 / bits))
+  if (R % GROUP_ROWS != 0 || (bits != 1 && bits != 2 && bits != 4) || K > R * (32 / bits) ||
+      pitch < K || pitch % 16 || reinterpret_cast<uintptr_t>(x) % 16)
     return (int)cudaErrorInvalidValue;
   if (M == 0 || N == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* o = static_cast<float*>(out);
+  if (K == 0) return (int)cudaMemsetAsync(o, 0, (size_t)M * N * sizeof(float), s);
+  const auto* w = static_cast<const uint32_t*>(wp);
   switch (bits) {
-    case 1: return (int)launch_gemm_ws<1>(x, wp, out, M, N, K, inv_scale, m_tiles, s);
-    case 2: return (int)launch_gemm_ws<2>(x, wp, out, M, N, K, inv_scale, m_tiles, s);
-    default: return (int)launch_gemm_ws<4>(x, wp, out, M, N, K, inv_scale, m_tiles, s);
+    case 1: return (int)launch_gemm_ws<1>(x, pitch, w, o, M, N, K, inv_scale, m_tiles, device, s);
+    case 2: return (int)launch_gemm_ws<2>(x, pitch, w, o, M, N, K, inv_scale, m_tiles, device, s);
+    default: return (int)launch_gemm_ws<4>(x, pitch, w, o, M, N, K, inv_scale, m_tiles, device, s);
   }
 }
 

@@ -1,10 +1,12 @@
 // Hopper GEMM tile: TMA loads, wgmma and a warp-specialised ring of
 // shared-memory stages (sm_90a), over two operand types: bf16 x bf16 -> f32
 // (m64n128k16) and s8 x s8 -> s32 (m64n128k32). The accumulator's type picks
-// the instruction. Three kernels run on it: the bf16 path of the dtype
-// probe's tiled matmul (P1, mxu_probe.cu), the weight-stationary shift GEMM
-// (K12, shift_gemm.cu) and, on the s8 path, the weight-stationary binary
-// GEMM (K10, xnor_gemm.cu).
+// the instruction. Kernels on it: on the bf16 path the dtype probe's tiled
+// matmul (P1 bf16, mxu_probe.cu) and the weight-stationary shift GEMM (K12,
+// shift_gemm.cu); on the s8 path P1's int8 and int4 (mxu_probe.cu: a
+// transposer warpgroup writes w K-major) and the weight-stationary packed
+// GEMMs binary_gemm_ws (K10, xnor_gemm.cu) and dorefa_gemm_ws (K11,
+// dorefa_gemm.cu), which share packed_ws.cuh's tile body.
 //
 // A stage holds 128 bytes of k (STAGE_K = 64 bf16, or 128 int8) for every
 // row of the block's A tile (output rows, k contiguous) and of its B tile,
@@ -14,10 +16,11 @@
 // the 16-byte chunk c of row r sits at r * 128 + ((c ^ r) * 16)
 // (swizzle128 below; kernels/common.py swizzle128 is its Python mirror).
 // Warpgroups (128 threads) take roles for the kernel's lifetime:
-//   - one producer thread (P1), or K12's decoder warpgroup, waits until a
-//     slot is empty and issues its TMA loads, which complete on the slot's
-//     "full" mbarrier with their byte count; K12's decoders also write the
-//     decoded B into the slot and then arrive on the same barrier;
+//   - one producer thread (P1 bf16), or a decoder or transposer warpgroup
+//     (K10-K12, P1 int8/int4), waits until a slot is empty and issues its
+//     TMA loads, which complete on the slot's "full" mbarrier with their
+//     byte count; decoders and transposers also write B (and P1 int4's A)
+//     into the slot and then arrive on the same barrier;
 //   - consumer warpgroups wait until a slot is full, issue the stage's
 //     wgmma.mma_async products (four k-steps of 32 bytes: m64n128k16 in
 //     bf16, m64n128k32 in s8), keep one
@@ -33,8 +36,8 @@
 //     1024 bytes from one 8-row atom to the next; a k-step (16 bf16, 32
 //     int8) moves the start address by 32 bytes inside the atom (the
 //     hardware applies the swizzle to the final address). A always, and the
-//     decoded B of K12 and K10. PTX allows no transpose for .s8: both s8
-//     operands are K-major.
+//     B that K10-K12 decode and P1 int8/int4 transpose. PTX allows no
+//     transpose for .s8: both s8 operands are K-major.
 //   MN-major, 128B swizzle: ((T, 8, m), (8, k)) : ((1, T, LBO), (8T, SBO));
 //     one TMA box of 64 k-rows x 64 columns (8 KB) per atom column, LBO =
 //     8192 bytes to the next 64 columns, SBO = 1024 bytes to the next 8
@@ -147,10 +150,16 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
-// Generic-proxy writes to shared memory (K12's decoder) made visible to the
-// async proxy that wgmma reads through.
+// Generic-proxy writes to shared memory (the decoders and transposers) made
+// visible to the async proxy that wgmma reads through.
 __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barrier `id` (1..15; 0 is __syncthreads') over `threads` threads:
+// one warpgroup syncs its own warps, the others run on.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // --- wgmma -------------------------------------------------------------------
@@ -332,10 +341,13 @@ inline EncodeTiled encode_tiled() {
 // Tensor map of a row-major matrix of bf16 (elem_bytes 2) or uint8
 // (elem_bytes 1) elements (rows x cols, `pitch` elements from one row to
 // the next; base 16-byte aligned, pitch * elem_bytes % 16 == 0), read in
-// boxes of box_rows x box_cols (box_cols * elem_bytes = 128 bytes) in the
-// 128-byte swizzle; elements outside the matrix read as zero.
+// boxes of box_rows x box_cols (at most 256 each); swizzled: in the
+// 128-byte swizzle (box_cols * elem_bytes = 128), else row after row as
+// they are (box_cols * elem_bytes % 16 == 0). Elements outside the matrix
+// read as zero.
 inline cudaError_t tile_map(CUtensorMap* map, int elem_bytes, const void* base, int rows,
-                            int cols, int pitch, int box_rows, int box_cols) {
+                            int cols, int pitch, int box_rows, int box_cols,
+                            bool swizzled = true) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
@@ -345,11 +357,10 @@ inline cudaError_t tile_map(CUtensorMap* map, int elem_bytes, const void* base, 
   const CUresult r = encode(
       map, elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
       const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      swizzled ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
-
 
 // Set a kernel's dynamic shared-memory limit once per device.
 template <class Kernel>

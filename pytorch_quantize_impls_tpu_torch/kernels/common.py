@@ -14,14 +14,15 @@ from pytorch_quantize_impls_tpu_torch.ops import pack as packlib
 # against each decoded weight tile: the instantiated set, and each kernel's
 # default, the fastest in the 4096^3 kernel-bench sweep on the H100 (PERF.md)
 WS_M_TILES = (1, 2, 4)
-WS_DEFAULT_M_TILES = {"binary_gemm_ws": 4, "dorefa_gemm_ws": 2, "shift_gemm_ws": 4}
+WS_DEFAULT_M_TILES = {"binary_gemm_ws": 4, "dorefa_gemm_ws": 4, "shift_gemm_ws": 4}
 
 
-# The Hopper tile (csrc/wgmma_tile.cuh) of shift_gemm_ws (K12), the probe's
-# bf16 tiled_mm (P1) and, on its s8 path, binary_gemm_ws (K10): stages of
-# 128 bytes of k (64 bf16, or 128 int8), each row 128 bytes in the 128-byte
-# swizzle, warpgroups of 128 threads, m64n128 products, and the dynamic
-# shared memory one block may use on the H100 (227 KB).
+# The Hopper tile (csrc/wgmma_tile.cuh) of shift_gemm_ws (K12) and the
+# probe's bf16 tiled_mm (P1) and, on its s8 path, of binary_gemm_ws (K10),
+# dorefa_gemm_ws (K11) and P1 int8/int4: stages of 128 bytes of k (64 bf16,
+# or 128 int8), each row 128 bytes in the 128-byte swizzle, warpgroups of
+# 128 threads, m64n128 products, and the dynamic shared memory one block may
+# use on the H100 (227 KB).
 WGMMA_STAGE_K = 64
 WGMMA_ROW_BYTES = 128
 WGMMA_ATOM_BYTES = 1024
@@ -29,7 +30,8 @@ WGMMA_SMEM_LIMIT = 232448
 WGMMA_WG_THREADS = 128
 WGMMA_N_TILE = 128
 SHIFT_WS_BN = WGMMA_N_TILE
-BINARY_WS_STAGE_K = WGMMA_ROW_BYTES  # int8 k per stage of binary_gemm_ws
+BINARY_WS_STAGE_K = WGMMA_ROW_BYTES  # int8 k per stage of the s8 tiles
+TMA_PITCH = 16  # bytes: TMA reads rows of x at a multiple of this
 
 
 def wgmma_smem_bytes(a_rows: int, b_rows: int, stages: int, extra: int) -> int:
@@ -64,13 +66,27 @@ def shift_ws_plan(m_tiles: int) -> dict:
                 smem=wgmma_smem_bytes(rows, SHIFT_WS_BN, 4, 0))
 
 
+def packed_ws_plan(bits: int, m_tiles: int) -> dict:
+    """The launch of the weight-stationary packed GEMMs on the s8 tile
+    (``csrc/packed_ws.cuh`` PackedWsTile: binary_gemm_ws at one bit,
+    dorefa_gemm_ws at 1, 2 or 4) for ``m_tiles``: :func:`shift_ws_plan`'s
+    block of 64 ``m_tiles`` rows x 128 columns, ring and blocks per SM, with
+    stages of 128 int8 of k, 8 / ``bits`` to a 32-word packed group; one
+    consumer warpgroup per M-tile, at most two (``mi`` M-tiles each:
+    wgmma m64n128k32 s8), and the decoder, a thread per column."""
+    if bits not in (1, 2, 4):
+        raise ValueError(f"bits={bits!r}: the s8 tile decodes 1-, 2- or 4-bit codes")
+    consumers = min(m_tiles, 2)
+    group_k = packlib.GROUP_ROWS * packlib.pack_factor(bits)
+    return dict(shift_ws_plan(m_tiles), consumers=consumers, mi=m_tiles // consumers,
+                threads=(consumers + 1) * WGMMA_WG_THREADS, stage_k=BINARY_WS_STAGE_K,
+                stages_per_group=group_k // BINARY_WS_STAGE_K)
+
+
 def binary_ws_plan(m_tiles: int) -> dict:
-    """The launch of binary_gemm_ws (``csrc/xnor_gemm.cu`` BinaryWsTile) for
-    ``m_tiles``: :func:`shift_ws_plan`'s tile (consumers running wgmma
-    m64n128k32 s8, the decoder a thread per column) with stages of 128
-    int8 of k, 8 to a 1024-row packed group."""
-    return dict(shift_ws_plan(m_tiles), stage_k=BINARY_WS_STAGE_K,
-                stages_per_group=packlib.GROUP_ROWS * 32 // BINARY_WS_STAGE_K)
+    """The launch of binary_gemm_ws (K10): :func:`packed_ws_plan` at one
+    bit, 8 stages to a 1024-row packed group."""
+    return packed_ws_plan(1, m_tiles)
 
 
 def tiled_mm_bf16_plan(bm: int, bn: int) -> dict:
@@ -86,6 +102,53 @@ def tiled_mm_bf16_plan(bm: int, bn: int) -> dict:
     return dict(consumers=consumers, mi=mi, ni=ni, acc_per_thread=64 * mi * ni, stages=4,
                 threads=(consumers + 1) * WGMMA_WG_THREADS,
                 smem=wgmma_smem_bytes(bm, bn, 4, 0))
+
+
+def tiled_mm_s8_plan(bm: int, bn: int, int4: bool) -> dict:
+    """The launch of the probe's int8 or int4 tiled_mm (``csrc/mxu_probe.cu``
+    S8Tile) for a (BM, BN) tiling: :func:`tiled_mm_bf16_plan`'s consumers
+    (m64n128k32 s8 products, int32 accumulators) and one transposer
+    warpgroup; stages of 128 k. The wgmma ring holds ``stages`` slots of x
+    (A, BM rows) and the transposed w (B, BN rows) of 128 bytes; the staging
+    ring ``staging`` slots of w's rows as TMA brings them (128 k-rows x BN
+    bytes; int4: 64 rows of packed pairs, and x's BM x 64 packed bytes),
+    each with an mbarrier. ``stages`` is 4 where two staging slots still
+    fit in WGMMA_SMEM_LIMIT, else 3; ``staging`` then as many as fit, at
+    most 4."""
+    try:
+        consumers = tiled_mm_bf16_plan(bm, bn)
+    except ValueError:
+        raise ValueError(f"tiles ({bm}, {bn}): no s8 wgmma tile") from None
+    if bn > 256:
+        raise ValueError(f"tiles ({bm}, {bn}): no s8 wgmma tile")
+    w_bytes = (BINARY_WS_STAGE_K // (2 if int4 else 1)) * bn
+    stg_bytes = w_bytes + (bm * BINARY_WS_STAGE_K // 2 if int4 else 0)
+
+    def smem(stages, staging):
+        return wgmma_smem_bytes(bm, bn, stages, staging * (stg_bytes + 8))
+
+    stages = 4 if smem(4, 2) <= WGMMA_SMEM_LIMIT else 3
+    staging = next(g for g in (4, 3, 2) if g == 2 or smem(stages, g) <= WGMMA_SMEM_LIMIT)
+    return dict(consumers=consumers["consumers"], mi=consumers["mi"], ni=consumers["ni"],
+                acc_per_thread=consumers["acc_per_thread"], stage_k=BINARY_WS_STAGE_K,
+                stages=stages, staging=staging, w_stage_bytes=w_bytes, staging_bytes=stg_bytes,
+                threads=consumers["threads"], smem=smem(stages, staging))
+
+
+def int8_rows(x: torch.Tensor) -> torch.Tensor:
+    """A row-major byte matrix as TMA reads it: 16-byte aligned, with a row
+    pitch of its width rounded up to a multiple of TMA_PITCH bytes. x
+    itself where the width is a multiple already and x is aligned (a copy
+    if it is not aligned); else a copy into the first columns of a wider
+    buffer (the columns past the width are never read: the kernels' tensor
+    maps are as wide as x)."""
+    m, k = x.shape
+    pitch = -(-k // TMA_PITCH) * TMA_PITCH
+    if pitch == k:
+        return x if x.data_ptr() % 16 == 0 else x.clone()
+    xq = torch.empty((m, pitch), dtype=x.dtype, device=x.device)
+    xq[:, :k] = x
+    return xq
 
 
 def ws_m_tiles(m_tiles, kernel: str) -> int:

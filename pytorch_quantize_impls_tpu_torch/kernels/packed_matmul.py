@@ -32,7 +32,7 @@ import torch
 
 from pytorch_quantize_impls_tpu_torch.kernels import _build, int8_matmul
 from pytorch_quantize_impls_tpu_torch.kernels.common import (
-    packed_rows, pad_dim, stream_plan, stream_workspace_bytes, ws_m_tiles,
+    int8_rows, packed_rows, pad_dim, stream_plan, stream_workspace_bytes, ws_m_tiles,
 )
 from pytorch_quantize_impls_tpu_torch.ops import pack as packlib
 
@@ -49,8 +49,8 @@ def _lib() -> ctypes.CDLL:
         "dorefa_gemm",
         # one packed DorefaGemmArgs (_GEMM_ARGS)
         qt_dorefa_gemm=[ctypes.c_char_p],
-        # (x, w_packed, out, M, N, K, R, bits, inv_scale, m_tiles, device, stream)
-        qt_dorefa_gemm_ws=[p, p, p, i, i, i, i, i, ctypes.c_float, i, i, p],
+        # (x, w_packed, out, M, N, K, pitch, R, bits, inv_scale, m_tiles, device, stream)
+        qt_dorefa_gemm_ws=[p, p, p, i, i, i, i, i, i, ctypes.c_float, i, i, p],
         # (w_packed, out, R, N, bits, device, stream)
         qt_decode_dorefa=[p, p, i, i, i, i, p],
     )
@@ -163,8 +163,11 @@ def dorefa_gemm_ws(
 ) -> torch.Tensor:
     """:func:`dorefa_gemm`'s contract, weight-stationary: each packed weight
     tile is decoded once for ``m_tiles`` M-tiles of 64 rows (one of
-    ``common.WS_M_TILES``) and the product runs on the int8 tensor cores.
-    Output float32, equal to :func:`dorefa_gemm` bit for bit."""
+    ``common.WS_M_TILES``) and the product runs on the int8 tensor cores
+    (wgmma, ``csrc/packed_ws.cuh``, ``common.packed_ws_plan``). Output
+    float32, equal to :func:`dorefa_gemm` bit for bit. On the card x is read
+    by TMA from rows of a multiple of 16 bytes (``common.int8_rows``); the
+    kernel reads columns past K as zero."""
     _check_w_bits(w_bits)
     r_tiles = ws_m_tiles(m_tiles, "dorefa_gemm_ws")
     m, k = a_codes.shape
@@ -177,11 +180,12 @@ def dorefa_gemm_ws(
         raise ValueError(f"dorefa_gemm_ws: unsupported device {dev}")
     _build.require("a_codes", a_codes, torch.int8, (m, k), dev)
     _build.require("w_packed", w_packed, torch.int32, (r, n), dev)
+    xq = int8_rows(a_codes)
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     lib = _lib()
     code = lib.qt_dorefa_gemm_ws(
-        _build.ptr(a_codes), _build.ptr(w_packed), _build.ptr(out), m, n, k, r, w_bits,
-        inv_scale(w_bits, a_bits), r_tiles, *_build.launch_args(a_codes),
+        _build.ptr(xq), _build.ptr(w_packed), _build.ptr(out), m, n, k, xq.shape[1], r,
+        w_bits, inv_scale(w_bits, a_bits), r_tiles, *_build.launch_args(a_codes),
     )
     _build.check(lib, code, "dorefa_gemm_ws")
     dorefa_gemm_ws.launches += 1

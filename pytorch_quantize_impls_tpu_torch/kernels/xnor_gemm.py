@@ -10,7 +10,8 @@ kernels in ``csrc/xnor_gemm.cu`` for CUDA tensors and take their plain
 PyTorch versions (``*_reference``) for CPU tensors. Each counts its kernel
 launches in ``.launches``. K1 runs on the streamed int8 tensor-core schedule
 (``csrc/stream_tile.cuh``, plan ``common.stream_plan``), K10 on the s8 path
-of the Hopper ``wgmma`` tile (``csrc/wgmma_tile.cuh``, ``common.binary_ws_plan``).
+of the Hopper ``wgmma`` tile (``csrc/packed_ws.cuh`` on ``csrc/wgmma_tile.cuh``,
+``common.binary_ws_plan``).
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import torch
 
 from pytorch_quantize_impls_tpu_torch.kernels import _build, int8_matmul
 from pytorch_quantize_impls_tpu_torch.kernels.common import (
-    pad_dim, stream_plan, stream_workspace_bytes, ws_m_tiles,
+    int8_rows, pad_dim, stream_plan, stream_workspace_bytes, ws_m_tiles,
 )
 from pytorch_quantize_impls_tpu_torch.ops import pack as packlib
 
@@ -32,7 +33,6 @@ STAGE_K = 64  # k per shared-memory stage of binary_gemm: 64 int8 activations
 # csrc/xnor_gemm.cu BinaryGemmArgs: (x, w_packed, alpha, row_scale, out,
 # workspace, stream) addresses, then (M, N, K, R, bm, splits, chunk, device)
 _GEMM_ARGS = struct.Struct("=7Q8i")
-TMA_PITCH = 16  # bytes: binary_gemm_ws's TMA reads rows of x at a multiple of this
 
 
 @functools.lru_cache(maxsize=None)  # the argtypes lists are built once
@@ -147,8 +147,8 @@ def binary_gemm_ws(
     ``common.WS_M_TILES``; the JAX function's ``tiles=``) and the product
     runs on the int8 tensor cores (wgmma). Output float32, equal to
     :func:`binary_gemm` bit for bit. On the card x is read by TMA from rows
-    of a multiple of 16 bytes (:func:`_int8_rows`); the kernel reads columns
-    past K as zero."""
+    of a multiple of 16 bytes (``common.int8_rows``); the kernel reads
+    columns past K as zero."""
     r_tiles = ws_m_tiles(m_tiles, "binary_gemm_ws")
     m, k = x_i8.shape
     r = _packed_rows(w_packed, k)
@@ -164,7 +164,7 @@ def binary_gemm_ws(
         _build.require("alpha", alpha, torch.float32, (n,), dev)
     if row_scale is not None:
         _build.require("row_scale", row_scale, torch.float32, (m,), dev)
-    xq = _int8_rows(x_i8)
+    xq = int8_rows(x_i8)
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
     lib = _lib()
     code = lib.qt_binary_gemm_ws(
@@ -178,21 +178,6 @@ def binary_gemm_ws(
 
 
 binary_gemm_ws.launches = 0
-
-
-def _int8_rows(x: torch.Tensor) -> torch.Tensor:
-    """x as binary_gemm_ws's TMA reads it: 16-byte aligned, with a row pitch
-    of K rounded up to a multiple of TMA_PITCH bytes. x itself where K is a
-    multiple already and x is aligned (a copy if it is not aligned); else a
-    copy into the first K columns of a wider buffer (the columns past K are
-    never read: the kernel's tensor map is K wide)."""
-    m, k = x.shape
-    pitch = -(-k // TMA_PITCH) * TMA_PITCH
-    if pitch == k:
-        return x if x.data_ptr() % 16 == 0 else x.clone()
-    xq = torch.empty((m, pitch), dtype=x.dtype, device=x.device)
-    xq[:, :k] = x
-    return xq
 
 
 def decode_binary_weights_reference(w_packed: torch.Tensor) -> torch.Tensor:

@@ -9,9 +9,10 @@ a seed:
 
 - K1's split over K: int32 partial sums per chunk of the launch plan
   (``common.stream_plan``), summed in index order, then the epilogue;
-- K10's decoder: the ``__byte_perm`` gather and the ±1 byte expansion of
-  each 128-deep stage of a column's 32 words, placed by the 128-byte swizzle
-  (``common.swizzle128``) into the K-major weight tile;
+- K10's decoder (``csrc/packed_ws.cuh`` at one bit): the ``__byte_perm``
+  gather and the ±1 byte expansion of each 128-deep stage of a column's 32
+  words, placed by the 128-byte swizzle (``common.swizzle128``) into the
+  K-major weight tile;
 - the pitch-16 rows that K10's TMA reads x from.
 """
 
@@ -139,17 +140,18 @@ def test_the_binary_args_struct_is_the_wrappers():
 
 # --- K10: the decoder ------------------------------------------------------------
 
-# the decoder's lines that the mirror below repeats
+# the decoder's lines (csrc/packed_ws.cuh, K10's and K11's shared tile body)
+# that the mirror below repeats at one bit
 _DECODER_LINES = (
-    "constexpr uint32_t sel = (S / 2) | ((S / 2 + 4) << 4);",
-    "constexpr int shift = 4 * (S & 1);",
+    "const int bit = BITS * (4 * S + p);",
+    "const uint32_t sel = (bit / 8) | ((bit / 8 + 4) << 4);",
     "const int r = 16 * h + 4 * u;",
     "const uint32_t b = __byte_perm(__byte_perm(w[r], w[r + 1], sel),",
     "__byte_perm(w[r + 2], w[r + 3], sel), 0x5410);",
-    "for (int p = 0; p < 4; ++p) q[p][u] = pm1_bytes((b >> (shift + p)) & 0x01010101u);",
+    "q[p][u] = centered_bytes<BITS>((b >> (bit % 8)) & MASK);",
     "*reinterpret_cast<uint4*>(B + swizzle128(t, 2 * p + h)) =",
     "make_uint4(q[p][0], q[p][1], q[p][2], q[p][3]);",
-    "__device__ __forceinline__ uint32_t pm1_bytes(uint32_t b) { return ~(b * 0xFEu); }",
+    "return (2 * c + (0x80u - NW) * 0x01010101u) ^ 0x80808080u;",
 )
 
 
@@ -160,7 +162,8 @@ def _byte_perm(x: int, y: int, s: int) -> int:
 
 
 def _pm1_bytes(b: int) -> int:
-    return ~(b * 0xFE) & 0xFFFFFFFF
+    """packed_ws.cuh centered_bytes at one bit: bytes b in {0, 1} -> 2b - 1."""
+    return ((2 * b + 0x7F * 0x01010101) ^ 0x80808080) & 0xFFFFFFFF
 
 
 def _decode_stage(w, stage_in_group: int, t: int):
@@ -168,16 +171,17 @@ def _decode_stage(w, stage_in_group: int, t: int):
     the swizzled weight tile: byte}, and the (word, bit) each byte came
     from."""
     S = stage_in_group
-    sel, shift = (S // 2) | ((S // 2 + 4) << 4), 4 * (S & 1)
     out, source = {}, {}
     for h in range(2):
         q = [[0] * 4 for _ in range(4)]
         for u in range(4):
             r = 16 * h + 4 * u
-            b = _byte_perm(_byte_perm(int(w[r]), int(w[r + 1]), sel),
-                           _byte_perm(int(w[r + 2]), int(w[r + 3]), sel), 0x5410)
             for p in range(4):
-                q[p][u] = _pm1_bytes((b >> (shift + p)) & 0x01010101)
+                bit = 4 * S + p
+                sel = (bit // 8) | ((bit // 8 + 4) << 4)
+                b = _byte_perm(_byte_perm(int(w[r]), int(w[r + 1]), sel),
+                               _byte_perm(int(w[r + 2]), int(w[r + 3]), sel), 0x5410)
+                q[p][u] = _pm1_bytes((b >> (bit % 8)) & 0x01010101)
         for p in range(4):
             chunk = np.array(q[p], np.uint32).view(np.uint8)  # the uint4, little-endian
             base = common.swizzle128(t, 2 * p + h)
@@ -189,7 +193,7 @@ def _decode_stage(w, stage_in_group: int, t: int):
 
 
 def test_the_decoder_mirror_repeats_the_source():
-    src = (CSRC / "xnor_gemm.cu").read_text()
+    src = (CSRC / "packed_ws.cuh").read_text()
     for line in _DECODER_LINES:
         assert line in src, line
 
@@ -264,7 +268,7 @@ def test_int8_rows_give_tma_a_pitch_of_sixteen(k):
     to 16 bytes, the first K columns x's values; x itself where K is a
     multiple of 16 and x aligned."""
     x = torch.from_numpy(np.random.default_rng(k).integers(-1, 2, size=(5, k)).astype(np.int8))
-    xq = tbg._int8_rows(x)
+    xq = common.int8_rows(x)
     assert xq.dtype == torch.int8 and xq.shape == (5, -(-k // 16) * 16)
     assert xq.is_contiguous() and xq.data_ptr() % 16 == 0
     assert torch.equal(xq[:, :k], x)
@@ -275,7 +279,7 @@ def test_int8_rows_copy_an_unaligned_view():
     flat = torch.ones(4 * 32 + 4, dtype=torch.int8)
     view = flat[4:].view(4, 32)  # rows of 32 bytes, 4 bytes off
     assert view.data_ptr() % 16 != 0
-    xq = tbg._int8_rows(view)
+    xq = common.int8_rows(view)
     assert xq is not view and xq.data_ptr() % 16 == 0 and torch.equal(xq, view)
 
 
@@ -287,5 +291,5 @@ def test_the_k10_library_takes_the_pitch():
             'int pitch,\n                                 int R, int m_tiles, int device, '
             'void* stream)') in src
     assert "pitch % 16" in src
-    assert tbg.TMA_PITCH == 16
+    assert common.TMA_PITCH == 16
     assert _build.SOURCES.count("xnor_gemm") == 1

@@ -89,14 +89,15 @@ def test_the_shift_ws_plan_is_the_kernels_tile():
 @pytest.mark.parametrize("m_tiles", common.WS_M_TILES)
 def test_every_m_tiles_has_a_binary_ws_plan_that_fits(m_tiles):
     """K10's s8 tile: 128-byte stages of 128 int8 of k, 8 to a 1024-row packed
-    group, one consumer warpgroup per 64-row M-tile and one decoder
-    warpgroup of a thread per column."""
+    group, one consumer warpgroup per 64-row M-tile, at most two (two M-tiles
+    each at m_tiles 4), and one decoder warpgroup of a thread per column."""
     plan = common.binary_ws_plan(m_tiles)
     assert plan["bm"] == 64 * m_tiles and plan["bn"] == common.SHIFT_WS_BN == 128
     assert plan["stage_k"] == common.WGMMA_ROW_BYTES == 128
     assert plan["stages_per_group"] * plan["stage_k"] == 1024
-    assert plan["consumers"] == m_tiles
-    assert plan["threads"] == (m_tiles + 1) * 128 and plan["bn"] == common.WGMMA_WG_THREADS
+    assert plan["consumers"] == min(m_tiles, 2) and plan["consumers"] * plan["mi"] == m_tiles
+    assert plan["threads"] == (plan["consumers"] + 1) * 128 <= 384
+    assert plan["bn"] == common.WGMMA_WG_THREADS
     assert plan["bm"] <= 256  # a TMA box has at most 256 rows
     assert plan["smem"] == common.wgmma_smem_bytes(plan["bm"], 128, plan["stages"], 0)
     assert plan["smem"] <= common.WGMMA_SMEM_LIMIT
@@ -105,19 +106,24 @@ def test_every_m_tiles_has_a_binary_ws_plan_that_fits(m_tiles):
 
 
 def test_the_binary_ws_plan_is_the_kernels_tile():
-    """csrc/xnor_gemm.cu BinaryWsTile has the plan's stage depth, stages,
-    blocks per SM, column width and thread count, and static_asserts them."""
-    text = (CSRC / "xnor_gemm.cu").read_text()
-    tile = text[text.index("struct BinaryWsTile {"):]
+    """csrc/packed_ws.cuh PackedWsTile, which csrc/xnor_gemm.cu's K10 runs at
+    one bit, has the plan's stage depth, stages, blocks per SM, column width
+    and thread count, and static_asserts them."""
+    text = (CSRC / "packed_ws.cuh").read_text()
+    tile = text[text.index("struct PackedWsTile {"):]
     tile = tile[:tile.index("};")]
     assert "static constexpr int BN = 128;" in tile
-    assert "static constexpr int STAGE_K = qt::wg::ROW_BYTES;" in tile
+    assert "static constexpr int STAGE_K = wg::ROW_BYTES;" in tile
     assert "static constexpr int STAGES = 4;" in tile
     assert "static constexpr int BLOCKS = R == 1 ? 2 : 1;" in tile
-    assert "static constexpr int THREADS = (R + 1) * qt::wg::WG_THREADS;" in tile
+    assert "static constexpr int CONSUMERS = R < 2 ? R : 2;" in tile
+    assert "static constexpr int MI = R / CONSUMERS;" in tile
+    assert "static constexpr int THREADS = (CONSUMERS + 1) * wg::WG_THREADS;" in tile
     assert "smem_bytes(64 * R, BN, STAGES, 0)" in tile
-    assert "static_assert(SPG == 8 && BN == qt::wg::WG_THREADS" in tile
+    assert "static_assert(SPG * BITS == 8 && BN == wg::WG_THREADS" in tile
     assert "BLOCKS * (SMEM + 1024) <= 233472" in tile
+    assert "qt::ws::packed_ws_gemm<1, R>(xmap, wp, epi, out, M, N, K);" in (
+        CSRC / "xnor_gemm.cu").read_text()
     assert [common.binary_ws_plan(r)["blocks_per_sm"] for r in common.WS_M_TILES] == [2, 1, 1]
 
 
@@ -133,9 +139,9 @@ def test_the_header_has_an_s8_path():
     assert "CU_TENSOR_MAP_DATA_TYPE_UINT8" in text
     assert "for (int ks = 0; ks < K_STEPS; ++ks)" in text
     assert _header_constant("K_STEPS") * 32 == common.WGMMA_ROW_BYTES
-    src = (CSRC / "xnor_gemm.cu").read_text()
-    assert "qt::wg::tile_map(&xmap, 1, x, M, K, pitch, 64 * R, T::STAGE_K)" in src
-    assert "int32_t acc[1][1][64];" in src
+    src = (CSRC / "packed_ws.cuh").read_text()
+    assert "wg::tile_map(&xmap, 1, x, M, K, pitch, 64 * R, T::STAGE_K)" in src
+    assert "int32_t acc[T::MI][1][64];" in src
 
 
 @pytest.mark.parametrize("m_tiles", [0, 3, 8])
@@ -290,17 +296,19 @@ def test_the_decode_cost_variants_edit_the_kernel_source():
 
 
 def test_the_decode_cost_variants_edit_k10s_source():
-    """bench/ws_decode_cost.py's variants of csrc/xnor_gemm.cu: the no-decode
-    one writes no weight tile, the instrumented one counts."""
-    src = (CSRC / "xnor_gemm.cu").read_text()
+    """bench/ws_decode_cost.py's variants of K10's decoder, in
+    csrc/packed_ws.cuh: the no-decode one writes no weight tile, the
+    instrumented one counts."""
+    src = (CSRC / "packed_ws.cuh").read_text()
     v = ws_decode_cost.variants(src, "binary_gemm_ws")
     assert v["kernel"] == src
-    assert "pm1_bytes((b >>" in src and "pm1_bytes((b >>" not in v["no_decode"]
+    assert "centered_bytes<BITS>((b >>" in src
+    assert "centered_bytes<BITS>((b >>" not in v["no_decode"]
     assert v["no_decode"].count("bar_arrive(&full[slot]);") == 1
     assert v["instrumented"].count("clock64()") == 5
     assert 'extern "C" int qt_read_cycles' in v["instrumented"]
-    assert set(ws_decode_cost.KERNELS) == {"shift_gemm_ws", "binary_gemm_ws"}
-    with pytest.raises(ValueError, match="xnor_gemm.cu: expected the line"):
+    assert {"shift_gemm_ws", "binary_gemm_ws"} <= set(ws_decode_cost.KERNELS)
+    with pytest.raises(ValueError, match="packed_ws.cuh: expected the line"):
         ws_decode_cost.variants(src.replace("T::SPG * (g + 1) < stages", "0"), "binary_gemm_ws")
 
 
