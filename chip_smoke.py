@@ -23,8 +23,13 @@ on one NVIDIA GPU (built for Hopper, sm_90a).
    zeros, unaligned x); each check line shows the plan (BM, S), the main
    rows (and K1's and K3's M = 32 rows) the host's microseconds per call.
    K5 runs at the ResNet's block convs at b = 256 and b = 1 and shows its
-   tile. Device times are read after every CUDA-event time (a
-   torch.profiler session slows each later launch on the host). K10-K12
+   tile. K4 (one thread-block cluster per (b, h), split over the cache,
+   csrc/decode_attention.cu) runs at the decode LM's five shapes and at
+   edges (cl 1, 37, 300 and 8192, fully masked rows, head dims 16 to 256);
+   its check lines show the plan (blocks per cluster C, rows per block,
+   grid). Device times are read after every CUDA-event time (a
+   torch.profiler session slows each later launch on the host), and then
+   the launch floor: the device time of a one-element add. K10-K12
    run at the JAX tests' shapes, 4096^3, a served conv as im2col and edges
    (every m_tiles, all-zero activations, K off the 16-byte pitch; K11 there
    at 1, 2 and 4 bits), K10's lines with its tile (rows x columns); P1 at
@@ -378,7 +383,7 @@ def kernel_cases(rng, dev):
 
     from pytorch_quantize_impls_tpu_torch.kernels import decode_attention as da
     from pytorch_quantize_impls_tpu_torch.kernels import xnor_gemm as bg
-    from pytorch_quantize_impls_tpu_torch.kernels.common import stream_plan
+    from pytorch_quantize_impls_tpu_torch.kernels.common import attention_plan, stream_plan
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
@@ -512,12 +517,23 @@ def kernel_cases(rng, dev):
         ("edge hd=64 one valid row", 3, 8, 1024, 64, np.array([1, 512, 1024])),
         ("edge hd=16 b=7", 7, 2, 300, 16, rng.integers(1, 301, 7)),
     ]
-    for label, b, h, cl, hd, lens in attn_shapes:
-        q = t(rng.normal(size=(b, h, hd)).astype(np.float32))
-        kc = t(rng.integers(-127, 128, (b, h, cl, hd)).astype(np.int8))
-        vc = t(rng.integers(-127, 128, (b, h, cl, hd)).astype(np.int8))
-        ks = t(rng.uniform(0.01, 0.1, (b, h, cl)).astype(np.float32))
-        vs = t(rng.uniform(0.01, 0.1, (b, h, cl)).astype(np.float32))
+    # edges of the clustered split, drawn from their own stream so that the
+    # cases above and after keep their data: fully masked rows (a cursor of
+    # 0), one (b, h) spread over the most blocks, the largest head dim, a
+    # cache 8x the LM's
+    edge_rng = np.random.default_rng(SEED + 4)
+    attn_shapes = [(rng, *shape) for shape in attn_shapes] + [(edge_rng, *shape) for shape in (
+        ("edge fully masked rows", 4, 8, 1024, 128, np.array([0, 5, 0, 1024])),
+        ("edge b=1 full", 1, 8, 1024, 128, np.full(1, 1024)),
+        ("edge hd=256 full b=4", 4, 8, 1024, 256, np.full(4, 1024)),
+        ("edge cl=8192 b=2", 2, 8, 8192, 128, np.array([8192, 3000])),
+    )]
+    for draw, label, b, h, cl, hd, lens in attn_shapes:
+        q = t(draw.normal(size=(b, h, hd)).astype(np.float32))
+        kc = t(draw.integers(-127, 128, (b, h, cl, hd)).astype(np.int8))
+        vc = t(draw.integers(-127, 128, (b, h, cl, hd)).astype(np.int8))
+        ks = t(draw.uniform(0.01, 0.1, (b, h, cl)).astype(np.float32))
+        vs = t(draw.uniform(0.01, 0.1, (b, h, cl)).astype(np.float32))
         bias = t(np.where(np.arange(cl)[None, :] < lens[:, None], 0.0, -1e30).astype(np.float32))
         args = (q, kc, ks, vc, vs, bias)
         cases.append(dict(
@@ -527,7 +543,7 @@ def kernel_cases(rng, dev):
             library=None, sdpa=sdpa_yardstick(args),
             bound=attention_bound(b, h, cl, hd, lens),
             full_bound=attention_bound(b, h, cl, hd, np.full(b, cl)),
-            main=label == "b=32 engine cursors",
+            main=label == "b=32 engine cursors", attn_plan=attention_plan(b, h, cl, hd),
         ))
     return cases
 
@@ -1052,6 +1068,9 @@ def check_kernels(card: str, timed: bool = True):
             verdict += f", plan BM {c['plan'][0]} S {c['plan'][1]}"
         if "tile" in c:  # K5: the output tile (pixels x channels); K10: rows x columns
             verdict += f", tile {c['tile'][0]}x{c['tile'][1]}"
+        if "attn_plan" in c:  # K4: blocks per (b, h) cluster, rows per block, grid
+            p = c["attn_plan"]
+            verdict += f", plan C {p['clusters']} chunk {p['chunk']} blocks {p['blocks']}"
         line = f"check {kernel:22s} {label:32s} {verdict}"
         if not (timed and c.get("timed", not label.startswith("edge"))):
             print(line, flush=True)
@@ -1064,6 +1083,8 @@ def check_kernels(card: str, timed: bool = True):
             record["plan"] = {"bm": c["plan"][0], "splits": c["plan"][1]}
         if "tile" in c:
             record["tile"] = {"bm": c["tile"][0], "bn": c["tile"][1]}
+        if "attn_plan" in c:
+            record["plan"] = {k: c["attn_plan"][k] for k in ("clusters", "chunk", "blocks")}
         if c.get("host", c["main"]) and "plan" in c:
             record["host_us"] = host_us(fn)
             tail += f"  host {record['host_us']:.2f} us/call (CPU clock, 2000 calls)"
@@ -1096,7 +1117,25 @@ def check_kernels(card: str, timed: bool = True):
             s.update(shape=c["label"], **record)
         elif c.get("also"):  # timed beside the main row, in its JSON row
             s.setdefault("also", {})[c["label"]] = record
+    if timed:
+        print(launch_floor(card), flush=True)
     return summary
+
+
+def launch_floor(card: str) -> str:
+    """The card's launch floor: the device time of the smallest launch, a
+    one-element in-place add, read as the kernels' device times are (after
+    every CUDA-event time) -- what no kernel's device time can beat."""
+    import torch
+
+    x = torch.zeros(1, device=cuda())
+    per_call, _ = device_times(lambda: x.add_(1), iters=100)
+    got = list(per_call.values())
+    if len(got) != 1:
+        return f"launch floor: device time not measured ({len(got)} kernels seen)  [{card}]"
+    ms, n = got[0]
+    return (f"launch floor: one-element add_ {ms / n:.5f} ms device per launch "
+            f"(torch.profiler, 100 launches)  [{card}]")
 
 
 # --- main path 1: BNN LeNet -------------------------------------------------

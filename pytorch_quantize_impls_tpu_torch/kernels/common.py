@@ -135,6 +135,71 @@ def tiled_mm_s8_plan(bm: int, bn: int, int4: bool) -> dict:
                 threads=consumers["threads"], smem=smem(stages, staging))
 
 
+# decode_attention (K4, csrc/decode_attention.cu): blocks of ATTN_THREADS
+# threads, each lane 16 codes of a cache row; one cluster of C blocks (one
+# of ATTN_CLUSTERS) per (b, h). The default C is the largest that keeps b h
+# C at most ATTN_TARGET_BLOCKS (four blocks an SM), at most
+# ATTN_DEFAULT_MAX_CLUSTER: the fastest in bench/attention_cost.py's sweep on
+# the H100 (PERF.md).
+ATTN_THREADS = 256
+ATTN_WARPS = ATTN_THREADS // 32
+ATTN_HEAD_DIMS = (16, 32, 64, 128, 256)
+ATTN_CLUSTERS = (1, 2, 4, 8, 16)
+ATTN_SCALARS = ATTN_CLUSTERS[-1] + 4 * ATTN_WARPS
+ATTN_TARGET_BLOCKS = 512
+ATTN_DEFAULT_MAX_CLUSTER = 4
+
+
+def attention_rows(hd: int) -> int:
+    """Cache rows one load round of a K4 block covers: hd / 16 lanes to a
+    row, 32 lanes to a warp."""
+    return ATTN_WARPS * 32 // (hd // 16)
+
+
+def attention_smem_bytes(hd: int, chunk: int) -> int:
+    """Dynamic shared memory of a K4 block that owns ``chunk`` rows
+    (``csrc/decode_attention.cu`` ``smem_bytes``), in floats: the warps'
+    contexts, the cluster's partial contexts of this block's dimensions,
+    ATTN_SCALARS (the cluster's block sums; the warps' maxima, sums, maxima
+    over masked rows and last live rounds) and ``chunk`` scores."""
+    return 4 * ((ATTN_WARPS + 1) * hd + ATTN_SCALARS + chunk)
+
+
+@functools.lru_cache(maxsize=None)
+def attention_plan(b: int, h: int, cl: int, hd: int, clusters=None) -> dict:
+    """The launch of decode_attention (K4) for (b, h, cl, hd): C blocks per
+    (b, h) in one cluster (``clusters``, else the default: the largest of
+    ATTN_CLUSTERS up to ATTN_DEFAULT_MAX_CLUSTER with b h C <=
+    ATTN_TARGET_BLOCKS and no more than the cache's load rounds of
+    :func:`attention_rows` rows, raised until a block's shared memory
+    fits). Rank r of a cluster owns the load rounds
+    r, r + C, r + 2C, ... of the cache, so the cluster's first rounds cover
+    its head, where the engine's live rows are: ``chunk`` rows, ceil(cl /
+    C) rounded up to a round. ``blocks`` is the grid, ``smem`` a block's
+    dynamic shared memory."""
+    if hd not in ATTN_HEAD_DIMS:
+        raise ValueError(f"decode_attention: head dim {hd} not in {ATTN_HEAD_DIMS}")
+    rows = attention_rows(hd)
+    if clusters is None:
+        rounds = -(-cl // rows)
+        c = max(k for k in ATTN_CLUSTERS if k == 1 or (
+            k <= ATTN_DEFAULT_MAX_CLUSTER and b * h * k <= ATTN_TARGET_BLOCKS and k <= rounds))
+    elif clusters in ATTN_CLUSTERS:
+        c = clusters
+    else:
+        raise ValueError(f"clusters={clusters!r}: must be one of {ATTN_CLUSTERS}")
+    while True:
+        chunk = -(-cl // (rows * c)) * rows
+        smem = attention_smem_bytes(hd, chunk)
+        if smem <= WGMMA_SMEM_LIMIT:
+            break
+        if clusters is not None or c == ATTN_CLUSTERS[-1]:
+            raise ValueError(f"decode_attention: cl={cl} needs {smem} bytes of shared memory "
+                             f"per block at {c} blocks per (b, h)")
+        c *= 2
+    return dict(clusters=c, chunk=chunk, rows=rows, blocks=b * h * c, smem=smem)
+
+
 def int8_rows(x: torch.Tensor) -> torch.Tensor:
     """A row-major byte matrix as TMA reads it: 16-byte aligned, with a row
     pitch of its width rounded up to a multiple of TMA_PITCH bytes. x

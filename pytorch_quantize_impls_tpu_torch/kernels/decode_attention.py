@@ -11,9 +11,11 @@ the cache is never dequantized to a copy. The layout is b-h-major, as in the
 fused decode cache (``infer.fused_decode``).
 
 ``decode_attention`` launches the hand-written CUDA kernel in
-``csrc/decode_attention.cu`` for CUDA tensors and takes its plain PyTorch
-version ``decode_attention_reference`` for CPU tensors; ``.launches`` counts
-the kernel launches. Both compute in float32. The JAX kernel's ``precision``
+``csrc/decode_attention.cu`` for CUDA tensors, one thread-block cluster per
+(b, h) split over cl as ``kernels.common.attention_plan`` sets it
+(``launch`` takes any plan), and takes its plain PyTorch version
+``decode_attention_reference`` for CPU tensors; ``.launches`` counts the
+kernel launches. Both compute in float32. The JAX kernel's ``precision``
 option (bf16 passes on the TPU) has no counterpart: on the card everything is
 f32.
 """
@@ -25,18 +27,19 @@ import ctypes
 import torch
 
 from pytorch_quantize_impls_tpu_torch.kernels import _build
+from pytorch_quantize_impls_tpu_torch.kernels.common import ATTN_HEAD_DIMS, attention_plan
 from pytorch_quantize_impls_tpu_torch.ops.common import flush_subnormal
 
 # head dims the CUDA kernel is instantiated for (16 codes per lane, whole
-# rows per warp)
-KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
+# rows per warp); attention_plan refuses any other
+KERNEL_HEAD_DIMS = ATTN_HEAD_DIMS
 
 
 def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     # (q, k_codes, k_scale, v_codes, v_scale, mask_bias, out, B, H, CL, HD,
-    #  device, stream)
-    return _build.library("decode_attention", qt_decode_attention=[p] * 7 + [i] * 5 + [p])
+    #  C, chunk, smem, device, stream)
+    return _build.library("decode_attention", qt_decode_attention=[p] * 7 + [i] * 8 + [p])
 
 
 def decode_attention_reference(q, k_codes, k_scale, v_codes, v_scale, mask_bias):
@@ -80,8 +83,19 @@ def decode_attention(
         return decode_attention_reference(q, k_codes, k_scale, v_codes, v_scale, mask_bias)
     if dev.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {dev}")
-    if hd not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"decode_attention: head dim {hd} not in {KERNEL_HEAD_DIMS}")
+    return launch(q, k_codes, k_scale, v_codes, v_scale, mask_bias, attention_plan(b, h, cl, hd))
+
+
+def launch(q, k_codes, k_scale, v_codes, v_scale, mask_bias, plan: dict) -> torch.Tensor:
+    """The CUDA kernel of :func:`decode_attention` on CUDA tensors, under
+    ``plan`` (an ``attention_plan`` dict for these shapes: blocks per (b, h),
+    the rows each owns, shared memory), counted in
+    ``decode_attention.launches``; raises for anything else."""
+    b, h, hd = q.shape
+    cl = k_codes.shape[2]
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"decode_attention kernel: q on {dev}, not a CUDA device")
     _build.require("q", q, torch.float32, (b, h, hd), dev)
     for name, t in (("k_codes", k_codes), ("v_codes", v_codes)):
         _build.require(name, t, torch.int8, (b, h, cl, hd), dev)
@@ -95,7 +109,7 @@ def decode_attention(
     code = lib.qt_decode_attention(
         _build.ptr(q), _build.ptr(k_codes), _build.ptr(k_scale), _build.ptr(v_codes),
         _build.ptr(v_scale), _build.ptr(mask_bias), _build.ptr(out), b, h, cl, hd,
-        *_build.launch_args(q),
+        plan["clusters"], plan["chunk"], plan["smem"], *_build.launch_args(q),
     )
     _build.check(lib, code, "decode_attention")
     decode_attention.launches += 1
