@@ -23,11 +23,18 @@ on one NVIDIA GPU (built for Hopper, sm_90a).
    zeros, unaligned x); each check line shows the plan (BM, S), the main
    rows (and K1's and K3's M = 32 rows) the host's microseconds per call.
    K5 runs at the ResNet's block convs at b = 256 and b = 1 and shows its
-   tile. K4 (one thread-block cluster per (b, h), split over the cache,
-   csrc/decode_attention.cu) runs at the decode LM's five shapes and at
-   edges (cl 1, 37, 300 and 8192, fully masked rows, head dims 16 to 256);
-   its check lines show the plan (blocks per cluster C, rows per block,
-   grid). Device times are read after every CUDA-event time (a
+   tile; its packed weight stage (int8_conv2d(..., w_bits=), the packed
+   conv's fused route, which decodes K2's and K7's words inside K5) runs at
+   the same convs, BNN LeNet's conv2 and K5's edges with 1-, 2- and 4-bit
+   DoReFa, binary and xnor words, bit for bit against decode + the plain
+   conv, and at the ResNet's and LeNet's own weights it is timed beside the
+   two-launch route (K7 or K2, then the raw K5) by CUDA events and device
+   time; its lines show the slab (packed groups, shared memory) and the
+   route kernels/common.py conv_route picks. K4 (one thread-block cluster
+   per (b, h), split over the cache, csrc/decode_attention.cu) runs at the
+   decode LM's five shapes and at edges (cl 1, 37, 300 and 8192, fully
+   masked rows, head dims 16 to 256); its check lines show the plan
+   (blocks per cluster C, rows per block, grid). Device times are read after every CUDA-event time (a
    torch.profiler session slows each later launch on the host), and then
    the launch floor: the device time of a one-element add. K10-K12
    run at the JAX tests' shapes, 4096^3, a served conv as im2col and edges
@@ -46,7 +53,10 @@ on one NVIDIA GPU (built for Hopper, sm_90a).
    InferenceEngine over the prepared artifact (K2, K3, K5), from several
    client threads. Every answer is checked against packed_apply on its
    padded batch; unprepared, prepared and fake-quant agree exactly; a small
-   input agrees with the CPU.
+   input agrees with the CPU. K2 must have launched exactly for conv1's
+   unprepared calls, conv2's calls on the two-launch route and prepare():
+   a conv2 on the fused route launches no decoder. The route of every
+   packed conv is printed at each bucket size (every one fused at b = 1).
 5. Main path 2, the 1-bit transformer LM that scripts/perf_bench.py serves
    (d 1024, 8 layers, cache 1024, W1A1, int8 KV) from seeded random weights:
    bridge -> export_fused_decode (int8 and packed) -> DecodeEngine(fused=)
@@ -61,9 +71,12 @@ on one NVIDIA GPU (built for Hopper, sm_90a).
    over [0, 15]): pack_model -> save_packed -> load_packed ->
    InferenceEngine over the unprepared and the prepared artifact (K7, K5),
    then export_fused_resnet20 -> InferenceEngine.from_fused_resnet (K5).
-   Every batch is replayed bit-equal (unprepared == prepared); direct ==
-   im2col (K6) at the stride-2 stage-1 conv; packed and fused agree with
-   fake-quant (argmax, logit gap within RESNET_LOGIT_TOL) and with the CPU.
+   Every batch is replayed bit-equal (unprepared == prepared); direct by
+   both routes == im2col (K6) at the stride-2 stage-1 conv; packed and
+   fused agree with fake-quant (argmax, logit gap within RESNET_LOGIT_TOL)
+   and with the CPU. K7 must have launched exactly for the block convs on
+   the two-launch route and prepare() (the parent launched it for every
+   conv call); the routes are printed as for LeNet.
 7. Main path 4, the serving LM's shape with DoReFa W4A4: DecodeEngine(
    packed=) over the unprepared records (K6), then prepare() (K7) and the
    prepared records (K3); the same tokens for every request, and
@@ -324,6 +337,13 @@ def kernel_device_ms(fn, kernel: str):
     per_call, _ = device_times(fn)
     got = [ms for name, (ms, _) in per_call.items() if KERNEL_SYMBOLS[kernel] in name]
     return sum(got) if got else None
+
+
+def launches_device_ms(fn):
+    """Device time per call of every kernel ``fn`` launches, or None if the
+    profiler saw none."""
+    per_call, _ = device_times(fn)
+    return sum(ms for ms, _ in per_call.values()) if per_call else None
 
 
 def bound_ms(nbytes: float, ops: float, ops_per_s: float):
@@ -717,6 +737,90 @@ def kbit_cases(rng, dev):
     return cases
 
 
+def fused_conv_cases(rng, dev):
+    """K5 with the packed weight stage (``int8_conv2d(..., w_bits=)``, the
+    packed conv's fused route): at every ResNet block conv at b = 1 and b =
+    RESNET_BATCH, BNN LeNet's conv2 (b = 1 and BUCKETS[-1]) and K5's edge
+    shapes, each with 1-, 2- and 4-bit DoReFa words (scale 1/(n_w n_a)),
+    binary words (no scale) and xnor words (alpha), held bit for bit to
+    int8_conv2d_reference on the decoded words. The ResNet's own 4-bit
+    weights at its convs and LeNet's binary conv2 are timed beside the
+    two-launch route, K7 or K2 then the raw K5 (``two_launch``), by CUDA
+    events and device time. Same dicts as :func:`kernel_cases`."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch.kernels import int8_conv as ic
+    from pytorch_quantize_impls_tpu_torch.kernels import packed_matmul as pm
+    from pytorch_quantize_impls_tpu_torch.kernels import xnor_gemm as bg
+    from pytorch_quantize_impls_tpu_torch.kernels.common import conv_route, conv_slab_plan
+    from pytorch_quantize_impls_tpu_torch.kernels.conv import conv_pads
+    from pytorch_quantize_impls_tpu_torch.ops import pack as packlib
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    shapes = [(f"b={b} {label}", b, h, cin, cout, 3, (s, s), "SAME", "scale")
+              for b in (1, RESNET_BATCH) for label, h, cin, cout, s in resnet_convs()]
+    shapes += [(f"b={b} bnn_lenet conv2 12x12x{WIDTH}", b, 12, WIDTH, 2 * WIDTH, 5, (1, 1), "VALID",
+                "scale") for b in (1, BUCKETS[-1])]
+    shapes += [
+        ("edge b=1 3x3 VALID C=5 N=7 -> 1x1", 1, 3, 5, 7, 3, (1, 1), "VALID", "scale"),
+        ("edge 5x5 VALID C=6 N=10 codes", 2, 12, 6, 10, 5, (1, 1), "VALID", "codes"),
+        ("edge 1x1 s2 SAME C=12 N=20 affine", 3, 9, 12, 20, 1, (2, 2), "SAME", "affine"),
+        ("edge s2 SAME 15x15 C=64 N=130", 2, 15, 64, 130, 3, (2, 2), "SAME", "scale"),
+        ("edge s2 SAME 16x16 C=3 N=65 codes", 2, 16, 3, 65, 3, (2, 2), "SAME", "codes"),
+        ("edge pads ((1,2),(0,1)) s(2,1) C=33", 2, 15, 33, 70, 3, (2, 1), ((1, 2), (0, 1)),
+         "affine"),
+        ("edge codes ties a=0.5 b=0", 2, 8, 16, 20, 3, (1, 1), "SAME", "ties"),
+    ]
+    n_a = 15
+    cases = []
+    for label, b, h, cin, cout, k, strides, padding, epi in shapes:
+        kk = cin * k * k
+        x = t(rng.integers(0, n_a + 1, size=(b, h, h, cin)).astype(np.int8))
+        if "lenet" in label:
+            x = t(np.where(rng.normal(size=(b, h, h, cin)) >= 0, 1, -1).astype(np.int8))
+        pads = conv_pads(padding, (h, h), (k, k), strides)
+        ho, wo = ic.out_size(h, k, strides[0], pads[0]), ic.out_size(h, k, strides[1], pads[1])
+        m = b * ho * wo
+        for kind, bits in (("w1", 1), ("w2", 2), ("w4", 4), ("binary", 1), ("xnor", 1)):
+            codes = t(rng.integers(0, 2**bits, size=(kk, cout)).astype(np.int32))
+            wp = packlib.pack_bitplanes(codes, bits)
+            a = b_ = None
+            if epi == "scale" and kind.startswith("w"):
+                a = torch.full((cout,), pm.inv_scale(bits, 4), dtype=torch.float32, device=dev)
+            elif epi == "scale" and kind == "xnor":
+                a = t(rng.uniform(0.5, 1.5, cout).astype(np.float32))
+            elif epi in ("codes", "affine"):
+                spread = rng.uniform(0.5, 1.5, cout) * n_a / (4.0e3 * np.sqrt(kk))
+                a = t(spread.astype(np.float32))
+                b_ = t(rng.uniform(0, n_a, cout).astype(np.float32))
+            elif epi == "ties":
+                a, b_ = t(np.full(cout, 0.5, np.float32)), t(np.zeros(cout, np.float32))
+            mode = {"ties": "codes"}.get(epi, epi)
+            args = (x, wp, (k, k), strides, pads, mode, a, b_, n_a)
+            timed = (not label.startswith("edge")
+                     and kind == ("binary" if "lenet" in label else "w4"))
+            decode = (lambda wp=wp: bg.decode_binary_weights(wp)) if kind in ("binary", "xnor") \
+                else (lambda wp=wp, bits=bits: pm.decode_dorefa_weights(wp, w_bits=bits))
+            out_bytes = m * cout * (1 if mode == "codes" else 4)
+            nvec = (a is not None) + (b_ is not None)
+            plan = conv_slab_plan(cin, k * k, bits)
+            cases.append(dict(
+                kernel="int8_conv2d", label=f"fused {label} {kind}",
+                fn=lambda args=args, bits=bits: ic.int8_conv2d(*args, w_bits=bits),
+                plain=lambda args=args, bits=bits: ic.int8_conv2d_reference(*args, w_bits=bits),
+                two_launch=lambda args=args, decode=decode, kk=kk: ic.int8_conv2d(
+                    args[0], decode()[:kk], *args[2:]),
+                library=None, timed=timed, also=timed,
+                bound=bound_ms(x.numel() + 4 * wp.numel() + out_bytes + 4 * cout * nvec,
+                               2 * m * kk * cout, INT8_OPS_PER_S),
+                main=False, tile=(128, plan["bn"]), slab=(plan["groups"], plan["smem"]),
+                route=conv_route(b, m, cout, cin, k * k, bits),
+            ))
+    return cases
+
+
 def vgg_convs(widths):
     """LogQuantVGGSmall's convs: (label, input size, cin, cout), a 2x2 pool
     after every second one."""
@@ -1054,8 +1158,11 @@ def check_kernels(card: str, timed: bool = True):
     dev = cuda()
     rng = np.random.default_rng(SEED)
     summary = {}
+    # the packed conv stage's cases draw from their own stream, so the other
+    # cases keep their data
     cases = (kernel_cases(rng, dev) + kbit_cases(rng, dev) + log_cases(rng, dev)
-             + ws_cases(rng, dev) + probe_cases(rng, dev))
+             + ws_cases(rng, dev) + probe_cases(rng, dev)
+             + fused_conv_cases(np.random.default_rng(SEED + 13), dev))
     deferred = []  # timed rows awaiting their device time
     for c in cases:
         kernel, label, fn, plain = c["kernel"], c["label"], c["fn"], c["plain"]
@@ -1068,6 +1175,8 @@ def check_kernels(card: str, timed: bool = True):
             verdict += f", plan BM {c['plan'][0]} S {c['plan'][1]}"
         if "tile" in c:  # K5: the output tile (pixels x channels); K10: rows x columns
             verdict += f", tile {c['tile'][0]}x{c['tile'][1]}"
+        if "slab" in c:  # K5's packed stage: the slab's packed groups, shared memory
+            verdict += f", slab {c['slab'][0]} groups, {c['slab'][1]} B, route {c['route']}"
         if "attn_plan" in c:  # K4: blocks per (b, h) cluster, rows per block, grid
             p = c["attn_plan"]
             verdict += f", plan C {p['clusters']} chunk {p['chunk']} blocks {p['blocks']}"
@@ -1088,6 +1197,9 @@ def check_kernels(card: str, timed: bool = True):
         if c.get("host", c["main"]) and "plan" in c:
             record["host_us"] = host_us(fn)
             tail += f"  host {record['host_us']:.2f} us/call (CPU clock, 2000 calls)"
+        if "two_launch" in c:  # the packed conv's other route: K2 or K7, then the raw K5
+            record["two_launch_ms"] = cuda_ms(c["two_launch"])
+            record["route"] = c["route"]
         if "sdpa" in c:
             sdpa_ms = cuda_ms(c["sdpa"])
             yard_err = (c["sdpa"]() - plain()).abs().max().item()
@@ -1107,6 +1219,12 @@ def check_kernels(card: str, timed: bool = True):
     for c, line, tail, record, s in deferred:
         dev_ms = kernel_device_ms(c["fn"], c["kernel"])
         record["device_ms"] = dev_ms
+        if "two_launch" in c:
+            two = launches_device_ms(c["two_launch"])
+            record["two_launch_device_ms"] = two
+            tail += (f"  [two launches (decode + raw K5): {record['two_launch_ms']:.4f} ms (device "
+                     f"{'not measured' if two is None else f'{two:.4f} ms'}); route "
+                     f"{c['route']}]")
         lib_ms = record["library_ms"]
         print(f"{line}  kernel {record['ms']:.4f} ms (device "
               f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'})  plain "
@@ -1218,17 +1336,24 @@ def all_kernels():
 
 
 def zero_launches() -> None:
+    from pytorch_quantize_impls_tpu_torch.kernels import int8_conv as ic
+
     for k in all_kernels():
         k.launches = 0
+    ic.int8_conv2d.packed_launches = 0
 
 
 def read_launches(path: str, required) -> dict:
-    """Every kernel's count since zero_launches; each kernel in ``required``
-    (the path's) must be > 0."""
+    """Every kernel's count since zero_launches, and K5's launches with the
+    packed weight stage (``int8_conv2d.packed``, counted in ``int8_conv2d``
+    too); each kernel in ``required`` (the path's) must be > 0."""
     import torch
+
+    from pytorch_quantize_impls_tpu_torch.kernels import int8_conv as ic
 
     torch.cuda.synchronize()
     launches = {k.__name__: k.launches for k in all_kernels()}
+    launches["int8_conv2d.packed"] = ic.int8_conv2d.packed_launches
     print(f"launches on the {path} path: {launches}", flush=True)
     for k in required:
         if launches[k.__name__] <= 0:
@@ -1259,7 +1384,12 @@ def drive_main_path(card: str, model, example_shape, inputs):
         zero_launches()
         loaded = infer.load_packed(path, device=dev)
         for name in ("unprepared", "prepared"):
-            recs = loaded if name == "unprepared" else infer.prepare(loaded)
+            if name == "unprepared":
+                recs = loaded
+            else:
+                before = bg.decode_binary_weights.launches
+                recs = infer.prepare(loaded)
+                k2_prepare = bg.decode_binary_weights.launches - before
 
             def forward(x, recs=recs, log=logs[name]):
                 y = infer.packed_apply(model, recs, x)
@@ -1278,8 +1408,68 @@ def drive_main_path(card: str, model, example_shape, inputs):
                   f"{st.mean_latency_ms:.3f} ms  [{card}]", flush=True)
             if st.requests != len(inputs):
                 fail(f"engine[{name}] answered {st.requests} of {len(inputs)}")
+            if name == "unprepared":  # one conv2 (K5) per forward
+                unprepared_forwards = ic.int8_conv2d.launches
         launches = read_launches("bnn_lenet", kernels)
+    # conv1 (real inputs) decodes its weights (K2) on every unprepared
+    # forward; conv2 launches K2 only where its route is two launches
+    decoded = launches["int8_conv2d"] - launches["int8_conv2d.packed"]
+    want = unprepared_forwards + decoded + k2_prepare
+    print(f"bnn_lenet: conv2 ran {launches['int8_conv2d']} times, "
+          f"{launches['int8_conv2d.packed']} fused (no decoder), {decoded} as K2 + raw K5; K2 "
+          f"launches {launches['decode_binary_weights']} = {unprepared_forwards} conv1 "
+          f"(unprepared) + {decoded} conv2 + {k2_prepare} in prepare() (parent: 282 on this path, conv2 decoded every call)", flush=True)
+    if launches["decode_binary_weights"] != want:
+        fail(f"bnn_lenet: K2 launched {launches['decode_binary_weights']} times, expected {want}: "
+             f"a fused conv2 launched its decoder")
     return loaded, answers, logs, launches
+
+
+def conv_routes(forward, x) -> list:
+    """The route of every packed conv call in one ``forward(x)``: (input
+    shape, cin, cout, kernel size, strides, route), read by wrapping
+    ``kernels.conv.packed_conv_route``."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch.kernels import conv as kconv
+
+    seen = []
+    route_of = kconv.packed_conv_route
+
+    def logged(x_shape, pw, strides, pads):
+        route = route_of(x_shape, pw, strides, pads)
+        seen.append((tuple(x_shape), pw.cin, pw.cout, tuple(pw.kernel_size), tuple(strides), route))
+        return route
+
+    kconv.packed_conv_route = logged
+    try:
+        with torch.inference_mode():
+            forward(x)
+    finally:
+        kconv.packed_conv_route = route_of
+    return seen
+
+
+def print_routes(card: str, label: str, forward, example_shape) -> dict:
+    """Print the route of every packed conv of ``forward`` at each bucket
+    size (distinct convs with their call counts); fail unless every conv is
+    fused at b = 1. Returns {b: routes}."""
+    import torch
+
+    out = {}
+    for b in BUCKETS:
+        routes = conv_routes(forward, torch.zeros((b, *example_shape), device=cuda()))
+        counts = {}
+        for shape, cin, cout, ks, strides, route in routes:
+            key = (f"{shape[1]}x{shape[2]}x{cin}->{cout} {ks[0]}x{ks[1]} s{strides[0]}", route)
+            counts[key] = counts.get(key, 0) + 1
+        print(f"routes {label} b={b}: " + "; ".join(
+            f"{conv} {route} x{n}" for (conv, route), n in counts.items()) + f"  [{card}]",
+            flush=True)
+        if b == 1 and any(r[-1] != "fused" for r in routes):
+            fail(f"{label}: a packed conv at b=1 is not fused")
+        out[b] = [r[-1] for r in routes]
+    return out
 
 
 def check_main_path(model, loaded, inputs, answers, logs) -> None:
@@ -1345,6 +1535,7 @@ def main_path(card: str):
 
     loaded, answers, logs, launches = drive_main_path(card, model, example_shape, inputs)
     check_main_path(model, loaded, inputs, answers, logs)
+    print_routes(card, "bnn_lenet", lambda x: infer.packed_apply(model, loaded, x), example_shape)
 
     # A small input on a grid where conv1 is exact in any summation order,
     # against the same model on the CPU (plain kernel versions).
@@ -2081,10 +2272,15 @@ def against_fake_quant(card: str, label: str, model, forward, xs, atol=RESNET_LO
 
 def direct_vs_im2col(model, loaded, x) -> None:
     """The stride-2 first conv of stage 1 (JAX's (0, 1) SAME pads) on its
-    real input: direct (K7 + K5) and im2col (F.unfold + K6) bit for bit."""
+    real input: direct (the route conv_route picks), both routes called
+    directly (the fused K5, and K7 + the raw K5) and im2col (F.unfold + K6)
+    bit for bit."""
     import torch
 
-    from pytorch_quantize_impls_tpu_torch.kernels.conv import PackedConv, packed_conv2d
+    from pytorch_quantize_impls_tpu_torch.kernels import int8_conv as ic
+    from pytorch_quantize_impls_tpu_torch.kernels import packed_matmul as pm
+    from pytorch_quantize_impls_tpu_torch.kernels.conv import (
+        PackedConv, conv_pads, decode_conv_weights, packed_conv2d, packed_conv_route)
 
     conv = model.stage1_block0.conv1.conv
     rec = loaded[("stage1_block0", "conv1", "conv")]
@@ -2099,12 +2295,22 @@ def direct_vs_im2col(model, loaded, x) -> None:
         hook.remove()
     xq = conv.input_quant(seen[0])
     kw_ = dict(strides=conv.strides, padding=conv.padding)
+    pads = conv_pads(conv.padding, xq.shape[1:3], (kh, kw), conv.strides)
+    route = packed_conv_route(xq.shape, pc, conv.strides, pads)
     direct = packed_conv2d(xq, pc, **kw_)
+    codes = pm.dorefa_act_to_int8(xq, rec.a_bits)
+    scale = torch.full((cout,), pm.inv_scale(rec.w_bits, rec.a_bits), dtype=torch.float32,
+                       device=xq.device)
+    args = ((kh, kw), tuple(conv.strides), pads, "scale", scale)
+    fused = ic.int8_conv2d(codes, rec.packed, *args, w_bits=rec.w_bits)
+    two = ic.int8_conv2d(codes, decode_conv_weights(pc), *args)
     im2col = packed_conv2d(xq, pc, mode="im2col", **kw_)
-    if not torch.equal(direct, im2col):
-        fail(f"stage1 conv1: direct and im2col differ in {int((direct != im2col).sum())} places")
-    print(f"stage1_block0.conv1 (stride 2) on {x.shape[0]} images: direct (K7 + K5) == "
-          f"im2col (F.unfold + K6), {tuple(direct.shape)}, bit for bit", flush=True)
+    for name, y in ((f"direct ({route})", direct), ("fused K5", fused), ("K7 + raw K5", two)):
+        if not torch.equal(y, im2col):
+            fail(f"stage1 conv1: {name} and im2col differ in {int((y != im2col).sum())} places")
+    print(f"stage1_block0.conv1 (stride 2) on {x.shape[0]} images: direct ({route} route) == "
+          f"fused K5 == K7 + raw K5 == im2col (F.unfold + K6), {tuple(direct.shape)}, bit for "
+          f"bit", flush=True)
 
 
 def resnet_path(card: str):
@@ -2134,13 +2340,30 @@ def resnet_path(card: str):
         zero_launches()
         loaded = infer.load_packed(path, device=dev)
         for name in ("unprepared", "prepared"):
-            recs = loaded if name == "unprepared" else infer.prepare(loaded)
+            if name == "unprepared":
+                recs = loaded
+            else:
+                before = pm.decode_dorefa_weights.launches
+                recs = infer.prepare(loaded)
+                k7_prepare = pm.decode_dorefa_weights.launches - before
             engine = Logged(lambda x, recs=recs: infer.packed_apply(model, recs, x), RESNET_SHAPE,
                             batch_sizes=BUCKETS, device=dev)
             answers[name] = run_engine(card, f"resnet {name}", engine, inputs)
             logs[name] = engine.log
-        launches["resnet_w4a4_packed"] = read_launches(
+        launches["resnet_w4a4_packed"] = packed = read_launches(
             "resnet_w4a4_packed", (pm.decode_dorefa_weights, ic.int8_conv2d))
+    # every K5 launch of the packed path is a packed block conv: fused, or
+    # K7 + the raw K5; prepare() decodes each block conv once more
+    decoded = packed["int8_conv2d"] - packed["int8_conv2d.packed"]
+    print(f"resnet packed: {packed['int8_conv2d']} block conv calls, "
+          f"{packed['int8_conv2d.packed']} fused (no decoder), {decoded} as K7 + raw K5; K7 "
+          f"launches {packed['decode_dorefa_weights']} = {decoded} + {k7_prepare} in prepare() "
+          f"(parent: 3402, every conv decoded)", flush=True)
+    if packed["decode_dorefa_weights"] != decoded + k7_prepare:
+        fail(f"resnet packed: K7 launched {packed['decode_dorefa_weights']} times, expected "
+             f"{decoded + k7_prepare}: a fused conv launched its decoder")
+    print_routes(card, "resnet packed", lambda x: infer.packed_apply(model, loaded, x),
+                 RESNET_SHAPE)
     prepared = infer.prepare(loaded)
     net = infer.export_fused_resnet20(model)
     zero_launches()
@@ -2893,10 +3116,20 @@ def main() -> None:
         "shift_gemm_ws": ("shift_gemm.cu", f"{tpu}/kernels/shift_matmul.py:205"),
         "tiled_mm": ("mxu_probe.cu", "scripts/mxu_probe.py:47"),
     }
+    # the decoders' work done inside K5's packed stage: binary words on the
+    # bnn_lenet path, 4-bit DoReFa words on the ResNet's
+    fused_paths = {"decode_binary_weights": ("bnn_lenet",),
+                   "decode_dorefa_weights": ("resnet_w4a4_packed",)}
     rows = []
     for name, (cu, replaces) in meta.items():
         s = summary[name]
         by_path = {path: counts[name] for path, counts in launches.items()}
+        if name in fused_paths:
+            s = dict(s, fused_launches_by_path={
+                path: launches[path]["int8_conv2d.packed"] for path in fused_paths[name]})
+        if name == "int8_conv2d":
+            s = dict(s, packed_launches_by_path={
+                path: counts["int8_conv2d.packed"] for path, counts in launches.items()})
         rows.append({
             "name": name, "route": "cuda", "source": f"{src}/{cu}", "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -2904,8 +3137,8 @@ def main() -> None:
             "bound_ms": s["bound_ms"], "bound_by": s["bound_by"], "library_ms": s["library_ms"],
             **{k: v for k, v in s.items()
                if k in ("shape", "device_ms", "sdpa_dequantized_ms", "cublas_f32_ms",
-                        "cublas_bf16_ms", "also",
-                        "plan", "tile", "host_us")},
+                        "cublas_bf16_ms", "also", "fused_launches_by_path",
+                        "packed_launches_by_path", "plan", "tile", "host_us")},
         })
     print(f"whole run from the kernel builds on: {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

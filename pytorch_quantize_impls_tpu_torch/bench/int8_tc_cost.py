@@ -129,7 +129,7 @@ def conv_call(lib, x, w, scale, out, index, stream, stride):
     args = ic._CONV_ARGS.pack(
         x.data_ptr(), w.data_ptr(), scale.data_ptr(), 0, out.data_ptr(), stream,
         b, h, h, c, 3, 3, ho, ho, n, stride, stride, pads[0][0], pads[1][0],
-        0, 0, conv_plan(b * ho * ho, n)["bn"], index)
+        0, 0, conv_plan(b * ho * ho, n)["bn"], index, 0, 0, 0)
     return lambda: lib.qt_int8_conv2d(args)
 
 

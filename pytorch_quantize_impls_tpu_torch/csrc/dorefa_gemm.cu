@@ -39,20 +39,20 @@
 // rate (0.069 ms at 1979 TOP/s; its 88 MB at 4 bits take 0.026 ms).
 //
 // decode_dorefa_weights replaces packed_matmul.py decode_dorefa_weights
-// (pallas_call at :315): packed (Kp/f, N) -> centered int8 (Kp, N). An
-// elementwise pass bound by device-memory bandwidth: one thread per output
-// quad (4 neighbouring columns of one row), which reads the 4 words that
-// hold them and writes one 32-bit word; neighbouring threads take
-// neighbouring quads, so loads and stores coalesce.
+// (pallas_call at :315): packed (Kp/f, N) -> centered int8 (Kp, N), the
+// one-pass decode of plane_decode.cuh (each word read once, chunks of 4
+// words a thread, a 4-byte store to each bit field's row), which
+// prepare() and the packed conv's two-launch route (kernels/common.py
+// conv_route) run; the packed conv's fused route decodes inside K5's weight
+// stage instead (int8_conv.cu).
 #include "mma_tile.cuh"
 #include "packed_ws.cuh"
+#include "plane_decode.cuh"
 #include "stream_tile.cuh"
 
 namespace {
 
 using qt::ws::GROUP_ROWS;  // words per self-contained group
-
-using qt::stream::centered_byte;
 
 // K6 on stream_tile.cuh's schedule (packed_code_gemm). part: the split's
 // workspace of int32 partials (splits, M, N), null when K is not split.
@@ -98,26 +98,10 @@ dorefa_gemm_ws_kernel(const __grid_constant__ CUtensorMap xmap, const uint32_t* 
 }
 
 template <int BITS>
-__global__ void decode_dorefa_kernel(const uint32_t* __restrict__ wp, int8_t* __restrict__ out,
-                                     int R, int N, bool vec) {
-  constexpr int F = 32 / BITS;
-  constexpr int GROUP_K = F * GROUP_ROWS;
-  const int nq = (N + 3) / 4;
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)R * F * nq) return;
-  const int k = (int)(idx / nq), n0 = 4 * (int)(idx % nq);
-  const int g = k / GROUP_K, rem = k % GROUP_K;
-  const int plane = rem / GROUP_ROWS, r = rem % GROUP_ROWS;
-  const uint32_t* w = wp + (size_t)(g * GROUP_ROWS + r) * N;
-  int8_t* o = out + (size_t)k * N + n0;
-  if (vec) {  // N % 4 == 0: the quad is one aligned 32-bit word
-    uint32_t v = 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) v |= centered_byte<BITS>(w[n0 + j], plane) << (8 * j);
-    *reinterpret_cast<uint32_t*>(o) = v;
-  } else {
-    for (int j = 0; j < 4 && n0 + j < N; ++j) o[j] = (int8_t)centered_byte<BITS>(w[n0 + j], plane);
-  }
+__global__ void __launch_bounds__(qt::planes::THREADS)
+decode_dorefa_kernel(const uint32_t* __restrict__ wp, int8_t* __restrict__ out, int R, int N,
+                     int mode) {
+  qt::planes::decode_planes<BITS>(wp, out, R, N, mode);
 }
 
 template <int BITS, int BM>
@@ -156,16 +140,6 @@ cudaError_t launch_gemm_ws(const void* x, int pitch, const uint32_t* wp, float* 
     case 4: return qt::ws::launch<BITS, 4>(dorefa_gemm_ws_kernel<BITS, 4>, x, pitch, wp, epi, out, M, N, K, device, s);
     default: return cudaErrorInvalidValue;
   }
-}
-
-template <int BITS>
-cudaError_t launch_decode(const void* wp, void* out, int R, int N, cudaStream_t stream) {
-  const size_t quads = (size_t)R * (32 / BITS) * ((N + 3) / 4);
-  const unsigned blocks = (unsigned)((quads + 255) / 256);
-  const bool vec = (N % 4 == 0) && (reinterpret_cast<uintptr_t>(out) % 4 == 0);
-  decode_dorefa_kernel<BITS><<<blocks, 256, 0, stream>>>(
-      static_cast<const uint32_t*>(wp), static_cast<int8_t*>(out), R, N, vec);
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -236,8 +210,8 @@ extern "C" int qt_decode_dorefa(const void* wp, void* out, int R, int N, int bit
   if (R % GROUP_ROWS != 0 || (bits != 1 && bits != 2 && bits != 4)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (bits) {
-    case 1: return (int)launch_decode<1>(wp, out, R, N, s);
-    case 2: return (int)launch_decode<2>(wp, out, R, N, s);
-    default: return (int)launch_decode<4>(wp, out, R, N, s);
+    case 1: return (int)qt::planes::launch_decode<1>(decode_dorefa_kernel<1>, wp, out, R, N, s);
+    case 2: return (int)qt::planes::launch_decode<2>(decode_dorefa_kernel<2>, wp, out, R, N, s);
+    default: return (int)qt::planes::launch_decode<4>(decode_dorefa_kernel<4>, wp, out, R, N, s);
   }
 }

@@ -43,7 +43,37 @@
 // tile through shared memory, so each warp writes whole rows of the output,
 // the largest byte stream of the call (f32 at ResNet stage 1: 33.5 MB, 10
 // us at 3.35 TB/s, against 19.3 G int8 operations, 9.8 us at 1979 TOP/s).
+//
+// The packed weight stage (int8_conv_kernel_packed<BITS>): w is the packed
+// conv weight itself, the grouped-planar words (R, N) of ops/pack.py that
+// decode_binary_weights (K2, one bit) and decode_dorefa_weights (K7, 1, 2
+// or 4 bits) would expand, and the kernel decodes them into its K-major
+// stage with centered_bytes4 (2c - (2^BITS - 1), as K1 and K6 do), so the
+// packed conv makes one launch where decode + conv made two. Weight row k
+// lives in word row (k / GROUP_K) 32 + k % 32, bit field (k % GROUP_K) /
+// 32, so the 64 rows c taps + tap of one (tap, 64 channels) stage sit in up
+// to 64 word rows: whole words per stage would read 4 bytes per code. The
+// packed kernel walks K by channel block instead (stage st: channel block
+// st / taps, tap st % taps; the int32 sums are exact, so the order of K
+// changes no bit): a block's taps together read the contiguous rows
+// [64 cb taps, 64 (cb + 1) taps), and the packed groups that cover them
+// (the slab, at most `groups` of 32 word rows x 64 columns) are copied to
+// shared memory once, with cp.async, at the slab's first stage, RING - 1
+// stages ahead, into one of two slots; each stage then gathers its 64 rows
+// from the slab through the slab's address table (an entry per channel and
+// tap, built one slab ahead) and centers them four at a time
+// (decode_slab_stage). A 1 x 1 conv's slab is one whole packed group,
+// GROUP_K / 64 channel blocks. So each tile reads the packed bytes of its
+// columns about once (4 bits: half the raw bytes); reading each stage's
+// words from L2 with no slab ran 1-13% slower on the H100. Rows of
+// channels past C decode to 0 and read no word (the slab stops at row C
+// taps - 1, within the packed rows). Tiles are 128 x 64; two slab slots
+// and two tables replace the raw weight ring (kernels/common.py
+// conv_slab_plan: the shared memory; conv_route picks this kernel or
+// decode + the raw one by shape).
+#include <algorithm>
 #include <climits>
+#include <type_traits>
 
 #include "mma_tile.cuh"
 #include "stream_tile.cuh"
@@ -86,16 +116,164 @@ static_assert(staged_bytes<64>() <= ConvTile<64>::SMEM &&
 static_assert(3 * (conv_smem<64>() + 1024) <= 233472 && 2 * (conv_smem<128>() + 1024) <= 233472,
               "the blocks share an SM");
 
-template <int BN_>
-__global__ void __launch_bounds__(THREADS, BN_ == 64 ? 3 : 2)
-int8_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, ConvShape s,
-                 int epilogue, const float* __restrict__ pa, const float* __restrict__ pb,
-                 int n_a, void* __restrict__ out, int xmode, int wmode) {
-  using T = ConvTile<BN_>;
+// The packed weight stage: 128 x 64 tiles, two slab slots of `groups` x
+// 32 word rows x 64 columns after the tile's shared memory, each with a
+// header word (the slab's index) in the tile's W ring, which holds nothing
+// else.
+constexpr int PACKED_BN = 64;
+constexpr int SLAB_HEADER_WORDS = 4;
+using PackedConvTile =
+    qt::stream::Tile<CONV_BM, PACKED_BN, CONV_BM * LDW, 2, SLAB_HEADER_WORDS, false>;
+static_assert(staged_bytes<PACKED_BN>() <= (size_t)4 * qt::stream::RING * CONV_BM * LDW,
+              "the staged tile fits the activation ring");
+
+__host__ __device__ inline int slab_words(int groups) {
+  return groups * qt::stream::GROUP_ROWS * PACKED_BN;
+}
+
+// Channel blocks per slab: one, or a whole packed group's for a 1 x 1 conv
+// (the mainloop's two slots need a slab of two stages or more).
+__host__ __device__ inline int slab_blocks(int taps, int bits) {
+  return taps > 1 ? 1 : 32 / bits * qt::stream::GROUP_ROWS / STAGE_BYTES;
+}
+
+// The most packed groups one slab covers (kernels/common.py conv_slab_plan).
+inline int slab_groups(int C, int taps, int bits) {
+  const long gk = 32 / bits * qt::stream::GROUP_ROWS;
+  const int cbs = slab_blocks(taps, bits), cst = (C + STAGE_BYTES - 1) / STAGE_BYTES;
+  int most = 0;
+  for (int slab = 0; slab * cbs < cst; ++slab) {
+    const long k_lo = (long)slab * cbs * STAGE_BYTES * taps;
+    const long k_hi = (long)std::min((slab + 1) * cbs * STAGE_BYTES, C) * taps;
+    most = std::max(most, (int)((k_hi - 1) / gk - k_lo / gk + 1));
+  }
+  return most;
+}
+
+// Words of a slab's address table: 64 cbs rows x taps.
+__host__ __device__ inline int table_words(int taps, int bits) {
+  return slab_blocks(taps, bits) * STAGE_BYTES * taps;
+}
+
+inline size_t packed_smem(int groups, int taps, int bits) {
+  return PackedConvTile::SMEM +
+         ((size_t)2 * slab_words(groups) + 2 * table_words(taps, bits)) * 4 +
+         3 * CONV_BM * sizeof(int);
+}
+
+// Copy slab `slab` (channel blocks [slab cbs, + cbs) of all taps: packed
+// groups g_lo .. g_hi, the groups of rows [64 slab cbs taps, min(64 (slab +
+// 1) cbs, C) taps)) x columns [n0, n0 + 64) of wp (R x N words) into D
+// (group - g_lo, word row, column), columns >= N as 0; `vec`: N % 4 == 0
+// and wp 16-byte aligned, four neighbouring columns one 16-byte copy.
+template <int BITS>
+__device__ __forceinline__ void load_slab(uint32_t* D, const uint32_t* __restrict__ wp,
+                                          int slab, int n0, int C, int N, int taps, int cbs,
+                                          bool vec) {
+  constexpr int GROUP_K = 32 / BITS * qt::stream::GROUP_ROWS;
+  const long k_lo = (long)slab * cbs * STAGE_BYTES * taps;
+  const long k_hi = (long)min((slab + 1) * cbs * STAGE_BYTES, C) * taps;
+  const int g_lo = (int)(k_lo / GROUP_K);
+  const int words = ((int)((k_hi - 1) / GROUP_K) - g_lo + 1) * qt::stream::GROUP_ROWS * PACKED_BN;
+  const uint32_t* src0 = wp + (size_t)g_lo * qt::stream::GROUP_ROWS * N;
+  if (vec) {
+    for (int e = threadIdx.x; e < words / 4; e += THREADS) {
+      const int row = e / (PACKED_BN / 4), c = 4 * (e % (PACKED_BN / 4));
+      const bool in = n0 + c < N;
+      qt::stream::cp_async16(D + row * PACKED_BN + c, in ? src0 + (size_t)row * N + n0 + c : wp,
+                             in ? 16 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < words; e += THREADS) {
+      const int row = e / PACKED_BN, c = e % PACKED_BN;
+      const bool in = n0 + c < N;
+      qt::stream::cp_async4(D + row * PACKED_BN + c, in ? src0 + (size_t)row * N + n0 + c : wp,
+                            in ? 4 : 0);
+    }
+  }
+}
+
+// A slab's address table: entry tap 64 cbs + cl (channel c_lo + cl of the
+// slab at tap `tap`, weight row k = c taps + tap; kr = k - the slab's first
+// packed row) holds the byte offset of its word row in the slab, (kr /
+// GROUP_K 32 + kr % 32) 256, with its field's shift BITS (kr / 32 % F) in
+// the low five bits; channels >= C point at word row 0 (A reads 0 there,
+// so any weight does). Every column's stage rows share it. The table of
+// slab g + 1 is built during slab g (two tables), so no stage waits for it.
+template <int BITS>
+__device__ __forceinline__ void build_slab_table(uint32_t* tab, int slab, int C, int taps,
+                                                 int cbs) {
+  constexpr int F = 32 / BITS, GROUP_K = F * qt::stream::GROUP_ROWS;
+  const int rows = cbs * STAGE_BYTES, c_lo = slab * rows;
+  const int k_base = c_lo * taps / GROUP_K * GROUP_K;
+  for (int e = threadIdx.x; e < rows * taps; e += THREADS) {
+    const int tap = e / rows, c = c_lo + e % rows;
+    uint32_t entry = 0;
+    if (c < C) {
+      const int kr = c * taps + tap - k_base;
+      entry = (uint32_t)((kr / GROUP_K * qt::stream::GROUP_ROWS + kr % 32) * PACKED_BN * 4) |
+              (uint32_t)(BITS * (kr / 32 % F));
+    }
+    tab[e] = entry;
+  }
+}
+
+// One stage into Bs (64 columns x LDW words, K-major: word q of column n
+// holds stage rows 4q .. 4q + 3) from the slab D through the stage's 64
+// table entries: row kl of column n is the code at shift tab[kl] & 31 of
+// the word at byte (tab[kl] & ~31) + 4n of D. A unit is one column's 16
+// rows: 16 slab words, read by the lanes of a warp along one word row
+// (consecutive columns: no bank conflict; the table entries are one
+// broadcast), centered four at a time (centered_bytes4), and one 16-byte
+// store (eight lanes' stores fall in distinct banks at LDW = 20).
+template <int BITS>
+__device__ __forceinline__ void decode_slab_stage(uint32_t* Bs, const uint32_t* D,
+                                                  const uint32_t* tab) {
+  constexpr uint32_t NW4 = 0x01010101u * ((1u << BITS) - 1);
+  const auto* Db = reinterpret_cast<const uint8_t*>(D);
+  for (int e = threadIdx.x; e < 4 * PACKED_BN; e += THREADS) {
+    const int n = e % PACKED_BN, q0 = 16 * (e / PACKED_BN);
+    const uint8_t* col = Db + 4 * n;
+    uint32_t v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint4 t4 = *reinterpret_cast<const uint4*>(tab + q0 + 4 * j);
+      const uint32_t t[4] = {t4.x, t4.y, t4.z, t4.w};
+      uint32_t c[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        c[i] = __funnelshift_r(*reinterpret_cast<const uint32_t*>(col + (t[i] & ~31u)), 0u, t[i]);
+      // byte 0 of each code word into bytes 0..3, then the fields' bits
+      const uint32_t codes =
+          __byte_perm(__byte_perm(c[0], c[1], 0x40), __byte_perm(c[2], c[3], 0x40), 0x5410);
+      v[j] = qt::stream::centered_bytes4<BITS>(codes & NW4);
+    }
+    *reinterpret_cast<uint4*>(Bs + n * LDW + q0 / 4) = make_uint4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// One 128 x BN_ output tile: raw int8 weights (BITS 0, the walk tap by tap,
+// each stage's rows copied and transposed) or packed BITS-bit words (the
+// walk channel block by channel block, slabs of `groups` packed groups).
+template <int BN_, int BITS>
+__device__ __forceinline__ void conv_tile(const int8_t* __restrict__ x, const void* __restrict__ w,
+                                          const ConvShape& s, int epilogue,
+                                          const float* __restrict__ pa,
+                                          const float* __restrict__ pb, int n_a,
+                                          void* __restrict__ out, int xmode, int wmode,
+                                          int groups) {
+  using T = std::conditional_t<BITS == 0, ConvTile<BN_>, PackedConvTile>;
   extern __shared__ __align__(16) uint32_t smem[];
+  const int taps = s.KH * s.KW, cst = (s.C + STAGE_BYTES - 1) / STAGE_BYTES;
+  const int cbs = BITS == 0 ? 1 : slab_blocks(taps, BITS == 0 ? 1 : BITS);
+  // packed: the two slab slots after the tile, then two address tables
+  // (slab g's in table g % 2)
+  uint32_t* slabs = smem + T::SMEM / 4;
+  uint32_t* tabs = slabs + 2 * slab_words(groups);
+  const int tw = BITS == 0 ? 0 : table_words(taps, BITS == 0 ? 1 : BITS);
   // per output row of the tile: its image (-1 past M), and its first input
   // row and column
-  int* row_b = reinterpret_cast<int*>(smem + T::SMEM / 4);
+  int* row_b = reinterpret_cast<int*>(tabs + 2 * tw);
   int* row_iy = row_b + CONV_BM;
   int* row_ix = row_iy + CONV_BM;
   const int M = s.B * s.HO * s.WO;
@@ -112,14 +290,18 @@ int8_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, Con
       row_iy[r] = row_ix[r] = 0;
     }
   }
+  if constexpr (BITS != 0) build_slab_table<BITS>(tabs, 0, s.C, taps, cbs);
   __syncthreads();
-  const int taps = s.KH * s.KW, cst = (s.C + STAGE_BYTES - 1) / STAGE_BYTES;
   const auto* xb = reinterpret_cast<const uint8_t*>(x);
-  const auto* wb = reinterpret_cast<const uint8_t*>(w);
+  // raw: a weight group is one stage; packed: a slab, cbs channel blocks of all taps
+  const int k_stages = taps * cst, spg = BITS == 0 ? 1 : cbs * taps;
 
-  // stage st: tap st / cst, channels [64 (st % cst), + 64)
+  // stage st: raw, tap st / cst and channels [64 (st % cst), + 64); packed,
+  // channel block st / taps and tap st % taps
   auto load_a = [&](uint32_t* S, int, int k0) {
-    const int st = k0 / STAGE_BYTES, tap = st / cst, c0 = (st % cst) * STAGE_BYTES;
+    const int st = k0 / STAGE_BYTES;
+    const int tap = BITS == 0 ? st / cst : st % taps;
+    const int c0 = (BITS == 0 ? st % cst : st / taps) * STAGE_BYTES;
     const int dy = tap / s.KW, dx = tap % s.KW;
     // the address of channel c of row r's input pixel, or null outside it
     auto pixel = [&](int r, int c) -> const uint8_t* {
@@ -150,18 +332,36 @@ int8_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, Con
       }
     }
   };
-  // the stage's weight rows c * taps + tap, channels c in [c0, min(c0 + 64, C))
-  auto load_w = [&](uint32_t* W, int st, int n0_) {
-    const int tap = st / cst, c0 = (st % cst) * STAGE_BYTES;
-    qt::stream::load_stage_bytes<BN_>(W, wb, s.N, n0_, wmode, (long)c0 * taps + tap, taps,
-                                      s.C - c0);
+  // raw: the stage's weight rows c * taps + tap, channels c in [c0, min(c0 +
+  // 64, C)); packed: slab g into slot g % 2, its index into the slot's header
+  auto load_w = [&](uint32_t* W, int g, int n0_) {
+    if constexpr (BITS == 0) {
+      const int tap = g / cst, c0 = (g % cst) * STAGE_BYTES;
+      qt::stream::load_stage_bytes<BN_>(W, static_cast<const uint8_t*>(w), s.N, n0_, wmode,
+                                        (long)c0 * taps + tap, taps, s.C - c0);
+    } else {
+      if (threadIdx.x == 0) W[0] = (uint32_t)g;
+      load_slab<BITS>(slabs + (g & 1) * slab_words(groups), static_cast<const uint32_t*>(w), g,
+                      n0_, s.C, s.N, taps, cbs, wmode != 0);
+    }
   };
-  auto prep = [](const uint32_t*, const uint32_t* W, int, uint32_t* Bs, uint32_t*) {
-    qt::stream::transpose_stage<BN_>(Bs, W);
+  auto prep = [&](const uint32_t*, const uint32_t* W, int within, uint32_t* Bs, uint32_t*) {
+    if constexpr (BITS == 0) {
+      qt::stream::transpose_stage<BN_>(Bs, W);
+    } else {
+      const int g = (int)W[0];
+      decode_slab_stage<BITS>(Bs, slabs + (g & 1) * slab_words(groups),
+                              tabs + (g & 1) * tw + within % taps * cbs * STAGE_BYTES +
+                                  within / taps * STAGE_BYTES);
+      // slab g + 1's table, into the one slab g - 1 used: its last stage was
+      // prepared before the barrier that began this stage, and the mainloop's
+      // barriers publish the table before slab g + 1's first stage
+      if (within == 1 && (g + 1) * spg < k_stages)
+        build_slab_table<BITS>(tabs + ((g + 1) & 1) * tw, g + 1, s.C, taps, cbs);
+    }
   };
   int32_t acc[T::MF][T::NF][4];
-  const int k_stages = taps * cst;
-  qt::stream::stream_mainloop<qt::mma::S8, T>(blockIdx.x, blockIdx.y, 1, k_stages, k_stages,
+  qt::stream::stream_mainloop<qt::mma::S8, T>(blockIdx.x, blockIdx.y, spg, k_stages, k_stages,
                                               load_a, load_w, prep, acc);
 
   // the epilogue, staged: every warp is done with the ring after this barrier
@@ -226,6 +426,24 @@ int8_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, Con
 }
 
 template <int BN_>
+__global__ void __launch_bounds__(THREADS, BN_ == 64 ? 3 : 2)
+int8_conv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, ConvShape s,
+                 int epilogue, const float* __restrict__ pa, const float* __restrict__ pb,
+                 int n_a, void* __restrict__ out, int xmode, int wmode) {
+  conv_tile<BN_, 0>(x, w, s, epilogue, pa, pb, n_a, out, xmode, wmode, 0);
+}
+
+// wvec: N % 4 == 0 and w 16-byte aligned (load_slab)
+template <int BITS>
+__global__ void __launch_bounds__(THREADS, 2)
+int8_conv_kernel_packed(const int8_t* __restrict__ x, const uint32_t* __restrict__ w,
+                        ConvShape s, int epilogue, const float* __restrict__ pa,
+                        const float* __restrict__ pb, int n_a, void* __restrict__ out, int xmode,
+                        int wvec, int groups) {
+  conv_tile<PACKED_BN, BITS>(x, w, s, epilogue, pa, pb, n_a, out, xmode, wvec, groups);
+}
+
+template <int BN_>
 cudaError_t launch_conv(const int8_t* x, const int8_t* w, const ConvShape& s, int epilogue,
                         const float* a, const float* b, int n_a, void* out, int device,
                         cudaStream_t stream) {
@@ -242,12 +460,33 @@ cudaError_t launch_conv(const int8_t* x, const int8_t* w, const ConvShape& s, in
   return cudaGetLastError();
 }
 
+template <int BITS>
+cudaError_t launch_packed(const int8_t* x, const uint32_t* w, const ConvShape& s, int epilogue,
+                          const float* a, const float* b, int n_a, void* out, int groups,
+                          int device, cudaStream_t stream) {
+  // the most any shape may take; a launch uses packed_smem(groups, taps, BITS)
+  static bool smem_set[16] = {};
+  const cudaError_t err = qt::stream::allow_smem(int8_conv_kernel_packed<BITS>,
+                                                 qt::stream::SMEM_LIMIT, device, smem_set);
+  if (err != cudaSuccess) return err;
+  const long long m = (long long)s.B * s.HO * s.WO;
+  const dim3 grid((unsigned)((m + CONV_BM - 1) / CONV_BM), (s.N + PACKED_BN - 1) / PACKED_BN);
+  const int wvec = s.N % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  int8_conv_kernel_packed<BITS><<<grid, THREADS, packed_smem(groups, s.KH * s.KW, BITS),
+                                  stream>>>(
+      x, w, s, epilogue, a, b, n_a, out, qt::stream::copy_mode(x, s.C), wvec, groups);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // qt_int8_conv2d's arguments in one struct, packed by the wrapper
 // (kernels/int8_conv.py): the addresses, the shape (the caller computes HO,
-// WO from the pads; pad_bottom/right only bound them), the epilogue and
-// the tile width bn (64 or 128, kernels/common.py conv_plan).
+// WO from the pads; pad_bottom/right only bound them), the epilogue, the
+// tile width bn (64 or 128, kernels/common.py conv_plan), and the weights:
+// bits 0, raw int8 (C KH KW, N); bits 1, 2 or 4, packed words (rows, N) and
+// the slab's packed groups (kernels/common.py conv_slab_plan; bn is then
+// 64).
 struct Int8ConvArgs {
   const void* x;
   const void* w;
@@ -256,7 +495,7 @@ struct Int8ConvArgs {
   void* out;
   cudaStream_t stream;
   ConvShape s;
-  int epilogue, n_a, bn, device;
+  int epilogue, n_a, bn, device, bits, groups, rows;
 };
 
 extern "C" int qt_int8_conv2d(const Int8ConvArgs* a) {
@@ -264,13 +503,29 @@ extern "C" int qt_int8_conv2d(const Int8ConvArgs* a) {
   if (err != cudaSuccess) return (int)err;
   const ConvShape& s = a->s;
   const long long m = (long long)s.B * s.HO * s.WO;
+  const int bits = a->bits, taps = s.KH * s.KW;
   if (a->epilogue < EPI_SCALE || a->epilogue > EPI_AFFINE || s.SH < 1 || s.SW < 1 || s.B < 1 ||
       s.HO < 1 || s.WO < 1 || s.N < 1 || s.C < 1 || s.KH < 1 || s.KW < 1 ||
       (a->epilogue != EPI_SCALE && (a->a == nullptr || a->b == nullptr)) ||
-      (a->bn != 64 && a->bn != 128) || m > INT_MAX || (s.N + a->bn - 1) / a->bn > 65535)
+      (a->bn != 64 && a->bn != 128) || m > INT_MAX || (s.N + a->bn - 1) / a->bn > 65535 ||
+      (bits != 0 && bits != 1 && bits != 2 && bits != 4))
     return (int)cudaErrorInvalidValue;
-  const auto f = a->bn == 64 ? launch_conv<64> : launch_conv<128>;
-  return (int)f(static_cast<const int8_t*>(a->x), static_cast<const int8_t*>(a->w), s,
-                a->epilogue, static_cast<const float*>(a->a), static_cast<const float*>(a->b),
-                a->n_a, a->out, a->device, a->stream);
+  const auto* x = static_cast<const int8_t*>(a->x);
+  const auto* pa = static_cast<const float*>(a->a);
+  const auto* pb = static_cast<const float*>(a->b);
+  if (bits == 0) {
+    const auto f = a->bn == 64 ? launch_conv<64> : launch_conv<128>;
+    return (int)f(x, static_cast<const int8_t*>(a->w), s, a->epilogue, pa, pb, a->n_a, a->out,
+                  a->device, a->stream);
+  }
+  // the packed rows cover K = C taps, and the slab is the one the wrapper sized
+  if (a->bn != PACKED_BN || a->rows % qt::stream::GROUP_ROWS != 0 ||
+      (long long)s.C * taps > (long long)a->rows * (32 / bits) ||
+      a->groups != slab_groups(s.C, taps, bits) ||
+      packed_smem(a->groups, taps, bits) > qt::stream::SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  using Launch = decltype(&launch_packed<1>);
+  const Launch f = bits == 1 ? launch_packed<1> : bits == 2 ? launch_packed<2> : launch_packed<4>;
+  return (int)f(x, static_cast<const uint32_t*>(a->w), s, a->epilogue, pa, pb, a->n_a, a->out,
+                a->groups, a->device, a->stream);
 }

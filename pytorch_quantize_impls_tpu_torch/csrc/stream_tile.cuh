@@ -129,14 +129,28 @@ __device__ __forceinline__ void load_words(uint32_t* W, const uint32_t* __restri
   }
 }
 
-// Bit field `plane` of a packed word of BITS-bit codes c, as the centered
-// int8 2c - (2^BITS - 1) in the low byte: ±1 at one bit (binary_gemm),
+// Four BITS-bit codes c, one in the low bits of each byte, as the centered
+// int8 2c - n_w in each byte (n_w = 2^BITS - 1), carry-free as in
+// packed_ws.cuh's centered_bytes (K10's and K11's decoder, whose header
+// does not include this one): 2c + 128 - n_w lies in [113, 143], so no
+// byte carries into the next, and flipping each byte's top bit takes the
+// 128 off again.
+template <int BITS>
+__device__ __forceinline__ uint32_t centered_bytes4(uint32_t c) {
+  constexpr uint32_t NW = (1u << BITS) - 1;
+  return (2 * c + (0x80u - NW) * 0x01010101u) ^ 0x80808080u;
+}
+
+// Bit field i of four packed words of BITS-bit codes c, as the centered
+// int8 2c - (2^BITS - 1) of word j in byte j: ±1 at one bit (binary_gemm),
 // odd and within ±15 at up to four (dorefa_gemm).
 template <int BITS>
-__device__ __forceinline__ uint32_t centered_byte(uint32_t word, int plane) {
-  constexpr int NW = (1 << BITS) - 1;
-  const int c = (int)((word >> (BITS * plane)) & (uint32_t)NW);
-  return (uint32_t)(uint8_t)(int8_t)(2 * c - NW);
+__device__ __forceinline__ uint32_t field_bytes(const uint32_t (&w)[4], int i) {
+  constexpr uint32_t NW = (1u << BITS) - 1;
+  uint32_t o = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) o |= ((w[j] >> (BITS * i)) & NW) << (8 * j);
+  return centered_bytes4<BITS>(o);
 }
 
 // A packed group's stage, centered int8, into Bs (64 columns x LDW words,
@@ -152,12 +166,7 @@ __device__ __forceinline__ void decode_packed_stage(uint32_t* Bs, const uint32_t
 #pragma unroll
     for (int i = 0; i < 4; ++i) w[i] = Ws[(4 * j + i) * BN + c];
 #pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      uint32_t v = 0;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) v |= centered_byte<BITS>(w[i], plane0 + p) << (8 * i);
-      Bs[c * LDW + 8 * p + j] = v;
-    }
+    for (int p = 0; p < 2; ++p) Bs[c * LDW + 8 * p + j] = field_bytes<BITS>(w, plane0 + p);
   }
 }
 

@@ -38,12 +38,15 @@
 // 86 MB take 0.026 ms).
 //
 // decode_binary_weights replaces xnor_gemm.py decode_binary_weights
-// (pallas_call at :308): packed (Kp/32, N) -> ±1 int8 (Kp, N). It is an
-// elementwise pass bound by device-memory bandwidth (reads 1 bit, writes
-// 8 bits per weight); one thread per word writes its 32 int8 values, and
-// neighbouring threads take neighbouring columns so every access coalesces.
+// (pallas_call at :308): packed (Kp/32, N) -> ±1 int8 (Kp, N), reading 1
+// bit and writing 8 per weight: plane_decode.cuh's one-pass decode at one
+// bit (each word read once, chunks of 4 words a thread, a 4-byte store
+// to each of its 32 bit planes' rows). prepare() and the
+// packed conv's two-launch route (kernels/common.py conv_route) run it; the
+// fused route decodes inside K5's weight stage (int8_conv.cu).
 #include "mma_tile.cuh"
 #include "packed_ws.cuh"
+#include "plane_decode.cuh"
 #include "stream_tile.cuh"
 
 // qt_binary_gemm's arguments in one struct, packed by the wrapper
@@ -65,8 +68,7 @@ struct BinaryGemmArgs {
 
 namespace {
 
-using qt::ws::GROUP_ROWS;                  // words per self-contained group
-constexpr int GROUP_K = 32 * GROUP_ROWS;  // k-rows per group
+using qt::ws::GROUP_ROWS;  // words per self-contained group
 
 // K1's epilogue: f32(acc) * alpha[n] * row_scale[m], each factor optional.
 __device__ __forceinline__ float scaled(int32_t acc, const float* __restrict__ alpha,
@@ -152,16 +154,10 @@ binary_gemm_ws_kernel(const __grid_constant__ CUtensorMap xmap, const uint32_t* 
   qt::ws::packed_ws_gemm<1, R>(xmap, wp, epi, out, M, N, K);
 }
 
-__global__ void decode_binary_kernel(const uint32_t* __restrict__ wp, int8_t* __restrict__ out,
-                                     int R, int N) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)R * N) return;
-  const int n = (int)(idx % N), row = (int)(idx / N);
-  const int g = row / GROUP_ROWS, r = row % GROUP_ROWS;
-  const uint32_t word = wp[idx];
-  int8_t* o = out + ((size_t)g * GROUP_K + r) * N + n;
-#pragma unroll
-  for (int i = 0; i < 32; ++i) o[(size_t)i * 32 * N] = ((word >> i) & 1u) ? 1 : -1;
+__global__ void __launch_bounds__(qt::planes::THREADS)
+decode_binary_kernel(const uint32_t* __restrict__ wp, int8_t* __restrict__ out, int R, int N,
+                     int mode) {
+  qt::planes::decode_planes<1>(wp, out, R, N, mode);
 }
 
 }  // namespace
@@ -206,9 +202,6 @@ extern "C" int qt_decode_binary(const void* wp, void* out, int R, int N, int dev
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (R % GROUP_ROWS != 0) return (int)cudaErrorInvalidValue;
-  const size_t words = (size_t)R * N;
-  const unsigned blocks = (unsigned)((words + 255) / 256);
-  decode_binary_kernel<<<blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(wp), static_cast<int8_t*>(out), R, N);
-  return (int)cudaGetLastError();
+  return (int)qt::planes::launch_decode<1>(decode_binary_kernel, wp, out, R, N,
+                                           static_cast<cudaStream_t>(stream));
 }

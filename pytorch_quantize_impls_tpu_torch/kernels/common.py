@@ -278,6 +278,66 @@ def conv_plan(m: int, n: int) -> dict:
                 blocks_per_sm=3 if bn == CONV_BNS[0] else 2)
 
 
+# The packed weight stage of int8_conv2d (K5 on packed words,
+# csrc/int8_conv.cu int8_conv_kernel_packed): tiles of CONV_BM pixels by
+# CONV_PACKED_BN channels, two slab slots after the tile (each with a
+# header of CONV_SLAB_HEADER_WORDS words in the tile's weight ring).
+CONV_PACKED_BN = 64
+CONV_SLAB_HEADER_WORDS = 4
+
+
+@functools.lru_cache(maxsize=None)
+def conv_slab_plan(c: int, taps: int, bits: int) -> dict:
+    """The packed weight stage of K5 for ``c`` input channels, ``taps`` =
+    kh kw and ``bits``-bit packed words (``csrc/int8_conv.cu``
+    ``slab_blocks``, ``slab_groups``, ``packed_smem``): K walked channel
+    block by channel block, ``cbs`` blocks of 64 channels (and all their
+    taps) to a slab (one, or a whole packed group's at taps 1), ``spg``
+    stages a slab; ``groups``, the most packed groups of 32 word rows one
+    slab covers, sizes each of the two slots (``slot_words`` words of 64
+    columns); ``table_words`` a slab's address table (an entry per
+    channel and tap; two of them); ``smem`` the block's dynamic shared
+    memory and ``fits`` whether the H100 takes it."""
+    gk = packlib.planar_group_k(bits)
+    cbs = 1 if taps > 1 else gk // STREAM_STAGE_BYTES
+    cst = -(-c // STREAM_STAGE_BYTES)
+    groups = 0
+    for slab in range(-(-cst // cbs)):
+        k_lo = slab * cbs * STREAM_STAGE_BYTES * taps
+        k_hi = min((slab + 1) * cbs * STREAM_STAGE_BYTES, c) * taps
+        groups = max(groups, (k_hi - 1) // gk - k_lo // gk + 1)
+    slot = groups * packlib.GROUP_ROWS * CONV_PACKED_BN
+    table = cbs * STREAM_STAGE_BYTES * taps
+    tile = 4 * (STREAM_RING * CONV_BM * STREAM_LDW + 2 * CONV_SLAB_HEADER_WORDS
+                + 2 * CONV_PACKED_BN * STREAM_LDW)
+    smem = tile + 4 * (2 * slot + 2 * table) + 3 * CONV_BM * 4
+    return dict(bn=CONV_PACKED_BN, cbs=cbs, spg=cbs * taps, groups=groups, slot_words=slot,
+                table_words=table, smem=smem, fits=smem <= STREAM_SMEM_LIMIT)
+
+
+# The largest conv, in int8 operations 2 M N K, that the packed conv sends
+# through the fused packed stage: on the H100 (PERF.md, bench/
+# conv_decode_cost.py) the fused route was no slower by CUDA events than
+# decode + raw K5 at every ResNet conv up to b = 64 (at most 4.83e9
+# operations) and slower at every one at b = 256 (9.66e9 and up), where the
+# raw kernel's 128-wide tiles and its plain weight stage win back more than
+# the decoder's launch costs.
+CONV_FUSED_MAX_OPS = 6.8e9
+
+
+def conv_route(b: int, m: int, n: int, c: int, taps: int, bits: int) -> str:
+    """How the packed conv (``kernels/conv.py`` direct mode) runs on the
+    card for a batch of ``b`` images, M = B HO WO output pixels, N output
+    channels, ``c`` input channels, ``taps`` = kh kw and ``bits``-bit
+    packed words, a pure function of the shape: ``"fused"``, one launch of
+    K5 with the packed weight stage, where its slab fits and the batch is
+    one image or the conv is at most CONV_FUSED_MAX_OPS operations; else
+    ``"decode"``, K2 or K7 then the raw K5."""
+    if not conv_slab_plan(c, taps, bits)["fits"]:
+        return "decode"
+    return "fused" if b == 1 or 2 * m * n * c * taps <= CONV_FUSED_MAX_OPS else "decode"
+
+
 def stream_workspace_bytes(m: int, n: int, splits: int) -> int:
     """Bytes of a streamed GEMM's workspace: ``splits`` partial (m, n)
     tiles of 4-byte sums; 0 without a split."""

@@ -2,11 +2,14 @@
 
 Counterpart of ``pytorch_quantize_impls_tpu/kernels/conv.py``. Two modes:
 
-``direct`` (default): decode the packed weight planes on every call, as the
-JAX package does. binary/xnor/dorefa decode to int8 codes
-(``decode_binary_weights`` K2 or ``decode_dorefa_weights`` K7) and run the
-int8 convolution K5 (``kernels.int8_conv``) with an int32 accumulator and a
-scale epilogue, where the JAX package runs XLA's int8 conv. log decodes to
+``direct`` (default): the int8 convolution K5 (``kernels.int8_conv``) with
+an int32 accumulator and a scale epilogue, where the JAX package decodes the
+packed weight planes on every call and runs XLA's int8 conv. binary/xnor/
+dorefa take the route ``common.conv_route`` picks from the shape: ``fused``,
+one K5 launch that decodes the packed words in its own weight stage; or
+``decode``, ``decode_binary_weights`` K2 or ``decode_dorefa_weights`` K7
+then K5 on the int8 codes. Both give the same bits; on CPU tensors both are
+the plain versions (decode, then ``int8_conv2d_reference``). log decodes to
 bf16 ``±2^e`` (``decode_log_weights`` K9) and runs a float conv of bf16(x)
 on them with a float32 result (``conv2d_nhwc`` on the values upcast to
 float32, TF32 off), where the JAX package runs XLA's bf16 conv.
@@ -34,7 +37,8 @@ import torch.nn.functional as F
 from pytorch_quantize_impls_tpu_torch.kernels import packed_matmul as pm
 from pytorch_quantize_impls_tpu_torch.kernels import shift_matmul as sm
 from pytorch_quantize_impls_tpu_torch.kernels import xnor_gemm as bg
-from pytorch_quantize_impls_tpu_torch.kernels.int8_conv import Pads, int8_conv2d
+from pytorch_quantize_impls_tpu_torch.kernels.common import conv_route
+from pytorch_quantize_impls_tpu_torch.kernels.int8_conv import Pads, int8_conv2d, out_size
 
 Padding = Union[str, Sequence[Tuple[int, int]]]
 SCHEMES = ("binary", "xnor", "dorefa", "log")
@@ -136,6 +140,24 @@ def _scale(pw: PackedConv, device) -> Optional[torch.Tensor]:
     return pw.alpha
 
 
+def _packed_bits(pw: PackedConv) -> int:
+    """Bits of the packed words K5's packed stage decodes: one for
+    binary/xnor."""
+    return pw.w_bits if pw.scheme == "dorefa" else 1
+
+
+def packed_conv_route(x_shape, pw: PackedConv, strides, pads: Pads) -> str:
+    """The direct mode's route for NHWC input of ``x_shape``
+    (``common.conv_route``): ``"fused"`` or ``"decode"``; log has no fused
+    route."""
+    if pw.scheme == "log":
+        return "decode"
+    b, h, w, _ = x_shape
+    kh, kw = pw.kernel_size
+    m = b * out_size(h, kh, strides[0], pads[0]) * out_size(w, kw, strides[1], pads[1])
+    return conv_route(b, m, pw.cout, pw.cin, kh * kw, _packed_bits(pw))
+
+
 def packed_conv2d(
     x: torch.Tensor,
     pw: PackedConv,
@@ -154,9 +176,12 @@ def packed_conv2d(
         w = decode_conv_weights(pw).to(torch.float32).T.reshape(pw.cout, pw.cin, kh, kw)
         return conv2d_nhwc(x.to(torch.bfloat16).to(torch.float32), w, strides, pads)
     if mode == "direct":
+        codes = _input_codes(x, pw)
+        route = packed_conv_route(x.shape, pw, strides, pads)
+        w = pw.packed if route == "fused" else decode_conv_weights(pw)
         return int8_conv2d(
-            _input_codes(x, pw), decode_conv_weights(pw), (kh, kw), tuple(strides), pads,
-            "scale", _scale(pw, x.device),
+            codes, w, (kh, kw), tuple(strides), pads, "scale", _scale(pw, x.device),
+            w_bits=_packed_bits(pw) if route == "fused" else 0,
         )
     if mode != "im2col":
         raise ValueError(f"unknown packed conv mode {mode!r}")

@@ -10,6 +10,18 @@ streamed schedule of ``csrc/stream_tile.cuh``, tiles from
 ``int8_conv2d_reference`` for CPU tensors; ``int8_conv2d.launches`` counts
 the kernel launches.
 
+With ``w_bits`` (1, 2 or 4) the weight is the packed conv weight itself,
+grouped-planar words (``ops.pack``) of centered codes ``2c - (2^w_bits -
+1)``: binary/xnor at one bit (what ``decode_binary_weights`` K2 expands),
+DoReFa at 1, 2 or 4 (``decode_dorefa_weights`` K7). The kernel then decodes
+them in its own weight stage (``int8_conv_kernel_packed``: K walked by
+channel block, the packed groups of a block's taps staged once; plan
+``common.conv_slab_plan``), one launch where decode + conv took two;
+``int8_conv2d.packed_launches`` counts those launches (``launches`` counts
+every launch). Its plain version decodes with
+``decode_dorefa_weights_reference`` (which is K2's at one bit) and runs
+``int8_conv2d_reference``.
+
 Layouts are the JAX package's: x is NHWC int8 codes, the weight is the HWIO
 kernel flattened to ``(cin * kh * kw, cout)`` in (cin, kh, kw) order, which
 is what ``decode_binary_weights`` and ``decode_dorefa_weights`` emit (sliced
@@ -36,14 +48,17 @@ import torch
 import torch.nn.functional as F
 
 from pytorch_quantize_impls_tpu_torch.kernels import _build
-from pytorch_quantize_impls_tpu_torch.kernels.common import conv_plan
+from pytorch_quantize_impls_tpu_torch.kernels import packed_matmul as pm
+from pytorch_quantize_impls_tpu_torch.kernels.common import conv_plan, conv_slab_plan
+from pytorch_quantize_impls_tpu_torch.ops import pack as packlib
 
 EPILOGUES = ("scale", "codes", "affine")
+PACKED_BITS = (1, 2, 4)
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]
 # csrc/int8_conv.cu Int8ConvArgs: (x, w, a, b, out, stream) addresses, the
 # shape (B, H, W, C, KH, KW, HO, WO, N, SH, SW, pad_top, pad_left), then
-# (epilogue, n_a, bn, device)
-_CONV_ARGS = struct.Struct("=6Q17i")
+# (epilogue, n_a, bn, device, bits, groups, rows)
+_CONV_ARGS = struct.Struct("=6Q20i")
 
 
 @functools.lru_cache(maxsize=None)  # the argtypes list is built once
@@ -76,11 +91,15 @@ def int8_conv2d_reference(
     a: Optional[torch.Tensor] = None,
     b: Optional[torch.Tensor] = None,
     n_a: int = 0,
+    w_bits: int = 0,
 ) -> torch.Tensor:
-    """Plain PyTorch version of :func:`int8_conv2d`: the convolution in
-    float64, which is exact for int8 operands (every partial sum is an
-    integer far below 2**53), then the same f32 epilogue."""
+    """Plain PyTorch version of :func:`int8_conv2d`: packed words decoded
+    first (``w_bits``), then the convolution in float64, which is exact for
+    int8 operands (every partial sum is an integer far below 2**53), then
+    the same f32 epilogue."""
     kh, kw = kernel_size
+    if w_bits:
+        w_i8 = pm.decode_dorefa_weights_reference(w_i8, w_bits=w_bits)[: x_i8.shape[-1] * kh * kw]
     cout = w_i8.shape[1]
     cin = x_i8.shape[-1]
     (pt, pb), (pl, pr) = pads
@@ -100,13 +119,16 @@ def int8_conv2d(
     a: Optional[torch.Tensor] = None,
     b: Optional[torch.Tensor] = None,
     n_a: int = 0,
+    w_bits: int = 0,
 ) -> torch.Tensor:
     """NHWC int8 x (B, H, W, C) * flat int8 weights (C*KH*KW, N) -> NHWC
     (B, HO, WO, N), float32 (``scale``, ``affine``) or int8 (``codes``).
 
     ``a`` is the per-channel scale for ``scale`` (optional) and the affine
     factor for ``codes``/``affine``; ``b`` the affine offset; ``n_a`` the
-    top code of ``codes``."""
+    top code of ``codes``. ``w_bits`` in PACKED_BITS: the weight is packed
+    int32 words (R, N) of centered ``w_bits``-bit codes covering C*KH*KW
+    rows, decoded in the kernel's weight stage."""
     if epilogue not in EPILOGUES:
         raise ValueError(f"epilogue must be one of {EPILOGUES}, got {epilogue!r}")
     if epilogue != "scale" and (a is None or b is None):
@@ -114,7 +136,13 @@ def int8_conv2d(
     bsz, h, w, c = x_i8.shape
     kh, kw = kernel_size
     n = w_i8.shape[1]
-    if w_i8.shape[0] != c * kh * kw:
+    if w_bits:
+        if w_bits not in PACKED_BITS:
+            raise ValueError(f"w_bits={w_bits!r}: the packed stage decodes {PACKED_BITS} bits")
+        rows = w_i8.shape[0]
+        if rows % packlib.GROUP_ROWS or c * kh * kw > rows * packlib.pack_factor(w_bits):
+            raise ValueError(f"packed weight has {rows} rows, cin * kh * kw = {c * kh * kw}")
+    elif w_i8.shape[0] != c * kh * kw:
         raise ValueError(f"weight rows {w_i8.shape[0]} != cin * kh * kw = {c * kh * kw}")
     sh, sw = strides
     ho, wo = out_size(h, kh, sh, pads[0]), out_size(w, kw, sw, pads[1])
@@ -122,11 +150,21 @@ def int8_conv2d(
         raise ValueError(f"empty output {ho} x {wo}")
     dev = x_i8.device
     if dev.type == "cpu":
-        return int8_conv2d_reference(x_i8, w_i8, kernel_size, strides, pads, epilogue, a, b, n_a)
+        return int8_conv2d_reference(
+            x_i8, w_i8, kernel_size, strides, pads, epilogue, a, b, n_a, w_bits)
     if dev.type != "cuda":
         raise ValueError(f"int8_conv2d: unsupported device {dev}")
     _build.require("x_i8", x_i8, torch.int8, (bsz, h, w, c), dev)
-    _build.require("w_i8", w_i8, torch.int8, (c * kh * kw, n), dev)
+    if w_bits:
+        _build.require("w_packed", w_i8, torch.int32, (rows, n), dev)
+        plan = conv_slab_plan(c, kh * kw, w_bits)
+        if not plan["fits"]:
+            raise ValueError(f"int8_conv2d: a slab of {plan['groups']} packed groups needs "
+                             f"{plan['smem']} bytes of shared memory")
+        bn, groups = plan["bn"], plan["groups"]
+    else:
+        _build.require("w_i8", w_i8, torch.int8, (c * kh * kw, n), dev)
+        bn, rows, groups = conv_plan(bsz * ho * wo, n)["bn"], 0, 0
     for name, t in (("a", a), ("b", b)):
         if t is not None:
             _build.require(name, t, torch.float32, (n,), dev)
@@ -139,11 +177,14 @@ def int8_conv2d(
         x_i8.data_ptr(), w_i8.data_ptr(), 0 if a is None else a.data_ptr(),
         0 if b is None else b.data_ptr(), out.data_ptr(), stream,
         bsz, h, w, c, kh, kw, ho, wo, n, sh, sw, pads[0][0], pads[1][0],
-        EPILOGUES.index(epilogue), n_a, conv_plan(bsz * ho * wo, n)["bn"], index,
+        EPILOGUES.index(epilogue), n_a, bn, index, w_bits, groups, rows,
     ))
     _build.check(lib, code, "int8_conv2d")
     int8_conv2d.launches += 1
+    if w_bits:
+        int8_conv2d.packed_launches += 1
     return out
 
 
 int8_conv2d.launches = 0
+int8_conv2d.packed_launches = 0
