@@ -30,7 +30,12 @@ on one NVIDIA GPU (built for Hopper, sm_90a).
    conv, and at the ResNet's and LeNet's own weights it is timed beside the
    two-launch route (K7 or K2, then the raw K5) by CUDA events and device
    time; its lines show the slab (packed groups, shared memory) and the
-   route kernels/common.py conv_route picks. K4 (one thread-block cluster
+   route kernels/common.py conv_route picks. K5's threshold epilogue (the
+   binary fused chains' boundary) runs on the raw tile and the packed stage
+   at xnor_cifar's five hidden convs and LeNet's conv2 at b = 1 and 256 and
+   at edges (odd cout; thresholds of -inf for gamma = 0, constant codes for
+   alpha = 0, ties on the exact sums), bit for bit, and at conv3 is timed
+   beside the scale epilogue plus a torch.where. K4 (one thread-block cluster
    per (b, h), split over the cache, csrc/decode_attention.cu) runs at the
    decode LM's five shapes and at edges (cl 1, 37, 300 and 8192, fully
    masked rows, head dims 16 to 256); its check lines show the plan
@@ -57,6 +62,10 @@ on one NVIDIA GPU (built for Hopper, sm_90a).
    unprepared calls, conv2's calls on the two-launch route and prepare():
    a conv2 on the fused route launches no decoder. The route of every
    packed conv is printed at each bucket size (every one fused at b = 1).
+   Then its fused chain: export_fused_lenet (float32 first conv) ->
+   InferenceEngine.from_fused_chain, K5 (threshold) at conv2 and K3 at fc1
+   once per forward, every batch replayed bit-equal, held against
+   packed_apply by the JAX package's logit rule on grid images.
 5. Main path 2, the 1-bit transformer LM that scripts/perf_bench.py serves
    (d 1024, 8 layers, cache 1024, W1A1, int8 KV) from seeded random weights:
    bridge -> export_fused_decode (int8 and packed) -> DecodeEngine(fused=)
@@ -95,18 +104,42 @@ on one NVIDIA GPU (built for Hopper, sm_90a).
    projection), then prepare() (K9) and the prepared records; each packed
    projection held to its fake-quant GEMM on the same input, and
    teacher-forced argmax against the fake-quant model.
-10. Path 7, the headline GEMM bench at 4096^3 (bench.headline.run, the
+10. Main path 7, xnor_cifar (BASELINE config 3: XNORConvNet, widths 128..512,
+    full XNOR, K map on) from build_model with seeded weights and BatchNorm
+    calibrated on seeded images (every conv input's share of +1 in [0.05,
+    0.95]): pack_model -> save_packed -> load_packed -> InferenceEngine over
+    the unprepared artifact (K2 for conv0 and the head, K5 with alpha for the
+    hidden convs) -> prepare -> the prepared artifact, 64 requests from 4
+    clients. Every batch replayed bit-equal, unprepared == prepared; conv3
+    direct by both routes == im2col (K1 with alpha); packed against
+    fake-quant by the JAX rule; card against CPU layer by layer. K2 must
+    launch exactly for conv0 and the head on unprepared calls, the hidden
+    convs on the two-launch route and prepare().
+11. Main path 8, the same weights in XNORConvNet(use_input_scale_map=False)
+    -> export_fused_chain (float32 first conv) -> InferenceEngine.
+    from_fused_chain: K5 five times per forward (four threshold, one
+    affine), batches replayed bit-equal, every stage's share of +1 codes in
+    [0.05, 0.95], fused against packed_apply of the K-off model by the JAX
+    rule (the bf16 first conv's agreement printed beside it); images/s per
+    bucket and profiles of the packed, prepared, fused and fake-quant
+    xnor_cifar.
+12. Main path 9, the serving LM's shape with ternary weights through
+    DecodeEngine(packed=) unprepared and prepared: the same tokens, no kernel
+    launched (the ternary decode is plain, as in the JAX package), each
+    projection within 1e-5 (|x| @ |w|) of its fake-quant GEMM,
+    teacher-forced argmax >= 99%.
+13. Path 10, the headline GEMM bench at 4096^3 (bench.headline.run, the
     counterpart of bench.py): binary fused (K1), binary ws (K10), binary
     decoded (K2 once, K3), dorefa4 packed (K6) and log shift (K8) against a
     float32 matmul with TF32 off; prints its JSON line.
-11. Path 8, the kernel bench (bench.kernel_bench.run) of binary_ws,
+14. Path 11, the kernel bench (bench.kernel_bench.run) of binary_ws,
     dorefa_ws and shift_ws at 4096^3 over every m_tiles (K10, K11, K12).
-12. Path 9, the dtype probe (bench.mxu_probe.run): P1 at 4096^3 for bf16,
+15. Path 12, the dtype probe (bench.mxu_probe.run): P1 at 4096^3 for bf16,
     int8 and int4 over every tiling, beside torch.matmul and torch._int_mm;
     prints its launches by dtype.
-13. For each path the kernels' launch counters are zeroed just before it
+16. For each path the kernels' launch counters are zeroed just before it
     and read just after; each kernel of the path must be > 0.
-14. Prints engine images/s, decode prefill ms and tokens/s, one JSON line
+17. Prints engine images/s, decode prefill ms and tokens/s, one JSON line
     with the kernels and their launches per path, and last
     ``{"ok": true, "device": {...}}``.
 
@@ -212,6 +245,31 @@ LOG_LM_CFG = dict(LM_CFG, scheme="log", w_bits=4, a_bits=0, fsr=0.0)
 # float32 sum order only; the unprepared one also rounds every projection
 # input to bf16
 LOG_ARGMAX_FLOOR = {"prepared": 0.99, "unprepared": 0.95}
+# BASELINE config 3, xnor_cifar (utils/config.py): the XNOR convnet at its
+# published widths, full XNOR with the K map, on CIFAR-10-shaped images
+XNOR_WIDTHS = (128, 128, 256, 256, 512, 512)
+XNOR_CALIB = 256  # images whose statistics set every BatchNorm's
+XNOR_EVAL = 256  # rows held against fake-quant, and fused against packed
+XNOR_IM2COL_BATCH = 8  # conv3 as im2col: M 2048, K 2304, N 256
+XNOR_REQUESTS = 64  # served by each xnor_cifar engine, from CLIENTS threads
+# Whole binary models by the JAX package's rule (tests/test_fused_chain.py:
+# 47-68): every logit within LOGIT_TOL + LOGIT_TOL |ref|, or else at least
+# 99% of them and every argmax equal. A value within an ulp of a sign
+# boundary, computed in another float order (the fused chain's threshold
+# against BatchNorm, a real-input conv), flips one code and moves that
+# image's logits.
+XNOR_MIN_WITHIN = 0.99
+# each binarized activation's share of +1: BatchNorm statistics calibrated
+# on seeded images keep every stage away from saturation
+CODE_SHARE = (0.05, 0.95)
+# the serving LM's shape with ternary weights (deterministic, weights only);
+# the records carry the LM's w_bits (1) as the JAX package writes them
+TERNARY_LM_CFG = dict(LM_CFG, scheme="ternary", a_bits=0)
+TERNARY_REQUESTS = 16
+# a ternary projection against its fake-quant GEMM: the same float32 x and
+# {-1, 0, 1} weights, summed in another order
+TERNARY_RTOL = 1e-5
+TERNARY_ARGMAX_FLOOR = 0.99
 
 
 def cuda():
@@ -821,6 +879,89 @@ def fused_conv_cases(rng, dev):
     return cases
 
 
+def xnor_convs():
+    """XNORConvNet's hidden convs at its published widths (BASELINE config
+    3): (label, input size, cin, cout), 3x3 SAME, a 2x2 pool after every
+    second conv."""
+    convs, hw, cin = [], RESNET_SHAPE[0], XNOR_WIDTHS[0]
+    for i, w in enumerate(XNOR_WIDTHS[1:], start=1):
+        convs.append((f"conv{i} {hw}x{hw}x{cin}", hw, cin, w))
+        cin = w
+        if i % 2 == 1:
+            hw //= 2
+    return convs
+
+
+def threshold_cases(rng, dev):
+    """K5's threshold epilogue (the binary fused chains' boundary), on the
+    raw tile (+-1 int8 weights) and the packed weight stage (1-bit words), at
+    xnor_cifar's five hidden convs and BNN LeNet's conv2 at b = 1 and b =
+    RESNET_BATCH, and edges (odd cout, 5x5 VALID). Per channel: a threshold
+    equal to one of the channel's sums (ties, which give hi) on a third of
+    them, halves and random values on the rest, -inf (gamma = 0) on channel
+    0 and a constant code (alpha = 0: -inf with hi = lo) on channel 1; hi
+    and lo +-1 with either sign (gamma < 0 flips them). Held bit for bit to
+    the plain version; conv3 at b = RESNET_BATCH (raw) and b = 1 (packed)
+    are timed beside the scale epilogue plus a ``torch.where``
+    (``scale_where``). Same dicts as :func:`kernel_cases`."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch.kernels import int8_conv as ic
+    from pytorch_quantize_impls_tpu_torch.kernels import xnor_gemm as bg
+    from pytorch_quantize_impls_tpu_torch.kernels.common import conv_plan, conv_slab_plan
+    from pytorch_quantize_impls_tpu_torch.kernels.conv import conv_pads
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    shapes = [(f"b={b} xnor {label}", b, h, cin, cout, 3, "SAME")
+              for b in (1, RESNET_BATCH) for label, h, cin, cout in xnor_convs()]
+    shapes += [(f"b={b} bnn_lenet conv2 12x12x{WIDTH}", b, 12, WIDTH, 2 * WIDTH, 5, "VALID")
+               for b in (1, BUCKETS[-1])]
+    shapes += [("edge odd cout 9x9x24->17", 2, 9, 24, 17, 3, "SAME"),
+               ("edge 5x5 VALID 12x12x6->65", 3, 12, 6, 65, 5, "VALID")]
+    cases = []
+    for label, b, h, cin, cout, k, padding in shapes:
+        kk = cin * k * k
+        x = t(np.where(rng.normal(size=(b, h, h, cin)) >= 0, 1, -1).astype(np.int8))
+        wf = t(rng.normal(size=(kk, cout)).astype(np.float32))
+        w8 = torch.where(wf >= 0, 1, -1).to(torch.int8)
+        words = bg.pack_binary_weights(wf)
+        pads = conv_pads(padding, (h, h), (k, k), (1, 1))
+        f = ic.int8_conv2d(x, w8, (k, k), (1, 1), pads).reshape(-1, cout).cpu().numpy()
+        thr = (rng.normal(size=cout) * np.sqrt(kk) / 4).astype(np.float32)
+        thr[1::3] = np.round(thr[1::3]) + np.float32(0.5)
+        ties = np.arange(2, cout, 3)
+        thr[ties] = f[rng.integers(0, f.shape[0], ties.size), ties]
+        hi = np.where(rng.uniform(size=cout) < 0.25, -1.0, 1.0)
+        lo = -hi
+        thr[0], lo[0] = -np.inf, hi[0]  # gamma = 0: the constant sign(beta)
+        thr[1], hi[1], lo[1] = -np.inf, -1.0, -1.0  # alpha = 0: a constant code
+        thr, codes = t(thr), t(np.stack([hi, lo]).astype(np.float32))
+        m = f.shape[0]
+        main = label == f"b={RESNET_BATCH} xnor conv3 16x16x256"
+        for mode, w, bits in (("raw", w8, 0), ("packed", words, 1)):
+            args = (x, w, (k, k), (1, 1), pads, "threshold", thr, codes)
+            timed = main if mode == "raw" else label == "b=1 xnor conv3 16x16x256"
+            plan = conv_plan(m, cout) if mode == "raw" else conv_slab_plan(cin, k * k, 1)
+            case = dict(
+                kernel="int8_conv2d", label=f"threshold {mode} {label}",
+                fn=lambda args=args, bits=bits: ic.int8_conv2d(*args, w_bits=bits),
+                plain=lambda args=args, bits=bits: ic.int8_conv2d_reference(*args, w_bits=bits),
+                scale_where=lambda args=args, bits=bits: ic.threshold_codes(
+                    ic.int8_conv2d(*args[:5], w_bits=bits), args[6], args[7]),
+                library=None, timed=timed, also=timed, main=False,
+                bound=bound_ms(x.numel() + w.numel() * w.element_size() + m * cout + 12 * cout,
+                               2 * m * kk * cout, INT8_OPS_PER_S),
+                tile=(128, plan["bn"]),
+            )
+            if mode == "packed":
+                case["slab"] = (plan["groups"], plan["smem"])
+                case["route"] = "fused (forced)"
+            cases.append(case)
+    return cases
+
+
 def vgg_convs(widths):
     """LogQuantVGGSmall's convs: (label, input size, cin, cout), a 2x2 pool
     after every second one."""
@@ -1162,7 +1303,8 @@ def check_kernels(card: str, timed: bool = True):
     # cases keep their data
     cases = (kernel_cases(rng, dev) + kbit_cases(rng, dev) + log_cases(rng, dev)
              + ws_cases(rng, dev) + probe_cases(rng, dev)
-             + fused_conv_cases(np.random.default_rng(SEED + 13), dev))
+             + fused_conv_cases(np.random.default_rng(SEED + 13), dev)
+             + threshold_cases(np.random.default_rng(SEED + 14), dev))
     deferred = []  # timed rows awaiting their device time
     for c in cases:
         kernel, label, fn, plain = c["kernel"], c["label"], c["fn"], c["plain"]
@@ -1200,6 +1342,8 @@ def check_kernels(card: str, timed: bool = True):
         if "two_launch" in c:  # the packed conv's other route: K2 or K7, then the raw K5
             record["two_launch_ms"] = cuda_ms(c["two_launch"])
             record["route"] = c["route"]
+        if "scale_where" in c:  # K5's threshold epilogue against scale + a torch.where
+            record["scale_where_ms"] = cuda_ms(c["scale_where"])
         if "sdpa" in c:
             sdpa_ms = cuda_ms(c["sdpa"])
             yard_err = (c["sdpa"]() - plain()).abs().max().item()
@@ -1225,6 +1369,11 @@ def check_kernels(card: str, timed: bool = True):
             tail += (f"  [two launches (decode + raw K5): {record['two_launch_ms']:.4f} ms (device "
                      f"{'not measured' if two is None else f'{two:.4f} ms'}); route "
                      f"{c['route']}]")
+        if "scale_where" in c:
+            sw = launches_device_ms(c["scale_where"])
+            record["scale_where_device_ms"] = sw
+            tail += (f"  [scale epilogue + torch.where: {record['scale_where_ms']:.4f} ms (device "
+                     f"{'not measured' if sw is None else f'{sw:.4f} ms'})]")
         lib_ms = record["library_ms"]
         print(f"{line}  kernel {record['ms']:.4f} ms (device "
               f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'})  plain "
@@ -1341,12 +1490,14 @@ def zero_launches() -> None:
     for k in all_kernels():
         k.launches = 0
     ic.int8_conv2d.packed_launches = 0
+    ic.int8_conv2d.epilogue_launches = dict.fromkeys(ic.EPILOGUES, 0)
 
 
 def read_launches(path: str, required) -> dict:
     """Every kernel's count since zero_launches, and K5's launches with the
-    packed weight stage (``int8_conv2d.packed``, counted in ``int8_conv2d``
-    too); each kernel in ``required`` (the path's) must be > 0."""
+    packed weight stage (``int8_conv2d.packed``) and by epilogue
+    (``int8_conv2d.threshold`` ...), all counted in ``int8_conv2d`` too;
+    each kernel in ``required`` (the path's) must be > 0."""
     import torch
 
     from pytorch_quantize_impls_tpu_torch.kernels import int8_conv as ic
@@ -1354,6 +1505,7 @@ def read_launches(path: str, required) -> dict:
     torch.cuda.synchronize()
     launches = {k.__name__: k.launches for k in all_kernels()}
     launches["int8_conv2d.packed"] = ic.int8_conv2d.packed_launches
+    launches.update({f"int8_conv2d.{e}": n for e, n in ic.int8_conv2d.epilogue_launches.items()})
     print(f"launches on the {path} path: {launches}", flush=True)
     for k in required:
         if launches[k.__name__] <= 0:
@@ -2854,20 +3006,19 @@ def seeded_log_lm_variables(cfg: dict, rng) -> dict:
     return v
 
 
-def log_lm_teacher_forced(card: str, model, records: dict) -> None:
-    """The packed log LM (unprepared and prepared) against the fake-quant
-    decode model, all fed the fake-quant model's greedy tokens: a 64-token
-    prefill, then 32 steps over SLOTS rows.
+def lm_teacher_forced_by_projection(card: str, label: str, model, records: dict, rtol: dict,
+                                    floor: dict, seed: int) -> None:
+    """The packed LM's ``records`` (name -> records: unprepared, prepared)
+    against the fake-quant decode model, all fed the fake-quant model's
+    greedy tokens: a 64-token prefill, then 32 steps over SLOTS rows.
 
     Per projection (the gate): inside the fake-quant forward, every
     QuantDense also runs each packed record on the same input x, and each
-    output must be within rtol (|x| @ |w| + |bias|) of the fake-quant one:
-    SHIFT_RTOL for the prepared record (the same float32 x and weights; the
-    fake-quant exp2 may sit an ulp off the exact decoded level), plus
-    BF16_INPUT_RTOL for the unprepared one (K8 rounds x to bf16).
+    output must be within ``rtol[name]`` (|x| @ |w| + |bias|) of the
+    fake-quant one.
 
     End to end: each packed call starts from a copy of the fake-quant
-    model's cache (lockstep); argmax must agree on LOG_ARGMAX_FLOOR of the
+    model's cache (lockstep); argmax must agree on ``floor[name]`` of the
     (step, row) pairs."""
     import torch
 
@@ -2877,12 +3028,11 @@ def log_lm_teacher_forced(card: str, model, records: dict) -> None:
 
     dev = cuda()
     b, steps = SLOTS, 32
-    rng = np.random.default_rng(SEED + 41)
+    rng = np.random.default_rng(seed)
     toks = torch.from_numpy(rng.integers(0, LM_CFG["vocab"], (b, 64)).astype(np.int32)).to(dev)
     md = decode_model(model)
     paths = {id(m): tuple(n.split(".")) for n, m in md.named_modules()}
     kind = {"q": 0, "k": 0, "v": 0, "out": 1, "ffn_in": 2, "ffn_out": 3}
-    rtol = {"unprepared": BF16_INPUT_RTOL + SHIFT_RTOL, "prepared": SHIFT_RTOL}
     worst = {name: [0.0] * len(GEMM_INPUTS) for name in records}
     calls = [0]
 
@@ -2919,16 +3069,16 @@ def log_lm_teacher_forced(card: str, model, records: dict) -> None:
             t = ref[:, -1].argmax(-1).to(torch.int32)[:, None]
     for name in records:
         per = ", ".join(f"{k}: {w:.3g}" for k, w in zip(GEMM_INPUTS, worst[name]))
-        print(f"log LM packed {name} vs fake-quant, teacher-forced: per projection on the same "
+        print(f"{label} packed {name} vs fake-quant, teacher-forced: per projection on the same "
               f"input, {calls[0]} calls, largest |diff| / (|x| @ |w|) by GEMM input ({per}; "
               f"tolerance {rtol[name]:.6g}); end to end in lockstep, {steps} steps x {b} rows, "
               f"argmax agrees on {agree[name]}/{total} ({100 * agree[name] / total:.2f}%, floor "
-              f"{100 * LOG_ARGMAX_FLOOR[name]:.0f}%)  [{card}]", flush=True)
+              f"{100 * floor[name]:.0f}%)  [{card}]", flush=True)
         if max(worst[name]) > rtol[name]:
-            fail(f"log LM {name}: a packed projection differs from its fake-quant GEMM by "
+            fail(f"{label} {name}: a packed projection differs from its fake-quant GEMM by "
                  f"{max(worst[name]):.3g} of |x| @ |w|")
-        if agree[name] < LOG_ARGMAX_FLOOR[name] * total:
-            fail(f"log LM {name} teacher-forced: argmax agrees on only {agree[name]} of {total}")
+        if agree[name] < floor[name] * total:
+            fail(f"{label} {name} teacher-forced: argmax agrees on only {agree[name]} of {total}")
 
 
 def log_lm_path(card: str):
@@ -2979,7 +3129,13 @@ def log_lm_path(card: str):
     same = sum(np.array_equal(a, b) for a, b in zip(answers["unprepared"], answers["prepared"]))
     print(f"log LM: the unprepared (bf16 x) and prepared (float32 x) engines gave the same "
           f"{MAX_NEW} tokens for {same} of {len(prompts)} requests", flush=True)
-    log_lm_teacher_forced(card, model, records)
+    # the prepared record multiplies the same float32 x and weights (the
+    # fake-quant exp2 may sit an ulp off the exact decoded level); K8 also
+    # rounds x to bf16
+    lm_teacher_forced_by_projection(
+        card, "log LM", model, records,
+        {"unprepared": BF16_INPUT_RTOL + SHIFT_RTOL, "prepared": SHIFT_RTOL},
+        LOG_ARGMAX_FLOOR, SEED + 41)
     md = decode_model(model)
     backends = {"fake-quant": lambda c, t: md(t, c)}
     for name, recs in records.items():
@@ -2988,7 +3144,493 @@ def log_lm_path(card: str):
     return launches
 
 
-# --- paths 7-9: the GEMM measurements ----------------------------------------
+# --- main path 7: the XNOR-Net convnet, packed and fused ----------------------
+
+
+def seeded_xnor_variables(widths, rng, fp32_first_last: bool = False) -> dict:
+    """XNORConvNet variables in the flax layout, as numpy: He-scaled conv
+    kernels, BatchNorm scales of magnitude 0.5-1.5 with about a quarter of
+    them negative (the fused chains' (hi, lo) flip), statistics left for
+    :func:`calibrate_batchnorm`, and a head whose logits are O(1). Once
+    calibrated, a BatchNorm output is about N(beta, gamma^2) per channel:
+    biases around 0 leave half the signs +1; before a 2x2 max pool (odd
+    stages) they sit near -0.85 |gamma|, a fifth of the signs +1, so that
+    about half survive the max of four. ``fp32_first_last`` puts conv0's and
+    the head's kernels where flax's plain Conv and Dense keep them."""
+    f32 = np.float32
+
+    def normal(*shape, scale=1.0):
+        return (rng.normal(size=shape) * scale).astype(f32)
+
+    p, s = {}, {}
+    cin = RESNET_SHAPE[2]
+    for i, w in enumerate(widths):
+        kernel = normal(3, 3, cin, w, scale=np.sqrt(2.0 / (9 * cin)))
+        p[f"conv{i}"] = ({"kernel": kernel} if fp32_first_last and i == 0
+                         else {"conv": {"kernel": kernel}})
+        gamma = np.where(rng.uniform(size=w) < 0.25, -1.0, 1.0) * rng.uniform(0.5, 1.5, w)
+        beta = rng.normal(size=w) * 0.2 - (0.85 * np.abs(gamma) if i % 2 == 1 else 0.0)
+        p[f"bn{i}"] = {"scale": gamma.astype(f32), "bias": beta.astype(f32)}
+        s[f"bn{i}"] = {"mean": np.zeros(w, f32), "var": np.ones(w, f32)}
+        cin = w
+    side = RESNET_SHAPE[0] // 2 ** (len(widths) // 2)
+    k = side * side * cin
+    head = {"kernel": normal(k, 10, scale=k ** -0.5), "bias": normal(10, scale=0.1)}
+    p["head"] = head if fp32_first_last else {"dense": head}
+    return {"params": p, "batch_stats": s}
+
+
+def calibrated_xnor(model, variables, x, device):
+    """(``model``, a port XNORConvNet, on ``device`` in eval mode; its
+    variables in the flax layout): ``variables`` through the bridge, then
+    every BatchNorm's statistics calibrated on the images ``x`` (numpy NHWC).
+    Full XNOR from seeded weights saturates its signs unless each BatchNorm
+    centres its input; the K-off model of the fused path gets its own
+    statistics from the same images."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch.utils import load_flax_variables
+
+    load_flax_variables(model, variables, device=device).eval()
+    stats = calibrate_batchnorm(model, torch.from_numpy(x).to(device))
+    return model, {"params": variables["params"], "batch_stats": stats}
+
+
+def grid_images(rng, n: int, shape) -> np.ndarray:
+    """Seeded images on a 1/8 grid in [-4, 4]: a real-input conv of +-1
+    weights sums them exactly in any order, so its output sits on the same
+    grid on every path, and a sign boundary moves with a channel's threshold
+    only (as 8-bit pixels do), not with float rounding of each pixel sum."""
+    return (np.clip(np.round(rng.normal(size=(n, *shape)) * 8), -32, 32) / 8).astype(np.float32)
+
+
+def logit_rule(card: str, label: str, got, ref) -> None:
+    """The JAX package's rule for whole binary models (XNOR_MIN_WITHIN):
+    print the spread, fail if it does not hold."""
+    got = got.double().cpu().numpy() if hasattr(got, "cpu") else np.asarray(got, np.float64)
+    ref = ref.double().cpu().numpy() if hasattr(ref, "cpu") else np.asarray(ref, np.float64)
+    if got.shape != ref.shape or not np.isfinite(got).all():
+        fail(f"{label}: {got.shape} logits, not finite {ref.shape}")
+    gap = np.abs(got - ref)
+    bad = float((gap > LOGIT_TOL + LOGIT_TOL * np.abs(ref)).mean())
+    agree = int((got.argmax(1) == ref.argmax(1)).sum())
+    n = got.shape[0]
+    print(f"{label} on {n} rows: max |logit gap| {gap.max():.4g}, {100 * bad:.3f}% of logits "
+          f"beyond {LOGIT_TOL} + {LOGIT_TOL} |ref|, argmax agrees on {agree}/{n}  [{card}]",
+          flush=True)
+    if bad and (bad > 1 - XNOR_MIN_WITHIN or agree != n):
+        fail(f"{label}: {100 * bad:.3f}% of logits out of tolerance, argmax agrees on {agree}/{n}")
+
+
+def check_shares(label: str, shares: dict) -> None:
+    """Print each binarized activation's share of +1; fail outside
+    CODE_SHARE."""
+    print(f"{label} share of +1 codes: " + ", ".join(f"{k} {v:.3f}" for k, v in shares.items()),
+          flush=True)
+    for k, v in shares.items():
+        if not CODE_SHARE[0] <= v <= CODE_SHARE[1]:
+            fail(f"{label}: {k} has a share of +1 codes {v:.3f}, outside {CODE_SHARE}")
+
+
+def xnor_input_shares(model, x) -> dict:
+    """The share of +1 among the sign-binarized inputs of each full-XNOR
+    conv of ``model`` on the images ``x`` (fake-quant forward)."""
+    import torch
+
+    shares = {}
+
+    def hook(name):
+        def fn(m, args):
+            shares[name] = float((args[0] >= 0).double().mean())
+        return fn
+
+    convs = [(f"conv{i}", getattr(model, f"conv{i}")) for i in range(1, len(model.widths))]
+    hooks = [m.register_forward_pre_hook(hook(name)) for name, m in convs]
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return shares
+
+
+def xnor_direct_vs_im2col(model, loaded, x) -> None:
+    """conv3 (16x16x256 -> 256, full XNOR) on its real input: direct (the
+    route conv_route picks), both routes called directly (the fused K5 with
+    the packed weight stage, and K2 + the raw K5, each with alpha in the
+    scale epilogue) and im2col (F.unfold + K1 with alpha) bit for bit."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch.kernels import int8_conv as ic
+    from pytorch_quantize_impls_tpu_torch.kernels import xnor_gemm as bg
+    from pytorch_quantize_impls_tpu_torch.kernels.conv import (
+        PackedConv, conv_pads, decode_conv_weights, packed_conv2d, packed_conv_route)
+
+    conv = model.conv3.conv
+    rec = loaded[("conv3", "conv")]
+    kh, kw, cin, cout = rec.kernel_shape
+    pc = PackedConv("xnor", rec.packed, (kh, kw), cin, cout, rec.alpha, 1, 1)
+    seen = []
+    hook = conv.register_forward_pre_hook(lambda m, args: seen.append(args[0]))
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        hook.remove()
+    xr = seen[0]
+    kw_ = dict(strides=conv.strides, padding=conv.padding)
+    pads = conv_pads(conv.padding, xr.shape[1:3], (kh, kw), conv.strides)
+    route = packed_conv_route(xr.shape, pc, conv.strides, pads)
+    direct = packed_conv2d(xr, pc, **kw_)
+    codes = bg.binarize_to_int8(xr)
+    args = ((kh, kw), tuple(conv.strides), pads, "scale", rec.alpha)
+    fused = ic.int8_conv2d(codes, rec.packed, *args, w_bits=1)
+    two = ic.int8_conv2d(codes, decode_conv_weights(pc), *args)
+    im2col = packed_conv2d(xr, pc, mode="im2col", **kw_)
+    for name, y in ((f"direct ({route})", direct), ("fused K5", fused), ("K2 + raw K5", two)):
+        if not torch.equal(y, im2col):
+            fail(f"xnor conv3: {name} and im2col differ in {int((y != im2col).sum())} places")
+    print(f"xnor conv3 on {x.shape[0]} images: direct ({route} route) == fused K5 == K2 + raw K5 "
+          f"== im2col (F.unfold + K1 with alpha), {tuple(direct.shape)}, bit for bit", flush=True)
+
+
+def records_on(recs: dict, device) -> dict:
+    """The packed records' words and alpha copied to ``device``, without
+    ``prepare()``'s buffers: the same artifact on another device."""
+    import dataclasses
+
+    return {path: dataclasses.replace(
+        r, packed=r.packed.to(device), decoded=None,
+        alpha=None if r.alpha is None else r.alpha.to(device)) for path, r in recs.items()}
+
+
+def layers_vs_cpu(card: str, label: str, model, recs, cpu_model, cpu_recs, x) -> None:
+    """Card against CPU, layer by layer on the same inputs: packed_apply of
+    ``model`` on the card records every packed layer's input and output;
+    each layer's CPU record (the same artifact, plain kernel versions) then
+    runs on that input.
+    Binarized-input convs must agree bit for bit (integer sums, alpha);
+    real-input layers (conv0, the head) within 1e-5 (|x| @ |w|) alpha (float
+    sums in another order)."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import infer
+    from pytorch_quantize_impls_tpu_torch.kernels.conv import conv2d_nhwc
+    from pytorch_quantize_impls_tpu_torch.nn import QuantConv
+
+    seen = {}
+    paths = {m: tuple(n.split(".")) for n, m in model.named_modules() if tuple(n.split(".")) in recs}
+    hooks = [m.register_forward_hook(lambda m, args, out: seen.__setitem__(
+        paths[m], (args[0].clone(), out.clone()))) for m in paths]
+    try:
+        with torch.inference_mode():
+            infer.packed_apply(model, recs, x)
+    finally:
+        for h in hooks:
+            h.remove()
+    cpu_layers = dict((tuple(n.split(".")), m) for n, m in cpu_model.named_modules())
+    worst = 0.0
+    for path, (xin, yout) in sorted(seen.items()):
+        m = cpu_layers[path]
+        xc = xin.cpu()
+        got = infer.packed_apply(m, {("",): cpu_recs[path]}, xc)
+        ref = yout.cpu()
+        if m.a_bits:
+            if not torch.equal(got, ref):
+                fail(f"{label} {'.'.join(path)}: card and CPU differ in "
+                     f"{int((got != ref).sum())} places on the same input")
+            continue
+        w = torch.ones_like(m.weight, dtype=torch.float64)  # |sign(w)|
+        if isinstance(m, QuantConv):
+            bound = conv2d_nhwc(xc.abs().double(), w, m.strides, m.padding)
+        else:
+            bound = xc.abs().double() @ w.T
+        bound = bound * cpu_recs[path].alpha.double()
+        ratio = ((got.double() - ref.double()).abs() / bound.clamp_min(1e-30)).max().item()
+        worst = max(worst, ratio)
+        if ratio > SHIFT_RTOL:
+            fail(f"{label} {'.'.join(path)}: card and CPU differ by {ratio:.3g} of (|x| @ |w|) alpha")
+    print(f"{label}: card == CPU (plain versions) layer by layer on {x.shape[0]} images: the "
+          f"binarized-input convs bit for bit, the real-input layers within {worst:.3g} of "
+          f"(|x| @ |w|) alpha (tolerance {SHIFT_RTOL})  [{card}]", flush=True)
+
+
+def xnor_packed_path(card: str):
+    """Main path 7: xnor_cifar (BASELINE config 3, the K map on) at its
+    published widths from build_model with seeded weights and BatchNorm
+    calibrated on seeded images: pack_model -> save_packed -> load_packed ->
+    InferenceEngine over the unprepared artifact, then prepare() and the
+    prepared artifact, every batch replayed bit-equal; conv3 direct by both
+    routes == im2col (K1 with alpha); packed against fake-quant by the JAX
+    rule; card against CPU layer by layer. K2 must launch exactly for conv0
+    and the head on unprepared calls, the hidden convs on the two-launch
+    route and prepare(). Returns (launches, what the fused path reuses)."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import infer
+    from pytorch_quantize_impls_tpu_torch.kernels import int8_conv as ic
+    from pytorch_quantize_impls_tpu_torch.kernels import xnor_gemm as bg
+    from pytorch_quantize_impls_tpu_torch.utils import SCHEME_CONFIGS, RunConfig, build_model
+
+    dev = cuda()
+    rng = np.random.default_rng(SEED + 50)
+    model, example_shape, _ = build_model(RunConfig(**SCHEME_CONFIGS["xnor_cifar"]))
+    if model.widths != XNOR_WIDTHS or next(model.parameters()).device != dev:
+        fail(f"xnor_cifar built with widths {model.widths} on {next(model.parameters()).device}")
+    calib = rng.normal(size=(XNOR_CALIB, *example_shape)).astype(np.float32)
+    variables = seeded_xnor_variables(XNOR_WIDTHS, rng)
+    model, variables = calibrated_xnor(model, variables, calib, dev)
+    check_shares("xnor_cifar (K map on) conv inputs",
+                 xnor_input_shares(model, torch.from_numpy(calib[:64]).to(dev)))
+    cpu_model = copy.deepcopy(model).cpu()
+    inputs = [rng.normal(size=example_shape).astype(np.float32) for _ in range(XNOR_REQUESTS)]
+    Logged = logged_engine_class()
+    answers, logs = {}, {}
+    n_convs = len(XNOR_WIDTHS) - 1  # the hidden convs, one K5 launch each per forward
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "xnor_cifar.npz")
+        infer.save_packed(path, infer.pack_model(model))
+        zero_launches()
+        loaded = infer.load_packed(path, device=dev)
+        for name in ("unprepared", "prepared"):
+            if name == "unprepared":
+                recs = loaded
+            else:
+                before = bg.decode_binary_weights.launches
+                recs = infer.prepare(loaded)
+                k2_prepare = bg.decode_binary_weights.launches - before
+            engine = Logged(lambda x, recs=recs: infer.packed_apply(model, recs, x),
+                            example_shape, batch_sizes=BUCKETS, device=dev)
+            answers[name] = run_engine(card, f"xnor_cifar {name}", engine, inputs)
+            logs[name] = engine.log
+            if name == "unprepared":
+                unprepared_forwards = ic.int8_conv2d.launches // n_convs
+        xnor_direct_vs_im2col(model, loaded,
+                              torch.from_numpy(calib[:XNOR_IM2COL_BATCH]).to(dev))
+        launches = read_launches("xnor_cifar_packed",
+                                 (bg.decode_binary_weights, bg.binary_gemm, ic.int8_conv2d))
+    # conv0 and the head (real inputs) decode their words (K2) on every
+    # unprepared forward; a hidden conv launches K2 only on the two-launch
+    # route (the engines' and the im2col check's)
+    decoded = launches["int8_conv2d"] - launches["int8_conv2d.packed"]
+    want = 2 * unprepared_forwards + decoded + k2_prepare
+    print(f"xnor_cifar packed: {launches['int8_conv2d']} hidden conv calls, "
+          f"{launches['int8_conv2d.packed']} fused (no decoder), {decoded} as K2 + raw K5; K2 "
+          f"launches {launches['decode_binary_weights']} = 2 x {unprepared_forwards} unprepared "
+          f"forwards (conv0, head) + {decoded} + {k2_prepare} in prepare()", flush=True)
+    if launches["decode_binary_weights"] != want:
+        fail(f"xnor_cifar: K2 launched {launches['decode_binary_weights']} times, expected {want}")
+    print_routes(card, "xnor_cifar packed", lambda x: infer.packed_apply(model, loaded, x),
+                 example_shape)
+    prepared = infer.prepare(loaded)
+    forwards = {
+        "packed_apply (unprepared)": lambda x: infer.packed_apply(model, loaded, x),
+        "packed_apply (prepared)": lambda x: infer.packed_apply(model, prepared, x),
+    }
+    for name in ("unprepared", "prepared"):
+        check_logged(f"xnor_cifar {name}", logs[name], inputs, answers[name], forwards)
+    del logs
+    xs = torch.from_numpy(rng.normal(size=(XNOR_EVAL, *example_shape)).astype(np.float32)).to(dev)
+    with torch.inference_mode():
+        got, ref = forwards["packed_apply (prepared)"](xs), model(xs)
+    logit_rule(card, "xnor_cifar packed vs fake-quant", got, ref)
+    cpu_recs = records_on(loaded, "cpu")
+    layers_vs_cpu(card, "xnor_cifar packed", model, prepared, cpu_model, infer.prepare(cpu_recs),
+                  xs[:8])
+    with torch.inference_mode():
+        gpu, cpu = got[:8].cpu(), infer.packed_apply(cpu_model, cpu_recs, xs[:8].cpu())
+    gap = (gpu - cpu).abs().max().item()
+    same = int((gpu.argmax(1) == cpu.argmax(1)).sum())
+    print(f"xnor_cifar packed: card vs CPU end to end on 8 images (reported; a sign within an "
+          f"ulp of 0 after the K map may flip): max |logit gap| {gap:.4g}, argmax agrees on "
+          f"{same}/8", flush=True)
+    ctx = dict(model=model, loaded=loaded, prepared=prepared, variables=variables, calib=calib,
+               inputs=inputs, example_shape=example_shape, rng=rng)
+    return {"xnor_cifar_packed": launches}, ctx
+
+
+def fused_stage_shares(chain, x) -> dict:
+    """The share of +1 codes after each threshold stage of a fused chain on
+    the images ``x``."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch.infer.fused_chain import fused_stage_outputs
+
+    with torch.inference_mode():
+        return {f"stage{i}": float((h == 1).double().mean())
+                for i, h in enumerate(fused_stage_outputs(chain, x)) if h.dtype == torch.int8}
+
+
+def fused_chain_engine(card: str, label: str, chain, example_shape, inputs, per_forward: dict):
+    """Serve ``inputs`` through InferenceEngine.from_fused_chain, counters
+    zeroed just before; every batch replayed bit-equal through fused_apply;
+    K5 (and K3) must have launched ``per_forward`` times per forward, by
+    epilogue (warmup included). Returns the launches."""
+    from pytorch_quantize_impls_tpu_torch import infer
+
+    dev = cuda()
+    zero_launches()
+    engine = logged_engine_class().from_fused_chain(chain, example_shape, batch_sizes=BUCKETS,
+                                                    device=dev)
+    answers = run_engine(card, label, engine, inputs)
+    required = [k for k in all_kernels() if k.__name__ in per_forward]
+    launches = read_launches(label.replace(" ", "_"), required)
+    forwards = len(BUCKETS) + len(engine.log)
+    for key, n in per_forward.items():
+        if launches[key] != n * forwards:
+            fail(f"{label}: {key} launched {launches[key]} times, expected {n} per forward x "
+                 f"{forwards} forwards")
+    print(f"{label}: {forwards} forwards, " + ", ".join(
+        f"{key} {launches[key]} ({n} per forward)" for key, n in per_forward.items()), flush=True)
+    check_logged(label, engine.log, inputs, answers,
+                 {"fused_apply": lambda x: infer.fused_apply(chain, x)})
+    return launches
+
+
+def xnor_fused_path(card: str, ctx: dict):
+    """Main path 8: the same weights in XNORConvNet(use_input_scale_map=
+    False), BatchNorm recalibrated on the same images ->
+    export_fused_chain(first_dtype=float32) -> InferenceEngine.
+    from_fused_chain: batches replayed bit-equal, K5 five times per forward
+    (four threshold, one affine), every stage's codes spread, fused against
+    packed_apply of the K-off model by the JAX rule (bf16 first conv
+    reported beside it). Then images/s and profiles of the four xnor_cifar
+    backends."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import infer
+    from pytorch_quantize_impls_tpu_torch.models import XNORConvNet
+
+    dev = cuda()
+    rng, shape = ctx["rng"], ctx["example_shape"]
+    model_k, _ = calibrated_xnor(XNORConvNet(widths=XNOR_WIDTHS, use_input_scale_map=False),
+                                 ctx["variables"], ctx["calib"], dev)
+    chain = infer.export_fused_chain(model_k, first_dtype=torch.float32)
+    check_shares("xnor_cifar fused stages",
+                 fused_stage_shares(chain, torch.from_numpy(ctx["calib"][:64]).to(dev)))
+    launches = fused_chain_engine(card, "xnor_cifar fused", chain, shape, ctx["inputs"],
+                                  {"int8_conv2d": 5, "int8_conv2d.threshold": 4,
+                                   "int8_conv2d.affine": 1})
+    packed_k = infer.prepare(infer.pack_model(model_k))
+    xs = torch.from_numpy(grid_images(rng, XNOR_EVAL, shape)).to(dev)
+    with torch.inference_mode():
+        got, ref = infer.fused_apply(chain, xs), infer.packed_apply(model_k, packed_k, xs)
+    logit_rule(card, "xnor_cifar fused (float32 first conv) vs packed_apply (K off)", got, ref)
+    # JAX's default first_dtype rounds the pixels to bf16 (grid images are
+    # bf16-exact): reported on normal images, beside the float32 chain there
+    xs = torch.from_numpy(rng.normal(size=(XNOR_EVAL, *shape)).astype(np.float32)).to(dev)
+    with torch.inference_mode():
+        ref = infer.packed_apply(model_k, packed_k, xs)
+        for name, ch in (("float32", chain), ("bf16", infer.export_fused_chain(model_k))):
+            y = infer.fused_apply(ch, xs)
+            within = float(((y - ref).abs() <= LOGIT_TOL + LOGIT_TOL * ref.abs()).double().mean())
+            print(f"xnor_cifar fused, {name} first conv, on normal images (reported): "
+                  f"{100 * within:.2f}% of logits within {LOGIT_TOL} + {LOGIT_TOL} |ref| of "
+                  f"packed_apply (K off), argmax agrees on "
+                  f"{int((y.argmax(1) == ref.argmax(1)).sum())}/{XNOR_EVAL}  [{card}]", flush=True)
+    model, loaded, prepared = ctx["model"], ctx["loaded"], ctx["prepared"]
+    backends = {
+        "packed": lambda x: infer.packed_apply(model, loaded, x),
+        "packed prepared": lambda x: infer.packed_apply(model, prepared, x),
+        "fused": lambda x: infer.fused_apply(chain, x),
+        "fake-quant": model,
+    }
+    throughput(card, "xnor_cifar", backends, shape)
+    for b in (1, RESNET_BATCH):
+        xb = torch.from_numpy(rng.normal(size=(b, *shape)).astype(np.float32)).to(dev)
+        for name, forward in backends.items():
+            with torch.inference_mode():
+                line = profile_line(lambda: forward(xb), "forward", 10)
+            print(f"xnor_cifar {name} b={b} {line}  [{card}]", flush=True)
+    return {"xnor_cifar_fused": launches}
+
+
+def lenet_fused_path(card: str, model, prepared, example_shape):
+    """Main path 9: path 1's BNN LeNet -> export_fused_lenet(first_dtype=
+    float32) -> InferenceEngine.from_fused_chain: K5 (threshold) at conv2
+    and K3 at fc1 once per forward, batches replayed bit-equal, every
+    stage's codes spread, fused against packed_apply by the JAX rule."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import infer
+
+    dev = cuda()
+    rng = np.random.default_rng(SEED + 55)
+    chain = infer.export_fused_lenet(model, first_dtype=torch.float32)
+    xs = torch.from_numpy(grid_images(rng, XNOR_EVAL, example_shape)).to(dev)
+    shares = fused_stage_shares(chain, xs[:64])
+    print("bnn_lenet fused stages share of +1 codes (reported: path 1's weights, whose pooled "
+          "codes lean to +1): " + ", ".join(f"{k} {v:.3f}" for k, v in shares.items()), flush=True)
+    inputs = [rng.normal(size=example_shape).astype(np.float32)
+              for _ in range(CLIENTS * REQUESTS_PER_CLIENT)]
+    launches = fused_chain_engine(card, "bnn_lenet fused", chain, example_shape, inputs,
+                                  {"int8_conv2d": 1, "int8_conv2d.threshold": 1, "int8_gemm": 1})
+    with torch.inference_mode():
+        got, ref = infer.fused_apply(chain, xs), infer.packed_apply(model, prepared, xs)
+    logit_rule(card, "bnn_lenet fused (float32 first conv) vs packed_apply", got, ref)
+    return {"bnn_lenet_fused": launches}
+
+
+def ternary_lm_path(card: str):
+    """Main path 10: the serving LM's shape with deterministic ternary
+    weights (weights only), through DecodeEngine(packed=) unprepared and
+    prepared: the same tokens for every request, no kernel launched (the
+    JAX package decodes ternary words in plain code and runs a float dot),
+    each projection within TERNARY_RTOL (|x| @ |w|) of its fake-quant GEMM,
+    teacher-forced argmax against the fake-quant model."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import infer
+    from pytorch_quantize_impls_tpu_torch.serve import DecodeEngine
+
+    dev = cuda()
+    t0 = time.perf_counter()
+    model = build_lm(TERNARY_LM_CFG, SEED + 60)
+    packed = infer.pack_model(model)
+    metas = {(r.scheme, r.w_bits) for r in packed.values()}
+    print(f"ternary LM built and packed in {time.perf_counter() - t0:.1f} s: {len(packed)} "
+          f"records (scheme, w_bits) {sorted(metas)}, "
+          f"{torch.cuda.memory_allocated() / 2**20:.0f} MiB allocated", flush=True)
+    if metas != {("ternary", TERNARY_LM_CFG["w_bits"])}:
+        fail(f"ternary LM records {metas}: expected the LM's w_bits, as the JAX package writes")
+    rng = np.random.default_rng(SEED + 61)
+    prompts = [rng.integers(0, LM_CFG["vocab"], rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1))
+               .astype(np.int32) for _ in range(TERNARY_REQUESTS)]
+    answers, launches, records = {}, {}, {}
+    for name in ("unprepared", "prepared"):
+        zero_launches()
+        recs = packed if name == "unprepared" else infer.prepare(packed)
+        engine = DecodeEngine(model, packed=recs, n_slots=SLOTS, device=dev)
+        t1 = time.perf_counter()
+        try:
+            answers[name] = serve(lambda i: engine.submit(prompts[i], max_new=MAX_NEW),
+                                  len(prompts))
+        finally:
+            engine.shutdown()
+        dt = time.perf_counter() - t1
+        st = engine.stats
+        print(f"decode engine[ternary packed {name}]: {st.requests} requests, {st.tokens} tokens "
+              f"in {dt:.2f} s ({st.tokens / dt:.1f} tok/s), {st.steps} steps, mean occupancy "
+              f"{st.mean_occupancy:.3f}  [{card}]", flush=True)
+        if st.requests != len(prompts) or st.tokens != MAX_NEW * len(prompts):
+            fail(f"ternary LM engine[{name}] answered {st.requests} requests, {st.tokens} tokens")
+        launches[f"lm_ternary_{name}"] = counts = read_launches(f"lm_ternary_{name}", ())
+        if any(counts[k.__name__] for k in all_kernels()):
+            fail(f"the ternary LM's {name} path launched a kernel: the ternary decode is plain")
+        records[name] = recs
+    if any(not np.array_equal(a, b) for a, b in zip(answers["unprepared"], answers["prepared"])):
+        fail("the ternary LM's unprepared and prepared engines answered differently")
+    print(f"ternary LM: unprepared and prepared engines gave the same {MAX_NEW} tokens for all "
+          f"{len(prompts)} requests", flush=True)
+    lm_teacher_forced_by_projection(
+        card, "ternary LM", model, records,
+        {"unprepared": TERNARY_RTOL, "prepared": TERNARY_RTOL},
+        {"unprepared": TERNARY_ARGMAX_FLOOR, "prepared": TERNARY_ARGMAX_FLOOR}, SEED + 62)
+    return launches
+
+
+# --- paths 10-12: the GEMM measurements ------------------------------------
 
 
 def headline_path(card: str) -> dict:
@@ -3088,12 +3730,19 @@ def main() -> None:
         "packed prepared": lambda x: infer.packed_apply(model, prepared, x),
         "fake-quant": model,
     }, example_shape)
+    launches.update(phase("bnn_lenet fused", lenet_fused_path, card, model, prepared,
+                          example_shape))
     del model, prepared
     launches["decode_lm"] = phase("decode LM", decode_path, card)
     launches.update(phase("resnet", resnet_path, card))
     launches.update(phase("W4A4 LM", w4a4_lm_path, card))
     launches.update(phase("vgg", vgg_path, card))
     launches.update(phase("log LM", log_lm_path, card))
+    xnor_launches, ctx = phase("xnor_cifar packed", xnor_packed_path, card)
+    launches.update(xnor_launches)
+    launches.update(phase("xnor_cifar fused", xnor_fused_path, card, ctx))
+    del ctx
+    launches.update(phase("ternary LM", ternary_lm_path, card))
     launches["headline"] = phase("headline", headline_path, card)
     launches["kernel_bench"] = phase("kernel bench", kernel_bench_path, card)
     launches["probe"] = phase("probe", probe_path, card)
@@ -3117,8 +3766,9 @@ def main() -> None:
         "tiled_mm": ("mxu_probe.cu", "scripts/mxu_probe.py:47"),
     }
     # the decoders' work done inside K5's packed stage: binary words on the
-    # bnn_lenet path, 4-bit DoReFa words on the ResNet's
-    fused_paths = {"decode_binary_weights": ("bnn_lenet",),
+    # bnn_lenet path, xnor words on xnor_cifar's, 4-bit DoReFa words on the
+    # ResNet's
+    fused_paths = {"decode_binary_weights": ("bnn_lenet", "xnor_cifar_packed"),
                    "decode_dorefa_weights": ("resnet_w4a4_packed",)}
     rows = []
     for name, (cu, replaces) in meta.items():
@@ -3129,7 +3779,9 @@ def main() -> None:
                 path: launches[path]["int8_conv2d.packed"] for path in fused_paths[name]})
         if name == "int8_conv2d":
             s = dict(s, packed_launches_by_path={
-                path: counts["int8_conv2d.packed"] for path, counts in launches.items()})
+                path: counts["int8_conv2d.packed"] for path, counts in launches.items()},
+                threshold_launches_by_path={
+                path: counts["int8_conv2d.threshold"] for path, counts in launches.items()})
         rows.append({
             "name": name, "route": "cuda", "source": f"{src}/{cu}", "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -3138,7 +3790,8 @@ def main() -> None:
             **{k: v for k, v in s.items()
                if k in ("shape", "device_ms", "sdpa_dequantized_ms", "cublas_f32_ms",
                         "cublas_bf16_ms", "also", "fused_launches_by_path",
-                        "packed_launches_by_path", "plan", "tile", "host_us")},
+                        "packed_launches_by_path", "threshold_launches_by_path", "plan",
+                        "tile", "host_us")},
         })
     print(f"whole run from the kernel builds on: {time.perf_counter() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -64,7 +64,7 @@ EDITS = {
         "no_x_load": [("int8_conv.cu", "if (xmode == 16) {")],
         "no_mma": [_MMA],
         "no_store": [("int8_conv.cu",
-                      "if (epilogue == EPI_CODES) {\n    auto* o = static_cast<int8_t*>(out);")],
+                      "if (codes_out) {\n    auto* o = static_cast<int8_t*>(out);")],
     },
 }
 

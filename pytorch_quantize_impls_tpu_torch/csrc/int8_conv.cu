@@ -5,9 +5,10 @@
 // Replaces XLA's int8 conv_general_dilated with preferred_element_type=int32
 // in the JAX package (pytorch_quantize_impls_tpu/kernels/conv.py:121-123,
 // 130-133, the direct packed conv; infer/fused_chain.py:380-388, the fused
-// DoReFa ResNet). That is not a Pallas kernel, but PyTorch has no int8
-// convolution on CUDA, and the fused ResNet needs the codes to stay int8
-// between convs.
+// DoReFa ResNet, and :421-431, the binary fused chains' conv and the
+// where(y >= thr, hi, lo) after it). That is not a Pallas kernel, but
+// PyTorch has no int8 convolution on CUDA, and the fused chains need the
+// codes to stay int8 between convs.
 //
 //   x    (B, H, W, C) int8: ±1, or DoReFa codes in [0, n_a]; padding is the
 //        code 0, which is the value 0 for both;
@@ -24,6 +25,10 @@
 //   EPI_SCALE  f32  f * scale[n]            (no scale: f) — xnor alpha, 1/(n_w n_a)
 //   EPI_CODES  int8 clip(rint(a[n] * f + b[n]), 0, n_a) — the fused conv1
 //   EPI_AFFINE f32  a[n] * f + b[n]         — the fused conv2
+//   EPI_THRESHOLD int8  f >= a[n] ? b[n] : b[N + n] — the binary chains'
+//                   boundary (BatchNorm + the next sign) on the raw sum:
+//                   a the threshold, b (2, N) the codes (hi, lo) as floats;
+//                   a tie gives hi, and a = -inf (a constant code) always hi
 // rintf rounds half to even, as torch.round and jnp.round do.
 //
 // GEMM view: M = B * HO * WO output pixels, N output channels, K = taps * C
@@ -84,7 +89,7 @@ using qt::mma::LDW;
 using qt::mma::STAGE_BYTES;
 using qt::mma::THREADS;
 
-enum Epilogue { EPI_SCALE = 0, EPI_CODES = 1, EPI_AFFINE = 2 };
+enum Epilogue { EPI_SCALE = 0, EPI_CODES = 1, EPI_AFFINE = 2, EPI_THRESHOLD = 3 };
 
 constexpr int CONV_BM = 128;  // output pixels per block
 
@@ -370,6 +375,7 @@ __device__ __forceinline__ void conv_tile(const int8_t* __restrict__ x, const vo
     const float f = (float)a;
     if (n >= s.N) return 0.0f;
     if (epilogue == EPI_SCALE) return pa != nullptr ? __fmul_rn(f, pa[n]) : f;
+    if (epilogue == EPI_THRESHOLD) return f >= pa[n] ? pb[n] : pb[s.N + n];
     const float y = __fadd_rn(__fmul_rn(pa[n], f), pb[n]);
     if (epilogue == EPI_AFFINE) return y;
     return fminf(fmaxf(rintf(y), 0.0f), (float)n_a);
@@ -377,6 +383,7 @@ __device__ __forceinline__ void conv_tile(const int8_t* __restrict__ x, const vo
   const int warp = threadIdx.x >> 5, wm = warp % T::WM, wn = warp / T::WM;
   const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
   constexpr int SF = BN_ + 8, SB = BN_ + 16;  // staged row pitch: floats, code bytes
+  const bool codes_out = epilogue == EPI_CODES || epilogue == EPI_THRESHOLD;  // int8 out
   auto* sf = reinterpret_cast<float*>(smem);
   auto* sb = reinterpret_cast<uint8_t*>(smem);
 #pragma unroll
@@ -388,7 +395,7 @@ __device__ __forceinline__ void conv_tile(const int8_t* __restrict__ x, const vo
         const int r = 16 * wm + 16 * T::WM * i + gid + 8 * h, c = T::NF * 8 * wn + 8 * j + 2 * tig;
         const float v0 = value(acc[i][j][2 * h], n0 + c);
         const float v1 = value(acc[i][j][2 * h + 1], n0 + c + 1);
-        if (epilogue == EPI_CODES)
+        if (codes_out)
           *reinterpret_cast<uint16_t*>(sb + r * SB + c) =
               (uint16_t)((uint8_t)(int8_t)v0 | ((uint16_t)(uint8_t)(int8_t)v1 << 8));
         else
@@ -396,7 +403,7 @@ __device__ __forceinline__ void conv_tile(const int8_t* __restrict__ x, const vo
       }
   __syncthreads();
   const int rows = min(CONV_BM, M - m0), cols = min(BN_, s.N - n0);
-  if (epilogue == EPI_CODES) {
+  if (codes_out) {
     auto* o = static_cast<int8_t*>(out);
     const bool vec = s.N % 16 == 0;
     for (int e = threadIdx.x; e < CONV_BM * (BN_ / 16); e += THREADS) {
@@ -483,7 +490,8 @@ cudaError_t launch_packed(const int8_t* x, const uint32_t* w, const ConvShape& s
 // qt_int8_conv2d's arguments in one struct, packed by the wrapper
 // (kernels/int8_conv.py): the addresses, the shape (the caller computes HO,
 // WO from the pads; pad_bottom/right only bound them), the epilogue, the
-// tile width bn (64 or 128, kernels/common.py conv_plan), and the weights:
+// tile width bn (64 or 128, kernels/common.py conv_plan), and the weights
+// (b is (2, N) under EPI_THRESHOLD, (N,) otherwise):
 // bits 0, raw int8 (C KH KW, N); bits 1, 2 or 4, packed words (rows, N) and
 // the slab's packed groups (kernels/common.py conv_slab_plan; bn is then
 // 64).
@@ -504,7 +512,7 @@ extern "C" int qt_int8_conv2d(const Int8ConvArgs* a) {
   const ConvShape& s = a->s;
   const long long m = (long long)s.B * s.HO * s.WO;
   const int bits = a->bits, taps = s.KH * s.KW;
-  if (a->epilogue < EPI_SCALE || a->epilogue > EPI_AFFINE || s.SH < 1 || s.SW < 1 || s.B < 1 ||
+  if (a->epilogue < EPI_SCALE || a->epilogue > EPI_THRESHOLD || s.SH < 1 || s.SW < 1 || s.B < 1 ||
       s.HO < 1 || s.WO < 1 || s.N < 1 || s.C < 1 || s.KH < 1 || s.KW < 1 ||
       (a->epilogue != EPI_SCALE && (a->a == nullptr || a->b == nullptr)) ||
       (a->bn != 64 && a->bn != 128) || m > INT_MAX || (s.N + a->bn - 1) / a->bn > 65535 ||

@@ -1,5 +1,5 @@
-"""Packed-model export and execution for the binary, xnor, dorefa, log and
-lin schemes.
+"""Packed-model export and execution for the binary, xnor, dorefa, log, lin
+and ternary schemes.
 
 Counterpart of ``pytorch_quantize_impls_tpu/infer/packed.py``:
 
@@ -22,9 +22,17 @@ Execution plan:
 | dorefa, 1 <= a_bits <= 7     | yes       | ``int8_gemm`` (K3) on centered codes (K7)     |
 | log (a_bits=0)               | no        | ``shift_gemm`` (K8) on the codes, bf16(x)     |
 | log (a_bits=0)               | yes       | float matmul on bf16 ±2^e decoded by K9       |
-| other real inputs (a_bits=0) | either    | float matmul on decoded ±1 / f32 grid weights |
+| other real inputs (a_bits=0) | either    | float matmul on decoded ±1 (K2) / f32 grid / bf16 {-1, 0, 1} weights |
 | conv, binary/xnor/dorefa with quantized inputs | either | ``packed_conv2d``: decode per call, K5 conv |
 | conv, real inputs (log: K9 decode) | either | float conv on the decoded weights     |
+
+xnor layers carry alpha (``mean |W|`` over all but the out-channel axis):
+K1's and K3's epilogue scale, K5's ``scale`` epilogue in the conv, and a
+multiply after the float op on real inputs. Ternary weights pack as 2-bit
+planes of ``round(clip(w, -1, 1)) + 1`` and decode to bf16 {-1, 0, 1} in
+plain PyTorch, as the JAX package does (no kernel); their records carry the
+layer's ``w_bits`` (the LM's, 2 for ``LinearTer``/``TerConv``) although the
+planes are always 2-bit, so artifacts interchange.
 
 As in the JAX package, the quantized-input conv path decodes its weights on
 every call and does not read ``prepare()``'s buffer; a real-input conv reads
@@ -32,8 +40,7 @@ it when it is there (log: K9 on every unprepared call). The unprepared log
 dense layer rounds its input to bf16 and the prepared one does not, as in
 the JAX package. ``pack_model`` refuses log and lin layers with quantized
 inputs (``quantize_input=True``): the JAX package's packed paths ignore that
-quantizer (ROADMAP section 3). The ternary scheme, and packing xnor layers
-(the port has none), raise ``NotImplementedError`` (ROADMAP queue 1, item 10).
+quantizer (ROADMAP section 3).
 """
 
 from __future__ import annotations
@@ -61,9 +68,11 @@ from pytorch_quantize_impls_tpu_torch.nn.base import (
 )
 from pytorch_quantize_impls_tpu_torch.ops import pack as packlib
 from pytorch_quantize_impls_tpu_torch.ops.dorefa import dorefa_activation, dorefa_weight
+from pytorch_quantize_impls_tpu_torch.ops.xnor import out_channel_alpha
 from pytorch_quantize_impls_tpu_torch.utils.device import resolve_device
 
-_PORTED_SCHEMES = ("binary", "xnor", "dorefa", "log", "lin")
+_PORTED_SCHEMES = ("binary", "xnor", "dorefa", "log", "lin", "ternary")
+TERNARY_PLANE_BITS = 2  # ternary codes {0, 1, 2} = round(clip(w, -1, 1)) + 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,15 +94,13 @@ class PackedLayer:
 PackedModel = Dict[Tuple[str, ...], PackedLayer]
 
 
-def _not_ported(scheme: str):
-    return NotImplementedError(
-        f"packed scheme {scheme!r} is not ported yet (ROADMAP queue 1, item 10)"
-    )
+def _check_scheme(scheme: str) -> None:
+    if scheme not in _PORTED_SCHEMES:
+        raise ValueError(f"unpackable scheme {scheme!r}")
 
 
 def _pack_layer(m) -> PackedLayer:
-    if m.scheme not in ("binary", "dorefa", "log", "lin"):
-        raise _not_ported(m.scheme)
+    _check_scheme(m.scheme)
     if m.scheme in ("log", "lin") and m.a_bits > 0:
         raise NotImplementedError(
             f"a {m.scheme} layer with quantize_input=True (a_bits={m.a_bits}) does not pack: "
@@ -108,6 +115,7 @@ def _pack_layer(m) -> PackedLayer:
     else:
         w2d = w.T
         kind, kernel_shape = "dense", tuple(w2d.shape)
+    alpha = None
     if m.scheme == "dorefa":
         packed = pm.pack_dorefa_weights(dorefa_weight(w2d, m.w_bits), m.w_bits)
     elif m.scheme == "log":
@@ -118,10 +126,16 @@ def _pack_layer(m) -> PackedLayer:
         step = 2.0 ** (m.fsr - m.w_bits)
         c = torch.clamp(torch.round(w2d / step), -(2**m.w_bits), 2**m.w_bits)
         packed = packlib.pack_bitplanes((c + 2**m.w_bits).to(torch.int32), 8)
+    elif m.scheme == "ternary":
+        c = torch.round(torch.clamp(w2d, -1.0, 1.0)) + 1
+        packed = packlib.pack_bitplanes(c.to(torch.int32), TERNARY_PLANE_BITS)
     else:
+        if m.scheme == "xnor":
+            alpha = out_channel_alpha(w)
         packed = bg.pack_binary_weights(w2d)
     return PackedLayer(
         packed=packed,
+        alpha=alpha,
         kind=kind,
         scheme=m.scheme,
         w_bits=m.w_bits,
@@ -146,11 +160,10 @@ def pack_model(model: nn.Module) -> PackedModel:
 def _decode_weights(rec: PackedLayer) -> torch.Tensor:
     """Packed codes -> execution-ready weights (K, N): ±1 int8 for
     binary/xnor; the f32 grids ``(2c - n) / n`` for dorefa (not bf16-exact)
-    and ``c * step`` for lin, unpacked in plain PyTorch as the JAX package
-    does; bf16 ``±2^e`` for log, by K9, bit-identical to the JAX package's
-    plain decode."""
-    if rec.scheme not in _PORTED_SCHEMES:
-        raise _not_ported(rec.scheme)
+    and ``c * step`` for lin, and bf16 {-1, 0, 1} for ternary, unpacked in
+    plain PyTorch as the JAX package does; bf16 ``±2^e`` for log, by K9,
+    bit-identical to the JAX package's plain decode."""
+    _check_scheme(rec.scheme)
     k2d = int(np.prod(rec.kernel_shape[:-1]))
     if rec.scheme == "dorefa":
         c = packlib.unpack_bitplanes(rec.packed, rec.w_bits, k2d)
@@ -161,6 +174,9 @@ def _decode_weights(rec: PackedLayer) -> torch.Tensor:
     if rec.scheme == "lin":
         c = packlib.unpack_bitplanes(rec.packed, 8, k2d) - 2**rec.w_bits
         return c.to(torch.float32) * 2.0 ** (rec.fsr - rec.w_bits)
+    if rec.scheme == "ternary":
+        c = packlib.unpack_bitplanes(rec.packed, TERNARY_PLANE_BITS, k2d) - 1
+        return c.to(torch.bfloat16)
     return bg.decode_binary_weights(rec.packed)[:k2d]
 
 
@@ -194,8 +210,7 @@ def _dense_forward(rec: PackedLayer, x: torch.Tensor, bias) -> torch.Tensor:
 
 
 def _dense_forward_2d(rec: PackedLayer, x: torch.Tensor, bias) -> torch.Tensor:
-    if rec.scheme not in _PORTED_SCHEMES:
-        raise _not_ported(rec.scheme)
+    _check_scheme(rec.scheme)
     if rec.scheme in ("binary", "xnor") and rec.a_bits == 1:
         xi = bg.binarize_to_int8(x)
         if rec.decoded is not None:
@@ -222,8 +237,7 @@ def _dense_forward_2d(rec: PackedLayer, x: torch.Tensor, bias) -> torch.Tensor:
 
 
 def _conv_forward(m: QuantConv, rec: PackedLayer, x: torch.Tensor, bias) -> torch.Tensor:
-    if rec.scheme not in _PORTED_SCHEMES:
-        raise _not_ported(rec.scheme)
+    _check_scheme(rec.scheme)
     kh, kw, cin, cout = rec.kernel_shape
     if rec.scheme in ("binary", "xnor", "dorefa") and rec.a_bits >= 1:
         pc = PackedConv(

@@ -39,6 +39,7 @@ from pytorch_quantize_impls_tpu_torch.kernels import shift_matmul as sm
 from pytorch_quantize_impls_tpu_torch.kernels import xnor_gemm as bg
 from pytorch_quantize_impls_tpu_torch.kernels.common import conv_route
 from pytorch_quantize_impls_tpu_torch.kernels.int8_conv import Pads, int8_conv2d, out_size
+from pytorch_quantize_impls_tpu_torch.ops.xnor import out_channel_alpha
 
 Padding = Union[str, Sequence[Tuple[int, int]]]
 SCHEMES = ("binary", "xnor", "dorefa", "log")
@@ -79,7 +80,7 @@ def pack_conv_weights(
     else:
         packed = bg.pack_binary_weights(flat)
         if scheme == "xnor":
-            alpha = w_oihw.abs().mean(dim=(1, 2, 3))
+            alpha = out_channel_alpha(w_oihw)
     return PackedConv(scheme, packed, (kh, kw), cin, cout, alpha, w_bits, a_bits, fsr)
 
 

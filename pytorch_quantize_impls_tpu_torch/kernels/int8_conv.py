@@ -2,7 +2,8 @@
 
 The JAX package leaves its int8 convolutions to XLA
 (``conv_general_dilated(..., preferred_element_type=int32)`` in
-``kernels/conv.py`` direct mode and ``infer/fused_chain.py``). PyTorch has
+``kernels/conv.py`` direct mode and ``infer/fused_chain.py``, where the
+binary chains follow it with ``where(y >= thr, hi, lo)``). PyTorch has
 no int8 convolution on CUDA, so ``int8_conv2d`` launches the hand-written
 implicit-GEMM kernel in ``csrc/int8_conv.cu`` (int8 tensor cores on the
 streamed schedule of ``csrc/stream_tile.cuh``, tiles from
@@ -34,7 +35,13 @@ rounded on its own:
 * ``scale``: ``f * scale[n]`` (or ``f``) -> float32;
 * ``codes``: ``clip(round(a[n] * f + b[n]), 0, n_a)`` -> int8 (round half
   to even);
-* ``affine``: ``a[n] * f + b[n]`` -> float32.
+* ``affine``: ``a[n] * f + b[n]`` -> float32;
+* ``threshold``: ``f >= a[n] ? b[0, n] : b[1, n]`` -> int8, with ``b`` the
+  (2, N) float32 codes (hi, lo): the binary fused chains' BatchNorm and next
+  sign folded into a threshold on the raw sum. A tie gives hi, and
+  ``a[n] = -inf`` always hi (a constant code).
+
+``int8_conv2d.epilogue_launches`` counts the launches by epilogue.
 """
 
 from __future__ import annotations
@@ -52,7 +59,8 @@ from pytorch_quantize_impls_tpu_torch.kernels import packed_matmul as pm
 from pytorch_quantize_impls_tpu_torch.kernels.common import conv_plan, conv_slab_plan
 from pytorch_quantize_impls_tpu_torch.ops import pack as packlib
 
-EPILOGUES = ("scale", "codes", "affine")
+EPILOGUES = ("scale", "codes", "affine", "threshold")
+CODE_EPILOGUES = ("codes", "threshold")  # int8 out
 PACKED_BITS = (1, 2, 4)
 Pads = Tuple[Tuple[int, int], Tuple[int, int]]
 # csrc/int8_conv.cu Int8ConvArgs: (x, w, a, b, out, stream) addresses, the
@@ -71,10 +79,18 @@ def out_size(n: int, k: int, stride: int, pad: Tuple[int, int]) -> int:
     return (n + pad[0] + pad[1] - k) // stride + 1
 
 
+def threshold_codes(f: torch.Tensor, thr: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """int8 ``codes[0]`` where ``f >= thr``, ``codes[1]`` elsewhere, per
+    channel (the last axis): the ``threshold`` epilogue on a float32 sum."""
+    return torch.where(f >= thr, codes[0], codes[1]).to(torch.int8)
+
+
 def _epilogue(acc, epilogue, a, b, n_a):
     f = acc.to(torch.float32)
     if epilogue == "scale":
         return f if a is None else f * a
+    if epilogue == "threshold":
+        return threshold_codes(f, a, b)
     y = a * f + b
     if epilogue == "affine":
         return y
@@ -122,11 +138,13 @@ def int8_conv2d(
     w_bits: int = 0,
 ) -> torch.Tensor:
     """NHWC int8 x (B, H, W, C) * flat int8 weights (C*KH*KW, N) -> NHWC
-    (B, HO, WO, N), float32 (``scale``, ``affine``) or int8 (``codes``).
+    (B, HO, WO, N), float32 (``scale``, ``affine``) or int8 (``codes``,
+    ``threshold``).
 
-    ``a`` is the per-channel scale for ``scale`` (optional) and the affine
-    factor for ``codes``/``affine``; ``b`` the affine offset; ``n_a`` the
-    top code of ``codes``. ``w_bits`` in PACKED_BITS: the weight is packed
+    ``a`` is the per-channel scale for ``scale`` (optional), the affine
+    factor for ``codes``/``affine`` and the threshold for ``threshold``;
+    ``b`` the affine offset, or for ``threshold`` the (2, N) codes (hi, lo)
+    as float32; ``n_a`` the top code of ``codes``. ``w_bits`` in PACKED_BITS: the weight is packed
     int32 words (R, N) of centered ``w_bits``-bit codes covering C*KH*KW
     rows, decoded in the kernel's weight stage."""
     if epilogue not in EPILOGUES:
@@ -165,12 +183,12 @@ def int8_conv2d(
     else:
         _build.require("w_i8", w_i8, torch.int8, (c * kh * kw, n), dev)
         bn, rows, groups = conv_plan(bsz * ho * wo, n)["bn"], 0, 0
-    for name, t in (("a", a), ("b", b)):
+    b_shape = (2, n) if epilogue == "threshold" else (n,)
+    for name, t, shape in (("a", a, (n,)), ("b", b, b_shape)):
         if t is not None:
-            _build.require(name, t, torch.float32, (n,), dev)
-    out = torch.empty(
-        (bsz, ho, wo, n), dtype=torch.int8 if epilogue == "codes" else torch.float32, device=dev
-    )
+            _build.require(name, t, torch.float32, shape, dev)
+    out = torch.empty((bsz, ho, wo, n), device=dev,
+                      dtype=torch.int8 if epilogue in CODE_EPILOGUES else torch.float32)
     index, stream = _build.launch_args(x_i8)
     lib = _lib()
     code = lib.qt_int8_conv2d(_CONV_ARGS.pack(
@@ -181,6 +199,7 @@ def int8_conv2d(
     ))
     _build.check(lib, code, "int8_conv2d")
     int8_conv2d.launches += 1
+    int8_conv2d.epilogue_launches[epilogue] += 1
     if w_bits:
         int8_conv2d.packed_launches += 1
     return out
@@ -188,3 +207,4 @@ def int8_conv2d(
 
 int8_conv2d.launches = 0
 int8_conv2d.packed_launches = 0
+int8_conv2d.epilogue_launches = dict.fromkeys(EPILOGUES, 0)

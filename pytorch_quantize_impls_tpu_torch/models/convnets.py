@@ -1,7 +1,24 @@
-"""Log-quant VGG-small for CIFAR-10 (BASELINE config 5).
+"""The XNOR-Net convnet and the log-quant VGG-small for CIFAR-10 (BASELINE
+configs 3 and 5).
 
-Counterpart of ``LogQuantVGGSmall`` in
-``pytorch_quantize_impls_tpu/models/convnets.py``: VGG-small with
+Counterpart of ``pytorch_quantize_impls_tpu/models/convnets.py``.
+
+``XNORConvNet``: a VGG-like stack of 3x3 ``XNORConv`` stages without bias,
+each followed by BatchNorm and, after every second one, a 2x2 max pool; the
+head is an ``XNORLinear`` with a bias. The first conv sees real pixels; in
+full-XNOR mode (``binarize_inputs=True``, the default) every later conv
+sign-binarizes its input and multiplies its output by the K map
+(``use_input_scale_map``), and there is no ReLU: the next layer's sign is
+the nonlinearity (ReLU first would make every code +1). In
+Binary-Weight-Network mode (``binarize_inputs=False``) a ReLU follows every
+BatchNorm. ``fp32_first_last=True`` keeps the first conv and the head
+float32 (flax ``nn.Conv``/``nn.Dense``: ``conv0`` and ``head`` hold the
+weights themselves). Module names match the flax ones (``conv0.conv``,
+``bn0``, ..., ``head.dense``). Only the eval forward of the quantized model
+is ported: ``quantized=False`` (the float twin) and ``dtype`` serve
+training and raise ``NotImplementedError`` (ROADMAP queue 1, item 4).
+
+``LogQuantVGGSmall``: VGG-small with
 power-of-2 weights (arXiv:1603.01025) and float activations. Each stage is a
 3x3 ``ConvQuantLog`` without bias, BatchNorm and ReLU, with a 2x2 max pool
 after every second conv; the head is a ``LinearQuantLog`` with a bias. Input
@@ -16,16 +33,65 @@ Only the eval forward of the quantized model is ported; the JAX model's
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 from torch import nn
 
 from pytorch_quantize_impls_tpu_torch.models.lenet import BatchNorm, max_pool_nhwc
+from pytorch_quantize_impls_tpu_torch.models.resnet import Conv
 from pytorch_quantize_impls_tpu_torch.nn.log_lin import ConvQuantLog, LinearQuantLog
+from pytorch_quantize_impls_tpu_torch.nn.xnor import XNORConv, XNORLinear
 
 
 IMAGE_SHAPE = (32, 32, 3)  # CIFAR-10, NHWC without the batch
+
+
+class XNORConvNet(nn.Module):
+    def __init__(
+        self,
+        classes: int = 10,
+        widths: Tuple[int, ...] = (128, 128, 256, 256, 512, 512),
+        quantized: bool = True,
+        binarize_inputs: bool = True,
+        fp32_first_last: bool = False,
+        use_input_scale_map: bool = True,
+        dtype: Optional[Any] = None,
+    ):
+        super().__init__()
+        if not quantized or dtype is not None:
+            raise NotImplementedError(
+                "XNORConvNet's float twin (quantized=False) and compute dtype serve training "
+                "and are not ported yet (ROADMAP queue 1, item 4)"
+            )
+        self.widths = tuple(widths)
+        self.binarize_inputs = binarize_inputs
+        self.fp32_first_last = fp32_first_last
+        self.use_input_scale_map = use_input_scale_map
+        cin = IMAGE_SHAPE[2]
+        for i, w in enumerate(self.widths):
+            if fp32_first_last and i == 0:
+                conv = Conv(cin, w, (3, 3))
+            else:
+                # the first conv sees real pixels in either mode
+                conv = XNORConv(cin, w, (3, 3), binarize_input=binarize_inputs and i > 0,
+                                use_input_scale_map=use_input_scale_map, use_bias=False)
+            self.add_module(f"conv{i}", conv)
+            self.add_module(f"bn{i}", BatchNorm(w))
+            cin = w
+        side = IMAGE_SHAPE[0] // 2 ** (len(self.widths) // 2)
+        features = side * side * cin
+        self.head = (nn.Linear(features, classes) if fp32_first_last
+                     else XNORLinear(features, classes))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(len(self.widths)):
+            x = getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(x))
+            if i % 2 == 1:
+                x = max_pool_nhwc(x)
+            if not self.binarize_inputs:
+                x = torch.relu(x)
+        return self.head(x.reshape(x.shape[0], -1))
 
 
 class LogQuantVGGSmall(nn.Module):

@@ -14,7 +14,6 @@ waits for its ROADMAP item.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from pytorch_quantize_impls_tpu_torch.nn.binary import BinConv, LinearBin
@@ -43,8 +42,14 @@ class BatchNorm(nn.Module):
 
 
 def max_pool_nhwc(x: torch.Tensor) -> torch.Tensor:
-    """2x2 max pool, stride 2, VALID, on NHWC."""
-    return F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
+    """2x2 max pool, stride 2, VALID (an odd last row or column is dropped),
+    on NHWC floats or int8 codes (the fused chains'): two elementwise
+    maxima of strided views. ``F.max_pool2d`` has no int8 kernel on CUDA
+    (it raises NotImplementedError for 'Char' on the H100); on floats the
+    two maxima take the same device time as it in LeNet's forward."""
+    h, w = x.shape[1] // 2 * 2, x.shape[2] // 2 * 2
+    x = torch.maximum(x[:, 0:h:2], x[:, 1:h:2])
+    return torch.maximum(x[:, :, 0:w:2], x[:, :, 1:w:2])
 
 
 class BNNLeNet(nn.Module):

@@ -30,12 +30,14 @@ Callers keep every cursor + s within ``max_len``: ``serve.generate`` and
 
 Ported scope: schemes ``binary`` (``a_bits`` 0 or 1), ``dorefa`` (k-bit
 weights; ``a_bits`` > 0 quantizes every projection input to the [0, 1] grid,
-with a ReLU before the FFN's quantizer), ``log`` and ``lin`` (weights only,
-levels set by ``fsr``; ``a_bits`` > 0 raises, as in the JAX package) and
-``none``; dense FFN; ``kv_bits`` 8 (2..8) or ``None``. MoE
-(``n_experts > 0``) and an injected ``attention_fn`` wait for ROADMAP
-queue 1 item 12, the xnor and ternary schemes for item 8; they raise
-``NotImplementedError``.
+with a ReLU before the FFN's quantizer), ``log``, ``lin`` (weights only,
+levels set by ``fsr``) and ``ternary`` (deterministic {-1, 0, 1} weights
+only; the records carry the model's ``w_bits``); for these three ``a_bits``
+> 0 raises ``ValueError``, as in the JAX package; and ``none``. The JAX
+model has no ``xnor`` weight quantizer, so ``scheme="xnor"`` raises
+``ValueError`` there and here. Dense FFN; ``kv_bits`` 8 (2..8) or ``None``.
+MoE (``n_experts > 0``) and an injected ``attention_fn`` wait for ROADMAP
+queue 1 item 6 and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -50,9 +52,6 @@ from pytorch_quantize_impls_tpu_torch import ops
 from pytorch_quantize_impls_tpu_torch.nn.base import QuantDense
 from pytorch_quantize_impls_tpu_torch.utils.device import resolve_device
 
-_ZOO_SCHEMES = ("xnor", "ternary")
-
-
 def _not_ported(what: str, item: int):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, item {item})")
 
@@ -62,20 +61,20 @@ def _weight_quant(scheme: str, w_bits: int, fsr: float):
         return None
     if scheme == "binary":
         return ops.binary_connect_det
+    if scheme == "ternary":
+        return ops.ternary_connect_det
     if scheme == "dorefa":
         return partial(ops.dorefa_weight, bits=w_bits)
     if scheme == "log":
         return partial(ops.log_quant, fsr=fsr, bits=w_bits)
     if scheme == "lin":
         return partial(ops.lin_quant, fsr=fsr, bits=w_bits)
-    if scheme in _ZOO_SCHEMES:
-        raise _not_ported(f"transformer scheme {scheme!r}", 8)
     raise ValueError(f"unknown scheme {scheme!r}")
 
 
 def _act_quant(scheme: str, a_bits: int):
     """The quantizer of every projection input: sign binarization for binary
-    W1A1, the k-bit [0, 1] grid for dorefa; none for log and lin, whose
+    W1A1, the k-bit [0, 1] grid for dorefa; none for log, lin and ternary, whose
     activations stay real."""
     if a_bits <= 0:
         return None
@@ -85,8 +84,6 @@ def _act_quant(scheme: str, a_bits: int):
         if a_bits != 1:
             raise ValueError(f"scheme {scheme!r} activations are 1-bit; got a_bits={a_bits}")
         return ops.binary_tanh
-    if scheme in _ZOO_SCHEMES:
-        raise _not_ported(f"transformer scheme {scheme!r}", 8)
     raise ValueError(f"a_bits unsupported for scheme {scheme!r}")
 
 
@@ -147,7 +144,7 @@ class QuantAttention(nn.Module):
     ):
         super().__init__()
         if attention_fn is not None:
-            raise _not_ported("an injected attention_fn (ring/Ulysses attention)", 12)
+            raise _not_ported("an injected attention_fn (ring/Ulysses attention)", 6)
         if d_model % n_heads:
             raise ValueError(f"d_model {d_model} is not a multiple of n_heads {n_heads}")
         self.n_heads = n_heads
@@ -253,7 +250,7 @@ class QuantTransformerBlock(nn.Module):
     ):
         super().__init__()
         if n_experts > 0:
-            raise _not_ported("the MoE FFN (n_experts > 0)", 12)
+            raise _not_ported("the MoE FFN (n_experts > 0)", 6)
         self.ln1 = LayerNorm(d_model)
         self.attn = QuantAttention(
             d_model, n_heads, scheme=scheme, w_bits=w_bits, a_bits=a_bits, fsr=fsr,

@@ -15,3 +15,9 @@ from pytorch_quantize_impls_tpu_torch.nn.log_lin import (  # noqa: F401
     LinearQuantLog,
 )
 from pytorch_quantize_impls_tpu_torch.nn.pact import PACT  # noqa: F401
+from pytorch_quantize_impls_tpu_torch.nn.ternary import (  # noqa: F401
+    LinearTer,
+    TerConv,
+    ternary_spread_init,
+)
+from pytorch_quantize_impls_tpu_torch.nn.xnor import XNORConv, XNORLinear  # noqa: F401

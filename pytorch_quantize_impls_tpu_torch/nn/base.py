@@ -3,7 +3,11 @@
 Counterpart of ``pytorch_quantize_impls_tpu/nn/base.py``. ``QuantDense`` and
 ``QuantConv`` hold a float32 master ``weight`` and apply a weight quantizer
 (and optionally an input quantizer) on every forward call: the fake-quant
-forward. They carry the ``scheme/w_bits/a_bits/fsr`` metadata that
+forward. ``out_scale`` (the XNOR layers' alpha) is a per-output-channel
+scale computed from the master weight and applied to the output, after the
+op and before the bias, as the JAX package does: the op itself stays an
+integer sum of signs, bit-identical to the packed kernels' alpha epilogue.
+They carry the ``scheme/w_bits/a_bits/fsr`` metadata that
 ``infer.pack_model`` reads.
 
 Layouts follow the JAX package at the module boundary: ``QuantDense`` takes
@@ -48,10 +52,11 @@ def intercept_quant_layers(fn: Interceptor):
 
 
 class _QuantLayer(nn.Module):
-    def __init__(self, weight_quant, input_quant, scheme, w_bits, a_bits, fsr):
+    def __init__(self, weight_quant, input_quant, out_scale, scheme, w_bits, a_bits, fsr):
         super().__init__()
         self.weight_quant = weight_quant
         self.input_quant = input_quant
+        self.out_scale = out_scale  # master weight -> (out,) scale of the output
         self.scheme = scheme  # none|binary|xnor|dorefa|log|lin|ternary
         self.w_bits = w_bits
         self.a_bits = a_bits  # 0 = inputs not quantized
@@ -69,6 +74,13 @@ class _QuantLayer(nn.Module):
         w = self.weight if self.weight_quant is None else self.weight_quant(self.weight)
         return x, w
 
+    def _epilogue(self, y):
+        if self.out_scale is not None:
+            y = y * self.out_scale(self.weight)
+        if self.bias is not None:
+            y = y + self.bias
+        return y
+
 
 class QuantDense(_QuantLayer):
     """Dense layer with quantized weights (and optionally inputs)."""
@@ -80,23 +92,21 @@ class QuantDense(_QuantLayer):
         *,
         weight_quant: Optional[Quantizer] = None,
         input_quant: Optional[Quantizer] = None,
+        out_scale: Optional[Quantizer] = None,
         use_bias: bool = True,
         scheme: str = "none",
         w_bits: int = 1,
         a_bits: int = 0,
         fsr: float = 0.0,
     ):
-        super().__init__(weight_quant, input_quant, scheme, w_bits, a_bits, fsr)
+        super().__init__(weight_quant, input_quant, out_scale, scheme, w_bits, a_bits, fsr)
         self.weight = nn.Parameter(torch.empty(features, in_features))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
         nn.init.xavier_normal_(self.weight)
 
     def fake_quant_forward(self, x: torch.Tensor) -> torch.Tensor:
         x, w = self._quantized(x)
-        y = x @ w.T
-        if self.bias is not None:
-            y = y + self.bias
-        return y
+        return self._epilogue(x @ w.T)
 
 
 class QuantConv(_QuantLayer):
@@ -113,13 +123,14 @@ class QuantConv(_QuantLayer):
         padding: Union[str, Sequence[Tuple[int, int]]] = "SAME",
         weight_quant: Optional[Quantizer] = None,
         input_quant: Optional[Quantizer] = None,
+        out_scale: Optional[Quantizer] = None,
         use_bias: bool = True,
         scheme: str = "none",
         w_bits: int = 1,
         a_bits: int = 0,
         fsr: float = 0.0,
     ):
-        super().__init__(weight_quant, input_quant, scheme, w_bits, a_bits, fsr)
+        super().__init__(weight_quant, input_quant, out_scale, scheme, w_bits, a_bits, fsr)
         self.kernel_size = tuple(kernel_size)
         self.strides = tuple(strides)
         self.padding = padding
@@ -129,7 +140,4 @@ class QuantConv(_QuantLayer):
 
     def fake_quant_forward(self, x: torch.Tensor) -> torch.Tensor:
         x, w = self._quantized(x)
-        y = conv2d_nhwc(x, w, self.strides, self.padding)
-        if self.bias is not None:
-            y = y + self.bias
-        return y
+        return self._epilogue(conv2d_nhwc(x, w, self.strides, self.padding))

@@ -22,6 +22,14 @@ from pytorch_quantize_impls_tpu_torch.ops.log_lin import (  # noqa: F401
     log_quant_from_exponent,
 )
 from pytorch_quantize_impls_tpu_torch.ops.pact import pact  # noqa: F401
+from pytorch_quantize_impls_tpu_torch.ops.ternary import ternary_connect_det  # noqa: F401
+from pytorch_quantize_impls_tpu_torch.ops.xnor import (  # noqa: F401
+    out_channel_alpha,
+    sign_ste_clip,
+    xnor_alpha,
+    xnor_input_scale_map,
+    xnor_quantize,
+)
 from pytorch_quantize_impls_tpu_torch.ops.kv_cache import (  # noqa: F401
     dequantize_kv,
     quantize_kv,

@@ -8,9 +8,9 @@ and large batches. A deadline (``max_delay_ms``) bounds latency when traffic
 is sparse.
 
 The forward runs under ``torch.inference_mode()`` on the engine's device.
-``from_fused_resnet`` serves a fused DoReFa ResNet; data-parallel serving
-over a mesh and ``from_fused_chain`` (the binary chains) wait for their
-ROADMAP items.
+``from_fused_chain`` serves a fused binary chain (the XNOR convnet, BNN
+LeNet), ``from_fused_resnet`` a fused DoReFa ResNet; data-parallel serving
+over a mesh waits for ROADMAP queue 1, item 6.
 """
 
 from __future__ import annotations
@@ -81,6 +81,15 @@ class InferenceEngine:
         self._running = True
         self._thread = threading.Thread(target=self._dispatch_loop, daemon=True)
         self._thread.start()
+
+    @classmethod
+    def from_fused_chain(cls, chain, example_shape, **kw):
+        """Serve a fused binary chain (``infer.export_fused_chain`` or
+        ``infer.export_fused_lenet``): the engine's forward is the int8 code
+        chain; ``device`` (default the card) must be where its weights are."""
+        from pytorch_quantize_impls_tpu_torch.infer.fused_chain import fused_apply
+
+        return cls(lambda x: fused_apply(chain, x), example_shape, **kw)
 
     @classmethod
     def from_fused_resnet(cls, net, example_shape, **kw):

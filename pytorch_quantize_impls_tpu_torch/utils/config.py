@@ -1,7 +1,8 @@
 """Run configs: the named configurations and the model each one builds.
 
 Counterpart of ``pytorch_quantize_impls_tpu/utils/config.py``. Ported:
-``bnn_lenet`` (BASELINE config 2), ``dorefa_resnet20`` (BASELINE config 4,
+``bnn_lenet`` (BASELINE config 2), ``xnor_cifar`` (BASELINE config 3, the
+full-XNOR convnet with the K map), ``dorefa_resnet20`` (BASELINE config 4,
 W4A4 with PACT), ``dorefa_resnet20_w4`` (weights only) and ``logquant_vgg``
 (BASELINE config 5, W4 log weights). ``RunConfig``
 holds the fields their entries set; the training fields (lr, batch size,
@@ -35,6 +36,7 @@ class RunConfig:
 # BASELINE.json evaluation configs, as in the JAX package
 SCHEME_CONFIGS = {
     "bnn_lenet": dict(config="bnn_lenet", w_bits=1, a_bits=1, width=128, steps=12000),
+    "xnor_cifar": dict(config="xnor_cifar", w_bits=1, a_bits=1, steps=12000),
     "dorefa_resnet20": dict(config="dorefa_resnet20", w_bits=4, a_bits=4, a_quant="pact",
                             steps=6000),
     "dorefa_resnet20_w4": dict(config="dorefa_resnet20_w4", w_bits=4, a_bits=0),
@@ -51,6 +53,8 @@ def build_model(cfg: RunConfig, device="cuda"):
     if cfg.config == "bnn_lenet":
         model = models.BNNLeNet(width=cfg.width or 32).to(device)
         return model, (28, 28, 1), "mnist"
+    if cfg.config == "xnor_cifar":
+        return models.XNORConvNet().to(device), (32, 32, 3), "cifar10"
     if cfg.config in ("dorefa_resnet20", "dorefa_resnet20_w4"):
         a_bits = cfg.a_bits if cfg.config == "dorefa_resnet20" else 0
         model = models.DorefaResNet20(

@@ -380,12 +380,13 @@ def test_engine_submit_validation_and_exclusive_backends(bc, w1a1):
 
 
 def test_unported_parts_raise():
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         QuantTransformerLM(**dict(ENGINE_CFG, n_experts=4))
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         QuantTransformerLM(**dict(ENGINE_CFG, attention_fn=lambda q, k, v: q))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        QuantTransformerLM(**dict(ENGINE_CFG, scheme="ternary", w_bits=4))
+    # the JAX LM has no xnor weight quantizer either (tests/test_torch_ternary.py)
+    with pytest.raises(ValueError, match="unknown scheme"):
+        QuantTransformerLM(**dict(ENGINE_CFG, scheme="xnor"))
     with pytest.raises(ValueError, match="1-bit"):
         QuantTransformerLM(**dict(ENGINE_CFG, a_bits=2))
     with pytest.raises(ValueError, match="decode mode"):

@@ -154,24 +154,28 @@ def test_build_model_bnn_lenet():
     assert tuple(model.fc1.dense.weight.shape) == (1024, 4096)
     assert tuple(model.conv2.conv.weight.shape) == (256, 128, 5, 5)
     with pytest.raises(ValueError, match="not ported"):
-        build_model(RunConfig(config="xnor_cifar"), device="cpu")
+        build_model(RunConfig(config="binaryconnect_mlp"), device="cpu")
 
 
 @pytest.mark.parametrize("scheme", ["ternary", "xnor"])
 def test_unported_parts_raise(lenet, scheme):
-    """What is still unported raises: act_scale, packing a ternary layer or
-    an xnor one (the port has no xnor layers yet), and the ternary packed
-    forward."""
+    """What is still unported raises: act_scale, stochastic ternarization
+    and the XNOR net's float twin (training); a scheme no package packs
+    raises in pack_model and in the packed forward."""
     _, _, tm, x = lenet
     with pytest.raises(NotImplementedError, match="act_scale"):
         tnn.LinearBin(8, 4, binarize_input=True, act_scale=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        infer.pack_model(tnn.QuantDense(8, 4, scheme=scheme, w_bits=2).eval())
-    if scheme == "ternary":
-        rec = tpacked.PackedLayer(packed=torch.zeros(32, 4, dtype=torch.int32), scheme=scheme,
-                                  w_bits=4, a_bits=4, kernel_shape=(8, 4))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tpacked._dense_forward_2d(rec, torch.zeros(2, 8), None)
+        if scheme == "ternary":
+            tnn.LinearTer(8, 4, deterministic=False)
+        else:
+            models.XNORConvNet(quantized=False)
+    with pytest.raises(ValueError, match="unpackable"):
+        infer.pack_model(tnn.QuantDense(8, 4, scheme=f"{scheme}_stoch", w_bits=2).eval())
+    rec = tpacked.PackedLayer(packed=torch.zeros(32, 4, dtype=torch.int32),
+                              scheme=f"{scheme}_stoch", w_bits=4, a_bits=4, kernel_shape=(8, 4))
+    with pytest.raises(ValueError, match="unpackable"):
+        tpacked._dense_forward_2d(rec, torch.zeros(2, 8), None)
     tm.train()
     try:
         with pytest.raises(ValueError, match="eval"):
