@@ -66,6 +66,32 @@ on one NVIDIA GPU (built for Hopper, sm_90a).
    InferenceEngine.from_fused_chain, K5 (threshold) at conv2 and K3 at fc1
    once per forward, every batch replayed bit-equal, held against
    packed_apply by the JAX package's logit rule on grid images.
+   Then training (path 10, after the fused chain): bnn_lenet built at
+   width 128 on the card through build_model (weights drawn as flax draws
+   them from the config's seed) and trained with train.make_train_step
+   (fake-quant forward, float32 cross-entropy, STE backward, Adam, the
+   clamp, BatchNorm in training mode) on the synthetic MNIST stand-in at
+   batch 128. Its first three steps are held against a CPU copy, each from
+   the card's state (free-running BNN trajectories part after one step
+   from any float reassociation): the loss within 1e-5 relative; in every
+   tensor, the entries outside tolerance, once its output channel that
+   holds most of them is set aside (a sign that ties after BatchNorm),
+   at most 0.1% of its entries, for its gradient (within GRAD_TOL of the
+   tensor's max |g|), its parameters (within 1e-5) and its running
+   statistics (within 1e-5 relative); the kernels in [-1, 1] on both. TF32
+   in the conv backward must fail that gate at conv2, and the port pass it. Then to 1000 steps: the clamp
+   and finite statistics every 100 steps, the mean loss of the last 100
+   steps <= 0.8 x the first 100's, ms per step and images/s by CUDA events,
+   a profile over 20 steps, no kernel of the port launched; a rerun from
+   the same seed bit-equal at step 100. The trained model is served as
+   path 1 is (every check of path 1; packed test accuracy equal to
+   fake-quant's on the whole test split, test accuracy >= 0.2) and as its
+   fused chain (JAX's logit rule). Then binaryconnect_mlp (784-512-512-10)
+   and its float32 twin, 500 steps each (accuracies and Δacc reported),
+   the quantized one served through InferenceEngine (K2 three times per
+   forward on the real-input branch; packed bit-equal to fake-quant), and
+   the stochastic MLP (bin_stoch) 50 steps three times from one init: the
+   same generator seed twice bit-equal, another seed different.
 5. Main path 2, the 1-bit transformer LM that scripts/perf_bench.py serves
    (d 1024, 8 layers, cache 1024, W1A1, int8 KV) from seeded random weights:
    bridge -> export_fused_decode (int8 and packed) -> DecodeEngine(fused=)
@@ -138,7 +164,8 @@ on one NVIDIA GPU (built for Hopper, sm_90a).
     int8 and int4 over every tiling, beside torch.matmul and torch._int_mm;
     prints its launches by dtype.
 16. For each path the kernels' launch counters are zeroed just before it
-    and read just after; each kernel of the path must be > 0.
+    and read just after; each kernel of the path must be > 0 (the trained
+    paths: bnn_lenet_trained, bnn_lenet_trained_fused, bc_mlp_trained).
 17. Prints engine images/s, decode prefill ms and tokens/s, one JSON line
     with the kernels and their launches per path, and last
     ``{"ok": true, "device": {...}}``.
@@ -270,6 +297,26 @@ TERNARY_REQUESTS = 16
 # {-1, 0, 1} weights, summed in another order
 TERNARY_RTOL = 1e-5
 TERNARY_ARGMAX_FLOOR = 0.99
+
+
+# path 10: BNN LeNet and the BinaryConnect MLP trained on the card
+TRAIN_BATCH = 128
+TRAIN_CHECKED_STEPS = 3  # card against CPU, each from the card's state
+TRAIN_STEPS = 1000  # the bnn_lenet run on the card
+TRAIN_WINDOW = 100  # loss windows, clamp checks
+TRAIN_TOL = 1e-5  # card against CPU: parameters absolute, statistics times 1 + |ref|
+# card against CPU: gradient entries, times the tensor's max |g|. cuDNN's
+# float32 weight gradient at conv2's shape lands up to ~2e-5 of it off the
+# CPU's sum; TF32 ~4e-4 (PERF.md, PR 15)
+GRAD_TOL = 5e-5
+NOISE_GRAD = 1e-6  # |g| at or below this is the rounding noise of a zero gradient
+TRAIN_MIN_WITHIN = 0.999
+TRAIN_LOSS_DROP = 0.8  # mean loss of the last window / the first
+TRAIN_MIN_ACC = 0.2  # held-out accuracy, twice chance
+RERUN_STEPS = 100  # the second run from the same seed, bit for bit
+MLP_STEPS = 500  # binaryconnect_mlp and its twin
+STOCH_STEPS = 50
+MLP_TOL = 1e-5  # packed (K2 + cuBLAS) against fake-quant logits, times 1 + |ref|
 
 
 def cuda():
@@ -1513,7 +1560,7 @@ def read_launches(path: str, required) -> dict:
     return launches
 
 
-def drive_main_path(card: str, model, example_shape, inputs):
+def drive_main_path(card: str, model, example_shape, inputs, label: str = "bnn_lenet"):
     """The main path, from a packed model to served answers: save_packed ->
     load_packed -> InferenceEngine (unprepared artifact) -> prepare ->
     InferenceEngine (prepared artifact). The kernels' launch counters are
@@ -1531,7 +1578,7 @@ def drive_main_path(card: str, model, example_shape, inputs):
     logs = {"unprepared": [], "prepared": []}
     answers = {}
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "bnn_lenet.npz")
+        path = os.path.join(tmp, f"{label}.npz")
         infer.save_packed(path, infer.pack_model(model))
         zero_launches()
         loaded = infer.load_packed(path, device=dev)
@@ -1562,17 +1609,17 @@ def drive_main_path(card: str, model, example_shape, inputs):
                 fail(f"engine[{name}] answered {st.requests} of {len(inputs)}")
             if name == "unprepared":  # one conv2 (K5) per forward
                 unprepared_forwards = ic.int8_conv2d.launches
-        launches = read_launches("bnn_lenet", kernels)
+        launches = read_launches(label, kernels)
     # conv1 (real inputs) decodes its weights (K2) on every unprepared
     # forward; conv2 launches K2 only where its route is two launches
     decoded = launches["int8_conv2d"] - launches["int8_conv2d.packed"]
     want = unprepared_forwards + decoded + k2_prepare
-    print(f"bnn_lenet: conv2 ran {launches['int8_conv2d']} times, "
+    print(f"{label}: conv2 ran {launches['int8_conv2d']} times, "
           f"{launches['int8_conv2d.packed']} fused (no decoder), {decoded} as K2 + raw K5; K2 "
           f"launches {launches['decode_binary_weights']} = {unprepared_forwards} conv1 "
           f"(unprepared) + {decoded} conv2 + {k2_prepare} in prepare() (parent: 282 on this path, conv2 decoded every call)", flush=True)
     if launches["decode_binary_weights"] != want:
-        fail(f"bnn_lenet: K2 launched {launches['decode_binary_weights']} times, expected {want}: "
+        fail(f"{label}: K2 launched {launches['decode_binary_weights']} times, expected {want}: "
              f"a fused conv2 launched its decoder")
     return loaded, answers, logs, launches
 
@@ -3572,6 +3619,379 @@ def lenet_fused_path(card: str, model, prepared, example_shape):
     return {"bnn_lenet_fused": launches}
 
 
+# --- path 10: training on the card, then the trained weights served -------------
+
+
+def _batches(train_set, seed: int = 0):
+    from pytorch_quantize_impls_tpu_torch import data
+
+    return data.iterate_batches(train_set, TRAIN_BATCH, seed=seed)
+
+
+def _copy_state(dst, src) -> None:
+    """dst's model and Adam state := src's (the CPU copy takes the card's)."""
+    import torch
+
+    dst.model.load_state_dict(src.model.state_dict())
+    for pd, ps in zip(dst.model.parameters(), src.model.parameters()):
+        dst.optimizer.state[pd] = {k: v.detach().to("cpu", copy=True)
+                                   for k, v in src.optimizer.state[ps].items()}
+        if isinstance(dst.optimizer.state[pd].get("step"), torch.Tensor):
+            dst.optimizer.state[pd]["step"] = dst.optimizer.state[pd]["step"].float()
+    dst.step = src.step
+
+
+def _clamped(state) -> float:
+    """The largest |w| over the clamped kernels."""
+    return max(float(p.detach().abs().max()) for p, _ in state.clamp.params)
+
+
+def _within(got, ref, grad=None, atol=TRAIN_TOL, rtol=0.0, lr=None):
+    """Which entries lie within ``atol + rtol |ref|``; where ``grad`` (the
+    step's gradient) is rounding noise, within 4 lr instead (Adam moves such
+    an entry by up to lr from noise)."""
+    d = (got.double() - ref.double()).abs()
+    ok = d <= atol + rtol * ref.double().abs()
+    if grad is not None:
+        ok = ok | ((grad.abs() <= NOISE_GRAD) & (d <= 4 * lr + atol))
+    return ok
+
+
+def _tensor_gate(ok) -> tuple:
+    """One tensor's gate on its entries within tolerance: (share within,
+    entries outside once the channel (axis 0) that holds most of them is
+    set aside, passes). It passes when those others are at most
+    1 - TRAIN_MIN_WITHIN of its entries: a sign that ties after BatchNorm
+    moves one output channel's gradient, rounding a few scattered ones."""
+    miss = (~ok).reshape(ok.shape[0], -1).sum(1)
+    rest = int(miss.sum() - miss.max())
+    return float(ok.double().mean()), rest, rest <= (1.0 - TRAIN_MIN_WITHIN) * ok.numel()
+
+
+def train_card_vs_cpu(card: str, state, cpu_state, step_fn, batches) -> None:
+    """TRAIN_CHECKED_STEPS steps of bnn_lenet on the card and on the CPU,
+    each from the card's state (free-running BNN trajectories part after one
+    step from any float reassociation, the JAX package's jitted and unjitted
+    steps too): the loss within 1e-5 relative; each tensor held by
+    _tensor_gate on its gradient entries within GRAD_TOL max|g| of the
+    tensor (TF32 would round the conv gradients to 10 mantissa bits), its
+    parameters within TRAIN_TOL, its running statistics within TRAIN_TOL
+    |ref| (conv2's variance is ~3e3); the clamp exact on both."""
+    import torch
+
+    lr = state.lr
+    for i in range(TRAIN_CHECKED_STEPS):
+        _copy_state(cpu_state, state)
+        batch = next(batches)
+        _, m = step_fn(state, batch)
+        _, mc = step_fn(cpu_state, batch)
+        loss, loss_cpu = float(m["loss"]), float(mc["loss"])
+        if abs(loss - loss_cpu) > 1e-5 * abs(loss_cpu):
+            fail(f"train step {i + 1}: loss {loss} on the card, {loss_cpu} on the CPU")
+        gates = {"gradients": {}, "parameters": {}, "statistics": {}}
+        cpu_params = dict(cpu_state.model.named_parameters())
+        for name, p in state.model.named_parameters():
+            pc = cpu_params[name]
+            g, gc = p.grad.detach().cpu(), pc.grad.detach()
+            scale = float(gc.abs().max())
+            gates["gradients"][name] = _tensor_gate(_within(g, gc, atol=GRAD_TOL * scale))
+            gates["parameters"][name] = _tensor_gate(_within(p.detach().cpu(), pc.detach(),
+                                                             grad=gc, lr=lr))
+        cpu_buffers = dict(cpu_state.model.named_buffers())
+        for name, b in state.model.named_buffers():
+            gates["statistics"][name] = _tensor_gate(_within(b.cpu(), cpu_buffers[name],
+                                                             rtol=TRAIN_TOL))
+        shares = {kind: min(sh for sh, _, _ in c.values()) for kind, c in gates.items()}
+        off = [f"{kind[:-1]} {name} {sh:.6f} ({rest} outside its worst channel)"
+               for kind, c in gates.items() for name, (sh, rest, _) in c.items() if sh < 1.0]
+        failed = [f"{kind[:-1]} {name}" for kind, c in gates.items()
+                  for name, (_, _, ok) in c.items() if not ok]
+        clamp = (_clamped(state), _clamped(cpu_state))
+        print(f"bnn_lenet train step {i + 1}, card vs CPU from the card's state: loss "
+              f"{loss:.6f} / {loss_cpu:.6f}; least share of a tensor's entries within "
+              "tolerance: " + ", ".join(f"{k} {v:.7f}" for k, v in shares.items())
+              + f" (tensors not all within: {'; '.join(off) or 'none'}); max |kernel| "
+              f"{clamp[0]} / {clamp[1]}  [{card}]", flush=True)
+        if failed or max(clamp) > 1.0:
+            fail(f"train step {i + 1}: card and CPU differ beyond tolerance in {failed}, "
+                 f"or a kernel left [-1, 1] {clamp}")
+    conv2_precision(card)
+
+
+def conv2_precision(card: str) -> None:
+    """The gradient gate against TF32 in the conv backward (the fault
+    conv2d_nhwc keeps out): conv2's input and weight gradients at
+    bnn_lenet's shapes (+-1 codes, a normal upstream gradient) by the port
+    and by cuDNN with TF32 on, each against the CPU's under the gate of
+    train_card_vs_cpu; the port must pass it and TF32 must not, or the gate
+    could not see the fault. Beside it, how far cuDNN's float32 conv of the
+    +-1 codes lands from the integer sums (which QuantConv rounds to)."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch.kernels.conv import conv2d_nhwc
+
+    g = torch.Generator().manual_seed(SEED)
+    x = torch.where(torch.rand(TRAIN_BATCH, 12, 12, WIDTH, generator=g) < 0.5, 1.0, -1.0)
+    w = torch.where(torch.rand(2 * WIDTH, WIDTH, 5, 5, generator=g) < 0.5, 1.0, -1.0)
+    gy = torch.randn(TRAIN_BATCH, 8, 8, 2 * WIDTH, generator=g)
+
+    def grads(dev, tf32=None):
+        xd = x.to(dev, copy=True).requires_grad_(True)
+        wd = w.to(dev, copy=True).requires_grad_(True)
+        if tf32 is None:
+            (conv2d_nhwc(xd, wd, (1, 1), "VALID") * gy.to(dev)).sum().backward()
+        else:
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=tf32):
+                y = torch.nn.functional.conv2d(xd.permute(0, 3, 1, 2), wd).permute(0, 2, 3, 1)
+                (y * gy.to(dev)).sum().backward()
+        return xd.grad.cpu(), wd.grad.cpu()
+
+    ref = grads("cpu")
+    results = {}
+    for name, got in (("port", grads(cuda())), ("cuDNN with TF32 on", grads(cuda(), True))):
+        results[name] = [(*_tensor_gate(_within(a, r, atol=GRAD_TOL * float(r.abs().max()))),
+                          float((a - r).abs().max() / r.abs().max())) for a, r in zip(got, ref)]
+    print("conv2 gradients against the CPU's (input, weight: share within "
+          f"{GRAD_TOL} max|g|, passes the gate, max |diff| / max |g|): " + "; ".join(
+              f"{name} " + ", ".join(f"{sh:.6f} {ok} {err:.3g}" for sh, _, ok, err in r)
+              for name, r in results.items()) + f"  [{card}]", flush=True)
+    if not all(ok for _, _, ok, _ in results["port"]):
+        fail("the conv gradients on the card are not float32's")
+    if all(ok for _, _, ok, _ in results["cuDNN with TF32 on"]):
+        fail("the gradient gate passes TF32's conv gradients: it cannot see the fault")
+    with torch.inference_mode(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        y = torch.nn.functional.conv2d(x.to(cuda()).permute(0, 3, 1, 2), w.to(cuda()))
+    print(f"cuDNN's float32 conv of the +-1 codes at conv2's shape: max |sum - nearest integer| "
+          f"{float((y - y.round()).abs().max()):.3g} (QuantConv rounds +-1 sums to the exact "
+          f"integers)  [{card}]", flush=True)
+
+
+def train_on_card(card: str, state, step_fn, batches, first_step: int):
+    """Train to TRAIN_STEPS: the clamp and finite statistics every
+    TRAIN_WINDOW steps, the loss falls, ms per step and images/s by CUDA
+    events, a profile over 20 steps. Returns the state dict at RERUN_STEPS
+    (for the rerun)."""
+    import torch
+
+    losses, snapshot = [], None
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    timed_from = None
+    for step in range(first_step, TRAIN_STEPS):
+        if step == TRAIN_WINDOW:
+            start.record()
+            timed_from = step
+        _, m = step_fn(state, next(batches))
+        losses.append(m["loss"])
+        if state.step == RERUN_STEPS:
+            snapshot = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+        if state.step % TRAIN_WINDOW == 0:
+            stats_ok = all(bool(torch.isfinite(b).all()) for b in state.model.buffers())
+            if _clamped(state) > 1.0 or not stats_ok:
+                fail(f"bnn_lenet train step {state.step}: a kernel left [-1, 1] "
+                     f"({_clamped(state)}) or a running statistic is not finite")
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / (TRAIN_STEPS - timed_from)
+    loss = torch.stack(losses).cpu().numpy()
+    first, last = float(loss[:TRAIN_WINDOW].mean()), float(loss[-TRAIN_WINDOW:].mean())
+    print(f"bnn_lenet trained {state.step} steps on the card (batch {TRAIN_BATCH}): mean loss "
+          f"of the first {TRAIN_WINDOW} steps {first:.4f}, of the last {last:.4f}; every "
+          f"{TRAIN_WINDOW} steps the kernels in [-1, 1] and the statistics finite; "
+          f"{step_ms:.3f} ms per step, {1e3 * TRAIN_BATCH / step_ms:.1f} images/s (CUDA events "
+          f"over {TRAIN_STEPS - timed_from} steps)  [{card}]", flush=True)
+    if last > TRAIN_LOSS_DROP * first:
+        fail(f"bnn_lenet: the loss fell from {first:.4f} only to {last:.4f}")
+    line = profile_line(lambda: step_fn(state, next(batches)), "step", 20)
+    print(f"bnn_lenet train step {line}  [{card}]", flush=True)
+    return snapshot
+
+
+def train_rerun(card: str, snapshot) -> None:
+    """A second run from the same seed on the same batches gives the same
+    bits at RERUN_STEPS."""
+    from pytorch_quantize_impls_tpu_torch import data, train
+    from pytorch_quantize_impls_tpu_torch.utils import SCHEME_CONFIGS, RunConfig, build_model
+
+    cfg = RunConfig(**SCHEME_CONFIGS["bnn_lenet"])
+    model = build_model(cfg, device=cuda())[0]
+    state = train.QuantTrainState.create_for(model, lr=cfg.lr, seed=cfg.seed)
+    step_fn = train.make_train_step()
+    batches = _batches(data.mnist()[0], cfg.seed)
+    for _ in range(RERUN_STEPS):
+        step_fn(state, next(batches))
+    sd = model.state_dict()
+    differ = [k for k, v in snapshot.items() if not sd[k].equal(v)]
+    print(f"bnn_lenet rerun from the same seed: {RERUN_STEPS} steps, "
+          f"{len(snapshot) - len(differ)} of {len(snapshot)} tensors bit-equal  [{card}]",
+          flush=True)
+    if differ:
+        fail(f"bnn_lenet: a rerun from the same seed differs in {differ}")
+
+
+def serve_trained_lenet(card: str, model, example_shape, test_set) -> dict:
+    """The trained LeNet in eval mode through path 1's drive and checks
+    (unprepared and prepared artifacts, replays, packed == fake-quant bit for
+    bit), the packed test accuracy equal to fake-quant's, and its fused
+    chain against packed_apply by the JAX rule."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import infer
+
+    dev = cuda()
+    model.eval()
+    xs, ys = test_set
+    inputs = [xs[i] for i in range(CLIENTS * REQUESTS_PER_CLIENT)]
+    loaded, answers, logs, launches = drive_main_path(card, model, example_shape, inputs,
+                                                      label="bnn_lenet_trained")
+    check_main_path(model, loaded, inputs, answers, logs)
+    prepared = infer.prepare(loaded)
+    with torch.inference_mode():
+        xt = torch.from_numpy(xs).to(dev)
+        fq = torch.cat([model(xt[i:i + 256]) for i in range(0, len(xs), 256)])
+        pk = torch.cat([infer.packed_apply(model, prepared, xt[i:i + 256])
+                        for i in range(0, len(xs), 256)])
+    yt = torch.from_numpy(ys).to(dev)
+    acc_fq = float((fq.argmax(1) == yt).double().mean())
+    acc_pk = float((pk.argmax(1) == yt).double().mean())
+    print(f"bnn_lenet trained, {len(xs)} test images: fake-quant accuracy {acc_fq:.4f}, packed "
+          f"(prepared) {acc_pk:.4f}; logits bit-equal: {bool(torch.equal(fq, pk))}  [{card}]",
+          flush=True)
+    if not torch.equal(fq, pk) or acc_fq != acc_pk:
+        fail("bnn_lenet trained: packed and fake-quant test logits differ")
+    if acc_fq < TRAIN_MIN_ACC:
+        fail(f"bnn_lenet trained: test accuracy {acc_fq:.4f} below {TRAIN_MIN_ACC}")
+    chain = infer.export_fused_lenet(model, first_dtype=torch.float32)
+    fused = fused_chain_engine(card, "bnn_lenet trained fused", chain, example_shape, inputs,
+                               {"int8_conv2d": 1, "int8_conv2d.threshold": 1, "int8_gemm": 1})
+    rng = np.random.default_rng(SEED + 66)
+    grid = torch.from_numpy(grid_images(rng, XNOR_EVAL, example_shape)).to(dev)
+    with torch.inference_mode():
+        got, ref = infer.fused_apply(chain, grid), infer.packed_apply(model, prepared, grid)
+        fa = torch.cat([infer.fused_apply(chain, xt[i:i + 256]) for i in range(0, len(xs), 256)])
+    logit_rule(card, "bnn_lenet trained fused (float32 first conv) vs packed_apply", got, ref)
+    shares = fused_stage_shares(chain, xt[:256])
+    print(f"bnn_lenet trained fused chain: test accuracy "
+          f"{float((fa.argmax(1) == yt).double().mean()):.4f}; stage shares of +1 codes "
+          + ", ".join(f"{k} {v:.3f}" for k, v in shares.items()) + f"  [{card}]", flush=True)
+    return {"bnn_lenet_trained": launches, "bnn_lenet_trained_fused": fused}
+
+
+def train_mlp(cfg, fp32: bool, steps: int):
+    """Train ``cfg``'s model (or its twin) on the card for ``steps`` steps of
+    the synthetic MNIST stand-in. Returns (model in eval mode, state)."""
+    from pytorch_quantize_impls_tpu_torch import data, train
+    from pytorch_quantize_impls_tpu_torch.utils import build_model
+
+    model = build_model(cfg, fp32=fp32, device=cuda())[0]
+    state = train.QuantTrainState.create_for(model, lr=cfg.lr, seed=cfg.seed)
+    step_fn = train.make_train_step()
+    batches = _batches(data.mnist(flatten=True)[0], cfg.seed)
+    for _ in range(steps):
+        step_fn(state, next(batches))
+    return model.eval(), state
+
+
+def mlp_path(card: str) -> dict:
+    """binaryconnect_mlp (784-512-512-10) and its float32 twin trained on the
+    card, their accuracies and Δacc (reported); the quantized one packed and
+    served once through InferenceEngine (K2 on the real-input branch),
+    against fake-quant. Then the stochastic MLP: two runs from one seed end
+    bit-equal, one from another seed differs."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import data, infer, models, nn as tnn, train
+    from pytorch_quantize_impls_tpu_torch.kernels import xnor_gemm as bg
+    from pytorch_quantize_impls_tpu_torch.train import run as trun
+    from pytorch_quantize_impls_tpu_torch.utils import SCHEME_CONFIGS, RunConfig
+
+    dev = cuda()
+    cfg = RunConfig(**SCHEME_CONFIGS["binaryconnect_mlp"])
+    test_set = data.mnist(flatten=True)[1]
+    t = time.perf_counter()
+    model, state = train_mlp(cfg, False, MLP_STEPS)
+    twin, _ = train_mlp(cfg, True, MLP_STEPS)
+    acc, acc_twin = (trun.accuracy(m, test_set, dev) for m in (model, twin))
+    print(f"binaryconnect_mlp: {MLP_STEPS} steps each, quantized and float32 twin, in "
+          f"{time.perf_counter() - t:.1f} s; test accuracy {acc:.4f} / {acc_twin:.4f}, Δacc "
+          f"{acc - acc_twin:+.4f} (reported)  [{card}]", flush=True)
+    if _clamped(state) > 1.0:
+        fail("binaryconnect_mlp: a kernel left [-1, 1]")
+    xs = test_set[0][:CLIENTS * REQUESTS_PER_CLIENT]
+    zero_launches()
+    packed = infer.pack_model(model)
+    engine = logged_engine_class()(lambda x: infer.packed_apply(model, packed, x), (28 * 28,),
+                                   batch_sizes=BUCKETS, device=dev)
+    answers = run_engine(card, "bc_mlp_trained", engine, list(xs))
+    launches = read_launches("bc_mlp_trained", (bg.decode_binary_weights,))
+    forwards = len(BUCKETS) + len(engine.log)
+    if launches["decode_binary_weights"] != 3 * forwards:
+        fail(f"bc_mlp_trained: K2 launched {launches['decode_binary_weights']} times, expected "
+             f"3 per forward x {forwards}")
+    check_logged("bc_mlp_trained", engine.log, list(xs), answers,
+                 {"packed_apply": lambda x: infer.packed_apply(model, packed, x)})
+    with torch.inference_mode():
+        xt = torch.from_numpy(test_set[0]).to(dev)
+        pk, fq = infer.packed_apply(model, packed, xt), model(xt)
+    gap = float(((pk - fq).abs() / (1 + fq.abs())).max())
+    agree = float((pk.argmax(1) == fq.argmax(1)).double().mean())
+    print(f"binaryconnect_mlp packed (K2 + float GEMMs) vs fake-quant on {len(xt)} test images: "
+          f"bit-equal {bool(torch.equal(pk, fq))}, max |gap| / (1 + |ref|) {gap:.3g}, argmax "
+          f"agrees on {agree:.4f}  [{card}]", flush=True)
+    if gap > MLP_TOL or agree < 1.0:
+        fail(f"binaryconnect_mlp: packed and fake-quant differ by {gap:.3g} / argmax {agree}")
+
+    def stoch_run(seed: int):
+        model = models.MLP(28 * 28, (512, 512, 10), layer="bin_stoch")
+        tnn.init_like_flax(model, cfg.seed)
+        state = train.QuantTrainState.create_for(model.to(dev), lr=cfg.lr, seed=seed)
+        step_fn = train.make_train_step()
+        batches = _batches(data.mnist(flatten=True)[0], cfg.seed)
+        for _ in range(STOCH_STEPS):
+            step_fn(state, next(batches))
+        return torch.cat([p.detach().flatten() for p in model.parameters()])
+
+    runs = [stoch_run(0), stoch_run(0), stoch_run(1)]
+    same, other = torch.equal(runs[0], runs[1]), torch.equal(runs[0], runs[2])
+    print(f"stochastic MLP (bin_stoch, 784-512-512-10), {STOCH_STEPS} steps from one init: "
+          f"generator seed 0 twice bit-equal {same}; seed 1 equal to seed 0 {other}  [{card}]",
+          flush=True)
+    if not same or other:
+        fail("stochastic MLP: the draws are not deterministic per (seed, step)")
+    return {"bc_mlp_trained": launches}
+
+
+def lenet_train_path(card: str) -> dict:
+    """Path 10: bnn_lenet (width 128) built and trained on the card through
+    the entry points (card against CPU first, each step from the same state),
+    its loss falls, the clamp holds, a rerun gives the same bits; no kernel
+    of the port launched by training; the trained weights served packed and
+    fused; then the BinaryConnect MLPs (mlp_path)."""
+    from pytorch_quantize_impls_tpu_torch import data, train
+    from pytorch_quantize_impls_tpu_torch.utils import SCHEME_CONFIGS, RunConfig, build_model
+
+    cfg = RunConfig(**SCHEME_CONFIGS["bnn_lenet"])
+    model, example_shape, dataset = build_model(cfg, device=cuda())
+    if (cfg.width, dataset) != (WIDTH, "mnist"):
+        fail(f"bnn_lenet: width {cfg.width}, data {dataset}")
+    cpu_model = copy.deepcopy(model).cpu()
+    state = train.QuantTrainState.create_for(model, lr=cfg.lr, seed=cfg.seed)
+    cpu_state = train.QuantTrainState.create_for(cpu_model, lr=cfg.lr, seed=cfg.seed)
+    step_fn = train.make_train_step()
+    train_set, test_set = data.mnist()
+    batches = _batches(train_set, cfg.seed)
+    zero_launches()
+    train_card_vs_cpu(card, state, cpu_state, step_fn, batches)
+    del cpu_model, cpu_state
+    snapshot = train_on_card(card, state, step_fn, batches, TRAIN_CHECKED_STEPS)
+    trained = read_launches("bnn_lenet training", ())
+    if any(trained.values()):
+        fail(f"training launched a serving kernel: {trained}")
+    train_rerun(card, snapshot)
+    launches = serve_trained_lenet(card, model, example_shape, test_set)
+    launches.update(mlp_path(card))
+    return launches
+
+
 def ternary_lm_path(card: str):
     """Main path 10: the serving LM's shape with deterministic ternary
     weights (weights only), through DecodeEngine(packed=) unprepared and
@@ -3733,6 +4153,7 @@ def main() -> None:
     launches.update(phase("bnn_lenet fused", lenet_fused_path, card, model, prepared,
                           example_shape))
     del model, prepared
+    launches.update(phase("bnn_lenet train", lenet_train_path, card))
     launches["decode_lm"] = phase("decode LM", decode_path, card)
     launches.update(phase("resnet", resnet_path, card))
     launches.update(phase("W4A4 LM", w4a4_lm_path, card))
@@ -3768,7 +4189,8 @@ def main() -> None:
     # the decoders' work done inside K5's packed stage: binary words on the
     # bnn_lenet path, xnor words on xnor_cifar's, 4-bit DoReFa words on the
     # ResNet's
-    fused_paths = {"decode_binary_weights": ("bnn_lenet", "xnor_cifar_packed"),
+    fused_paths = {"decode_binary_weights": ("bnn_lenet", "xnor_cifar_packed",
+                                             "bnn_lenet_trained"),
                    "decode_dorefa_weights": ("resnet_w4a4_packed",)}
     rows = []
     for name, (cu, replaces) in meta.items():

@@ -80,7 +80,7 @@ class PackedLayer:
     packed: torch.Tensor  # grouped-planar packed words (int32 bit patterns)
     alpha: Optional[torch.Tensor] = None  # xnor per-out-channel scale
     # prepare(): ±1 int8 (K, N), centered int8 codes (Kp, N), f32 grid (K, N)
-    # or bf16 ±2^e (K, N)
+    # or bf16 ±2^e (K, N); a real-input dense layer's stored out-major
     decoded: Optional[torch.Tensor] = None
     kind: str = "dense"  # dense|conv
     scheme: str = "binary"
@@ -186,12 +186,29 @@ def _int_codes(rec: PackedLayer) -> bool:
     return rec.scheme == "dorefa" and 1 <= rec.a_bits <= 7
 
 
+def _real_input_dense(rec: PackedLayer) -> bool:
+    """True where the dense layer multiplies real inputs by decoded weights."""
+    binary_inputs = rec.scheme in ("binary", "xnor") and rec.a_bits == 1
+    return rec.kind == "dense" and not binary_inputs and not _int_codes(rec)
+
+
+def _out_major(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(K, N) weights at ``dtype``, stored as (N, K) rows: the fake-quant
+    layer's layout, so cuBLAS runs the kernel it runs there and the two
+    answer alike bit for bit. No copy when ``w`` is so already."""
+    if w.dtype == dtype and w.T.is_contiguous():
+        return w
+    return w.T.to(dtype, copy=True, memory_format=torch.contiguous_format).T
+
+
 def _decode_execution(rec: PackedLayer) -> torch.Tensor:
     """The buffer the layer's hot path consumes: centered int8 codes (K7)
-    for the integer-code GEMM, decoded values otherwise."""
+    for the integer-code GEMM, decoded values otherwise (out-major for a
+    real-input dense layer)."""
     if _int_codes(rec):
         return pm.decode_dorefa_weights(rec.packed, w_bits=rec.w_bits)
-    return _decode_weights(rec)
+    w = _decode_weights(rec)
+    return _out_major(w, w.dtype) if _real_input_dense(rec) else w
 
 
 def prepare(packed: PackedModel) -> PackedModel:
@@ -226,9 +243,9 @@ def _dense_forward_2d(rec: PackedLayer, x: torch.Tensor, bias) -> torch.Tensor:
     elif rec.scheme == "log" and rec.decoded is None:
         y = sm.shift_gemm(x, rec.packed, fsr=rec.fsr, bits=rec.w_bits)
     else:
-        # real inputs: decoded weights at the input dtype
+        # real inputs: decoded weights, out-major, at the input dtype
         w = rec.decoded if rec.decoded is not None else _decode_weights(rec)
-        y = (x @ w.to(x.dtype)).to(torch.float32)
+        y = (x @ _out_major(w, x.dtype)).to(torch.float32)
         if rec.alpha is not None:
             y = y * rec.alpha[None, :]
     if bias is not None:

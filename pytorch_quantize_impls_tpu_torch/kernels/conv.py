@@ -115,14 +115,36 @@ def conv_pads(padding: Padding, in_hw, kernel_size, strides) -> Pads:
     return tuple(pads)
 
 
+class _Conv2dFP32(torch.autograd.Function):
+    """``F.conv2d`` whose backward also runs without TF32: autograd would run
+    the backward later, under the global cuDNN flags, where TF32 is on by
+    default. The backward's algorithms are the deterministic ones."""
+
+    @staticmethod
+    def forward(ctx, xp, w, stride):
+        ctx.save_for_backward(xp, w)
+        ctx.stride = stride
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            return F.conv2d(xp, w, stride=stride)
+
+    @staticmethod
+    def backward(ctx, g):
+        xp, w = ctx.saved_tensors
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False, deterministic=True,
+                                        benchmark=False):
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                g, xp, w, None, list(ctx.stride), [0, 0], [1, 1], False, [0, 0], 1,
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return gx, gw, None
+
+
 def conv2d_nhwc(x, w_oihw, strides, padding: Padding) -> torch.Tensor:
     """NHWC x, OIHW weights -> NHWC float conv with JAX's padding, without
-    TF32: cuDNN's default TF32 would round real-valued inputs to 10 mantissa
-    bits."""
+    TF32 in the forward or the backward: cuDNN's default TF32 would round
+    real-valued inputs to 10 mantissa bits."""
     (pt, pb), (pl, pr) = conv_pads(padding, x.shape[1:3], w_oihw.shape[2:], strides)
     xp = F.pad(x.permute(0, 3, 1, 2), (pl, pr, pt, pb))
-    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-        y = F.conv2d(xp, w_oihw, stride=tuple(strides))
+    y = _Conv2dFP32.apply(xp, w_oihw, tuple(strides))
     return y.permute(0, 2, 3, 1)
 
 

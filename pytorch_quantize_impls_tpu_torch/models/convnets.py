@@ -39,7 +39,7 @@ import torch
 from torch import nn
 
 from pytorch_quantize_impls_tpu_torch.models.lenet import BatchNorm, max_pool_nhwc
-from pytorch_quantize_impls_tpu_torch.models.resnet import Conv
+from pytorch_quantize_impls_tpu_torch.nn.base import Conv, Dense
 from pytorch_quantize_impls_tpu_torch.nn.log_lin import ConvQuantLog, LinearQuantLog
 from pytorch_quantize_impls_tpu_torch.nn.xnor import XNORConv, XNORLinear
 
@@ -71,7 +71,7 @@ class XNORConvNet(nn.Module):
         cin = IMAGE_SHAPE[2]
         for i, w in enumerate(self.widths):
             if fp32_first_last and i == 0:
-                conv = Conv(cin, w, (3, 3))
+                conv = Conv(cin, w, (3, 3), use_bias=False)
             else:
                 # the first conv sees real pixels in either mode
                 conv = XNORConv(cin, w, (3, 3), binarize_input=binarize_inputs and i > 0,
@@ -81,7 +81,7 @@ class XNORConvNet(nn.Module):
             cin = w
         side = IMAGE_SHAPE[0] // 2 ** (len(self.widths) // 2)
         features = side * side * cin
-        self.head = (nn.Linear(features, classes) if fp32_first_last
+        self.head = (Dense(features, classes) if fp32_first_last
                      else XNORLinear(features, classes))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -5,28 +5,37 @@ weights AND activations (BNN, arXiv:1602.02830). The first conv takes the
 real-valued image; every later layer sign-binarizes its input. Input is NHWC
 ``(B, 28, 28, 1)``, as in the JAX package, and activations stay NHWC between
 layers, so ``fc1`` sees the (h, w, c) flattening the JAX model gives it.
-Module names match the flax ones (``conv1.conv``, ``bn1``, ..., ``head.dense``).
+Module names match the flax ones (``conv1.conv``, ``bn1``, ..., ``head.dense``;
+the ``quantized=False`` twin's plain layers are ``conv1``, ..., ``head``).
 
-Only the eval forward is ported; training (batch statistics, the fp32 twin)
-waits for its ROADMAP item.
+``BatchNorm`` is flax's in both modes: in training it normalizes by the
+batch statistics and moves the running ones, with flax's arithmetic.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from pytorch_quantize_impls_tpu_torch.nn.base import Conv, Dense
 from pytorch_quantize_impls_tpu_torch.nn.binary import BinConv, LinearBin
 
 
 class BatchNorm(nn.Module):
-    """Channels-last BatchNorm in eval mode, with flax's arithmetic order
-    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``: the sign taken right
-    after it should see the same float rounding as the JAX model's."""
+    """Channels-last BatchNorm (``flax.linen.BatchNorm``), statistics over
+    every axis but the last. The normalization keeps flax's order
+    ``(x - mean) * (rsqrt(var + eps) * scale) + bias``, so the sign taken
+    right after it sees the same float rounding as the JAX model's. In
+    training mode it uses the batch mean and flax's fast variance
+    ``max(0, mean(x^2) - mean(x)^2)`` (biased; the same value goes into
+    ``running_var``) and moves the running statistics as
+    ``momentum * running + (1 - momentum) * batch``."""
 
-    def __init__(self, features: int, epsilon: float = 1e-5):
+    def __init__(self, features: int, epsilon: float = 1e-5, momentum: float = 0.99):
         super().__init__()
         self.epsilon = epsilon
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -34,11 +43,17 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError(
-                "BatchNorm training (batch statistics) is not ported yet; call .eval()"
-            )
-        mul = torch.rsqrt(self.running_var + self.epsilon) * self.weight
-        return (x - self.running_mean) * mul + self.bias
+            axes = tuple(range(x.ndim - 1))
+            mean = x.mean(axes)
+            var = torch.maximum(x.new_zeros(()), (x * x).mean(axes) - mean * mean)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.epsilon) * self.weight
+        return (x - mean) * mul + self.bias
 
 
 def max_pool_nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -46,7 +61,12 @@ def max_pool_nhwc(x: torch.Tensor) -> torch.Tensor:
     on NHWC floats or int8 codes (the fused chains'): two elementwise
     maxima of strided views. ``F.max_pool2d`` has no int8 kernel on CUDA
     (it raises NotImplementedError for 'Char' on the H100); on floats the
-    two maxima take the same device time as it in LeNet's forward."""
+    two maxima take the same device time as it in LeNet's forward. Where a
+    gradient is taken it is ``F.max_pool2d``, whose gradient goes to the
+    first maximum of a window, as JAX's does; the two maxima would split it
+    over ties, and the sums of +-1 terms that feed LeNet's pools tie often."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
     h, w = x.shape[1] // 2 * 2, x.shape[2] // 2 * 2
     x = torch.maximum(x[:, 0:h:2], x[:, 1:h:2])
     return torch.maximum(x[:, :, 0:w:2], x[:, :, 1:w:2])
@@ -54,20 +74,31 @@ def max_pool_nhwc(x: torch.Tensor) -> torch.Tensor:
 
 class BNNLeNet(nn.Module):
     """conv1 5x5 1->w, bn1, pool, conv2 5x5 w->2w (binary input), bn2, pool,
-    fc1 16*2w->8w, bn3, head 8w->classes; no biases."""
+    fc1 16*2w->8w, bn3, head 8w->classes; no biases. ``quantized=False`` is
+    the float32 twin (flax ``nn.Conv``/``nn.Dense`` layers, same names)."""
 
-    def __init__(self, classes: int = 10, width: int = 32):
+    def __init__(self, classes: int = 10, width: int = 32, quantized: bool = True):
         super().__init__()
         w = width
-        self.conv1 = BinConv(1, w, (5, 5), padding="VALID", use_bias=False)
+
+        def conv(cin, cout, binarize_input):
+            if quantized:
+                return BinConv(cin, cout, (5, 5), padding="VALID",
+                               binarize_input=binarize_input, use_bias=False)
+            return Conv(cin, cout, (5, 5), padding="VALID", use_bias=False)
+
+        def dense(fin, fout):
+            if quantized:
+                return LinearBin(fin, fout, binarize_input=True, use_bias=False)
+            return Dense(fin, fout, use_bias=False)
+
+        self.conv1 = conv(1, w, binarize_input=False)  # real-valued input
         self.bn1 = BatchNorm(w)
-        self.conv2 = BinConv(
-            w, 2 * w, (5, 5), padding="VALID", binarize_input=True, use_bias=False
-        )
+        self.conv2 = conv(w, 2 * w, binarize_input=True)
         self.bn2 = BatchNorm(2 * w)
-        self.fc1 = LinearBin(4 * 4 * 2 * w, 8 * w, binarize_input=True, use_bias=False)
+        self.fc1 = dense(4 * 4 * 2 * w, 8 * w)
         self.bn3 = BatchNorm(8 * w)
-        self.head = LinearBin(8 * w, classes, binarize_input=True, use_bias=False)
+        self.head = dense(8 * w, classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = max_pool_nhwc(self.bn1(self.conv1(x)))

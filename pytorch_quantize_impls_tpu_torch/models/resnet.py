@@ -19,23 +19,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from pytorch_quantize_impls_tpu_torch.kernels.conv import conv2d_nhwc
 from pytorch_quantize_impls_tpu_torch.models.lenet import BatchNorm
+from pytorch_quantize_impls_tpu_torch.nn.base import Conv, Dense
 from pytorch_quantize_impls_tpu_torch.nn.dorefa import DorefaConv
-
-
-class Conv(nn.Module):
-    """Float32 NHWC conv without bias (flax ``nn.Conv(use_bias=False)``),
-    with JAX's SAME padding."""
-
-    def __init__(self, in_channels: int, features: int, kernel_size, strides=(1, 1)):
-        super().__init__()
-        self.strides = tuple(strides)
-        self.weight = nn.Parameter(torch.empty(features, in_channels, *kernel_size))
-        nn.init.xavier_normal_(self.weight)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv2d_nhwc(x, self.weight, self.strides, "SAME")
 
 
 class BasicBlock(nn.Module):
@@ -52,7 +38,8 @@ class BasicBlock(nn.Module):
         self.bn2 = BatchNorm(features)
         self.proj = self.bn_proj = None
         if strides != 1 or in_channels != features:
-            self.proj = Conv(in_channels, features, (1, 1), (strides, strides))
+            self.proj = Conv(in_channels, features, (1, 1), strides=(strides, strides),
+                             use_bias=False)
             self.bn_proj = BatchNorm(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -68,7 +55,7 @@ class DorefaResNet20(nn.Module):
         super().__init__()
         self.w_bits, self.a_bits, self.a_quant, self.width = w_bits, a_bits, a_quant, width
         w = width
-        self.stem = Conv(3, w, (3, 3))
+        self.stem = Conv(3, w, (3, 3), use_bias=False)
         self.bn_stem = BatchNorm(w)
         cin = w
         for stage, (f, s) in enumerate([(w, 1), (2 * w, 2), (4 * w, 2)]):
@@ -77,7 +64,7 @@ class DorefaResNet20(nn.Module):
                     cin, f, s if block == 0 else 1, w_bits=w_bits, a_bits=a_bits, a_quant=a_quant,
                 ))
                 cin = f
-        self.head = nn.Linear(4 * w, classes)
+        self.head = Dense(4 * w, classes)
 
     def blocks(self):
         return [getattr(self, f"stage{s}_block{b}") for s in range(3) for b in range(3)]

@@ -2,9 +2,14 @@
 call from the float32 master weight; the packed path is ``infer``."""
 
 from pytorch_quantize_impls_tpu_torch.nn.base import (  # noqa: F401
+    Conv,
+    Dense,
     QuantConv,
     QuantDense,
+    init_like_flax,
     intercept_quant_layers,
+    quant_generator,
+    stochastic,
 )
 from pytorch_quantize_impls_tpu_torch.nn.binary import BinConv, LinearBin  # noqa: F401
 from pytorch_quantize_impls_tpu_torch.nn.dorefa import DorefaConv, LinearDorefa  # noqa: F401

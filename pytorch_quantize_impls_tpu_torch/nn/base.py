@@ -18,18 +18,35 @@ and OIHW (``utils.bridge`` converts).
 ``intercept_methods`` for these two classes: while it is active in a thread,
 each of their forward calls goes to the interceptor instead, which is how
 ``infer.packed_apply`` runs a model on its packed weights.
+
+Stochastic quantizers (tagged by :func:`stochastic`) take ``(x, generator)``.
+In training mode they draw from the generator that :func:`quant_generator`
+holds for the running thread: the train step sets it from (seed, step), as
+the JAX package folds the step into its ``'quant'`` key. Outside such a
+block a stochastic layer in training mode raises; it never draws from the
+global RNG. In eval mode (``not module.training``) they call their
+``eval_fn`` instead.
+
+``Dense`` and ``Conv`` are the float32 layers of the ``quantized=False``
+twins (flax's ``nn.Dense``/``nn.Conv``). :func:`init_like_flax` draws every
+layer's weight as flax's initializers do (``glorot_normal`` for quantized
+layers, ``lecun_normal`` for the plain ones, both truncated normals), from a
+seeded generator on the CPU, so a model draws the same weights on any
+device.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import math
 from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
 
 from pytorch_quantize_impls_tpu_torch.kernels.conv import conv2d_nhwc
+from pytorch_quantize_impls_tpu_torch.ops.common import round_ste
 
 Quantizer = Callable[[torch.Tensor], torch.Tensor]
 # (module, x, fake_quant_forward) -> y
@@ -51,7 +68,68 @@ def intercept_quant_layers(fn: Interceptor):
         _interceptor.reset(token)
 
 
+_generator: contextvars.ContextVar[Optional[torch.Generator]] = contextvars.ContextVar(
+    "quant_generator", default=None
+)
+
+
+@contextlib.contextmanager
+def quant_generator(generator: torch.Generator):
+    """Let stochastic quantizers in training mode draw from ``generator`` in
+    this thread until the block exits."""
+    token = _generator.set(generator)
+    try:
+        yield
+    finally:
+        _generator.reset(token)
+
+
+class _Stochastic:
+    """A quantizer ``fn(x, generator)`` tagged stochastic, with the
+    deterministic ``eval_fn(x)`` used in eval mode."""
+
+    stochastic = True
+
+    def __init__(self, fn, eval_fn):
+        self.fn = fn
+        self.eval_fn = eval_fn
+
+    def __call__(self, x, generator):
+        return self.fn(x, generator)
+
+
+def stochastic(fn, eval_fn: Quantizer) -> _Stochastic:
+    """Tag ``fn(x, generator)`` as a stochastic quantizer; ``eval_fn`` is its
+    deterministic replacement at eval time."""
+    return _Stochastic(fn, eval_fn)
+
+
+def clipped_master(w: torch.Tensor) -> torch.Tensor:
+    """The eval rule of the stochastic weight quantizers: ``clip(w, -1, 1)``,
+    the expectation of a draw."""
+    return torch.clamp(w, -1.0, 1.0)
+
+
+def _apply_quant(q, x: torch.Tensor, module: nn.Module) -> torch.Tensor:
+    if q is None:
+        return x
+    if not getattr(q, "stochastic", False):
+        return q(x)
+    if not module.training:
+        return q.eval_fn(x)
+    generator = _generator.get()
+    if generator is None:
+        raise RuntimeError(
+            "a stochastic quantizer in training mode draws from the train step's generator: "
+            "run it inside train.make_train_step's step (or nn.quant_generator), or call "
+            ".eval() first"
+        )
+    return q(x, generator)
+
+
 class _QuantLayer(nn.Module):
+    kernel_init = "glorot_normal"  # init_like_flax's rule: or lecun_normal, uniform
+
     def __init__(self, weight_quant, input_quant, out_scale, scheme, w_bits, a_bits, fsr):
         super().__init__()
         self.weight_quant = weight_quant
@@ -69,10 +147,8 @@ class _QuantLayer(nn.Module):
         return self.fake_quant_forward(x)
 
     def _quantized(self, x):
-        if self.input_quant is not None:
-            x = self.input_quant(x)
-        w = self.weight if self.weight_quant is None else self.weight_quant(self.weight)
-        return x, w
+        x = _apply_quant(self.input_quant, x, self)
+        return x, _apply_quant(self.weight_quant, self.weight, self)
 
     def _epilogue(self, y):
         if self.out_scale is not None:
@@ -134,10 +210,72 @@ class QuantConv(_QuantLayer):
         self.kernel_size = tuple(kernel_size)
         self.strides = tuple(strides)
         self.padding = padding
+        self._integer_sums = (scheme in ("binary", "xnor") and a_bits == 1
+                              and not getattr(weight_quant, "stochastic", False))
         self.weight = nn.Parameter(torch.empty(features, in_channels, *kernel_size))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
         nn.init.xavier_normal_(self.weight)
 
     def fake_quant_forward(self, x: torch.Tensor) -> torch.Tensor:
         x, w = self._quantized(x)
-        return self._epilogue(conv2d_nhwc(x, w, self.strides, self.padding))
+        y = conv2d_nhwc(x, w, self.strides, self.padding)
+        if self._integer_sums:
+            # +-1 inputs and weights: every output is an integer, which the
+            # algorithm cuDNN picks misses by up to ~1e-4 at some shapes; the
+            # JAX package's convs are exact, and ties among the sums decide
+            # where a max pool's gradient goes
+            y = round_ste(y)
+        return self._epilogue(y)
+
+
+class Dense(QuantDense):
+    """Float32 dense layer (flax ``nn.Dense``): no quantizer, ``lecun_normal``
+    init."""
+
+    kernel_init = "lecun_normal"
+
+    def __init__(self, in_features: int, features: int, *, use_bias: bool = True):
+        super().__init__(in_features, features, use_bias=use_bias)
+
+
+class Conv(QuantConv):
+    """Float32 NHWC conv (flax ``nn.Conv``): no quantizer, ``lecun_normal``
+    init, JAX's padding."""
+
+    kernel_init = "lecun_normal"
+
+    def __init__(self, in_channels: int, features: int, kernel_size: Tuple[int, int] = (3, 3), *,
+                 strides: Tuple[int, int] = (1, 1),
+                 padding: Union[str, Sequence[Tuple[int, int]]] = "SAME", use_bias: bool = True):
+        super().__init__(in_channels, features, kernel_size, strides=strides, padding=padding,
+                         use_bias=use_bias)
+
+
+# flax's variance_scaling: the std of a unit normal truncated to [-2, 2]
+_TRUNCATED_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def init_like_flax(model: nn.Module, seed: int) -> nn.Module:
+    """Draw every quantized and plain layer's weight as flax does, in module
+    order from one generator seeded with ``seed`` on the CPU: a truncated
+    normal of variance 2 / (fan_in + fan_out) (``glorot_normal``) or
+    1 / fan_in (``lecun_normal``), or uniform(-1, 1) (the ternary layers);
+    biases 0. Returns ``model``."""
+    gen = torch.Generator().manual_seed(seed)
+    for m in model.modules():
+        if not isinstance(m, _QuantLayer):
+            continue
+        w = torch.empty(m.weight.shape)
+        if m.kernel_init == "uniform":
+            w.uniform_(-1.0, 1.0, generator=gen)
+        else:
+            receptive = math.prod(w.shape[2:])
+            fan_in, fan_out = w.shape[1] * receptive, w.shape[0] * receptive
+            denom = fan_in if m.kernel_init == "lecun_normal" else (fan_in + fan_out) / 2
+            std = math.sqrt(1.0 / denom) / _TRUNCATED_STD
+            nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=gen)
+        m.weight.copy_(w)
+        if m.bias is not None:
+            m.bias.zero_()
+    return model

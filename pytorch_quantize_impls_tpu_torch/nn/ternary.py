@@ -4,9 +4,9 @@ quantizer.
 Counterpart of ``pytorch_quantize_impls_tpu/nn/ternary.py``: ``LinearTer``
 and ``TerConv`` (``scheme="ternary"``, ``w_bits=2``, children ``dense`` and
 ``conv`` as in flax) with the uniform(-1, 1) master init of
-:func:`ternary_spread_init`. Only the deterministic quantizer is ported;
-``deterministic=False`` (stochastic ternarization, which acts in training)
-raises ``NotImplementedError``.
+:func:`ternary_spread_init`. ``deterministic=False`` draws the stochastic
+ternarization per training forward and evaluates with the clipped master
+``clip(w, -1, 1)`` (E[T(w)] = clip(w)), as stochastic BinaryConnect does.
 """
 
 from __future__ import annotations
@@ -17,7 +17,12 @@ import torch
 from torch import nn
 
 from pytorch_quantize_impls_tpu_torch import ops
-from pytorch_quantize_impls_tpu_torch.nn.base import QuantConv, QuantDense
+from pytorch_quantize_impls_tpu_torch.nn.base import (
+    QuantConv,
+    QuantDense,
+    clipped_master,
+    stochastic,
+)
 
 
 def ternary_spread_init(weight: torch.Tensor,
@@ -31,12 +36,9 @@ def ternary_spread_init(weight: torch.Tensor,
 
 
 def _ternary_quant(deterministic: bool):
-    if not deterministic:
-        raise NotImplementedError(
-            "stochastic ternarization (deterministic=False) acts in training and is not "
-            "ported yet (ROADMAP queue 1, item 3)"
-        )
-    return ops.ternary_connect_det
+    if deterministic:
+        return ops.ternary_connect_det
+    return stochastic(ops.ternary_connect_stoch, eval_fn=clipped_master)
 
 
 class LinearTer(nn.Module):
@@ -47,6 +49,7 @@ class LinearTer(nn.Module):
             in_features, features, weight_quant=_ternary_quant(deterministic),
             use_bias=use_bias, scheme="ternary", w_bits=2,
         )
+        self.dense.kernel_init = "uniform"
         ternary_spread_init(self.dense.weight, generator)
 
     def forward(self, x):
@@ -72,6 +75,7 @@ class TerConv(nn.Module):
             weight_quant=_ternary_quant(deterministic), use_bias=use_bias,
             scheme="ternary", w_bits=2,
         )
+        self.conv.kernel_init = "uniform"
         ternary_spread_init(self.conv.weight, generator)
 
     def forward(self, x):

@@ -3,11 +3,17 @@ the grouped-planar bit packing (``ops.pack``)."""
 
 from pytorch_quantize_impls_tpu_torch.ops.common import (  # noqa: F401
     flush_subnormal,
+    hard_sigmoid,
+    round_ste,
     safe_sign,
     ste,
+    ste_clip,
+    ste_identity,
 )
 from pytorch_quantize_impls_tpu_torch.ops.binary import (  # noqa: F401
+    binary_connect,
     binary_connect_det,
+    binary_connect_stoch,
     binary_tanh,
 )
 from pytorch_quantize_impls_tpu_torch.ops.dorefa import (  # noqa: F401
@@ -22,7 +28,11 @@ from pytorch_quantize_impls_tpu_torch.ops.log_lin import (  # noqa: F401
     log_quant_from_exponent,
 )
 from pytorch_quantize_impls_tpu_torch.ops.pact import pact  # noqa: F401
-from pytorch_quantize_impls_tpu_torch.ops.ternary import ternary_connect_det  # noqa: F401
+from pytorch_quantize_impls_tpu_torch.ops.ternary import (  # noqa: F401
+    ternary_connect,
+    ternary_connect_det,
+    ternary_connect_stoch,
+)
 from pytorch_quantize_impls_tpu_torch.ops.xnor import (  # noqa: F401
     out_channel_alpha,
     sign_ste_clip,

@@ -1,9 +1,8 @@
-"""Shared quantizer helpers: the zero-safe sign and the straight-through
-estimator (STE), as a ``torch.autograd.Function``.
+"""Shared quantizer helpers: the zero-safe sign, the BinaryConnect hard
+sigmoid and the straight-through estimator (STE), as a
+``torch.autograd.Function``.
 
-Counterpart of ``pytorch_quantize_impls_tpu/ops/common.py``. The stochastic
-helpers (``hard_sigmoid``) and ``round_ste`` arrive with the quantizers that
-use them.
+Counterpart of ``pytorch_quantize_impls_tpu/ops/common.py``.
 """
 
 from __future__ import annotations
@@ -21,6 +20,17 @@ Mask = Callable[[torch.Tensor], torch.Tensor]
 def safe_sign(x: torch.Tensor) -> torch.Tensor:
     """Sign with ``sign(0) == +1`` so binarized values are never 0."""
     return torch.where(x >= 0, 1.0, -1.0).to(x.dtype)
+
+
+def jnp_clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip``: ``minimum(maximum(x, lo), hi)``, whose gradient is split
+    in half where x sits on a bound (``torch.clamp`` passes all of it)."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+
+
+def hard_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """BinaryConnect hard sigmoid: ``clip((x + 1) / 2, 0, 1)``."""
+    return jnp_clip((x + 1.0) * 0.5, 0.0, 1.0)
 
 
 def flush_subnormal(x: torch.Tensor) -> torch.Tensor:
@@ -69,6 +79,16 @@ def clip_mask(bound: float = 1.0) -> Mask:
     return lambda x: (x.abs() <= bound).to(x.dtype)
 
 
+def ste_identity(forward: Callable[[torch.Tensor], torch.Tensor]):
+    """Identity-STE wrapper: the gradient passes through unchanged."""
+    return ste(forward, None)
+
+
+def ste_clip(forward: Callable[[torch.Tensor], torch.Tensor], bound: float = 1.0):
+    """Clipped-STE wrapper: the gradient is cancelled where ``|x| > bound``."""
+    return ste(forward, clip_mask(bound))
+
+
 def resolve_ste_mask(
     mode: Union[str, Mask, None], clip_bound: float = 1.0
 ) -> Optional[Mask]:
@@ -81,3 +101,12 @@ def resolve_ste_mask(
     if callable(mode):
         return mode
     raise ValueError(f"unknown STE mode: {mode!r}")
+
+
+_round_ste = ste_identity(torch.round)
+
+
+def round_ste(x: torch.Tensor) -> torch.Tensor:
+    """``round`` (half to even, as ``jnp.round``) with the identity STE: the
+    atom under the DoReFa, linear and log grids."""
+    return _round_ste(x)

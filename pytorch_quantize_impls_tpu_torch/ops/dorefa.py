@@ -17,9 +17,8 @@ from __future__ import annotations
 
 import torch
 
-from pytorch_quantize_impls_tpu_torch.ops.common import safe_sign, ste
+from pytorch_quantize_impls_tpu_torch.ops.common import round_ste, safe_sign, ste
 
-_round_ste = ste(torch.round)
 _sign_ste = ste(safe_sign)
 
 
@@ -28,7 +27,7 @@ def quantize_k(x: torch.Tensor, bits: int) -> torch.Tensor:
     if bits >= 32:
         return x
     n = float(2**bits - 1)
-    return _round_ste(x * n) / n
+    return round_ste(x * n) / n
 
 
 def dorefa_weight(w: torch.Tensor, bits: int) -> torch.Tensor:

@@ -13,7 +13,7 @@ Backends: the fake-quant decode model (default), ``packed=`` records from
 ``infer.pack_model`` run through ``infer.packed_apply`` (binary, dorefa, log
 or lin), or ``fused=`` a program from ``infer.export_fused_decode`` (the
 fused step with the ``decode_attention`` kernel). A mesh (``mesh=``) waits for ROADMAP
-queue 1 item 12. The cache is updated in place by every call (see
+queue 1 item 6. The cache is updated in place by every call (see
 ``models.transformer``).
 """
 
@@ -119,7 +119,7 @@ class DecodeEngine:
             raise ValueError("fused backend is exclusive with packed/mesh")
         if mesh is not None:
             raise NotImplementedError(
-                "serving over a mesh is not ported yet (ROADMAP queue 1, item 12)"
+                "serving over a mesh is not ported yet (ROADMAP queue 1, item 6)"
             )
         self._device = resolve_device(device)
         self._md = decode_model(model)

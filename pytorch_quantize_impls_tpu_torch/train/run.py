@@ -1,0 +1,133 @@
+"""Train a named config end to end on the card (or the CPU).
+
+    python -m pytorch_quantize_impls_tpu_torch.train.run --config bnn_lenet \\
+        [--steps N] [--fp32] [--schedule constant|cosine] [--device cpu] \\
+        [--export model.npz]
+
+The loop of the JAX package's ``scripts/train.py`` without its mesh,
+checkpoints, metrics writer and profiler (ROADMAP queue 1, items 5 and 6):
+build the config's model (weights drawn as flax draws them, from
+``--seed``), load its data (real MNIST/CIFAR-10 from ``$QTPU_DATA_DIR`` or
+``--data-dir`` when present, else the synthetic stand-ins; sklearn's
+digits), train over ``data.iterate_batches``, evaluate on the whole test
+split in batches of 256, and for a quantized model evaluate its packed form
+too (``infer.prepare(infer.pack_model(model))``). ``--export`` writes the
+packed artifact (``infer.save_packed``), which either package loads.
+``--schedule cosine`` decays the learning rate as the JAX package's
+accuracy runs do (``scripts/accuracy_sweep.py``); the default is constant,
+as ``scripts/train.py``. Every 100 steps a line gives the loss, the
+accuracy and images/s; the last line is one JSON object with the result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+import torch
+
+from pytorch_quantize_impls_tpu_torch import data, infer, train
+from pytorch_quantize_impls_tpu_torch.utils.config import SCHEME_CONFIGS, RunConfig, build_model
+
+LOG_EVERY = 100
+EVAL_BATCH = 256
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
+    p.add_argument("--config", default="bnn_lenet", choices=sorted(SCHEME_CONFIGS))
+    p.add_argument("--steps", type=int, default=None, help="default: the config's")
+    p.add_argument("--batch-size", type=int, default=None, help="default: the config's")
+    p.add_argument("--lr", type=float, default=None, help="default: the config's")
+    p.add_argument("--schedule", choices=("constant", "cosine"), default="constant")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--width", type=int, default=None, help="bnn_lenet's width (default 128)")
+    p.add_argument("--fp32", action="store_true", help="train the float32 twin")
+    p.add_argument("--device", default="cuda")
+    p.add_argument("--data-dir", default=None)
+    p.add_argument("--export", default=None, help="write the packed .npz artifact here")
+    return p.parse_args(argv)
+
+
+def load_data(dataset: str, input_shape, data_dir=None):
+    flat = len(input_shape) == 1
+    if dataset == "mnist":
+        return data.mnist(flatten=flat, data_dir=data_dir)
+    if dataset == "digits":
+        return data.digits(flatten=flat)
+    return data.cifar10(data_dir=data_dir)
+
+
+@torch.no_grad()
+def accuracy(forward, test, device) -> float:
+    """Share of the test split ``forward`` classifies right, tail included."""
+    xs, ys = test
+    correct = 0
+    for i in range(0, len(xs), EVAL_BATCH):
+        x = torch.from_numpy(xs[i:i + EVAL_BATCH]).to(device)
+        y = torch.from_numpy(ys[i:i + EVAL_BATCH]).to(device)
+        correct += int((forward(x).argmax(-1) == y).sum())
+    return correct / len(xs)
+
+
+def train_config(args):
+    """Train, evaluate and export as ``args`` say; returns (the model in eval
+    mode, the result dict)."""
+    cfg = RunConfig(**SCHEME_CONFIGS[args.config])
+    cfg.seed = args.seed
+    for field in ("steps", "batch_size", "lr", "width", "data_dir"):
+        if getattr(args, field) is not None:
+            setattr(cfg, field, getattr(args, field))
+    model, input_shape, dataset = build_model(cfg, fp32=args.fp32, device=args.device)
+    device = next(model.parameters()).device
+    train_data, test_data = load_data(dataset, input_shape, cfg.data_dir)
+    lr = train.cosine_decay_schedule(cfg.lr, cfg.steps) if args.schedule == "cosine" else cfg.lr
+    state = train.QuantTrainState.create_for(model, lr=lr, seed=cfg.seed)
+    step_fn = train.make_train_step()
+    print(f"config={cfg.config} fp32={args.fp32} model={type(model).__name__} "
+          f"dataset={dataset} train={train_data[0].shape} test={test_data[0].shape} "
+          f"device={device}", flush=True)
+
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    t_start = t_log = time.perf_counter()
+    for batch in data.iterate_batches(train_data, cfg.batch_size, seed=cfg.seed):
+        if state.step >= cfg.steps:
+            break
+        state, metrics = step_fn(state, batch)
+        if state.step % LOG_EVERY == 0 or state.step == cfg.steps:
+            sync()
+            now = time.perf_counter()
+            n = state.step % LOG_EVERY or LOG_EVERY
+            print(f"step {state.step} loss {float(metrics['loss']):.4f} accuracy "
+                  f"{float(metrics['accuracy']):.4f} images/s "
+                  f"{n * cfg.batch_size / (now - t_log):.1f}", flush=True)
+            t_log = now
+    sync()
+    train_s = time.perf_counter() - t_start
+
+    model.eval()
+    out = {"config": cfg.config, "fp32": args.fp32, "steps": state.step,
+           "schedule": args.schedule, "device": str(device), "loss": float(metrics["loss"]),
+           "ms_per_step": 1e3 * train_s / max(state.step, 1),
+           "accuracy": accuracy(model, test_data, device)}
+    packed = infer.pack_model(model)
+    if packed:
+        ready = infer.prepare(packed)
+        out["packed_accuracy"] = accuracy(
+            lambda x: infer.packed_apply(model, ready, x), test_data, device)
+    if args.export:
+        infer.save_packed(args.export, packed)
+        out["export"] = args.export
+    return model, out
+
+
+def main(argv=None) -> int:
+    _, out = train_config(parse_args(argv))
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

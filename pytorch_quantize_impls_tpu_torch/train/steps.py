@@ -1,0 +1,85 @@
+"""Train and eval steps.
+
+Counterpart of ``pytorch_quantize_impls_tpu/train/steps.py``: fake-quant
+forward -> float32 cross-entropy -> STE backward -> Adam -> clamp, with
+BatchNorm in training mode. The JAX package jits this into one XLA program;
+here it is eager PyTorch (``torch.matmul``, cuDNN convs, the STEs'
+``autograd.Function``s), and launches none of the port's kernels.
+
+The forward and the backward run inside one set of cuDNN flags: no TF32
+(the JAX package computes float32) and the deterministic algorithms, so two
+runs on the card give the same bits.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from pytorch_quantize_impls_tpu_torch.nn.base import quant_generator
+from pytorch_quantize_impls_tpu_torch.train.state import QuantTrainState
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean softmax cross-entropy on float32 logits and integer labels."""
+    return F.cross_entropy(logits.to(torch.float32), labels.to(torch.int64))
+
+
+def fp32_cudnn():
+    """cuDNN without TF32, deterministic algorithms, no autotuning."""
+    return torch.backends.cudnn.flags(enabled=True, allow_tf32=False, deterministic=True,
+                                      benchmark=False)
+
+
+def _on_device(batch, device):
+    x, y = batch
+    if isinstance(x, np.ndarray):
+        x, y = torch.from_numpy(x), torch.from_numpy(y)
+    return x.to(device, non_blocking=True), y.to(device, non_blocking=True)
+
+
+def make_train_step(*, elastic_weight: float = 0.0, loss_fn: Callable = cross_entropy):
+    """``(state, (inputs, integer labels)) -> (state, {"loss", "accuracy"})``:
+    one update of ``state`` in place (returned for the JAX package's
+    calling pattern). The metrics stay on the device."""
+    if elastic_weight:
+        raise NotImplementedError(
+            "the elastic penalty is not ported yet (ROADMAP queue 1, item 4)")
+
+    def step(state: QuantTrainState, batch):
+        x, y = _on_device(batch, state.device)
+        model = state.model
+        model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        with fp32_cudnn(), quant_generator(state.step_generator()):
+            logits = model(x)
+            loss = loss_fn(logits, y)
+            loss.backward()
+        state.apply_gradients()
+        with torch.no_grad():
+            acc = (logits.argmax(-1) == y).to(torch.float32).mean()
+        return state, {"loss": loss.detach(), "accuracy": acc}
+
+    return step
+
+
+def make_eval_step():
+    """``(state, batch) -> {"loss", "accuracy", "count"}`` in eval mode:
+    running BatchNorm statistics, deterministic quantizers (the stochastic
+    ones' ``eval_fn``)."""
+
+    @torch.no_grad()
+    def step(state: QuantTrainState, batch):
+        x, y = _on_device(batch, state.device)
+        state.model.eval()
+        logits = state.model(x)
+        return {
+            "loss": cross_entropy(logits, y),
+            "accuracy": (logits.argmax(-1) == y).to(torch.float32).mean(),
+            "count": torch.tensor(y.shape[0]),
+        }
+
+    return step

@@ -19,6 +19,13 @@ port's module of the same architecture:
 
 A flax path ``("fc1", "dense", "kernel")`` becomes the state-dict key
 ``"fc1.dense.weight"``. Loading is strict: a missing or extra entry raises.
+
+:func:`flax_variables` goes the other way: a module's state as flax-layout
+numpy ``{"params": ..., "batch_stats": ...}``, which the JAX package's
+``apply``, ``pack_model`` and training steps take. :func:`flax_paths` names
+each state-dict entry's flax collection and path: a 1-D ``weight`` is a
+norm layer's ``scale``, an ``nn.Embedding``'s its ``embedding``, any other
+``weight`` a ``kernel`` (``train.clipping`` selects by these paths).
 """
 
 from __future__ import annotations
@@ -77,6 +84,55 @@ def flax_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     if extra:
         raise ValueError(f"variable collections {sorted(extra)} have no port counterpart")
     return sd
+
+
+def flax_paths(module: nn.Module) -> Dict[str, Tuple[str, Tuple[str, ...]]]:
+    """State-dict key -> (flax collection, flax path) for every entry of
+    ``module.state_dict()``."""
+    stats = {v: k for k, v in _STAT_NAMES.items()}
+    out = {}
+    for key, value in module.state_dict().items():
+        *prefix, leaf = key.split(".")
+        if leaf in stats:
+            out[key] = ("batch_stats", (*prefix, stats[leaf]))
+            continue
+        if leaf == "weight":
+            sub = module.get_submodule(".".join(prefix))
+            if value.ndim == 1:
+                leaf = "scale"
+            elif isinstance(sub, nn.Embedding):
+                leaf = "embedding"
+            else:
+                leaf = "kernel"
+        elif prefix and leaf not in ("bias", "alpha"):
+            raise ValueError(f"state entry {key} has no flax counterpart")
+        out[key] = ("params", (*prefix, leaf))
+    return out
+
+
+def _to_flax_layout(name: str, value: np.ndarray) -> np.ndarray:
+    if name != "kernel":
+        return value
+    if value.ndim == 2:  # (out, in) -> (in, out)
+        return value.T
+    if value.ndim == 4:  # OIHW -> HWIO
+        return value.transpose(2, 3, 1, 0)
+    raise ValueError(f"kernel of rank {value.ndim} has no flax layout")
+
+
+def flax_variables(module: nn.Module) -> Dict[str, Any]:
+    """``module``'s parameters and running statistics as flax ``variables``
+    (nested dicts of float32 numpy arrays in flax's layouts); the inverse of
+    :func:`flax_state_dict`."""
+    sd = module.state_dict()
+    out: Dict[str, Any] = {}
+    for key, (collection, path) in flax_paths(module).items():
+        node = out.setdefault(collection, {})
+        for name in path[:-1]:
+            node = node.setdefault(name, {})
+        value = sd[key].detach().to("cpu", torch.float32).numpy()
+        node[path[-1]] = np.array(_to_flax_layout(path[-1], value), order="C")
+    return out
 
 
 def load_flax_variables(

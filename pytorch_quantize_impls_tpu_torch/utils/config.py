@@ -1,13 +1,15 @@
 """Run configs: the named configurations and the model each one builds.
 
 Counterpart of ``pytorch_quantize_impls_tpu/utils/config.py``. Ported:
-``bnn_lenet`` (BASELINE config 2), ``xnor_cifar`` (BASELINE config 3, the
-full-XNOR convnet with the K map), ``dorefa_resnet20`` (BASELINE config 4,
-W4A4 with PACT), ``dorefa_resnet20_w4`` (weights only) and ``logquant_vgg``
-(BASELINE config 5, W4 log weights). ``RunConfig``
-holds the fields their entries set; the training fields (lr, batch size,
-mesh, checkpointing, warm start, elastic weight) and the other configs
-arrive with their ROADMAP items.
+``binaryconnect_mlp`` (BASELINE config 1), ``bnn_lenet`` (BASELINE config 2),
+``xnor_cifar`` (BASELINE config 3), ``dorefa_resnet20`` (BASELINE config 4,
+W4A4 with PACT), ``dorefa_resnet20_w4``, ``logquant_vgg`` (BASELINE config 5)
+and the digits MLPs ``binaryconnect_digits(_stoch)`` and
+``ternary_digits(_stoch)``, with the JAX entries' values. ``RunConfig`` holds
+the fields their entries set and the training fields the port reads (batch
+size, lr, seed, the data directory). The mesh, checkpoint, metrics and
+profile fields, the elastic weight and the other configs arrive with their
+ROADMAP items; ``warm_start`` is carried but not read yet (item 5).
 """
 
 from __future__ import annotations
@@ -21,49 +23,94 @@ from pytorch_quantize_impls_tpu_torch.utils.device import resolve_device
 @dataclasses.dataclass
 class RunConfig:
     config: str = "bnn_lenet"  # one of SCHEME_CONFIGS
+    deterministic: bool = True  # det vs stoch quantization
     w_bits: int = 1
     a_bits: int = 0
     # activation quantizer of the DoReFa configs: "fixed" clip [0, 1] or
     # "pact" learnable per-layer clip (arXiv:1805.06085)
     a_quant: str = "fixed"
+    # QAT warm start from the trained fp32 twin (not read yet: item 5)
+    warm_start: bool = False
     # log/lin full-scale range: levels up to 2^fsr
     fsr: float = 1.0
     # model capacity (None = model default)
     width: Optional[int] = None
+    # training
+    batch_size: int = 128
     steps: int = 2000
+    lr: float = 3e-3
+    seed: int = 0
+    data_dir: Optional[str] = None  # the data loaders'; overrides $QTPU_DATA_DIR
 
 
-# BASELINE.json evaluation configs, as in the JAX package
+def _mk(config, **kw):
+    return dict(config=config, **kw)
+
+
+# BASELINE.json evaluation configs and the digits MLPs, as in the JAX package
 SCHEME_CONFIGS = {
-    "bnn_lenet": dict(config="bnn_lenet", w_bits=1, a_bits=1, width=128, steps=12000),
-    "xnor_cifar": dict(config="xnor_cifar", w_bits=1, a_bits=1, steps=12000),
-    "dorefa_resnet20": dict(config="dorefa_resnet20", w_bits=4, a_bits=4, a_quant="pact",
-                            steps=6000),
-    "dorefa_resnet20_w4": dict(config="dorefa_resnet20_w4", w_bits=4, a_bits=0),
-    "logquant_vgg": dict(config="logquant_vgg", w_bits=4, fsr=1.0),
+    "binaryconnect_mlp": _mk("binaryconnect_mlp", w_bits=1, steps=6000, warm_start=True),
+    "bnn_lenet": _mk("bnn_lenet", w_bits=1, a_bits=1, width=128, steps=12000),
+    "xnor_cifar": _mk("xnor_cifar", w_bits=1, a_bits=1, steps=12000, warm_start=True),
+    "dorefa_resnet20": _mk("dorefa_resnet20", w_bits=4, a_bits=4, a_quant="pact",
+                           warm_start=True, steps=6000),
+    "dorefa_resnet20_w4": _mk("dorefa_resnet20_w4", w_bits=4, a_bits=0),
+    "logquant_vgg": _mk("logquant_vgg", w_bits=4, fsr=1.0),
+    "binaryconnect_digits": _mk("binaryconnect_digits", w_bits=1, batch_size=64, steps=1600),
+    "binaryconnect_digits_stoch": _mk("binaryconnect_digits_stoch", w_bits=1,
+                                      deterministic=False, batch_size=64, steps=4800, lr=2e-2),
+    "ternary_digits": _mk("ternary_digits", w_bits=2, batch_size=64, steps=3200),
+    "ternary_digits_stoch": _mk("ternary_digits_stoch", w_bits=2, deterministic=False,
+                                batch_size=64, steps=3200),
 }
 
+# configs whose float32 twin (fp32=True) is ported
+_TWINS = ("binaryconnect_mlp", "bnn_lenet", "binaryconnect_digits",
+          "binaryconnect_digits_stoch", "ternary_digits", "ternary_digits_stoch")
 
-def build_model(cfg: RunConfig, device="cuda"):
-    """Config -> (model on ``device``, input_shape, dataset_name). The model
-    is built on the card unless ``device="cpu"``; raises without a GPU."""
+
+def _build(cfg: RunConfig, fp32: bool):
     from pytorch_quantize_impls_tpu_torch import models
 
-    device = resolve_device(device)
+    q = not fp32
+    if cfg.config == "binaryconnect_mlp":
+        return models.BinaryConnectMLP(28 * 28, deterministic=cfg.deterministic,
+                                       quantized=q), (28 * 28,), "mnist"
+    if cfg.config in ("binaryconnect_digits", "binaryconnect_digits_stoch"):
+        det = cfg.deterministic and cfg.config == "binaryconnect_digits"
+        return models.BinaryConnectMLP(8 * 8, 512, deterministic=det,
+                                       quantized=q), (8 * 8,), "digits"
+    if cfg.config in ("ternary_digits", "ternary_digits_stoch"):
+        kind = "fp32" if fp32 else ("ternary" if cfg.deterministic else "ternary_stoch")
+        return models.MLP(8 * 8, (512, 512, 10), layer=kind), (8 * 8,), "digits"
     if cfg.config == "bnn_lenet":
-        model = models.BNNLeNet(width=cfg.width or 32).to(device)
-        return model, (28, 28, 1), "mnist"
+        return models.BNNLeNet(width=cfg.width or 32, quantized=q), (28, 28, 1), "mnist"
     if cfg.config == "xnor_cifar":
-        return models.XNORConvNet().to(device), (32, 32, 3), "cifar10"
+        return models.XNORConvNet(), (32, 32, 3), "cifar10"
     if cfg.config in ("dorefa_resnet20", "dorefa_resnet20_w4"):
         a_bits = cfg.a_bits if cfg.config == "dorefa_resnet20" else 0
         model = models.DorefaResNet20(
             w_bits=cfg.w_bits, a_bits=a_bits, a_quant=cfg.a_quant, width=cfg.width or 16
-        ).to(device)
+        )
         return model, (32, 32, 3), "cifar10"
     if cfg.config == "logquant_vgg":
-        model = models.LogQuantVGGSmall(bits=cfg.w_bits, fsr=cfg.fsr).to(device)
-        return model, (32, 32, 3), "cifar10"
+        return models.LogQuantVGGSmall(bits=cfg.w_bits, fsr=cfg.fsr), (32, 32, 3), "cifar10"
     raise ValueError(
         f"config {cfg.config!r} is not ported; pick from {sorted(SCHEME_CONFIGS)}"
     )
+
+
+def build_model(cfg: RunConfig, fp32: bool = False, device="cuda"):
+    """Config -> (model on ``device``, input_shape, dataset_name), its
+    weights drawn as flax's initializers draw them from ``cfg.seed``
+    (``nn.init_like_flax``). ``fp32=True`` builds the float32 twin of the
+    Δ-accuracy runs. The model is built on the card unless ``device="cpu"``;
+    raises without a GPU."""
+    from pytorch_quantize_impls_tpu_torch.nn import init_like_flax
+
+    device = resolve_device(device)
+    if fp32 and cfg.config not in _TWINS:
+        raise NotImplementedError(
+            f"the float32 twin of {cfg.config!r} is not ported yet (ROADMAP queue 1, item 4)")
+    model, input_shape, dataset = _build(cfg, fp32)
+    return init_like_flax(model, cfg.seed).to(device), input_shape, dataset

@@ -375,7 +375,7 @@ def test_engine_submit_validation_and_exclusive_backends(bc, w1a1):
     fm = infer.export_fused_decode(tw, device=CPU)
     with pytest.raises(ValueError, match="exclusive"):
         serve.DecodeEngine(tw, fused=fm, packed={}, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         serve.DecodeEngine(tw, mesh=object(), device=CPU)
 
 

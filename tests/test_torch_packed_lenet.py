@@ -154,20 +154,20 @@ def test_build_model_bnn_lenet():
     assert tuple(model.fc1.dense.weight.shape) == (1024, 4096)
     assert tuple(model.conv2.conv.weight.shape) == (256, 128, 5, 5)
     with pytest.raises(ValueError, match="not ported"):
-        build_model(RunConfig(config="binaryconnect_mlp"), device="cpu")
+        build_model(RunConfig(config="xnor_digits"), device="cpu")
 
 
 @pytest.mark.parametrize("scheme", ["ternary", "xnor"])
 def test_unported_parts_raise(lenet, scheme):
-    """What is still unported raises: act_scale, stochastic ternarization
-    and the XNOR net's float twin (training); a scheme no package packs
-    raises in pack_model and in the packed forward."""
+    """What is still unported raises: act_scale, the elastic MLP and the
+    XNOR net's float twin (training); a scheme no package packs raises in
+    pack_model and in the packed forward."""
     _, _, tm, x = lenet
     with pytest.raises(NotImplementedError, match="act_scale"):
         tnn.LinearBin(8, 4, binarize_input=True, act_scale=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if scheme == "ternary":
-            tnn.LinearTer(8, 4, deterministic=False)
+            models.MLP(8, (4, 2), layer="elastic")
         else:
             models.XNORConvNet(quantized=False)
     with pytest.raises(ValueError, match="unpackable"):

@@ -119,7 +119,9 @@ def test_ternary_layers_match_jax(conv, prepared):
 
 def test_ternary_spread_init_and_stochastic_refusal():
     """uniform(-1, 1) from an explicit generator, reproducible by its seed;
-    stochastic ternarization (training) raises."""
+    stochastic ternarization in training mode refuses to draw outside a
+    train step (it never draws from the global RNG), and in eval mode uses
+    the clipped master."""
     draws = [tnn.LinearTer(64, 32, generator=torch.Generator().manual_seed(7)).dense.weight
              for _ in range(2)]
     assert torch.equal(draws[0], draws[1])
@@ -127,8 +129,12 @@ def test_ternary_spread_init_and_stochastic_refusal():
     assert w.min() >= -1 and w.max() <= 1 and (w.abs() > 0.5).float().mean() > 0.3
     conv = tnn.TerConv(4, 8, generator=torch.Generator().manual_seed(7)).conv.weight
     assert conv.min() >= -1 and conv.max() <= 1
-    with pytest.raises(NotImplementedError, match="item 3"):
-        tnn.LinearTer(8, 4, deterministic=False)
+    stoch = tnn.LinearTer(8, 4, deterministic=False)
+    x = torch.randn(3, 8)
+    with pytest.raises(RuntimeError, match="train step"):
+        stoch(x)
+    w, b = stoch.dense.weight.detach(), stoch.dense.bias.detach()
+    torch.testing.assert_close(stoch.eval()(x), x @ w.clamp(-1, 1).T + b, rtol=0, atol=0)
 
 
 # --- a small ternary LM ---------------------------------------------------------------
