@@ -180,7 +180,7 @@ def export_fused_chain(model, *, first_dtype=torch.bfloat16) -> FusedChain:
     with the K map off, on the model's device. ``first_dtype``: the first
     (real-input) conv's compute dtype, bfloat16 as in the JAX package; pass
     float32 for parity."""
-    if not model.binarize_inputs:
+    if not (model.quantized and model.binarize_inputs):
         raise ValueError("fused chain needs quantized=True, binarize_inputs=True")
     if model.use_input_scale_map:
         raise ValueError(
@@ -287,8 +287,8 @@ def export_fused_resnet20(model) -> FusedResNet:
     """Build a :class:`FusedResNet` from a ``DorefaResNet20`` with k-bit
     block-conv inputs (``a_bits >= 1``) and the fixed clip, on the model's
     device."""
-    if not model.a_bits:
-        raise ValueError("fused resnet needs a_bits >= 1")
+    if not (model.quantized and model.a_bits):
+        raise ValueError("fused resnet needs quantized=True and a_bits >= 1")
     if model.a_quant != "fixed":
         raise NotImplementedError(
             f"fused resnet needs a_quant='fixed', got {model.a_quant!r}: the fold assumes the "

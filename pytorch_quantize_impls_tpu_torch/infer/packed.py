@@ -22,9 +22,9 @@ Execution plan:
 | dorefa, 1 <= a_bits <= 7     | yes       | ``int8_gemm`` (K3) on centered codes (K7)     |
 | log (a_bits=0)               | no        | ``shift_gemm`` (K8) on the codes, bf16(x)     |
 | log (a_bits=0)               | yes       | float matmul on bf16 ±2^e decoded by K9       |
-| other real inputs (a_bits=0) | either    | float matmul on decoded ±1 (K2) / f32 grid / bf16 {-1, 0, 1} weights |
+| other real inputs (a_bits=0) | either    | float matmul on decoded ±1 (K2) / f32 grid (dorefa: K7) / bf16 {-1, 0, 1} weights |
 | conv, binary/xnor/dorefa with quantized inputs | either | ``packed_conv2d``: decode per call, K5 conv |
-| conv, real inputs (log: K9 decode) | either | float conv on the decoded weights     |
+| conv, real inputs (log: K9, dorefa: K7, binary/xnor: K2 decode) | either | float conv on the decoded weights |
 
 xnor layers carry alpha (``mean |W|`` over all but the out-channel axis):
 K1's and K3's epilogue scale, K5's ``scale`` epilogue in the conv, and a
@@ -159,15 +159,20 @@ def pack_model(model: nn.Module) -> PackedModel:
 
 def _decode_weights(rec: PackedLayer) -> torch.Tensor:
     """Packed codes -> execution-ready weights (K, N): ±1 int8 for
-    binary/xnor; the f32 grids ``(2c - n) / n`` for dorefa (not bf16-exact)
-    and ``c * step`` for lin, and bf16 {-1, 0, 1} for ternary, unpacked in
-    plain PyTorch as the JAX package does; bf16 ``±2^e`` for log, by K9,
+    binary/xnor (K2); the f32 grids ``(2c - n) / n`` for dorefa (not
+    bf16-exact; ``2c - n`` by K7 at 1, 2 and 4 bits, where the JAX package
+    unpacks in plain code: the same integers, so the same floats), ``c *
+    step`` for lin and bf16 {-1, 0, 1} for ternary, unpacked in plain
+    PyTorch as the JAX package does; bf16 ``±2^e`` for log, by K9,
     bit-identical to the JAX package's plain decode."""
     _check_scheme(rec.scheme)
     k2d = int(np.prod(rec.kernel_shape[:-1]))
     if rec.scheme == "dorefa":
-        c = packlib.unpack_bitplanes(rec.packed, rec.w_bits, k2d)
         n = 2**rec.w_bits - 1
+        if rec.w_bits in (1, 2, 4):
+            centered = pm.decode_dorefa_weights(rec.packed, w_bits=rec.w_bits)[:k2d]
+            return centered.to(torch.float32) / n
+        c = packlib.unpack_bitplanes(rec.packed, rec.w_bits, k2d)
         return (2.0 * c.to(torch.float32) - n) / n
     if rec.scheme == "log":
         return sm.decode_log_weights(rec.packed, fsr=rec.fsr, bits=rec.w_bits)[:k2d]

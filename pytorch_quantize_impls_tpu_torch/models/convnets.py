@@ -8,27 +8,29 @@ each followed by BatchNorm and, after every second one, a 2x2 max pool; the
 head is an ``XNORLinear`` with a bias. The first conv sees real pixels; in
 full-XNOR mode (``binarize_inputs=True``, the default) every later conv
 sign-binarizes its input and multiplies its output by the K map
-(``use_input_scale_map``), and there is no ReLU: the next layer's sign is
-the nonlinearity (ReLU first would make every code +1). In
-Binary-Weight-Network mode (``binarize_inputs=False``) a ReLU follows every
-BatchNorm. ``fp32_first_last=True`` keeps the first conv and the head
-float32 (flax ``nn.Conv``/``nn.Dense``: ``conv0`` and ``head`` hold the
-weights themselves). Module names match the flax ones (``conv0.conv``,
-``bn0``, ..., ``head.dense``). Only the eval forward of the quantized model
-is ported: ``quantized=False`` (the float twin) and ``dtype`` serve
-training and raise ``NotImplementedError`` (ROADMAP queue 1, item 4).
+(``use_input_scale_map``). The nonlinearity rule is the JAX model's: a ReLU
+follows every BatchNorm (after the pool) unless the model is quantized and
+binarizes its inputs, where the next layer's sign is the nonlinearity (ReLU
+first would make every code +1). ``fp32_first_last=True`` keeps the first
+conv and the head float32. ``quantized=False`` is the float32 twin of the
+Δ-accuracy runs: every conv and the head are flax ``nn.Conv``/``nn.Dense``
+(``Conv``/``Dense``), which hold ``weight`` themselves (``conv0``, ``head``),
+as ``fp32_first_last`` does for those two. Module names match the flax ones
+(``conv0.conv``, ``bn0``, ..., ``head.dense``; the twin's ``conv0``, ...,
+``head``), so ``utils.bridge`` loads the JAX variables directly.
 
 ``LogQuantVGGSmall``: VGG-small with
 power-of-2 weights (arXiv:1603.01025) and float activations. Each stage is a
 3x3 ``ConvQuantLog`` without bias, BatchNorm and ReLU, with a 2x2 max pool
-after every second conv; the head is a ``LinearQuantLog`` with a bias. Input
+after every second conv; the head is a ``LinearQuantLog`` with a bias;
+``quantized=False`` is its float32 twin (plain ``Conv``/``Dense``). Input
 is NHWC ``(B, 32, 32, 3)``, as in the JAX package, and activations stay NHWC,
 so the head sees the (h, w, c) flattening the JAX model gives it. Module
 names match the flax ones (``conv0.conv``, ``bn0``, ..., ``head.dense``), so
 ``utils.bridge`` loads the JAX variables directly.
 
-Only the eval forward of the quantized model is ported; the JAX model's
-``quantized=False`` twin and ``dtype`` serve training.
+Not ported: the compute ``dtype`` (bf16 compute with float32 masters) of
+both models, which raises ``NotImplementedError`` (ROADMAP queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -47,6 +49,13 @@ from pytorch_quantize_impls_tpu_torch.nn.xnor import XNORConv, XNORLinear
 IMAGE_SHAPE = (32, 32, 3)  # CIFAR-10, NHWC without the batch
 
 
+def _refuse_dtype(model: str, dtype) -> None:
+    if dtype is not None:
+        raise NotImplementedError(
+            f"{model}'s compute dtype (bf16 compute, float32 masters) is not ported yet "
+            "(ROADMAP queue 1, item 7)")
+
+
 class XNORConvNet(nn.Module):
     def __init__(
         self,
@@ -59,18 +68,15 @@ class XNORConvNet(nn.Module):
         dtype: Optional[Any] = None,
     ):
         super().__init__()
-        if not quantized or dtype is not None:
-            raise NotImplementedError(
-                "XNORConvNet's float twin (quantized=False) and compute dtype serve training "
-                "and are not ported yet (ROADMAP queue 1, item 4)"
-            )
+        _refuse_dtype("XNORConvNet", dtype)
         self.widths = tuple(widths)
+        self.quantized = quantized
         self.binarize_inputs = binarize_inputs
         self.fp32_first_last = fp32_first_last
         self.use_input_scale_map = use_input_scale_map
         cin = IMAGE_SHAPE[2]
         for i, w in enumerate(self.widths):
-            if fp32_first_last and i == 0:
+            if not quantized or (fp32_first_last and i == 0):
                 conv = Conv(cin, w, (3, 3), use_bias=False)
             else:
                 # the first conv sees real pixels in either mode
@@ -81,15 +87,16 @@ class XNORConvNet(nn.Module):
             cin = w
         side = IMAGE_SHAPE[0] // 2 ** (len(self.widths) // 2)
         features = side * side * cin
-        self.head = (Dense(features, classes) if fp32_first_last
-                     else XNORLinear(features, classes))
+        self.head = (XNORLinear(features, classes) if quantized and not fp32_first_last
+                     else Dense(features, classes))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        relu = not (self.quantized and self.binarize_inputs)
         for i in range(len(self.widths)):
             x = getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(x))
             if i % 2 == 1:
                 x = max_pool_nhwc(x)
-            if not self.binarize_inputs:
+            if relu:
                 x = torch.relu(x)
         return self.head(x.reshape(x.shape[0], -1))
 
@@ -101,17 +108,23 @@ class LogQuantVGGSmall(nn.Module):
         widths: Tuple[int, ...] = (128, 128, 256, 256, 512, 512),
         bits: int = 4,
         fsr: float = 1.0,
+        quantized: bool = True,
+        dtype: Optional[Any] = None,
     ):
         super().__init__()
+        _refuse_dtype("LogQuantVGGSmall", dtype)
         self.widths = tuple(widths)
         cin = IMAGE_SHAPE[2]
         for i, w in enumerate(self.widths):
             self.add_module(f"conv{i}", ConvQuantLog(cin, w, (3, 3), fsr=fsr, bits=bits,
-                                                     use_bias=False))
+                                                     use_bias=False) if quantized
+                            else Conv(cin, w, (3, 3), use_bias=False))
             self.add_module(f"bn{i}", BatchNorm(w))
             cin = w
         side = IMAGE_SHAPE[0] // 2 ** (len(self.widths) // 2)
-        self.head = LinearQuantLog(side * side * cin, classes, fsr=fsr, bits=bits)
+        features = side * side * cin
+        self.head = (LinearQuantLog(features, classes, fsr=fsr, bits=bits) if quantized
+                     else Dense(features, classes))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(len(self.widths)):

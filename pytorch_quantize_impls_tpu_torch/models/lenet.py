@@ -9,10 +9,16 @@ Module names match the flax ones (``conv1.conv``, ``bn1``, ..., ``head.dense``;
 the ``quantized=False`` twin's plain layers are ``conv1``, ..., ``head``).
 
 ``BatchNorm`` is flax's in both modes: in training it normalizes by the
-batch statistics and moves the running ones, with flax's arithmetic.
+batch statistics and moves the running ones, with flax's arithmetic. Inside
+:func:`recomputing` (the backward's second forward of a checkpointed block,
+``DorefaResNet20(remat=True)``) it leaves the running statistics alone, so
+they move once per step, as under JAX's ``remat``.
 """
 
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import torch
 import torch.nn.functional as F
@@ -20,6 +26,21 @@ from torch import nn
 
 from pytorch_quantize_impls_tpu_torch.nn.base import Conv, Dense
 from pytorch_quantize_impls_tpu_torch.nn.binary import BinConv, LinearBin
+
+
+_recomputing: contextvars.ContextVar[bool] = contextvars.ContextVar("recomputing",
+                                                                    default=False)
+
+
+@contextlib.contextmanager
+def recomputing():
+    """While active in a thread, a BatchNorm in training mode does not move
+    its running statistics."""
+    token = _recomputing.set(True)
+    try:
+        yield
+    finally:
+        _recomputing.reset(token)
 
 
 class BatchNorm(nn.Module):
@@ -46,10 +67,11 @@ class BatchNorm(nn.Module):
             axes = tuple(range(x.ndim - 1))
             mean = x.mean(axes)
             var = torch.maximum(x.new_zeros(()), (x * x).mean(axes) - mean * mean)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            if not _recomputing.get():
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                    self.running_var.copy_(m * self.running_var + (1 - m) * var)
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.epsilon) * self.weight

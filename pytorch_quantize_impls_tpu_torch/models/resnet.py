@@ -10,16 +10,26 @@ and module names match the flax ones (``stem``, ``bn_stem``,
 ``.bn_proj``, ``head``), so ``utils.bridge`` loads the JAX variables
 directly.
 
-Only the eval forward is ported, with quantized block convs (the JAX
-model's ``quantized=False`` twin, ``dtype`` and ``remat`` serve training).
+``quantized=False`` is the float32 twin of the Δ-accuracy runs: the block
+convs are plain ``Conv`` layers named ``conv1``/``conv2``, with no
+activation quantizer. ``remat=True`` runs each block under
+``torch.utils.checkpoint`` (JAX's ``nn.remat``): its activations are
+recomputed in the backward instead of kept, and BatchNorm moves its running
+statistics only in the first forward (``models.lenet.recomputing``), so a
+step gives the same bits either way. The compute ``dtype`` is not ported
+(ROADMAP queue 1, item 7).
 """
 
 from __future__ import annotations
 
+import contextlib
+from typing import Any, Optional
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from pytorch_quantize_impls_tpu_torch.models.lenet import BatchNorm
+from pytorch_quantize_impls_tpu_torch.models.lenet import BatchNorm, recomputing
 from pytorch_quantize_impls_tpu_torch.nn.base import Conv, Dense
 from pytorch_quantize_impls_tpu_torch.nn.dorefa import DorefaConv
 
@@ -29,17 +39,24 @@ class BasicBlock(nn.Module):
     a 1x1 projection (+ BN) shortcut, then relu. Each block conv quantizes
     its own input (``a_bits``), so the residual stream stays real."""
 
-    def __init__(self, in_channels, features, strides=1, *, w_bits=4, a_bits=4, a_quant="fixed"):
+    def __init__(self, in_channels, features, strides=1, *, w_bits=4, a_bits=4, a_quant="fixed",
+                 quantized=True):
         super().__init__()
-        conv = dict(bits=w_bits, a_bits=a_bits or None, a_quant=a_quant, use_bias=False)
-        self.conv1 = DorefaConv(in_channels, features, strides=(strides, strides), **conv)
+        s = (strides, strides)
+        q = dict(bits=w_bits, a_bits=a_bits or None, a_quant=a_quant, use_bias=False)
+
+        def conv(cin, stride):
+            if quantized:
+                return DorefaConv(cin, features, strides=stride, **q)
+            return Conv(cin, features, (3, 3), strides=stride, use_bias=False)
+
+        self.conv1 = conv(in_channels, s)
         self.bn1 = BatchNorm(features)
-        self.conv2 = DorefaConv(features, features, **conv)
+        self.conv2 = conv(features, (1, 1))
         self.bn2 = BatchNorm(features)
         self.proj = self.bn_proj = None
         if strides != 1 or in_channels != features:
-            self.proj = Conv(in_channels, features, (1, 1), strides=(strides, strides),
-                             use_bias=False)
+            self.proj = Conv(in_channels, features, (1, 1), strides=s, use_bias=False)
             self.bn_proj = BatchNorm(features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -49,11 +66,23 @@ class BasicBlock(nn.Module):
         return torch.relu(y + residual)
 
 
+def _remat_contexts():
+    """checkpoint's (forward, recomputation) contexts: the recomputation
+    leaves BatchNorm's running statistics alone."""
+    return contextlib.nullcontext(), recomputing()
+
+
 class DorefaResNet20(nn.Module):
     def __init__(self, classes: int = 10, w_bits: int = 4, a_bits: int = 4,
-                 a_quant: str = "fixed", width: int = 16):
+                 a_quant: str = "fixed", width: int = 16, quantized: bool = True,
+                 remat: bool = False, dtype: Optional[Any] = None):
         super().__init__()
+        if dtype is not None:
+            raise NotImplementedError(
+                "DorefaResNet20's compute dtype (bf16 compute, float32 masters) is not ported "
+                "yet (ROADMAP queue 1, item 7)")
         self.w_bits, self.a_bits, self.a_quant, self.width = w_bits, a_bits, a_quant, width
+        self.quantized, self.remat = quantized, remat
         w = width
         self.stem = Conv(3, w, (3, 3), use_bias=False)
         self.bn_stem = BatchNorm(w)
@@ -62,6 +91,7 @@ class DorefaResNet20(nn.Module):
             for block in range(3):
                 self.add_module(f"stage{stage}_block{block}", BasicBlock(
                     cin, f, s if block == 0 else 1, w_bits=w_bits, a_bits=a_bits, a_quant=a_quant,
+                    quantized=quantized,
                 ))
                 cin = f
         self.head = Dense(4 * w, classes)
@@ -71,6 +101,10 @@ class DorefaResNet20(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = torch.relu(self.bn_stem(self.stem(x)))
+        remat = self.remat and torch.is_grad_enabled()
         for blk in self.blocks():
-            x = blk(x)
+            if remat:
+                x = checkpoint(blk, x, use_reentrant=False, context_fn=_remat_contexts)
+            else:
+                x = blk(x)
         return self.head(x.mean(dim=(1, 2)))

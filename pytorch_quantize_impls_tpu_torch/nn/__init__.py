@@ -6,6 +6,7 @@ from pytorch_quantize_impls_tpu_torch.nn.base import (  # noqa: F401
     Dense,
     QuantConv,
     QuantDense,
+    collect_elastic_losses,
     init_like_flax,
     intercept_quant_layers,
     quant_generator,

@@ -27,6 +27,10 @@ block a stochastic layer in training mode raises; it never draws from the
 global RNG. In eval mode (``not module.training``) they call their
 ``eval_fn`` instead.
 
+A layer with a training penalty (PACT's L2 on its clip level) exposes it as
+``penalty()``; :func:`collect_elastic_losses` sums every such penalty of a
+model, as the JAX package sums its ``losses`` collection.
+
 ``Dense`` and ``Conv`` are the float32 layers of the ``quantized=False``
 twins (flax's ``nn.Dense``/``nn.Conv``). :func:`init_like_flax` draws every
 layer's weight as flax's initializers do (``glorot_normal`` for quantized
@@ -279,3 +283,13 @@ def init_like_flax(model: nn.Module, seed: int) -> nn.Module:
         if m.bias is not None:
             m.bias.zero_()
     return model
+
+
+def collect_elastic_losses(model: nn.Module) -> torch.Tensor:
+    """The sum of every ``penalty()`` of ``model``'s modules (the JAX
+    package's sum over the ``losses`` collection); a 0-d zero when none has
+    one."""
+    terms = [m.penalty() for m in model.modules() if callable(getattr(m, "penalty", None))]
+    if not terms:
+        return torch.zeros((), device=next(model.parameters()).device)
+    return sum(terms[1:], terms[0])

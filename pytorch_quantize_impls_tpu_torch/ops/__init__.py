@@ -27,7 +27,7 @@ from pytorch_quantize_impls_tpu_torch.ops.log_lin import (  # noqa: F401
     log_quant_exponent,
     log_quant_from_exponent,
 )
-from pytorch_quantize_impls_tpu_torch.ops.pact import pact  # noqa: F401
+from pytorch_quantize_impls_tpu_torch.ops.pact import pact, pact_alpha_penalty  # noqa: F401
 from pytorch_quantize_impls_tpu_torch.ops.ternary import (  # noqa: F401
     ternary_connect,
     ternary_connect_det,

@@ -7,7 +7,8 @@ clipped to a learnable upper bound ``alpha`` and quantized to k bits over
     y = round(clip(x, 0, a) * (2^k - 1) / a) * a / (2^k - 1),  a = max(alpha, 1e-8)
 
 Gradients (paper §4, STE over the round): ``dy/dx = 1`` on ``0 < x < a``,
-``dy/dalpha = 1`` on ``x >= a``, 0 elsewhere.
+``dy/dalpha = 1`` on ``x >= a``, 0 elsewhere. The paper regularizes alpha
+with an L2 term, :func:`pact_alpha_penalty`, added to the training loss.
 """
 
 from __future__ import annotations
@@ -37,3 +38,8 @@ def pact(x: torch.Tensor, alpha: torch.Tensor, bits: int = 4) -> torch.Tensor:
     if bits >= 32:
         return torch.minimum(torch.clamp(x, min=0.0), torch.clamp(alpha, min=1e-8))
     return _Pact.apply(x, alpha, float(2**bits - 1))
+
+
+def pact_alpha_penalty(alpha: torch.Tensor) -> torch.Tensor:
+    """L2 regularizer on the clip level (paper: lambda ||alpha||^2)."""
+    return torch.sum(torch.square(alpha))

@@ -1,10 +1,11 @@
 """Train and eval steps.
 
 Counterpart of ``pytorch_quantize_impls_tpu/train/steps.py``: fake-quant
-forward -> float32 cross-entropy -> STE backward -> Adam -> clamp, with
-BatchNorm in training mode. The JAX package jits this into one XLA program;
-here it is eager PyTorch (``torch.matmul``, cuDNN convs, the STEs'
-``autograd.Function``s), and launches none of the port's kernels.
+forward -> float32 cross-entropy (+ the weighted penalties of
+``nn.collect_elastic_losses``, PACT's alpha L2) -> STE backward -> Adam ->
+clamp, with BatchNorm in training mode. The JAX package jits this into one
+XLA program; here it is eager PyTorch (``torch.matmul``, cuDNN convs, the
+STEs' ``autograd.Function``s), and launches none of the port's kernels.
 
 The forward and the backward run inside one set of cuDNN flags: no TF32
 (the JAX package computes float32) and the deterministic algorithms, so two
@@ -13,13 +14,13 @@ runs on the card give the same bits.
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from pytorch_quantize_impls_tpu_torch.nn.base import quant_generator
+from pytorch_quantize_impls_tpu_torch.nn.base import collect_elastic_losses, quant_generator
 from pytorch_quantize_impls_tpu_torch.train.state import QuantTrainState
 
 
@@ -41,22 +42,28 @@ def _on_device(batch, device):
     return x.to(device, non_blocking=True), y.to(device, non_blocking=True)
 
 
-def make_train_step(*, elastic_weight: float = 0.0, loss_fn: Callable = cross_entropy):
+def make_train_step(*, elastic_weight: Union[float, Callable[[int], float]] = 0.0,
+                    loss_fn: Callable = cross_entropy):
     """``(state, (inputs, integer labels)) -> (state, {"loss", "accuracy"})``:
     one update of ``state`` in place (returned for the JAX package's
-    calling pattern). The metrics stay on the device."""
-    if elastic_weight:
-        raise NotImplementedError(
-            "the elastic penalty is not ported yet (ROADMAP queue 1, item 4)")
+    calling pattern). The metrics stay on the device; the loss includes the
+    penalty.
+
+    ``elastic_weight`` weighs the model's penalties
+    (``nn.collect_elastic_losses``) in the loss: a constant, or a schedule
+    called with the step before its update (the JAX package's ``lambda(step)``)."""
 
     def step(state: QuantTrainState, batch):
         x, y = _on_device(batch, state.device)
         model = state.model
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
+        weight = float(elastic_weight(state.step) if callable(elastic_weight) else elastic_weight)
         with fp32_cudnn(), quant_generator(state.step_generator()):
             logits = model(x)
             loss = loss_fn(logits, y)
+            if weight:
+                loss = loss + weight * collect_elastic_losses(model)
             loss.backward()
         state.apply_gradients()
         with torch.no_grad():

@@ -3,14 +3,16 @@
 Counterpart of ``pytorch_quantize_impls_tpu/utils/config.py``. Ported:
 ``binaryconnect_mlp`` (BASELINE config 1), ``bnn_lenet`` (BASELINE config 2),
 ``xnor_cifar`` (BASELINE config 3), ``dorefa_resnet20`` (BASELINE config 4,
-W4A4 with PACT), ``dorefa_resnet20_w4``, ``logquant_vgg`` (BASELINE config 5)
-and the digits MLPs ``binaryconnect_digits(_stoch)`` and
-``ternary_digits(_stoch)``, with the JAX entries' values. ``RunConfig`` holds
-the fields their entries set and the training fields the port reads (batch
-size, lr, seed, the data directory). The mesh, checkpoint, metrics and
-profile fields, the elastic weight and the other configs arrive with their
-ROADMAP items; ``warm_start`` is carried but not read yet (item 5).
-"""
+W4A4 with PACT and its alpha penalty), ``dorefa_resnet20_w4``,
+``logquant_vgg`` (BASELINE config 5) and the digits MLPs
+``binaryconnect_digits(_stoch)`` and ``ternary_digits(_stoch)``, with the
+JAX entries' values, each with its float32 twin (``fp32=True``).
+``RunConfig`` holds the fields their entries set and the training fields the
+port reads: batch size, lr, seed, the data directory, the elastic weight and
+its ramp (``train.accuracy_sweep``), and ``warm_start``, the QAT warm start
+from the trained twin that ``train.accuracy_sweep`` applies. The mesh,
+checkpoint, metrics and profile fields and the other configs arrive with
+their ROADMAP items."""
 
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ class RunConfig:
     # activation quantizer of the DoReFa configs: "fixed" clip [0, 1] or
     # "pact" learnable per-layer clip (arXiv:1805.06085)
     a_quant: str = "fixed"
-    # QAT warm start from the trained fp32 twin (not read yet: item 5)
+    # QAT warm start from the trained fp32 twin (train.accuracy_sweep)
     warm_start: bool = False
     # log/lin full-scale range: levels up to 2^fsr
     fsr: float = 1.0
@@ -39,6 +41,10 @@ class RunConfig:
     batch_size: int = 128
     steps: int = 2000
     lr: float = 3e-3
+    # weight of the model's training penalties (PACT's alpha L2) in the loss
+    elastic_weight: float = 0.0
+    # ramp the weight 0 -> elastic_weight over the first 60% of the run
+    elastic_ramp: bool = False
     seed: int = 0
     data_dir: Optional[str] = None  # the data loaders'; overrides $QTPU_DATA_DIR
 
@@ -53,7 +59,7 @@ SCHEME_CONFIGS = {
     "bnn_lenet": _mk("bnn_lenet", w_bits=1, a_bits=1, width=128, steps=12000),
     "xnor_cifar": _mk("xnor_cifar", w_bits=1, a_bits=1, steps=12000, warm_start=True),
     "dorefa_resnet20": _mk("dorefa_resnet20", w_bits=4, a_bits=4, a_quant="pact",
-                           warm_start=True, steps=6000),
+                           warm_start=True, elastic_weight=2e-4, steps=6000),
     "dorefa_resnet20_w4": _mk("dorefa_resnet20_w4", w_bits=4, a_bits=0),
     "logquant_vgg": _mk("logquant_vgg", w_bits=4, fsr=1.0),
     "binaryconnect_digits": _mk("binaryconnect_digits", w_bits=1, batch_size=64, steps=1600),
@@ -63,10 +69,6 @@ SCHEME_CONFIGS = {
     "ternary_digits_stoch": _mk("ternary_digits_stoch", w_bits=2, deterministic=False,
                                 batch_size=64, steps=3200),
 }
-
-# configs whose float32 twin (fp32=True) is ported
-_TWINS = ("binaryconnect_mlp", "bnn_lenet", "binaryconnect_digits",
-          "binaryconnect_digits_stoch", "ternary_digits", "ternary_digits_stoch")
 
 
 def _build(cfg: RunConfig, fp32: bool):
@@ -86,15 +88,17 @@ def _build(cfg: RunConfig, fp32: bool):
     if cfg.config == "bnn_lenet":
         return models.BNNLeNet(width=cfg.width or 32, quantized=q), (28, 28, 1), "mnist"
     if cfg.config == "xnor_cifar":
-        return models.XNORConvNet(), (32, 32, 3), "cifar10"
+        return models.XNORConvNet(quantized=q), (32, 32, 3), "cifar10"
     if cfg.config in ("dorefa_resnet20", "dorefa_resnet20_w4"):
         a_bits = cfg.a_bits if cfg.config == "dorefa_resnet20" else 0
         model = models.DorefaResNet20(
-            w_bits=cfg.w_bits, a_bits=a_bits, a_quant=cfg.a_quant, width=cfg.width or 16
+            w_bits=cfg.w_bits, a_bits=a_bits, a_quant=cfg.a_quant, width=cfg.width or 16,
+            quantized=q,
         )
         return model, (32, 32, 3), "cifar10"
     if cfg.config == "logquant_vgg":
-        return models.LogQuantVGGSmall(bits=cfg.w_bits, fsr=cfg.fsr), (32, 32, 3), "cifar10"
+        return (models.LogQuantVGGSmall(bits=cfg.w_bits, fsr=cfg.fsr, quantized=q), (32, 32, 3),
+                "cifar10")
     raise ValueError(
         f"config {cfg.config!r} is not ported; pick from {sorted(SCHEME_CONFIGS)}"
     )
@@ -109,8 +113,5 @@ def build_model(cfg: RunConfig, fp32: bool = False, device="cuda"):
     from pytorch_quantize_impls_tpu_torch.nn import init_like_flax
 
     device = resolve_device(device)
-    if fp32 and cfg.config not in _TWINS:
-        raise NotImplementedError(
-            f"the float32 twin of {cfg.config!r} is not ported yet (ROADMAP queue 1, item 4)")
     model, input_shape, dataset = _build(cfg, fp32)
     return init_like_flax(model, cfg.seed).to(device), input_shape, dataset

@@ -160,7 +160,7 @@ def test_build_model_bnn_lenet():
 @pytest.mark.parametrize("scheme", ["ternary", "xnor"])
 def test_unported_parts_raise(lenet, scheme):
     """What is still unported raises: act_scale, the elastic MLP and the
-    XNOR net's float twin (training); a scheme no package packs raises in
+    XNOR net's compute dtype (training); a scheme no package packs raises in
     pack_model and in the packed forward."""
     _, _, tm, x = lenet
     with pytest.raises(NotImplementedError, match="act_scale"):
@@ -169,7 +169,7 @@ def test_unported_parts_raise(lenet, scheme):
         if scheme == "ternary":
             models.MLP(8, (4, 2), layer="elastic")
         else:
-            models.XNORConvNet(quantized=False)
+            models.XNORConvNet(dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="unpackable"):
         infer.pack_model(tnn.QuantDense(8, 4, scheme=f"{scheme}_stoch", w_bits=2).eval())
     rec = tpacked.PackedLayer(packed=torch.zeros(32, 4, dtype=torch.int32),

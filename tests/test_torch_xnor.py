@@ -247,8 +247,8 @@ def test_build_model_xnor_cifar():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build_model(cfg)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        models.XNORConvNet(quantized=False)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        models.XNORConvNet(dtype=torch.bfloat16)
 
 
 # --- the binary fused chains and K5's threshold epilogue ------------------------
