@@ -122,6 +122,34 @@ on one NVIDIA GPU (built for Hopper, sm_90a).
    space); VGG (K9, K8 at the unprepared head) within 5e-2 + 5e-2 |ref|.
    Launches per path: xnor_cifar_trained(_fused), dorefa_resnet20_trained,
    dorefa_resnet20_w4_trained, logquant_vgg_trained.
+   Then the 8-bit Adam path (phase ``bnn_lenet adam8``, after path 11):
+   bnn_lenet (width 128) built on the card and trained with
+   train.QuantizedAdam (int8/uint8 log codes per block of 256, float32
+   absmax), the clamp and the cosine schedule. (a) One update from one
+   state on the card and in a CPU copy from the card's gradients: each
+   parameter tensor by the per-tensor gate above, each tensor's codes equal
+   but for at most 0.1% off by one, the scales and the small tensors'
+   float32 moments within 1e-6 relative. (b) To 300 steps at b = 128,
+   checkpointing every 100 (utils.CheckpointManager, async): the loss falls,
+   the clamp holds; the optimizer state is 10,221,548 bytes as the JAX
+   package counts it; ms per step by CUDA events and a profile (busy, idle,
+   launches) of the step and of the update alone, for QuantizedAdam and
+   torch Adam. (c) ``python -m ...train.run --config bnn_lenet --steps 300
+   --checkpoint-dir D --ckpt-every 100`` SIGKILLed right after its first
+   finalized checkpoint and run again beside an uninterrupted run: the rerun
+   prints ``resumed from step``, and the two final checkpoints are bit-equal
+   tensor by tensor, Adam's state included. (d) A fresh QuantizedAdam state
+   restored from (b)'s step-100 checkpoint and run to 200: bit-equal to (b)
+   at 200, codes included. (e) (b)'s newest checkpoint truncated: restore()
+   returns the one before it. (f) ``python -m ...infer.host_export`` with no
+   card visible, on (c)'s final checkpoint, through the native codec
+   (utils.native, g++): its artifact equals pack_model + save_packed of the
+   same weights on the card in every array and record. (g) That artifact
+   served as path 1 serves (load_packed on the card, InferenceEngine
+   unprepared, prepare, prepared) on all 2560 test images, in rounds of 256
+   requests (full batches; one request at a time the backlogged engine
+   batches ~1 and the path took 108 s): packed == fake-quant bit for bit;
+   launches ``bnn_lenet_exported`` (K1, K2, K3, K5).
 5. Main path 2, the 1-bit transformer LM that scripts/perf_bench.py serves
    (d 1024, 8 layers, cache 1024, W1A1, int8 KV) from seeded random weights:
    bridge -> export_fused_decode (int8 and packed) -> DecodeEngine(fused=)
@@ -195,7 +223,8 @@ on one NVIDIA GPU (built for Hopper, sm_90a).
     prints its launches by dtype.
 16. For each path the kernels' launch counters are zeroed just before it
     and read just after; each kernel of the path must be > 0 (the trained
-    paths: bnn_lenet_trained, bnn_lenet_trained_fused, bc_mlp_trained).
+    paths: bnn_lenet_trained, bnn_lenet_trained_fused, bc_mlp_trained,
+    bnn_lenet_exported).
 17. Prints engine images/s, decode prefill ms and tokens/s, one JSON line
     with the kernels and their launches per path, and last
     ``{"ok": true, "device": {...}}``.
@@ -356,6 +385,17 @@ CIFAR_STEPS = 200  # each cut training run (the configs' budgets: 2000-12000)
 CIFAR_WINDOW = 50  # loss windows, clamp checks
 CIFAR_RERUN_FROM = 100  # the snapshot the replay starts from
 CIFAR_RERUN_STEPS = 20
+# the 8-bit Adam path (PR 18): bnn_lenet with train.QuantizedAdam
+ADAM8_STEPS = 300  # cosine over these; the config's budget is 12000
+ADAM8_WINDOW = 50  # loss windows, clamp checks; torch Adam's timed steps
+ADAM8_SAVE_EVERY = 100  # in-process checkpoints
+ADAM8_RESUME_TO = 200  # restored at ADAM8_SAVE_EVERY, run to here, against the run
+ADAM8_STATE_BYTES = 10_221_548  # JAX's count: codes, scales, small moments, the count
+ADAM8_CODE_SHARE = 1e-3  # card vs CPU: a tensor's codes off by one (log2's rounding)
+ADAM8_RTOL = 1e-6  # card vs CPU: scales, small moments; host vs card: alpha
+KILL_STEPS = 300  # train.run killed after its first checkpoint, then resumed
+KILL_EVERY = 100
+KILL_WAIT_S = 300
 
 
 def cuda():
@@ -1553,6 +1593,18 @@ def serve(submit, n: int):
     return answers
 
 
+def serve_rounds(submit, n: int):
+    """Call ``submit(i)`` for i < n in rounds of the largest bucket, each
+    round submitted at once and answered before the next: full batches for
+    an engine whose deadline outlasts a round's submissions. Returns the
+    results in order."""
+    answers = []
+    for lo in range(0, n, BUCKETS[-1]):
+        futs = [submit(i) for i in range(lo, min(lo + BUCKETS[-1], n))]
+        answers += [f.result(timeout=300) for f in futs]
+    return answers
+
+
 def all_kernels():
     """Every kernel wrapper of the port, K1-K12 and P1, in the JSON line's
     order."""
@@ -1599,12 +1651,16 @@ def read_launches(path: str, required) -> dict:
     return launches
 
 
-def drive_main_path(card: str, model, example_shape, inputs, label: str = "bnn_lenet"):
+def drive_main_path(card: str, model, example_shape, inputs, label: str = "bnn_lenet",
+                    artifact: str = None, rounds: bool = False):
     """The main path, from a packed model to served answers: save_packed ->
     load_packed -> InferenceEngine (unprepared artifact) -> prepare ->
-    InferenceEngine (prepared artifact). The kernels' launch counters are
-    zeroed just before and read just after. Returns (loaded artifact, engine
-    answers and logged (batch, output) pairs per artifact, launch counts)."""
+    InferenceEngine (prepared artifact); with ``artifact``, load_packed of
+    that file instead of the model's own pack. The requests come from
+    CLIENTS threads, or with ``rounds`` in rounds of the largest bucket
+    (serve_rounds). The kernels' launch counters are zeroed just before and
+    read just after. Returns (loaded artifact, engine answers and logged
+    (batch, output) pairs per artifact, launch counts)."""
     from pytorch_quantize_impls_tpu_torch import infer
     from pytorch_quantize_impls_tpu_torch.kernels import int8_conv as ic
     from pytorch_quantize_impls_tpu_torch.kernels import int8_matmul as im
@@ -1617,8 +1673,9 @@ def drive_main_path(card: str, model, example_shape, inputs, label: str = "bnn_l
     logs = {"unprepared": [], "prepared": []}
     answers = {}
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, f"{label}.npz")
-        infer.save_packed(path, infer.pack_model(model))
+        path = artifact or os.path.join(tmp, f"{label}.npz")
+        if artifact is None:
+            infer.save_packed(path, infer.pack_model(model))
         zero_launches()
         loaded = infer.load_packed(path, device=dev)
         for name in ("unprepared", "prepared"):
@@ -1634,10 +1691,13 @@ def drive_main_path(card: str, model, example_shape, inputs, label: str = "bnn_l
                 log.append((x.clone(), y.clone()))
                 return y
 
-            engine = InferenceEngine(forward, example_shape, batch_sizes=BUCKETS, device=dev)
+            delay = {"max_delay_ms": 1000.0} if rounds else {}
+            engine = InferenceEngine(forward, example_shape, batch_sizes=BUCKETS, device=dev,
+                                     **delay)
             try:
                 engine.warmup()
-                answers[name] = serve(lambda i: engine.submit(inputs[i]), len(inputs))
+                answers[name] = (serve_rounds if rounds else serve)(
+                    lambda i: engine.submit(inputs[i]), len(inputs))
             finally:
                 engine.shutdown()
             st = engine.stats
@@ -4432,6 +4492,382 @@ def cifar_train_path(card: str) -> dict:
     return launches
 
 
+# --- the 8-bit Adam path: train, checkpoint, kill and resume, export, serve ---
+
+
+def _adam8_state(cfg, model, optimizer: str = "adam8"):
+    """A train state of ``model`` with the cosine schedule over ADAM8_STEPS:
+    QuantizedAdam ("adam8") or torch Adam ("adam")."""
+    from pytorch_quantize_impls_tpu_torch import train
+
+    sched = train.cosine_decay_schedule(cfg.lr, ADAM8_STEPS)
+    if optimizer == "adam8":
+        return train.QuantTrainState.create_for(
+            model, optimizer=train.QuantizedAdam(model.parameters(), lr=sched), seed=cfg.seed)
+    return train.QuantTrainState.create_for(model, lr=sched, seed=cfg.seed)
+
+
+def _checkpoint_tensors(ckpt: dict) -> dict:
+    """A checkpoint's (or a state's) model and optimizer tensors by name,
+    copied to the host."""
+    out = {("model", k): v.detach().to("cpu", copy=True) for k, v in ckpt["model"].items()}
+    out.update({("optimizer", i, k): v.detach().to("cpu", copy=True)
+                for i, st in ckpt["optimizer"]["state"].items() for k, v in st.items()})
+    out[("count",)] = tuple(g.get("count", -1) for g in ckpt["optimizer"]["param_groups"])
+    return out
+
+
+def _state_tensors(state) -> dict:
+    return _checkpoint_tensors({"model": state.model.state_dict(),
+                                "optimizer": state.optimizer.state_dict()})
+
+
+def _bit_equal(label: str, got: dict, ref: dict) -> None:
+    """Every entry of ``ref`` in ``got`` with its dtype and bits."""
+    import torch
+
+    def same(a, b):
+        if isinstance(a, torch.Tensor):
+            return a.dtype == b.dtype and torch.equal(a, b)
+        return a == b
+
+    differ = [k for k in ref if k not in got or not same(got[k], ref[k])]
+    print(f"{label}: {len(ref) - len(differ)} of {len(ref)} entries bit-equal", flush=True)
+    if differ or got.keys() != ref.keys():
+        fail(f"{label}: differs in {differ[:8]} (the same entries: {got.keys() == ref.keys()})")
+
+
+def adam8_card_vs_cpu(card: str, state, batch) -> None:
+    """(a) One QuantizedAdam update of bnn_lenet from one state, on the card
+    and in a CPU copy, from the card's gradients: each parameter tensor by
+    _tensor_gate, each tensor's codes equal but for at most ADAM8_CODE_SHARE
+    of them off by one, the scales and the small tensors' float32 moments
+    within ADAM8_RTOL."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import train
+    from pytorch_quantize_impls_tpu_torch.nn import quant_generator
+    from pytorch_quantize_impls_tpu_torch.train.steps import fp32_cudnn
+
+    model, opt = state.model, state.optimizer
+    cpu_model = copy.deepcopy(model).cpu()
+    cpu_opt = train.QuantizedAdam(cpu_model.parameters(), lr=opt.schedule)
+    cpu_opt.load_state_dict(opt.state_dict())
+    cpu_state = train.QuantTrainState.create_for(cpu_model, optimizer=cpu_opt, seed=state.seed)
+    cpu_state.step = state.step
+    x, y = (torch.from_numpy(a).to(cuda()) for a in batch)
+    model.train()
+    opt.zero_grad(set_to_none=True)
+    with fp32_cudnn(), quant_generator(state.step_generator()):
+        train.cross_entropy(model(x), y).backward()
+    for p, pc in zip(model.parameters(), cpu_model.parameters()):
+        pc.grad = p.grad.detach().cpu()
+    lr = opt.schedule(opt.param_groups[0]["count"])
+    state.apply_gradients()
+    cpu_state.apply_gradients()
+    failed, worst = [], {"parameters": 1.0, "codes": 0.0, "scales": 0.0, "moments": 0.0}
+    cpu_params = dict(cpu_model.named_parameters())
+    for name, p in model.named_parameters():
+        pc = cpu_params[name]
+        share, _, ok = _tensor_gate(_within(p.detach().cpu(), pc.detach(), grad=pc.grad, lr=lr))
+        worst["parameters"] = min(worst["parameters"], share)
+        if not ok:
+            failed.append(f"parameter {name}")
+        for key, ref in cpu_opt.state[pc].items():
+            got = opt.state[p][key].cpu()
+            if key.endswith("_codes"):
+                d = (got.to(torch.int32) - ref.to(torch.int32)).abs()
+                off = float((d > 0).double().mean())
+                worst["codes"] = max(worst["codes"], off)
+                if off > ADAM8_CODE_SHARE or int(d.max()) > 1:
+                    failed.append(f"{name} {key}: {off:.2e} off, by up to {int(d.max())}")
+                continue
+            rel = float(((got - ref).abs() / ref.abs().clamp_min(1e-30)).max())
+            kind = "scales" if key.endswith("_scale") else "moments"
+            worst[kind] = max(worst[kind], rel)
+            if rel > ADAM8_RTOL:
+                failed.append(f"{name} {key}: {rel:.2e} relative")
+    print(f"bnn_lenet QuantizedAdam update {state.step}, card vs CPU from one state and the "
+          f"card's gradients: least share of a parameter tensor's entries within tolerance "
+          f"{worst['parameters']:.7f}; largest share of a tensor's codes off by one "
+          f"{worst['codes']:.2e}; largest relative difference of a scale {worst['scales']:.3g}, "
+          f"of a float32 moment {worst['moments']:.3g}  [{card}]", flush=True)
+    if failed:
+        fail(f"bnn_lenet QuantizedAdam: card and CPU differ: {failed[:6]}")
+
+
+def adam8_train(card: str, state, batches, ckpt_dir: str):
+    """(b) Train to ADAM8_STEPS with QuantizedAdam, the clamp and the cosine
+    schedule, saving a checkpoint every ADAM8_SAVE_EVERY steps (async): the
+    clamp and finite statistics every ADAM8_WINDOW steps, the loss falls, ms
+    per step by CUDA events. Returns (ms per step, the state's tensors at
+    ADAM8_RESUME_TO)."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import train
+    from pytorch_quantize_impls_tpu_torch.utils import CheckpointManager
+
+    step_fn = train.make_train_step()
+    mgr = CheckpointManager(ckpt_dir, max_to_keep=ADAM8_STEPS // ADAM8_SAVE_EVERY)
+    losses, snapshot = [], None
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    timed_from = None
+    while state.step < ADAM8_STEPS:
+        if state.step == ADAM8_WINDOW:
+            start.record()
+            timed_from = state.step
+        _, m = step_fn(state, next(batches))
+        losses.append(m["loss"])
+        if state.step % ADAM8_SAVE_EVERY == 0:
+            mgr.save(state)
+        if state.step == ADAM8_RESUME_TO:
+            snapshot = _state_tensors(state)
+        if state.step % ADAM8_WINDOW == 0:
+            stats_ok = all(bool(torch.isfinite(b).all()) for b in state.model.buffers())
+            if _clamped(state) > 1.0 or not stats_ok:
+                fail(f"bnn_lenet QuantizedAdam step {state.step}: a kernel left [-1, 1] "
+                     f"({_clamped(state)}) or a running statistic is not finite")
+    end.record()
+    torch.cuda.synchronize()
+    mgr.close()
+    step_ms = start.elapsed_time(end) / (ADAM8_STEPS - timed_from)
+    loss = torch.stack(losses).cpu().numpy()
+    first, last = float(loss[:ADAM8_WINDOW].mean()), float(loss[-ADAM8_WINDOW:].mean())
+    print(f"bnn_lenet trained {state.step} steps with QuantizedAdam (cosine over {ADAM8_STEPS}, "
+          f"batch {TRAIN_BATCH}): mean loss of the first {ADAM8_WINDOW} steps {first:.4f}, of "
+          f"the last {last:.4f}; the kernels in [-1, 1] and the statistics finite every "
+          f"{ADAM8_WINDOW} steps; {step_ms:.3f} ms per step (CUDA events over "
+          f"{ADAM8_STEPS - timed_from} steps, checkpoint saves included); checkpoints "
+          f"{mgr.all_steps()}, {os.path.getsize(mgr.path(ADAM8_STEPS))} B each file  [{card}]",
+          flush=True)
+    if last > TRAIN_LOSS_DROP * first:
+        fail(f"bnn_lenet QuantizedAdam: the loss fell from {first:.4f} only to {last:.4f}")
+    return step_ms, snapshot
+
+
+def adam8_costs(card: str, cfg, train_set, state, step_ms: float) -> None:
+    """(b) What the 8-bit Adam costs against torch Adam: the optimizer state
+    in bytes (QuantizedAdam's must be ADAM8_STATE_BYTES, counted as the JAX
+    package counts it), ms per step by CUDA events (torch Adam's over
+    ADAM8_WINDOW steps after as many), each step's profile (wall, busy,
+    idle, launches) and the update alone (CUDA events and profile)."""
+    from pytorch_quantize_impls_tpu_torch import train
+    from pytorch_quantize_impls_tpu_torch.utils import build_model
+
+    adam = _adam8_state(cfg, build_model(cfg, device=cuda())[0], "adam")
+    step_fn = train.make_train_step()
+    batches = _batches(train_set, cfg.seed)
+    for _ in range(ADAM8_WINDOW):
+        step_fn(adam, next(batches))
+    adam_ms = cuda_ms(lambda: step_fn(adam, next(batches)), iters=ADAM8_WINDOW, warmup=0)
+    sizes = {name: train.optimizer_state_bytes(s.optimizer)
+             for name, s in (("QuantizedAdam", state), ("torch Adam", adam))}
+    print(f"bnn_lenet optimizer state: QuantizedAdam {sizes['QuantizedAdam']} B, torch Adam "
+          f"{sizes['torch Adam']} B (a step count per tensor; optax's Adam state is 40238084 "
+          f"B), ratio {sizes['QuantizedAdam'] / sizes['torch Adam']:.4f}  [{card}]", flush=True)
+    if sizes["QuantizedAdam"] != ADAM8_STATE_BYTES:
+        fail(f"QuantizedAdam state {sizes['QuantizedAdam']} B, expected {ADAM8_STATE_BYTES}")
+    for name, s, ms, it in (("QuantizedAdam", state, step_ms, _batches(train_set, cfg.seed + 1)),
+                            ("torch Adam", adam, adam_ms, batches)):
+        line = profile_line(lambda: step_fn(s, next(it)), "step", 20)
+        update_ms = cuda_ms(s.optimizer.step, iters=20, warmup=2)
+        update = profile_line(s.optimizer.step, "update", 20)
+        print(f"bnn_lenet train step with {name}: {ms:.3f} ms per step by CUDA events; step "
+              f"{line}; the optimizer update alone {update_ms:.4f} ms by CUDA events, "
+              f"{update}  [{card}]", flush=True)
+
+
+def adam8_kill_and_resume(card: str, workdir: str) -> str:
+    """(c) ``train.run --config bnn_lenet`` on the card, checkpointing every
+    KILL_EVERY steps: one run SIGKILLed right after its first finalized
+    checkpoint and run again (it must print ``resumed from step`` below
+    KILL_STEPS), one uninterrupted run beside it; their final checkpoints
+    bit-equal tensor by tensor, Adam's state included. Returns the
+    uninterrupted run's checkpoint directory."""
+    import signal
+
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch.utils.checkpoint import MARKER
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    args = [sys.executable, "-m", f"{PORT}.train.run", "--config", "bnn_lenet", "--steps",
+            str(KILL_STEPS), "--ckpt-every", str(KILL_EVERY), "--device", str(cuda())]
+    dirs = {name: os.path.join(workdir, name) for name in ("whole", "killed")}
+    t0 = time.perf_counter()
+    procs = {}
+    try:
+        for name, d in dirs.items():
+            with open(os.path.join(workdir, f"{name}.log"), "w") as log:
+                procs[name] = subprocess.Popen(args + ["--checkpoint-dir", d], cwd=repo,
+                                               stdout=log, stderr=subprocess.STDOUT)
+        first = os.path.join(dirs["killed"], str(KILL_EVERY), MARKER)
+        while not os.path.exists(first):
+            if procs["killed"].poll() is not None or time.perf_counter() - t0 > KILL_WAIT_S:
+                fail(f"train.run made no checkpoint at step {KILL_EVERY} (exit "
+                     f"{procs['killed'].returncode}; see {workdir}/killed.log)")
+            time.sleep(0.002)
+        procs["killed"].send_signal(signal.SIGKILL)
+        procs["killed"].wait(timeout=60)
+        killed_with = sorted(os.listdir(dirs["killed"]))
+        rerun = subprocess.run(args + ["--checkpoint-dir", dirs["killed"]], cwd=repo,
+                               capture_output=True, text=True, timeout=KILL_WAIT_S)
+        procs["whole"].wait(timeout=KILL_WAIT_S)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    resumed = [ln for ln in rerun.stdout.splitlines() if ln.startswith("resumed from step")]
+    print(f"train.run killed (SIGKILL) with {killed_with} in its directory; the rerun: "
+          f"{resumed[0] if resumed else 'no resume line'}; exit codes {rerun.returncode} "
+          f"(rerun), {procs['whole'].returncode} (uninterrupted); "
+          f"{time.perf_counter() - t0:.1f} s for the three runs  [{card}]", flush=True)
+    if rerun.returncode or procs["whole"].returncode:
+        fail(f"train.run failed: {rerun.stdout[-2000:]} {rerun.stderr[-2000:]}")
+    if not resumed or int(resumed[0].split()[-1]) >= KILL_STEPS:
+        fail(f"the rerun did not resume from a checkpoint before {KILL_STEPS}: {resumed}")
+    ckpts = {name: torch.load(os.path.join(d, str(KILL_STEPS), "state.pt"), weights_only=True)
+             for name, d in dirs.items()}
+    if ckpts["killed"]["step"] != KILL_STEPS or ckpts["whole"]["step"] != KILL_STEPS:
+        fail("train.run's final checkpoints are not at its last step")
+    _bit_equal(f"train.run killed and resumed against uninterrupted, the final checkpoint "
+               f"(step {KILL_STEPS}, model and Adam's state, "
+               f"{os.path.getsize(os.path.join(dirs['whole'], str(KILL_STEPS), 'state.pt'))} B)",
+               _checkpoint_tensors(ckpts["killed"]), _checkpoint_tensors(ckpts["whole"]))
+    return dirs["whole"]
+
+
+def adam8_resume(card: str, cfg, train_set, ckpt_dir: str, snapshot: dict) -> None:
+    """(d) A fresh QuantizedAdam state (weights of another seed) restored
+    from the step-ADAM8_SAVE_EVERY checkpoint and run to ADAM8_RESUME_TO on
+    the batch stream from there: bit-equal to the uninterrupted run at that
+    step, codes, scales and count included. (e) The newest checkpoint
+    truncated: restore() returns the one before it, bit-equal to the run at
+    its step."""
+    import dataclasses
+
+    from pytorch_quantize_impls_tpu_torch import data, train
+    from pytorch_quantize_impls_tpu_torch.utils import CheckpointManager, build_model
+
+    def fresh():
+        other = dataclasses.replace(cfg, seed=cfg.seed + 1)
+        return _adam8_state(cfg, build_model(other, device=cuda())[0])
+
+    mgr = CheckpointManager(ckpt_dir)
+    state = mgr.restore(fresh(), step=ADAM8_SAVE_EVERY)
+    step_fn = train.make_train_step()
+    batches = data.iterate_batches(train_set, TRAIN_BATCH, seed=cfg.seed, start_step=state.step)
+    while state.step < ADAM8_RESUME_TO:
+        step_fn(state, next(batches))
+    _bit_equal(f"QuantizedAdam restored at step {ADAM8_SAVE_EVERY} into other weights and run "
+               f"to {ADAM8_RESUME_TO}, against the uninterrupted run", _state_tensors(state),
+               snapshot)
+    newest = mgr.latest_step()
+    with open(mgr.path(newest), "r+b") as f:
+        f.truncate(os.path.getsize(mgr.path(newest)) // 2)
+    restored = mgr.restore(fresh())
+    print(f"the newest checkpoint (step {newest}) truncated: restore() returned step "
+          f"{restored.step if restored is not None else None}  [{card}]", flush=True)
+    if restored is None or restored.step != ADAM8_RESUME_TO:
+        fail(f"a torn checkpoint at step {newest} did not fall back to {ADAM8_RESUME_TO}")
+    _bit_equal(f"the checkpoint before the torn one, against the run at step "
+               f"{ADAM8_RESUME_TO}", _state_tensors(restored), snapshot)
+
+
+def _artifact(path: str):
+    with np.load(path, allow_pickle=False) as f:
+        return json.loads(str(f["__meta__"])), {k: f[k] for k in f.files if k != "__meta__"}
+
+
+def adam8_export(card: str, ckpt_dir: str, workdir: str):
+    """(f) The export CLI (``infer.host_export``) in a process that sees no
+    card, from (c)'s final checkpoint, with the native codec: its artifact
+    equals pack_model + save_packed of the same weights on the card in every
+    array and record field (alpha, where there is one, within ADAM8_RTOL).
+    Returns (the artifact's path, the model on the card with those weights,
+    its input shape)."""
+    from pytorch_quantize_impls_tpu_torch import infer
+    from pytorch_quantize_impls_tpu_torch.utils import (
+        SCHEME_CONFIGS, CheckpointManager, RunConfig, build_model, native)
+
+    if not native.available():
+        fail("the host codec (utils.native, g++) did not build")
+    out = os.path.join(workdir, "exported.npz")
+    t = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", f"{PORT}.infer.host_export", "--config",
+                        "bnn_lenet", "--checkpoint-dir", ckpt_dir, "--out", out],
+                       cwd=os.path.dirname(os.path.abspath(__file__)),
+                       env=dict(os.environ, CUDA_VISIBLE_DEVICES=""), capture_output=True,
+                       text=True, timeout=KILL_WAIT_S)
+    print(f"host export (no card visible), {time.perf_counter() - t:.1f} s: "
+          f"{r.stdout.strip()}", flush=True)
+    if r.returncode or "native C++" not in r.stdout:
+        fail(f"the host export failed or ran without the native codec: {r.stderr[-2000:]}")
+    model, example_shape, _ = build_model(RunConfig(**SCHEME_CONFIGS["bnn_lenet"]),
+                                          device=cuda())
+    model.load_state_dict(CheckpointManager(ckpt_dir).load(map_location=cuda())["model"])
+    ref = os.path.join(workdir, "card.npz")
+    infer.save_packed(ref, infer.pack_model(model))
+    (meta, arrays), (meta_ref, arrays_ref) = _artifact(out), _artifact(ref)
+    if meta != meta_ref or arrays.keys() != arrays_ref.keys():
+        fail(f"the host artifact's records differ from the card's: {meta} / {meta_ref}")
+    for k, ref_arr in arrays_ref.items():
+        got = arrays[k]
+        same = (np.allclose(got, ref_arr, rtol=ADAM8_RTOL, atol=0) if k.endswith("_alpha")
+                else got.dtype == ref_arr.dtype and np.array_equal(got, ref_arr))
+        if not same:
+            fail(f"the host artifact's {k} differs from pack_model's on the card")
+    print(f"host artifact == pack_model + save_packed on the card: {len(meta)} records, "
+          f"{len(arrays)} arrays ({sum(a.nbytes for a in arrays.values())} B)  [{card}]",
+          flush=True)
+    return out, model, example_shape
+
+
+def adam8_path(card: str) -> dict:
+    """The 8-bit Adam path (after path 11): bnn_lenet (width 128) on the card
+    with QuantizedAdam, card against CPU for one update (a), 300 steps with
+    the state's bytes and both optimizers' costs (b), train.run killed and
+    resumed bit for bit (c), an in-process resume and a torn checkpoint (d,
+    e), the export CLI on the host (f), and its artifact served through
+    InferenceEngine on the whole test split, packed == fake-quant bit for
+    bit (g, launches ``bnn_lenet_exported``: K1, K2, K3, K5)."""
+    from pytorch_quantize_impls_tpu_torch import data, train
+    from pytorch_quantize_impls_tpu_torch.utils import SCHEME_CONFIGS, RunConfig, build_model
+
+    cfg = RunConfig(**SCHEME_CONFIGS["bnn_lenet"])
+    train_set, test_set = data.mnist()
+    with tempfile.TemporaryDirectory() as workdir:
+        zero_launches()
+        state = _adam8_state(cfg, build_model(cfg, device=cuda())[0])
+        batches = _batches(train_set, cfg.seed)
+        step_fn = train.make_train_step()
+        for _ in range(TRAIN_CHECKED_STEPS):
+            step_fn(state, next(batches))
+        adam8_card_vs_cpu(card, state, next(batches))
+        step_ms, snapshot = adam8_train(card, state, batches, os.path.join(workdir, "adam8"))
+        trained = read_launches("bnn_lenet QuantizedAdam training", ())
+        if any(trained.values()):
+            fail(f"training launched a serving kernel: {trained}")
+        adam8_costs(card, cfg, train_set, state, step_ms)
+        del state
+        adam8_resume(card, cfg, train_set, os.path.join(workdir, "adam8"), snapshot)
+        ckpt_dir = adam8_kill_and_resume(card, workdir)
+        artifact, model, example_shape = adam8_export(card, ckpt_dir, workdir)
+        model.eval()
+        xs, ys = test_set
+        inputs = list(xs)
+        loaded, answers, logs, launches = drive_main_path(
+            card, model, example_shape, inputs, label="bnn_lenet_exported", artifact=artifact,
+            rounds=True)
+        check_main_path(model, loaded, inputs, answers, logs)
+    for name in answers:
+        acc = float(np.mean([int(np.argmax(a)) == y for a, y in zip(answers[name], ys)]))
+        print(f"bnn_lenet exported artifact served {name} on all {len(xs)} test images: "
+              f"accuracy {acc:.4f} (train.run's {KILL_STEPS} steps)  [{card}]", flush=True)
+    return {"bnn_lenet_exported": launches}
+
+
 def ternary_lm_path(card: str):
     """Main path 10: the serving LM's shape with deterministic ternary
     weights (weights only), through DecodeEngine(packed=) unprepared and
@@ -4595,6 +5031,7 @@ def main() -> None:
     del model, prepared
     launches.update(phase("bnn_lenet train", lenet_train_path, card))
     launches.update(phase("cifar train", cifar_train_path, card))
+    launches.update(phase("bnn_lenet adam8", adam8_path, card))
     launches["decode_lm"] = phase("decode LM", decode_path, card)
     launches.update(phase("resnet", resnet_path, card))
     launches.update(phase("W4A4 LM", w4a4_lm_path, card))
@@ -4631,7 +5068,8 @@ def main() -> None:
     # bnn_lenet path, xnor words on xnor_cifar's, 4-bit DoReFa words on the
     # ResNet's
     fused_paths = {"decode_binary_weights": ("bnn_lenet", "xnor_cifar_packed",
-                                             "bnn_lenet_trained", "xnor_cifar_trained"),
+                                             "bnn_lenet_trained", "xnor_cifar_trained",
+                                             "bnn_lenet_exported"),
                    "decode_dorefa_weights": ("resnet_w4a4_packed",)}
     rows = []
     for name, (cu, replaces) in meta.items():

@@ -14,6 +14,8 @@ decode step of the 1-bit transformer LM.
 
     fm = infer.export_fused_decode(lm, device="cuda")
     logits, cache = infer.fused_decode_apply(fm, None, tokens)
+
+    infer.host_export.export_packed("model.npz", model)   # on the host (CLI too)
 """
 
 from pytorch_quantize_impls_tpu_torch.infer.packed import (  # noqa: F401
@@ -43,3 +45,4 @@ from pytorch_quantize_impls_tpu_torch.infer.fused_decode import (  # noqa: F401
     fused_decode_apply,
     fused_init_cache,
 )
+from pytorch_quantize_impls_tpu_torch.infer import host_export  # noqa: F401

@@ -99,7 +99,11 @@ def _check_scheme(scheme: str) -> None:
         raise ValueError(f"unpackable scheme {scheme!r}")
 
 
-def _pack_layer(m) -> PackedLayer:
+def _pack_layer(m, pack_planes=packlib.pack_bitplanes) -> PackedLayer:
+    """One layer's record. Each scheme's weight codes (K, N) are stated here
+    once; ``pack_planes(codes, bits)`` turns them into the planar words:
+    ``ops.pack`` on the weight's device, or the host codec
+    (``infer.host_export``)."""
     _check_scheme(m.scheme)
     if m.scheme in ("log", "lin") and m.a_bits > 0:
         raise NotImplementedError(
@@ -117,24 +121,24 @@ def _pack_layer(m) -> PackedLayer:
         kind, kernel_shape = "dense", tuple(w2d.shape)
     alpha = None
     if m.scheme == "dorefa":
-        packed = pm.pack_dorefa_weights(dorefa_weight(w2d, m.w_bits), m.w_bits)
+        codes, bits = pm.dorefa_weight_codes(dorefa_weight(w2d, m.w_bits), m.w_bits), m.w_bits
     elif m.scheme == "log":
-        packed = sm.pack_log_weights(w2d, m.fsr, m.w_bits)
+        codes, bits = sm.log_weight_codes(w2d, m.fsr, m.w_bits), sm.CODE_BITS
     elif m.scheme == "lin":
         # signed grid codes round(w / step) clipped to ±2^bits, offset into
         # [0, 2^(bits+1)]; 8-bit planar fields (bits <= 6)
         step = 2.0 ** (m.fsr - m.w_bits)
         c = torch.clamp(torch.round(w2d / step), -(2**m.w_bits), 2**m.w_bits)
-        packed = packlib.pack_bitplanes((c + 2**m.w_bits).to(torch.int32), 8)
+        codes, bits = (c + 2**m.w_bits).to(torch.int32), 8
     elif m.scheme == "ternary":
         c = torch.round(torch.clamp(w2d, -1.0, 1.0)) + 1
-        packed = packlib.pack_bitplanes(c.to(torch.int32), TERNARY_PLANE_BITS)
+        codes, bits = c.to(torch.int32), TERNARY_PLANE_BITS
     else:
         if m.scheme == "xnor":
             alpha = out_channel_alpha(w)
-        packed = bg.pack_binary_weights(w2d)
+        codes, bits = bg.binary_weight_codes(w2d), 1
     return PackedLayer(
-        packed=packed,
+        packed=pack_planes(codes, bits),
         alpha=alpha,
         kind=kind,
         scheme=m.scheme,
@@ -152,9 +156,10 @@ def _quant_layers(model: nn.Module):
 
 
 @torch.no_grad()
-def pack_model(model: nn.Module) -> PackedModel:
-    """Pack every quantized layer's master weight, on the weight's device."""
-    return {path: _pack_layer(m) for path, m in _quant_layers(model)}
+def pack_model(model: nn.Module, pack_planes=packlib.pack_bitplanes) -> PackedModel:
+    """Pack every quantized layer's master weight, on the weight's device;
+    ``pack_planes`` as in ``_pack_layer``."""
+    return {path: _pack_layer(m, pack_planes) for path, m in _quant_layers(model)}
 
 
 def _decode_weights(rec: PackedLayer) -> torch.Tensor:

@@ -72,11 +72,16 @@ def inv_scale(w_bits: int, a_bits: int) -> float:
     return float(np.float32(1.0 / ((2**w_bits - 1) * (2**a_bits - 1))))
 
 
-def pack_dorefa_weights(wq: torch.Tensor, bits: int) -> torch.Tensor:
+def dorefa_weight_codes(wq: torch.Tensor, bits: int) -> torch.Tensor:
     """DoReFa fake-quant weights (K, N), already on the grid of
-    ``ops.dorefa_weight(., bits)`` -> planar packed codes (int32 words)."""
+    ``ops.dorefa_weight(., bits)`` -> their int32 codes, packed at ``bits``."""
     _check_w_bits(bits)
-    return packlib.pack_bitplanes(packlib.dorefa_weight_to_codes(wq, bits), bits)
+    return packlib.dorefa_weight_to_codes(wq, bits)
+
+
+def pack_dorefa_weights(wq: torch.Tensor, bits: int) -> torch.Tensor:
+    """:func:`dorefa_weight_codes` -> planar packed codes (int32 words)."""
+    return packlib.pack_bitplanes(dorefa_weight_codes(wq, bits), bits)
 
 
 def dorefa_act_to_int8(aq: torch.Tensor, bits: int) -> torch.Tensor:

@@ -74,12 +74,18 @@ def _lo(fsr: float, bits: int) -> int:
     return int(fsr) - 2**bits
 
 
+def log_weight_codes(w: torch.Tensor, fsr: float, bits: int) -> torch.Tensor:
+    """Float weights (K, N) -> int32 (sign, exponent index) codes, packed at
+    ``CODE_BITS``."""
+    _check_bits(bits)
+    sign, idx = log_lin.log_quant_exponent(w, fsr, bits)
+    return packlib.log_to_codes(sign, idx, bits)
+
+
 def pack_log_weights(w: torch.Tensor, fsr: float, bits: int) -> torch.Tensor:
     """Float weights (K, N) -> planar 8-bit (sign, exponent index) codes
     (int32 words, (ceil(K/128)*32, N))."""
-    _check_bits(bits)
-    sign, idx = log_lin.log_quant_exponent(w, fsr, bits)
-    return packlib.pack_bitplanes(packlib.log_to_codes(sign, idx, bits), CODE_BITS)
+    return packlib.pack_bitplanes(log_weight_codes(w, fsr, bits), CODE_BITS)
 
 
 def decode_log_weights_reference(w_packed: torch.Tensor, *, fsr: float, bits: int) -> torch.Tensor:

@@ -49,13 +49,18 @@ def _lib() -> ctypes.CDLL:
     )
 
 
-def pack_binary_weights(w: torch.Tensor) -> torch.Tensor:
-    """±1-ish float weights (K, N) -> planar 1-bit words (ceil(K/1024)*32, N).
+def binary_weight_codes(w: torch.Tensor) -> torch.Tensor:
+    """±1-ish float weights -> int32 codes: 1 where ``w >= 0``
+    (``ops.safe_sign``), else 0."""
+    return (w >= 0).to(torch.int32)
 
-    Bit 1 where ``w >= 0`` (``ops.safe_sign``). K is zero-padded; padded
-    rows decode to -1 but meet zero-padded activations.
+
+def pack_binary_weights(w: torch.Tensor) -> torch.Tensor:
+    """±1-ish float weights (K, N) -> planar 1-bit words (ceil(K/1024)*32, N)
+    of :func:`binary_weight_codes`. K is zero-padded; padded rows decode to
+    -1 but meet zero-padded activations.
     """
-    return packlib.pack_bitplanes((w >= 0).to(torch.int32), 1)
+    return packlib.pack_bitplanes(binary_weight_codes(w), 1)
 
 
 def binarize_to_int8(x: torch.Tensor) -> torch.Tensor:

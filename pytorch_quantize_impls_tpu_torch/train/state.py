@@ -2,8 +2,10 @@
 generator.
 
 Counterpart of ``pytorch_quantize_impls_tpu/train/state.py``. The model
-holds the parameters and the BatchNorm statistics; ``torch.optim.Adam`` with
-optax's defaults (betas 0.9/0.999, eps 1e-8) steps them and
+holds the parameters and the BatchNorm statistics; an optimizer steps them
+(``torch.optim.Adam`` with optax's defaults, betas 0.9/0.999, eps 1e-8,
+unless ``create_for`` is handed another, as the JAX package is handed a
+``tx``: :class:`~.quantized_optim.QuantizedAdam`) and
 :class:`~.clipping.ClampAfterStep` clamps the kernels after it. Stochastic
 quantizers draw from :meth:`QuantTrainState.step_generator`, seeded from
 (seed, step) on the model's device, so the draws are deterministic given
@@ -12,7 +14,9 @@ global RNG is never drawn from.
 
 ``lr`` is a float or a schedule ``step -> lr`` (the JAX runs' cosine decay:
 :func:`cosine_decay_schedule`), read before each update as optax reads its
-schedule with the update count.
+schedule with the update count. With an optimizer handed in, the optimizer
+owns the rate (``QuantizedAdam`` reads its schedule at its own count) and
+the state sets none.
 """
 
 from __future__ import annotations
@@ -41,7 +45,9 @@ def cosine_decay_schedule(init_value: float, decay_steps: int) -> Schedule:
 
 
 class QuantTrainState:
-    """(model, Adam, clamp, step, seed); ``step`` counts applied updates."""
+    """(model, optimizer, clamp, step, seed); ``step`` counts applied
+    updates. ``lr`` is the rate the state sets before each update (Adam's),
+    or None where the optimizer owns it."""
 
     def __init__(self, model: nn.Module, optimizer: torch.optim.Optimizer, clamp, *,
                  seed: int = 0, lr: Union[float, Schedule, None] = None):
@@ -53,11 +59,20 @@ class QuantTrainState:
         self.step = 0
 
     @classmethod
-    def create_for(cls, model: nn.Module, lr: Union[float, Schedule] = 3e-3, seed: int = 0,
-                   path_filter: Optional[PathFilter] = None) -> "QuantTrainState":
-        first = lr(0) if callable(lr) else lr
-        opt = torch.optim.Adam(model.parameters(), lr=first, betas=(0.9, 0.999), eps=1e-8)
-        return cls(model, opt, clip_quantized_weights(model, path_filter), seed=seed, lr=lr)
+    def create_for(cls, model: nn.Module, lr: Union[float, Schedule, None] = None, seed: int = 0,
+                   path_filter: Optional[PathFilter] = None,
+                   optimizer: Optional[torch.optim.Optimizer] = None) -> "QuantTrainState":
+        """Adam at ``lr`` (default 3e-3) over ``model``'s parameters, or
+        ``optimizer`` (built on them, with its own rate), and the clamp."""
+        if optimizer is not None:
+            if lr is not None:
+                raise ValueError("pass the learning rate to the optimizer, not to create_for")
+        else:
+            lr = 3e-3 if lr is None else lr
+            first = lr(0) if callable(lr) else lr
+            optimizer = torch.optim.Adam(model.parameters(), lr=first, betas=(0.9, 0.999),
+                                         eps=1e-8)
+        return cls(model, optimizer, clip_quantized_weights(model, path_filter), seed=seed, lr=lr)
 
     @property
     def device(self) -> torch.device:

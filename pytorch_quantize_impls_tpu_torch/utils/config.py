@@ -9,10 +9,12 @@ W4A4 with PACT and its alpha penalty), ``dorefa_resnet20_w4``,
 JAX entries' values, each with its float32 twin (``fp32=True``).
 ``RunConfig`` holds the fields their entries set and the training fields the
 port reads: batch size, lr, seed, the data directory, the elastic weight and
-its ramp (``train.accuracy_sweep``), and ``warm_start``, the QAT warm start
-from the trained twin that ``train.accuracy_sweep`` applies. The mesh,
-checkpoint, metrics and profile fields and the other configs arrive with
-their ROADMAP items."""
+its ramp (``train.accuracy_sweep``), ``warm_start``, the QAT warm start
+from the trained twin that ``train.accuracy_sweep`` applies, and the io
+fields ``train.run`` reads (checkpoint directory, metrics file). The mesh
+field and the other configs arrive with their ROADMAP items; the JAX
+config's ``profile_dir``, which nothing reads there, is left out (a trace
+is ``utils.trace``)."""
 
 from __future__ import annotations
 
@@ -46,6 +48,9 @@ class RunConfig:
     # ramp the weight 0 -> elastic_weight over the first 60% of the run
     elastic_ramp: bool = False
     seed: int = 0
+    # io
+    checkpoint_dir: Optional[str] = None
+    metrics_path: Optional[str] = None
     data_dir: Optional[str] = None  # the data loaders'; overrides $QTPU_DATA_DIR
 
 

@@ -141,6 +141,9 @@ def test_port_imports_without_jax():
         "from pytorch_quantize_impls_tpu_torch.bench import headline, kernel_bench, mxu_probe\n"
         "from pytorch_quantize_impls_tpu_torch.bench import host_cost, stream_sweep, ws_decode_cost\n"
         "from pytorch_quantize_impls_tpu_torch.bench import int8_tc_cost\n"
+        "from pytorch_quantize_impls_tpu_torch.train import quantized_optim, run\n"
+        "from pytorch_quantize_impls_tpu_torch.utils import checkpoint, metrics, native, profiling\n"
+        "from pytorch_quantize_impls_tpu_torch.infer import host_export\n"
         "assert len(headline.build_rows(16, 16, 64, 'cpu')) == 8\n"
         "assert len(kernel_bench.build('shift_ws', (16, 16, 64), 4, 'cpu')) == 3\n"
         "i8 = torch.ones(64, 128, dtype=torch.int8)\n"
