@@ -20,7 +20,9 @@ on one NVIDIA GPU (built for Hopper, sm_90a).
    4096^3 and, K6 and K8, the VGG head's shape, K1 and K3 the decode LM's
    four projections at M = 32 (timed beside their main rows), and at cases
    whose launch plan splits K (ragged last chunks, M = 1 and 65, N = 10,
-   zeros, unaligned x); each check line shows the plan (BM, S), the main
+   zeros, unaligned x), K6 also at the digits MLP's three layers at W1A2
+   with the one-bit scale in its epilogue (b = 64 and 256); each check
+   line shows the plan (BM, S), the main
    rows (and K1's and K3's M = 32 rows) the host's microseconds per call.
    K5 runs at the ResNet's block convs at b = 256 and b = 1 and shows its
    tile; its packed weight stage (int8_conv2d(..., w_bits=), the packed
@@ -150,6 +152,28 @@ on one NVIDIA GPU (built for Hopper, sm_90a).
    requests (full batches; one request at a time the backlogged engine
    batches ~1 and the path took 108 s): packed == fake-quant bit for bit;
    launches ``bnn_lenet_exported`` (K1, K2, K3, K5).
+   Then the digits MLPs (phase ``digits g6 + elastic train``, after the
+   8-bit Adam): ``dorefa_digits_g6`` (W1A2G6) and ``elastic_digits`` (the
+   binary grid's penalty, lambda ramped to 100) at 64-512-512-10, b = 64,
+   built through build_model on the card and trained on the port's
+   synthetic stand-in of the digits (data.synthetic_digits: the card's
+   machine has no sklearn). After 3 warm steps on the card (every
+   BatchNorm bias off 0: one-bit weights times 2-bit codes tie BatchNorm
+   inputs with their batch mean, and at a bias of 0 the ReLU reads a
+   rounding residue), 2 steps card against CPU under path 10's per-tensor
+   gate, for the W1A2 MLP with G0 and the elastic MLP under its ramp;
+   dorefa_gradient's backward on a shared u at the MLP's input shapes,
+   card == CPU bit for bit; 300 steps each (the task loss, the loss less
+   the weighted penalty, falls to <= 0.8 x; the clamp), the G6 run twice
+   from one seed bit-equal and once from another generator seed
+   different; elastic_digits hard-projected (train.accuracy_sweep.
+   project_elastic: every kernel entry +-its channel's alpha). The trained
+   G6 model served packed through InferenceEngine, its records carrying
+   E|W|: unprepared (K6 exactly 3 per forward), prepare() (K7 3),
+   prepared (K3 3 per forward); every batch replayed bit-equal; each
+   layer within 1e-5 (1 + |ref|) of its fake-quant forward on the same
+   input, the argmax >= 99% on the test split, the 2-bit codes that flip
+   reported; launches ``digits_g6_trained``.
 5. Main path 2, the 1-bit transformer LM that scripts/perf_bench.py serves
    (d 1024, 8 layers, cache 1024, W1A1, int8 KV) from seeded random weights:
    bridge -> export_fused_decode (int8 and packed) -> DecodeEngine(fused=)
@@ -224,7 +248,7 @@ on one NVIDIA GPU (built for Hopper, sm_90a).
 16. For each path the kernels' launch counters are zeroed just before it
     and read just after; each kernel of the path must be > 0 (the trained
     paths: bnn_lenet_trained, bnn_lenet_trained_fused, bc_mlp_trained,
-    bnn_lenet_exported).
+    bnn_lenet_exported, digits_g6_trained).
 17. Prints engine images/s, decode prefill ms and tokens/s, one JSON line
     with the kernels and their launches per path, and last
     ``{"ok": true, "device": {...}}``.
@@ -396,6 +420,14 @@ ADAM8_RTOL = 1e-6  # card vs CPU: scales, small moments; host vs card: alpha
 KILL_STEPS = 300  # train.run killed after its first checkpoint, then resumed
 KILL_EVERY = 100
 KILL_WAIT_S = 300
+# the digits MLPs: DoReFa W1A2G6 and the elastic scheme at 64-512-512-10
+DIGITS_STEPS = 300  # each run, cosine over these; the configs' budgets: 1600, 3200
+DIGITS_WINDOW = 50  # loss windows, clamp checks
+DIGITS_WARM = 3  # steps on the card before card vs CPU: every BatchNorm bias off 0
+DIGITS_CHECKED_STEPS = 2  # card against CPU, each from the card's state
+DIGITS_OTHER_SEED_STEPS = 50  # a G6 run from another generator seed
+DIGITS_TOL = 1e-5  # packed against fake-quant, per layer, times 1 + |ref|
+DIGITS_ARGMAX_FLOOR = 0.99
 
 
 def cuda():
@@ -546,6 +578,12 @@ def gemm_bound(m, k, n, w_bytes, scales):
     return bound_ms(m * k + w_bytes + 4 * m * n + scales, 2 * m * k * n, INT8_OPS_PER_S)
 
 
+def code_bytes(k, n, bits):
+    """The bytes of a (K, N) weight at ``bits`` per entry, without the
+    packed layout's padding of K to its group (the function needs K rows)."""
+    return -(-k * bits // 8) * n
+
+
 def attention_bound(b, h, cl, hd, lens):
     """K4: what these inputs need: q, the mask row and the output once, and
     the K/V codes and scales of the attended positions only (the kernel
@@ -661,7 +699,7 @@ def kernel_cases(rng, dev):
             fn=lambda x=x, wp=wp, a=alpha, r=row: bg.binary_gemm(x, wp, a, r),
             plain=lambda x=x, wp=wp, a=alpha, r=row: bg.binary_gemm_reference(x, wp, a, r),
             library=(lambda x=x, w=w8: torch._int_mm(x, w)) if lib else None,
-            bound=gemm_bound(m, k, n, 4 * wp.numel(), nscale), main=main,
+            bound=gemm_bound(m, k, n, code_bytes(k, n, 1), nscale), main=main,
             plan=stream_plan(m, n, k, bg.STAGE_K)[:2], split=label.startswith("edge"),
             also=also, host=main or (also and m <= 32),
         ), alpha, row
@@ -830,6 +868,11 @@ def kbit_cases(rng, dev):
            ("edge M=5 K=300 N=40 w2a2", 5, 300, 40, 2, 2),
            ("edge M=8 K=1500 N=24 w1a1", 8, 1500, 24, 1, 1),
            ("edge M=3 K=64 N=8 w1a4", 3, 64, 8, 1, 4)]
+    # the digits MLP's three layers (64-512-512-10) at W1A2, b = 64 and 256,
+    # with the one-bit weights' E|W| in the epilogue
+    k6 += [(f"digits {name} M={m} K={k} N={n} w1a2 E|W|", m, k, n, 1, 2)
+           for m in (64, 256) for name, k, n in (("layer0", 64, 512), ("layer1", 512, 512),
+                                                ("head", 512, 10))]
     k6 += [("edge split M=1 K=300 N=10 w4a4", 1, 300, 10, 4, 4),
            ("edge split M=65 K=1500 N=130 w2a4", 65, 1500, 130, 2, 4),
            ("edge split M=65 K=2100 N=130 w4a4", 65, 2100, 130, 4, 4),
@@ -839,15 +882,19 @@ def kbit_cases(rng, dev):
         a = t(rng.integers(0, 2**a_bits, size=(m, k)).astype(np.int8))
         a = a * 0 if "zeros" in label else a
         wp = dorefa_packed(k, n, w_bits)
+        # E|W| of a digits layer's glorot-drawn weights, ~0.03-0.05
+        alpha = float(rng.uniform(0.02, 0.06)) if "E|W|" in label else None
         lib = m > 16 and k % 8 == 0 and n % 8 == 0  # torch._int_mm's shape rules
         w8 = pm.decode_dorefa_weights(wp, w_bits=w_bits)[:k].contiguous() if lib else None
         cases.append(dict(
             kernel="dorefa_gemm", label=label,
-            fn=lambda a=a, wp=wp, wb=w_bits, ab=a_bits: pm.dorefa_gemm(a, wp, w_bits=wb, a_bits=ab),
-            plain=lambda a=a, wp=wp, wb=w_bits, ab=a_bits: pm.dorefa_gemm_reference(
-                a, wp, w_bits=wb, a_bits=ab),
+            fn=lambda a=a, wp=wp, wb=w_bits, ab=a_bits, al=alpha: pm.dorefa_gemm(
+                a, wp, w_bits=wb, a_bits=ab, alpha=al),
+            plain=lambda a=a, wp=wp, wb=w_bits, ab=a_bits, al=alpha: pm.dorefa_gemm_reference(
+                a, wp, w_bits=wb, a_bits=ab, alpha=al),
             library=(lambda a=a, w8=w8: torch._int_mm(a, w8)) if lib else None,
-            bound=gemm_bound(m, k, n, 4 * wp.numel(), 0), main=label == f"lm ffn_in M={SLOTS}",
+            bound=gemm_bound(m, k, n, code_bytes(k, n, w_bits), 0),
+            main=label == f"lm ffn_in M={SLOTS}",
             plan=stream_plan(m, n, k, pm.STAGE_K)[:2], split="split" in label,
             also=label.startswith(("vgg head", f"{big}^3")),
         ))
@@ -997,8 +1044,8 @@ def fused_conv_cases(rng, dev):
                 two_launch=lambda args=args, decode=decode, kk=kk: ic.int8_conv2d(
                     args[0], decode()[:kk], *args[2:]),
                 library=None, timed=timed, also=timed,
-                bound=bound_ms(x.numel() + 4 * wp.numel() + out_bytes + 4 * cout * nvec,
-                               2 * m * kk * cout, INT8_OPS_PER_S),
+                bound=bound_ms(x.numel() + code_bytes(kk, cout, bits) + out_bytes
+                               + 4 * cout * nvec, 2 * m * kk * cout, INT8_OPS_PER_S),
                 main=False, tile=(128, plan["bn"]), slab=(plan["groups"], plan["smem"]),
                 route=conv_route(b, m, cout, cin, k * k, bits),
             ))
@@ -1181,7 +1228,7 @@ def log_cases(rng, dev):
             cublas_f32=lambda xf=xf, wf=wf: torch.matmul(xf, wf),
             cublas_bf16=lambda xb=xb, wb=wb: torch.matmul(xb, wb),
             abs_ref=lambda xf=xf, wf=wf: xf.abs().double() @ wf.abs().double(),
-            bound=bound_ms(4 * m * k + 4 * wp.numel() + 4 * m * n, 2 * m * k * n,
+            bound=bound_ms(4 * m * k + code_bytes(k, n, bits) + 4 * m * n, 2 * m * k * n,
                            BF16_FLOPS_PER_S),
             main=label == f"lm ffn_in M={SLOTS}",
             plan=stream_plan(m, n, k, sm.STAGE_K)[:2], split="split" in label,
@@ -1245,7 +1292,7 @@ def ws_cases(rng, dev):
             fn=lambda x=x, wp=wp, a=alpha, r=row, mt=mt: bg.binary_gemm_ws(x, wp, a, r, m_tiles=mt),
             plain=lambda x=x, wp=wp, a=alpha, r=row: bg.binary_gemm_ws_reference(x, wp, a, r),
             library=(lambda x=x, w=w8: torch._int_mm(x, w)) if lib else None,
-            bound=gemm_bound(m, k, n, 4 * wp.numel(), 4 * (n + m) if scaled else 0),
+            bound=gemm_bound(m, k, n, code_bytes(k, n, 1), 4 * (n + m) if scaled else 0),
             main=label.startswith("main"), tile=(plan["bm"], plan["bn"]),
         ))
     # K11: w2a2 and w4a4 at the JAX tests' shapes, w1a2, w2a2 and w4a4 at
@@ -1271,7 +1318,7 @@ def ws_cases(rng, dev):
             plain=lambda a=a, wp=wp, wb=wb, ab=ab: pm.dorefa_gemm_ws_reference(
                 a, wp, w_bits=wb, a_bits=ab),
             library=(lambda a=a, w8=w8: torch._int_mm(a, w8)) if lib else None,
-            bound=gemm_bound(m, k, n, 4 * wp.numel(), 0), main=label.startswith("main"),
+            bound=gemm_bound(m, k, n, code_bytes(k, n, wb), 0), main=label.startswith("main"),
         ))
     # K12: (fsr 1, bits 4) and (fsr 0, bits 3) at the JAX tests' shapes, the
     # headline's (1, 4) at 4096^3, logquant_vgg's conv3 as im2col
@@ -1297,7 +1344,7 @@ def ws_cases(rng, dev):
             cublas_f32=lambda xf=xf, wf=wf: torch.matmul(xf, wf),
             cublas_bf16=lambda xb=xb, wb=wb: torch.matmul(xb, wb),
             abs_ref=lambda xf=xf, wf=wf: xf.abs().double() @ wf.abs().double(),
-            bound=bound_ms(4 * m * k + 4 * wp.numel() + 4 * m * n, 2 * m * k * n,
+            bound=bound_ms(4 * m * k + code_bytes(k, n, bits) + 4 * m * n, 2 * m * k * n,
                            BF16_FLOPS_PER_S),
             main=label.startswith("main"),
         ))
@@ -3768,7 +3815,8 @@ def _tensor_gate(ok) -> tuple:
 
 
 def train_card_vs_cpu(card: str, state, cpu_state, step_fn, batches, label: str = "bnn_lenet",
-                      steps: int = TRAIN_CHECKED_STEPS, gate: bool = True) -> bool:
+                      steps: int = TRAIN_CHECKED_STEPS, gate: bool = True,
+                      noise_grads: bool = False) -> bool:
     """``steps`` train steps of ``label`` on the card and on the CPU, each
     from the card's state (free-running BNN trajectories part after one
     step from any float reassociation, the JAX package's jitted and unjitted
@@ -3777,7 +3825,12 @@ def train_card_vs_cpu(card: str, state, cpu_state, step_fn, batches, label: str 
     tensor (TF32 would round the conv gradients to 10 mantissa bits), its
     parameters within TRAIN_TOL, its running statistics within TRAIN_TOL
     |ref| (conv2's variance is ~3e3); the clamp exact on both. With ``gate``
-    off the shares are printed and the verdict returned, not enforced."""
+    off the shares are printed and the verdict returned, not enforced. With
+    ``noise_grads`` a tensor whose whole gradient is at or below NOISE_GRAD
+    on both devices passes its gradient gate: the rounding noise of a
+    gradient that is 0 in exact arithmetic (a bias before BatchNorm), which
+    has no scale of its own to hold it to; every other tensor keeps the
+    per-entry rule."""
     lr = state.lr
     passed = True
     for i in range(steps):
@@ -3788,12 +3841,17 @@ def train_card_vs_cpu(card: str, state, cpu_state, step_fn, batches, label: str 
         loss, loss_cpu = float(m["loss"]), float(mc["loss"])
         loss_ok = abs(loss - loss_cpu) <= 1e-5 * abs(loss_cpu)
         gates = {"gradients": {}, "parameters": {}, "statistics": {}}
+        noise = {}  # the tensors passed as noise: max |g| on the card, on the CPU
         cpu_params = dict(cpu_state.model.named_parameters())
         for name, p in state.model.named_parameters():
             pc = cpu_params[name]
             g, gc = p.grad.detach().cpu(), pc.grad.detach()
             scale = float(gc.abs().max())
-            gates["gradients"][name] = _tensor_gate(_within(g, gc, atol=GRAD_TOL * scale))
+            ok = _within(g, gc, atol=GRAD_TOL * scale)
+            if noise_grads and max(scale, float(g.abs().max())) <= NOISE_GRAD:
+                noise[name] = (float(g.abs().max()), scale)
+                ok = ok.new_ones(ok.shape)
+            gates["gradients"][name] = _tensor_gate(ok)
             gates["parameters"][name] = _tensor_gate(_within(p.detach().cpu(), pc.detach(),
                                                              grad=gc, lr=lr))
         cpu_buffers = dict(cpu_state.model.named_buffers())
@@ -3806,10 +3864,13 @@ def train_card_vs_cpu(card: str, state, cpu_state, step_fn, batches, label: str 
         failed = [f"{kind[:-1]} {name}" for kind, c in gates.items()
                   for name, (_, _, ok) in c.items() if not ok]
         clamp = (_clamped(state), _clamped(cpu_state))
+        noise_note = ("; gradients passed as noise (max |g| card / CPU): " + (", ".join(
+            f"{k} {a:.3g} / {c:.3g}" for k, (a, c) in noise.items()) or "none")
+            if noise_grads else "")
         print(f"{label} train step {i + 1}, card vs CPU from the card's state: loss "
               f"{loss:.6f} / {loss_cpu:.6f}; least share of a tensor's entries within "
               "tolerance: " + ", ".join(f"{k} {v:.7f}" for k, v in shares.items())
-              + f" (tensors not all within: {'; '.join(off) or 'none'}); max |kernel| "
+              + f" (tensors not all within: {'; '.join(off) or 'none'}){noise_note}; max |kernel| "
               f"{clamp[0]} / {clamp[1]}; gate {'passes' if loss_ok and not failed else 'fails'}"
               f"{'' if gate else ' (reported)'}  [{card}]", flush=True)
         if max(clamp) > 1.0:
@@ -4868,6 +4929,312 @@ def adam8_path(card: str) -> dict:
     return {"bnn_lenet_exported": launches}
 
 
+# --- the digits MLPs: DoReFa's gradient quantizer and the elastic scheme ---
+
+
+def digits_splits():
+    """The digits' shape on the card's machine, which has no sklearn: the
+    port's seeded synthetic stand-in (64 features, 10 classes)."""
+    from pytorch_quantize_impls_tpu_torch import data
+
+    return data.synthetic_digits(flatten=True)
+
+
+def digits_card_vs_cpu(card: str, cfg, train_set, label: str) -> None:
+    """DIGITS_WARM steps on the card, then DIGITS_CHECKED_STEPS steps on the
+    card and on the CPU, each from the card's state, under the gate of
+    train_card_vs_cpu (bnn_lenet's per-tensor rule, float32; the hidden
+    layers' biases feed a BatchNorm, so their gradients are rounding noise
+    on both devices: ``noise_grads``). The warm steps
+    move every BatchNorm bias off 0: one-bit weights times 2-bit codes put
+    the BatchNorm inputs on a coarse grid, where a row often equals its
+    batch mean, and with the bias at 0 the ReLU then reads the sign of a
+    rounding residue."""
+    from pytorch_quantize_impls_tpu_torch import data, train
+    from pytorch_quantize_impls_tpu_torch.train import accuracy_sweep
+    from pytorch_quantize_impls_tpu_torch.utils import build_model
+
+    model = build_model(cfg, device=cuda())[0]
+    cpu_model = copy.deepcopy(model).cpu()
+    state, cpu_state = (train.QuantTrainState.create_for(m, lr=cfg.lr, seed=cfg.seed)
+                        for m in (model, cpu_model))
+    step_fn = train.make_train_step(
+        elastic_weight=accuracy_sweep.elastic_weight(cfg, DIGITS_STEPS))
+    batches = data.iterate_batches(train_set, cfg.batch_size, seed=cfg.seed)
+    for _ in range(DIGITS_WARM):
+        step_fn(state, next(batches))
+    train_card_vs_cpu(card, state, cpu_state, step_fn, batches, label=label,
+                      steps=DIGITS_CHECKED_STEPS, noise_grads=True)
+
+
+def dorefa_gradient_card_vs_cpu(card: str, cfg) -> None:
+    """dorefa_gradient's backward (6 bits) on the card and on the CPU on one
+    shared draw u, at the MLP's input shapes (b = 64: 64, 512, 512
+    features): bit for bit."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import ops
+
+    g = torch.Generator().manual_seed(SEED + 19)
+    for k in (64, 512, 512):
+        x = torch.randn(cfg.batch_size, k, generator=g)
+        u = torch.rand(x.shape, generator=g)
+        gy = torch.randn(x.shape, generator=g) * 1e-3
+        grads = []
+        for dev in ("cpu", cuda()):
+            xd = x.to(dev).detach().requires_grad_(True)
+            ops.dorefa_grad_prim(xd, u.to(dev), cfg.g_bits).backward(gy.to(dev))
+            grads.append(xd.grad.cpu())
+        levels = len(torch.unique(grads[1]))
+        print(f"dorefa_gradient G{cfg.g_bits} on a shared u at ({cfg.batch_size}, {k}): card "
+              f"== CPU bit for bit {torch.equal(*grads)}, {levels} distinct values  [{card}]",
+              flush=True)
+        if not torch.equal(*grads):
+            fail(f"dorefa_gradient at ({cfg.batch_size}, {k}): card and CPU differ")
+
+
+def digits_run(card: str, cfg, splits, steps=None, seed=None, log: bool = True):
+    """Train ``cfg``'s MLP on the card for ``steps`` steps (default
+    DIGITS_STEPS; cosine over DIGITS_STEPS, the config's ramped elastic weight, the generator from
+    ``seed``, default the config's): the clamp and finite statistics every
+    DIGITS_WINDOW steps; with ``log`` the task loss (the loss less the
+    weighted penalty) must fall, and ms per step by CUDA events and a
+    profile are printed. Returns (model, state, result dict)."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import data, nn as tnn, train
+    from pytorch_quantize_impls_tpu_torch.train import accuracy_sweep
+    from pytorch_quantize_impls_tpu_torch.utils import build_model
+
+    label = cfg.config
+    steps = DIGITS_STEPS if steps is None else steps
+    model = build_model(cfg, device=cuda())[0]
+    state = train.QuantTrainState.create_for(
+        model, lr=train.cosine_decay_schedule(cfg.lr, DIGITS_STEPS),
+        seed=cfg.seed if seed is None else seed)
+    weight = accuracy_sweep.elastic_weight(cfg, DIGITS_STEPS)
+    step_fn = train.make_train_step(elastic_weight=weight)
+    batches = data.iterate_batches(splits[0], cfg.batch_size, seed=cfg.seed)
+    task = []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for _ in range(steps):
+        if state.step == DIGITS_WINDOW:
+            start.record()
+        lam = float(weight(state.step)) if callable(weight) else float(weight)
+        penalty = tnn.collect_elastic_losses(model).detach() if lam else 0.0
+        _, m = step_fn(state, next(batches))
+        task.append(m["loss"] - lam * penalty)
+        if state.step % DIGITS_WINDOW == 0:
+            stats_ok = all(bool(torch.isfinite(b).all()) for b in model.buffers())
+            if _clamped(state) > 1.0 or not stats_ok:
+                fail(f"{label} step {state.step}: a kernel left [-1, 1] ({_clamped(state)}) or "
+                     "a running statistic is not finite")
+    end.record()
+    torch.cuda.synchronize()
+    out = {}
+    if log:
+        out["ms_per_step"] = start.elapsed_time(end) / (steps - DIGITS_WINDOW)
+        loss = torch.stack([torch.as_tensor(t) for t in task]).cpu().numpy()
+        first, last = float(loss[:DIGITS_WINDOW].mean()), float(loss[-DIGITS_WINDOW:].mean())
+        out["penalty"] = float(tnn.collect_elastic_losses(model).detach())
+        profiled = copy.deepcopy(state)
+        out["profile"] = profile_line(lambda: step_fn(profiled, next(batches)), "step", 10)
+        del profiled
+        ramp = f", elastic weight ramped to {cfg.elastic_weight}" if callable(weight) else ""
+        print(f"{label} trained {state.step} steps on the card (batch {cfg.batch_size}, cosine "
+              f"from lr {cfg.lr}{ramp}): mean task loss of the first {DIGITS_WINDOW} steps "
+              f"{first:.4f}, of the last "
+              f"{last:.4f}; penalty at the end {out['penalty']:.6f}; every {DIGITS_WINDOW} steps "
+              f"the kernels in [-1, 1] (max {_clamped(state)}) and the statistics finite; "
+              f"{out['ms_per_step']:.3f} ms per step (CUDA events over "
+              f"{steps - DIGITS_WINDOW} steps, the penalty read before each)  [{card}]",
+              flush=True)
+        print(f"{label} train step {out['profile']}  [{card}]", flush=True)
+        if not last < 0.8 * first:
+            fail(f"{label}: the task loss fell from {first:.4f} only to {last:.4f}")
+    return model, state, out
+
+
+def digits_codes(model, records, x):
+    """Each layer's 2-bit input codes in the packed forward and in the
+    fake-quant forward of the same images: {layer: share of codes that
+    differ}. Each chain quantizes its own inputs; a code flips where the
+    packed chain's float rounding moves an input across a level boundary."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import infer
+    from pytorch_quantize_impls_tpu_torch.infer.packed import _quant_layers
+    from pytorch_quantize_impls_tpu_torch.ops import dorefa_activation
+
+    layers = dict(_quant_layers(model))
+    seen = {}
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args, path=path: seen.setdefault(path, []).append(
+            torch.round(dorefa_activation(args[0], mod.a_bits) * (2**mod.a_bits - 1))))
+        for path, m in layers.items()]
+    try:
+        with torch.inference_mode():
+            model(x)
+            infer.packed_apply(model, records, x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return {"/".join(path): float((fq != pk).double().mean()) for path, (fq, pk) in seen.items()}
+
+
+def digits_layer_gaps(model, records, x) -> float:
+    """The largest per-layer gap |packed - fake-quant| / (1 + |ref|), each
+    layer's packed output against its fake-quant forward on the same input
+    (the fake-quant chain's)."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import nn as tnn
+    from pytorch_quantize_impls_tpu_torch.infer import packed as packed_mod
+
+    paths = {id(m): path for path, m in packed_mod._quant_layers(model)}
+    gap = 0.0
+
+    def interceptor(m, xin, fake_quant_forward):
+        nonlocal gap
+        ref = fake_quant_forward(xin)
+        got = packed_mod._dense_forward(records[paths[id(m)]], xin, m.bias)
+        gap = max(gap, float(((got - ref).abs() / (1 + ref.abs())).max()))
+        return ref
+
+    with torch.inference_mode(), tnn.intercept_quant_layers(interceptor):
+        model(x)
+    return gap
+
+
+def serve_digits_g6(card: str, model, test_set) -> dict:
+    """The trained W1A2G6 MLP served packed through InferenceEngine:
+    unprepared records (K6 three times per forward, E|W| in its scalar
+    epilogue), then prepare() (K7 three times) and the prepared records (K3
+    three times per forward, E|W| in its alpha vector); every batch
+    replayed bit-equal; each layer within DIGITS_TOL (1 + |ref|) of its
+    fake-quant forward on the same input; argmax against fake-quant on the
+    whole test split at least DIGITS_ARGMAX_FLOOR, the codes that flip
+    reported."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import infer
+    from pytorch_quantize_impls_tpu_torch.kernels import int8_matmul as im
+    from pytorch_quantize_impls_tpu_torch.kernels import packed_matmul as pm
+
+    dev = cuda()
+    model.eval()
+    xs, ys = test_set
+    inputs = [xs[i] for i in range(CLIENTS * REQUESTS_PER_CLIENT)]
+    zero_launches()
+    packed = infer.pack_model(model)
+    alphas = {"/".join(p): r.alpha_host for p, r in packed.items()}
+    engines = {}
+    engines["unprepared"] = logged_engine_class()(
+        lambda x: infer.packed_apply(model, packed, x), (64,), batch_sizes=BUCKETS, device=dev)
+    answers = {"unprepared": run_engine(card, "digits_g6 unprepared", engines["unprepared"],
+                                        inputs)}
+    k6_unprepared = pm.dorefa_gemm.launches
+    prepared = infer.prepare(packed)
+    k7_prepare = pm.decode_dorefa_weights.launches
+    engines["prepared"] = logged_engine_class()(
+        lambda x: infer.packed_apply(model, prepared, x), (64,), batch_sizes=BUCKETS, device=dev)
+    answers["prepared"] = run_engine(card, "digits_g6 prepared", engines["prepared"], inputs)
+    launches = read_launches("digits_g6_trained", (pm.dorefa_gemm, pm.decode_dorefa_weights,
+                                                   im.int8_gemm))
+    forwards = {k: len(BUCKETS) + len(e.log) for k, e in engines.items()}
+    want = {"dorefa_gemm": 3 * forwards["unprepared"], "decode_dorefa_weights": 3,
+            "int8_gemm": 3 * forwards["prepared"]}
+    got = {k: launches[k] for k in want}
+    print(f"digits_g6 served: E|W| per layer {alphas}; launches {got}, expected {want} "
+          f"({forwards['unprepared']} unprepared and {forwards['prepared']} prepared forwards, "
+          f"the warmups included; K6 {k6_unprepared} before prepare(), K7 {k7_prepare} in it)  "
+          f"[{card}]", flush=True)
+    if got != want or k6_unprepared != want["dorefa_gemm"] or k7_prepare != 3:
+        fail(f"digits_g6 served: launches {got}, expected {want}")
+    for name, recs in (("unprepared", packed), ("prepared", prepared)):
+        check_logged(f"digits_g6 {name}", engines[name].log, inputs, answers[name],
+                     {"packed_apply": lambda x, r=recs: infer.packed_apply(model, r, x)})
+    with torch.inference_mode():
+        xt, yt = torch.from_numpy(xs).to(dev), torch.from_numpy(ys).to(dev)
+        fq = model(xt)
+        pk = {name: infer.packed_apply(model, recs, xt)
+              for name, recs in (("unprepared", packed), ("prepared", prepared))}
+    gaps = {name: digits_layer_gaps(model, recs, xt)
+            for name, recs in (("unprepared", packed), ("prepared", prepared))}
+    agree = {name: float((y.argmax(1) == fq.argmax(1)).double().mean()) for name, y in pk.items()}
+    flips = digits_codes(model, packed, xt)
+    acc = {"fake-quant": float((fq.argmax(1) == yt).double().mean()),
+           **{name: float((y.argmax(1) == yt).double().mean()) for name, y in pk.items()}}
+    print(f"digits_g6 packed vs fake-quant on {len(xs)} test images: per-layer max |gap| / "
+          f"(1 + |ref|) {gaps} (gate {DIGITS_TOL}); end-to-end argmax agrees {agree} (gate "
+          f"{DIGITS_ARGMAX_FLOOR}); share of 2-bit input codes that flip, by layer {flips}; "
+          f"unprepared == prepared bit for bit "
+          f"{bool(torch.equal(pk['unprepared'], pk['prepared']))}; test accuracy {acc}  [{card}]",
+          flush=True)
+    if max(gaps.values()) > DIGITS_TOL or min(agree.values()) < DIGITS_ARGMAX_FLOOR:
+        fail(f"digits_g6 packed vs fake-quant: gaps {gaps}, argmax {agree}")
+    return {"digits_g6_trained": launches}
+
+
+def digits_path(card: str) -> dict:
+    """The digits MLPs (after ``bnn_lenet adam8``): dorefa_digits_g6 (W1A2G6)
+    and elastic_digits at their published widths (64-512-512-10, b = 64) on
+    the synthetic digits stand-in. Card against CPU per step (the W1A2 MLP
+    with G0, the elastic MLP under its ramp); dorefa_gradient on a shared u;
+    DIGITS_STEPS steps each (task loss falls, clamp), the G6 run twice from
+    one seed bit-equal and once from another seed different; elastic_digits
+    hard-projected (every kernel entry +-its channel's alpha); the trained
+    G6 model served packed (launches ``digits_g6_trained``: K6, K7, K3)."""
+    import dataclasses
+
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch.train import accuracy_sweep
+    from pytorch_quantize_impls_tpu_torch.train.run import accuracy
+    from pytorch_quantize_impls_tpu_torch.utils import SCHEME_CONFIGS, RunConfig
+
+    dev = cuda()
+    splits = digits_splits()
+    g6 = RunConfig(**SCHEME_CONFIGS["dorefa_digits_g6"])
+    elastic = RunConfig(**SCHEME_CONFIGS["elastic_digits"])
+    zero_launches()
+    digits_card_vs_cpu(card, dataclasses.replace(g6, g_bits=0), splits[0], "dorefa_digits W1A2G0")
+    digits_card_vs_cpu(card, elastic, splits[0], "elastic_digits")
+    dorefa_gradient_card_vs_cpu(card, g6)
+    model, state, out = digits_run(card, g6, splits)
+    again = digits_run(card, g6, splits, log=False)[0]
+    other = digits_run(card, g6, splits, steps=DIGITS_OTHER_SEED_STEPS, seed=g6.seed + 1,
+                       log=False)[0]
+    first = digits_run(card, g6, splits, steps=DIGITS_OTHER_SEED_STEPS, log=False)[0]
+    same = all(torch.equal(a, b) for a, b in zip(model.state_dict().values(),
+                                                 again.state_dict().values()))
+    differ = not all(torch.equal(a, b) for a, b in zip(first.state_dict().values(),
+                                                       other.state_dict().values()))
+    print(f"dorefa_digits_g6: two runs from seed {g6.seed} bit-equal after {DIGITS_STEPS} steps "
+          f"{same}; a run from generator seed {g6.seed + 1} differs from seed {g6.seed}'s after "
+          f"{DIGITS_OTHER_SEED_STEPS} steps {differ}  [{card}]", flush=True)
+    if not same or not differ:
+        fail("dorefa_digits_g6: the gradient draws are not deterministic per (seed, step)")
+    del again, other, first
+    em, _, eout = digits_run(card, elastic, splits)
+    acc_before = accuracy(em.eval(), splits[1], dev)
+    projected = accuracy_sweep.project_elastic(em)
+    kernels = [em.layer0.weight, em.layer1.weight, em.head.weight]
+    on_grid = all(torch.equal(w.abs(), w.abs().amax(1, keepdim=True).expand_as(w))
+                  for w in kernels)
+    alpha = [float(w.detach().abs().amax(1).mean()) for w in kernels]
+    acc_after = accuracy(em, splits[1], dev)
+    print(f"elastic_digits hard-projected: {projected} kernels, every entry +-its channel's alpha "
+          f"{on_grid} (mean alpha by layer {[round(a, 4) for a in alpha]}); test accuracy "
+          f"{acc_before:.4f} before, {acc_after:.4f} after  [{card}]", flush=True)
+    if projected != 3 or not on_grid:
+        fail("elastic_digits: the projection left an entry off +-alpha")
+    trained = read_launches("digits training", ())
+    if any(trained.values()):
+        fail(f"training launched a serving kernel: {trained}")
+    return serve_digits_g6(card, model, splits[1])
+
+
 def ternary_lm_path(card: str):
     """Main path 10: the serving LM's shape with deterministic ternary
     weights (weights only), through DecodeEngine(packed=) unprepared and
@@ -5032,6 +5399,7 @@ def main() -> None:
     launches.update(phase("bnn_lenet train", lenet_train_path, card))
     launches.update(phase("cifar train", cifar_train_path, card))
     launches.update(phase("bnn_lenet adam8", adam8_path, card))
+    launches.update(phase("digits g6 + elastic train", digits_path, card))
     launches["decode_lm"] = phase("decode LM", decode_path, card)
     launches.update(phase("resnet", resnet_path, card))
     launches.update(phase("W4A4 LM", w4a4_lm_path, card))

@@ -179,6 +179,23 @@ def cifar10(data_dir: Optional[str] = None) -> Tuple[Batch, Batch]:
     )
 
 
+# the synthetic stand-in of sklearn's digits: its shape, classes and split
+SYNTH_DIGITS_DIFFICULTY = dict(parts=16, part_sparsity=4, max_shift=0, noise=2.0)
+DIGITS_SPLIT = (1438, 359)
+
+
+def synthetic_digits(flatten: bool = False, *, seed: int = 3) -> Tuple[Batch, Batch]:
+    """(train, test) of the digits' shape (8x8x1, 10 classes, 1438/359
+    examples) for a machine without sklearn: a synthetic task of
+    :func:`synthetic_image_classification` (16 shared parts, 4 per class,
+    noise 2.0), deterministic given ``seed``."""
+    (xtr, ytr), (xte, yte) = synthetic_image_classification(
+        (8, 8, 1), 10, *DIGITS_SPLIT, seed=seed, **SYNTH_DIGITS_DIFFICULTY)
+    if flatten:
+        xtr, xte = xtr.reshape(len(xtr), -1), xte.reshape(len(xte), -1)
+    return (xtr, ytr), (xte, yte)
+
+
 def digits(flatten: bool = False, *, test_frac: float = 0.2) -> Tuple[Batch, Batch]:
     """Real handwritten digits (sklearn's bundled UCI optdigits, 1797x8x8).
 

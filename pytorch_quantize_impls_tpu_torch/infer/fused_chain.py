@@ -46,7 +46,9 @@ the stem and the 1x1 projections are float convolutions on it
 The fold reads the JAX model's fixed [0, 1] clip. A PACT model (learnable
 clip ``alpha``, config ``dorefa_resnet20``) raises in
 :func:`export_fused_resnet20`: the JAX package's export ignores ``alpha`` and
-its fused logits drift from the model's (ROADMAP section 3).
+its fused logits drift from the model's (ROADMAP section 3). So does a
+one-bit model: its weights are ``E|W| sign(W)``, which the codes of the fold
+do not hold.
 """
 
 from __future__ import annotations
@@ -294,6 +296,10 @@ def export_fused_resnet20(model) -> FusedResNet:
             f"fused resnet needs a_quant='fixed', got {model.a_quant!r}: the fold assumes the "
             "fixed [0, 1] clip, and the JAX export would silently drop PACT's alpha"
         )
+    if model.w_bits == 1:
+        raise NotImplementedError(
+            "fused resnet needs w_bits >= 2: one-bit DoReFa weights are E|W| sign(W), and the "
+            "fold's codes round(w_q n_w) keep no scale (ROADMAP section 3)")
     n_w = 2**model.w_bits - 1
     n_a = 2**model.a_bits - 1
     inv_wa = 1.0 / (n_w * n_a)

@@ -28,11 +28,19 @@ Execution plan:
 
 xnor layers carry alpha (``mean |W|`` over all but the out-channel axis):
 K1's and K3's epilogue scale, K5's ``scale`` epilogue in the conv, and a
-multiply after the float op on real inputs. Ternary weights pack as 2-bit
-planes of ``round(clip(w, -1, 1)) + 1`` and decode to bf16 {-1, 0, 1} in
-plain PyTorch, as the JAX package does (no kernel); their records carry the
-layer's ``w_bits`` (the LM's, 2 for ``LinearTer``/``TerConv``) although the
-planes are always 2-bit, so artifacts interchange.
+multiply after the float op on real inputs. One-bit DoReFa layers carry
+alpha too: their weights are ``E|W| sign(W)`` and the codes keep the sign,
+so the per-tensor ``E|W|`` (one value per out channel) rides K6's scalar
+epilogue (``float32(1/(n_w n_a) * alpha)``), K3's alpha vector after
+``prepare()``, K5's scale and the real-input multiply. The JAX package
+drops it (ROADMAP section 3): a one-bit DoReFa record without alpha, such
+as a JAX artifact's, raises on load and in every packed route.
+
+Ternary weights pack as 2-bit planes of ``round(clip(w, -1, 1)) + 1`` and
+decode to bf16 {-1, 0, 1} in plain PyTorch, as the JAX package does (no
+kernel); their records carry the layer's ``w_bits`` (the LM's, 2 for
+``LinearTer``/``TerConv``) although the planes are always 2-bit, so
+artifacts interchange.
 
 As in the JAX package, the quantized-input conv path decodes its weights on
 every call and does not read ``prepare()``'s buffer; a real-input conv reads
@@ -46,6 +54,7 @@ quantizer (ROADMAP section 3).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 from typing import Dict, Optional, Tuple
 
@@ -78,7 +87,8 @@ TERNARY_PLANE_BITS = 2  # ternary codes {0, 1, 2} = round(clip(w, -1, 1)) + 1
 @dataclasses.dataclass(frozen=True)
 class PackedLayer:
     packed: torch.Tensor  # grouped-planar packed words (int32 bit patterns)
-    alpha: Optional[torch.Tensor] = None  # xnor per-out-channel scale
+    # xnor's per-out-channel scale; one-bit dorefa's E|W| per out channel
+    alpha: Optional[torch.Tensor] = None
     # prepare(): ±1 int8 (K, N), centered int8 codes (Kp, N), f32 grid (K, N)
     # or bf16 ±2^e (K, N); a real-input dense layer's stored out-major
     decoded: Optional[torch.Tensor] = None
@@ -90,6 +100,12 @@ class PackedLayer:
     # the JAX kernel's shape: (in, out) dense, HWIO conv
     kernel_shape: Tuple[int, ...] = ()
 
+    @functools.cached_property
+    def alpha_host(self) -> Optional[float]:
+        """One-bit dorefa's E|W| as a host float (K6's scalar epilogue, the
+        conv's ``w_scale``), read from the device once per record."""
+        return None if self.alpha is None else float(self.alpha[0])
+
 
 PackedModel = Dict[Tuple[str, ...], PackedLayer]
 
@@ -97,6 +113,16 @@ PackedModel = Dict[Tuple[str, ...], PackedLayer]
 def _check_scheme(scheme: str) -> None:
     if scheme not in _PORTED_SCHEMES:
         raise ValueError(f"unpackable scheme {scheme!r}")
+
+
+def _check_record(rec: PackedLayer) -> None:
+    """A ported scheme, and a one-bit dorefa record with its alpha."""
+    _check_scheme(rec.scheme)
+    if rec.scheme == "dorefa" and rec.w_bits == 1 and rec.alpha is None:
+        raise ValueError(
+            "a one-bit dorefa record without alpha (E|W|), such as the JAX package's, would "
+            "compute sign(W) in place of E|W| sign(W): re-pack the model with this package "
+            "(ROADMAP section 3)")
 
 
 def _pack_layer(m, pack_planes=packlib.pack_bitplanes) -> PackedLayer:
@@ -122,6 +148,8 @@ def _pack_layer(m, pack_planes=packlib.pack_bitplanes) -> PackedLayer:
     alpha = None
     if m.scheme == "dorefa":
         codes, bits = pm.dorefa_weight_codes(dorefa_weight(w2d, m.w_bits), m.w_bits), m.w_bits
+        if m.w_bits == 1:  # the fake-quant layer's E|W|, on its own (out, ...) weight
+            alpha = w.abs().mean().expand(w.shape[0]).contiguous()
     elif m.scheme == "log":
         codes, bits = sm.log_weight_codes(w2d, m.fsr, m.w_bits), sm.CODE_BITS
     elif m.scheme == "lin":
@@ -166,11 +194,12 @@ def _decode_weights(rec: PackedLayer) -> torch.Tensor:
     """Packed codes -> execution-ready weights (K, N): ±1 int8 for
     binary/xnor (K2); the f32 grids ``(2c - n) / n`` for dorefa (not
     bf16-exact; ``2c - n`` by K7 at 1, 2 and 4 bits, where the JAX package
-    unpacks in plain code: the same integers, so the same floats), ``c *
-    step`` for lin and bf16 {-1, 0, 1} for ternary, unpacked in plain
-    PyTorch as the JAX package does; bf16 ``±2^e`` for log, by K9,
-    bit-identical to the JAX package's plain decode."""
-    _check_scheme(rec.scheme)
+    unpacks in plain code: the same integers, so the same floats; one-bit
+    alpha applies after the op), ``c * step`` for lin and bf16 {-1, 0, 1}
+    for ternary, unpacked in plain PyTorch as the JAX package does; bf16
+    ``±2^e`` for log, by K9, bit-identical to the JAX package's plain
+    decode."""
+    _check_record(rec)
     k2d = int(np.prod(rec.kernel_shape[:-1]))
     if rec.scheme == "dorefa":
         n = 2**rec.w_bits - 1
@@ -215,6 +244,7 @@ def _decode_execution(rec: PackedLayer) -> torch.Tensor:
     """The buffer the layer's hot path consumes: centered int8 codes (K7)
     for the integer-code GEMM, decoded values otherwise (out-major for a
     real-input dense layer)."""
+    _check_record(rec)
     if _int_codes(rec):
         return pm.decode_dorefa_weights(rec.packed, w_bits=rec.w_bits)
     w = _decode_weights(rec)
@@ -237,7 +267,7 @@ def _dense_forward(rec: PackedLayer, x: torch.Tensor, bias) -> torch.Tensor:
 
 
 def _dense_forward_2d(rec: PackedLayer, x: torch.Tensor, bias) -> torch.Tensor:
-    _check_scheme(rec.scheme)
+    _check_record(rec)
     if rec.scheme in ("binary", "xnor") and rec.a_bits == 1:
         xi = bg.binarize_to_int8(x)
         if rec.decoded is not None:
@@ -247,9 +277,11 @@ def _dense_forward_2d(rec: PackedLayer, x: torch.Tensor, bias) -> torch.Tensor:
     elif _int_codes(rec):
         codes = pm.dorefa_act_to_int8(dorefa_activation(x, rec.a_bits), rec.a_bits)
         if rec.decoded is not None:
-            y = pm.dorefa_gemm_decoded(codes, rec.decoded, w_bits=rec.w_bits, a_bits=rec.a_bits)
+            y = pm.dorefa_gemm_decoded(codes, rec.decoded, w_bits=rec.w_bits, a_bits=rec.a_bits,
+                                       alpha=rec.alpha)
         else:
-            y = pm.dorefa_gemm(codes, rec.packed, w_bits=rec.w_bits, a_bits=rec.a_bits)
+            y = pm.dorefa_gemm(codes, rec.packed, w_bits=rec.w_bits, a_bits=rec.a_bits,
+                               alpha=rec.alpha_host)
     elif rec.scheme == "log" and rec.decoded is None:
         y = sm.shift_gemm(x, rec.packed, fsr=rec.fsr, bits=rec.w_bits)
     else:
@@ -264,19 +296,21 @@ def _dense_forward_2d(rec: PackedLayer, x: torch.Tensor, bias) -> torch.Tensor:
 
 
 def _conv_forward(m: QuantConv, rec: PackedLayer, x: torch.Tensor, bias) -> torch.Tensor:
-    _check_scheme(rec.scheme)
+    _check_record(rec)
     kh, kw, cin, cout = rec.kernel_shape
     if rec.scheme in ("binary", "xnor", "dorefa") and rec.a_bits >= 1:
+        dorefa = rec.scheme == "dorefa"
         pc = PackedConv(
             scheme=rec.scheme,
             packed=rec.packed,
             kernel_size=(kh, kw),
             cin=cin,
             cout=cout,
-            alpha=rec.alpha,
+            alpha=None if dorefa else rec.alpha,
             w_bits=rec.w_bits,
             a_bits=rec.a_bits,
             fsr=rec.fsr,
+            w_scale=rec.alpha_host if dorefa else None,
         )
         xin = dorefa_activation(x, rec.a_bits) if rec.scheme == "dorefa" else x
         y = packed_conv2d(xin, pc, strides=m.strides, padding=m.padding)
@@ -347,6 +381,12 @@ def load_packed(path: str, device="cuda") -> PackedModel:
         meta = json.loads(str(data["__meta__"]))
         out: PackedModel = {}
         for key, m in meta.items():
+            if m["scheme"] == "dorefa" and m["w_bits"] == 1 and not m["has_alpha"]:
+                raise ValueError(
+                    f"{path}: the one-bit dorefa layer {'/'.join(m['path'])} has no alpha "
+                    "(E|W|): an artifact of the JAX package, whose packing drops it, so its "
+                    "packed layer would compute sign(W) in place of E|W| sign(W) (ROADMAP "
+                    "section 3)")
             words = data[f"{key}_packed"].astype(np.uint32).view(np.int32)
             out[tuple(m["path"])] = PackedLayer(
                 packed=torch.from_numpy(words).to(device),

@@ -57,6 +57,8 @@ class PackedConv(NamedTuple):
     w_bits: int = 1
     a_bits: int = 32
     fsr: float = 0.0
+    # one-bit dorefa's E|W| as a host float (its codes keep the sign only)
+    w_scale: Optional[float] = None
 
 
 def _check_scheme(scheme: str) -> None:
@@ -65,10 +67,13 @@ def _check_scheme(scheme: str) -> None:
 
 
 def pack_conv_weights(
-    w_oihw: torch.Tensor, scheme: str, *, w_bits: int = 1, a_bits: int = 32, fsr: float = 0.0
+    w_oihw: torch.Tensor, scheme: str, *, w_bits: int = 1, a_bits: int = 32, fsr: float = 0.0,
+    w_scale: Optional[float] = None,
 ) -> PackedConv:
     """Pack OIHW conv weights for ``scheme`` (weights already on the DoReFa
-    grid for 'dorefa'; raw float for 'binary'/'xnor'/'log')."""
+    grid for 'dorefa'; raw float for 'binary'/'xnor'/'log'). One-bit
+    DoReFa weights are ``E|W| sign(W)``: ``w_scale`` is their ``E|W|``, as
+    the layer's record carries it (``infer.packed``)."""
     _check_scheme(scheme)
     cout, cin, kh, kw = w_oihw.shape
     flat = w_oihw.reshape(cout, -1).T
@@ -81,7 +86,7 @@ def pack_conv_weights(
         packed = bg.pack_binary_weights(flat)
         if scheme == "xnor":
             alpha = out_channel_alpha(w_oihw)
-    return PackedConv(scheme, packed, (kh, kw), cin, cout, alpha, w_bits, a_bits, fsr)
+    return PackedConv(scheme, packed, (kh, kw), cin, cout, alpha, w_bits, a_bits, fsr, w_scale)
 
 
 def decode_conv_weights(pw: PackedConv) -> torch.Tensor:
@@ -158,8 +163,8 @@ def _input_codes(x: torch.Tensor, pw: PackedConv) -> torch.Tensor:
 
 def _scale(pw: PackedConv, device) -> Optional[torch.Tensor]:
     if pw.scheme == "dorefa":
-        inv = pm.inv_scale(pw.w_bits, pw.a_bits)
-        return torch.full((pw.cout,), inv, dtype=torch.float32, device=device)
+        scale = pm.epilogue_scale(pw.w_bits, pw.a_bits, pw.w_scale)
+        return torch.full((pw.cout,), scale, dtype=torch.float32, device=device)
     return pw.alpha
 
 
@@ -190,9 +195,13 @@ def packed_conv2d(
     mode: str = "direct",
 ) -> torch.Tensor:
     """NHWC packed conv. 'binary'/'xnor': x is sign-binarized (full-binary
-    conv); 'dorefa': x is fake-quant [0, 1] activations (``a_bits``); 'log':
-    x is rounded to bf16. Output float32 NHWC."""
+    conv); 'dorefa': x is fake-quant [0, 1] activations (``a_bits``), the
+    sums scaled by ``1/(n_w n_a)`` and, at one bit, ``w_scale``; 'log': x is
+    rounded to bf16. Output float32 NHWC."""
     _check_scheme(pw.scheme)
+    if pw.scheme == "dorefa" and pw.w_bits == 1 and pw.w_scale is None:
+        raise ValueError("one-bit dorefa weights need their E|W| (w_scale): the codes keep the "
+                         "sign only (ROADMAP section 3)")
     kh, kw = pw.kernel_size
     pads = conv_pads(padding, x.shape[1:3], (kh, kw), strides)
     if mode == "direct" and pw.scheme == "log":
@@ -219,9 +228,8 @@ def packed_conv2d(
     wo = (w + pl + pr - kw) // strides[1] + 1
     flat = patches.transpose(1, 2).reshape(b * ho * wo, -1)
     if pw.scheme == "dorefa":
-        out = pm.dorefa_gemm(
-            pm.dorefa_act_to_int8(flat, pw.a_bits), pw.packed, w_bits=pw.w_bits, a_bits=pw.a_bits
-        )
+        out = pm.dorefa_gemm(pm.dorefa_act_to_int8(flat, pw.a_bits), pw.packed,
+                             w_bits=pw.w_bits, a_bits=pw.a_bits, alpha=pw.w_scale)
     elif pw.scheme == "log":
         out = sm.shift_gemm(flat, pw.packed, fsr=pw.fsr, bits=pw.w_bits)
     else:

@@ -12,13 +12,21 @@ the weights decoded to centered integers ``d = 2 c_w - n_w`` (odd, within
 exact up to that one f32 rounding. Weight codes are planar-packed
 (``ops.pack.pack_bitplanes``); activation codes are int8 (a_bits <= 7).
 
+One-bit weights are ``E|W| sign(W)`` (eq. 8), not the grid ``+-1``: the
+codes keep the sign only, so their scale ``alpha = E|W|`` rides the same
+epilogue, ``y = (c_a . d) * f32(f32(1 / (n_w n_a)) * alpha)``
+(:func:`epilogue_scale`; as a vector, ``inv * alpha`` on the device, the
+same float32 product). The GEMMs take it as ``alpha``; without it they
+compute the grid's product.
+
 ``dorefa_gemm`` (K6), its weight-stationary variant ``dorefa_gemm_ws``
 (K11) and ``decode_dorefa_weights`` (K7) launch the hand-written CUDA
 kernels in ``csrc/dorefa_gemm.cu`` for CUDA tensors and take their plain
 PyTorch versions (``*_reference``) for CPU tensors; each counts its kernel
 launches in ``.launches``. ``dorefa_gemm_decoded`` runs
-``int8_matmul.int8_gemm`` (K3) with ``alpha = 1/(n_w n_a)``: the same f32
-value, so it equals ``dorefa_gemm`` and ``dorefa_gemm_ws`` bit for bit.
+``int8_matmul.int8_gemm`` (K3) with the epilogue scale as its alpha vector:
+the same f32 value, so it equals ``dorefa_gemm`` and ``dorefa_gemm_ws`` bit
+for bit.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import struct
+from typing import Optional
 
 import numpy as np
 import torch
@@ -72,6 +81,22 @@ def inv_scale(w_bits: int, a_bits: int) -> float:
     return float(np.float32(1.0 / ((2**w_bits - 1) * (2**a_bits - 1))))
 
 
+def epilogue_scale(w_bits: int, a_bits: int, alpha: Optional[float] = None) -> float:
+    """K6's scalar epilogue: :func:`inv_scale`, times the one-bit weights'
+    ``alpha`` (a host float) in float32 where given."""
+    inv = inv_scale(w_bits, a_bits)
+    return inv if alpha is None else float(np.float32(inv) * np.float32(alpha))
+
+
+def epilogue_vector(w_bits: int, a_bits: int, n: int, alpha: Optional[torch.Tensor],
+                    device) -> torch.Tensor:
+    """The epilogue scale as an (n,) float32 vector on ``device``: ``inv *
+    alpha`` (alpha of shape (n,), on the device) or ``inv``; the products
+    are :func:`epilogue_scale`'s bit for bit."""
+    inv = torch.full((n,), inv_scale(w_bits, a_bits), dtype=torch.float32, device=device)
+    return inv if alpha is None else inv * alpha.to(torch.float32)
+
+
 def dorefa_weight_codes(wq: torch.Tensor, bits: int) -> torch.Tensor:
     """DoReFa fake-quant weights (K, N), already on the grid of
     ``ops.dorefa_weight(., bits)`` -> their int32 codes, packed at ``bits``."""
@@ -101,35 +126,41 @@ def _centered(w_packed: torch.Tensor, w_bits: int) -> torch.Tensor:
     return 2 * c - (2**w_bits - 1)
 
 
-def dorefa_gemm_reference(a_codes, w_packed, *, w_bits: int, a_bits: int):
+def dorefa_gemm_reference(a_codes, w_packed, *, w_bits: int, a_bits: int,
+                          alpha: Optional[float] = None):
     """Plain PyTorch version of :func:`dorefa_gemm`: centered codes, exact
     float64 accumulation, the same f32 epilogue."""
     d = _centered(w_packed, w_bits)
     a = pad_dim(a_codes, 1, d.shape[0])
     acc = a.to(torch.float64) @ d.to(torch.float64)
-    return acc.to(torch.float32) * torch.tensor(inv_scale(w_bits, a_bits), device=acc.device)
+    scale = epilogue_scale(w_bits, a_bits, alpha)
+    return acc.to(torch.float32) * torch.tensor(scale, device=acc.device)
 
 
 def dorefa_gemm(
-    a_codes: torch.Tensor, w_packed: torch.Tensor, *, w_bits: int, a_bits: int
+    a_codes: torch.Tensor, w_packed: torch.Tensor, *, w_bits: int, a_bits: int,
+    alpha: Optional[float] = None,
 ) -> torch.Tensor:
     """(M, K) int8 activation codes @ planar w codes -> (M, N) float32, equal
-    to ``dorefa_activation(x) @ dorefa_weight(w)`` up to f32 rounding. K may
-    be less than the packed K: the missing columns of x count as 0. On the
-    card K may be split (``common.stream_plan``); the int32 sum is exact, so
-    the result is the same whatever the split."""
+    to ``dorefa_activation(x) @ dorefa_weight(w)`` up to f32 rounding, where a
+    one-bit weight's ``alpha = E|W|`` (a host float) is given; without it,
+    the product with the grid. K may be less than the packed K: the missing
+    columns of x count as 0. On the card K may be split
+    (``common.stream_plan``); the int32 sum is exact, so the result is the
+    same whatever the split."""
     _check_w_bits(w_bits)
     m, k = a_codes.shape
     r = packed_rows(w_packed, w_bits, k)
     n = w_packed.shape[1]
     dev = a_codes.device
     if dev.type == "cpu":
-        return dorefa_gemm_reference(a_codes, w_packed, w_bits=w_bits, a_bits=a_bits)
+        return dorefa_gemm_reference(a_codes, w_packed, w_bits=w_bits, a_bits=a_bits,
+                                     alpha=alpha)
     if dev.type != "cuda":
         raise ValueError(f"dorefa_gemm: unsupported device {dev}")
     _build.require("a_codes", a_codes, torch.int8, (m, k), dev)
     _build.require("w_packed", w_packed, torch.int32, (r, n), dev)
-    out = _launch_dorefa_gemm(a_codes, w_packed, w_bits, inv_scale(w_bits, a_bits),
+    out = _launch_dorefa_gemm(a_codes, w_packed, w_bits, epilogue_scale(w_bits, a_bits, alpha),
                               stream_plan(m, n, k, STAGE_K))
     dorefa_gemm.launches += 1
     return out
@@ -232,13 +263,15 @@ decode_dorefa_weights.launches = 0
 
 
 def dorefa_gemm_decoded(
-    a_codes: torch.Tensor, w_i8: torch.Tensor, *, w_bits: int, a_bits: int
+    a_codes: torch.Tensor, w_i8: torch.Tensor, *, w_bits: int, a_bits: int,
+    alpha: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Weight-stationary serving path: centered int8 codes decoded once
     (``decode_dorefa_weights``) through ``int8_gemm`` (K3), the dequant
-    ``1/(n_w n_a)`` riding its alpha epilogue; x is zero-padded to the
-    weights' K. Output float32."""
+    ``1/(n_w n_a)``, times a one-bit weight's ``alpha`` ((N,) on the device)
+    where given, riding its alpha epilogue; x is zero-padded to the weights'
+    K. Output float32."""
     k, n = w_i8.shape
     a_codes = pad_dim(a_codes, 1, k)
-    alpha = torch.full((n,), inv_scale(w_bits, a_bits), dtype=torch.float32, device=w_i8.device)
-    return int8_matmul.int8_gemm(a_codes, w_i8, alpha)
+    return int8_matmul.int8_gemm(a_codes, w_i8,
+                                 epilogue_vector(w_bits, a_bits, n, alpha, w_i8.device))

@@ -6,10 +6,10 @@ Dense of the chosen kind; ``BinaryConnectMLP`` binarizes the weights only
 (BinaryConnect, arXiv:1511.00363), and its ``quantized=False`` twin is the
 float32 net of the Δ-accuracy runs. Module names match the flax ones:
 ``layer{i}.dense``, ``bn{i}``, ``head.dense`` (``layer{i}`` and ``head`` in
-the float32 twin).
-
-Not ported yet: the elastic layers and DoReFa's gradient quantizer
-(``g_bits > 0``), ROADMAP queue 1, item 4.
+the float32 twin and the elastic MLP, whose ``ElasticLinear`` holds its
+weight itself). ``g_bits`` is DoReFa's gradient quantizer (W{bits}A{a_bits}
+G{g_bits}), which draws from the train step's generator in training;
+``elastic_grid`` is the elastic layers' grid.
 """
 
 from __future__ import annotations
@@ -29,8 +29,8 @@ _DETERMINISTIC_HEAD = {"bin_stoch": "bin", "ternary_stoch": "ternary"}
 
 class MLP(nn.Module):
     """Generic quantized MLP. ``layer``: bin | bin_stoch | ternary |
-    ternary_stoch | dorefa | log | lin | fp32; ``head_layer`` None takes
-    ``layer`` (a stochastic one its deterministic twin)."""
+    ternary_stoch | dorefa | log | lin | elastic | fp32; ``head_layer`` None
+    takes ``layer`` (a stochastic one its deterministic twin)."""
 
     def __init__(
         self,
@@ -43,15 +43,13 @@ class MLP(nn.Module):
         g_bits: int = 0,
         a_quant: str = "fixed",
         fsr: float = 1.0,
+        elastic_grid: str = "binary",
         use_batchnorm: bool = True,
         head_layer: Optional[str] = None,
     ):
         super().__init__()
-        if g_bits:
-            raise NotImplementedError(
-                "DoReFa's gradient quantizer (g_bits > 0) is not ported yet "
-                "(ROADMAP queue 1, item 4)")
-        self.bits, self.a_bits, self.a_quant, self.fsr = bits, a_bits, a_quant, fsr
+        self.bits, self.a_bits, self.g_bits, self.a_quant = bits, a_bits, g_bits, a_quant
+        self.fsr, self.elastic_grid = fsr, elastic_grid
         self.layer = layer
         fin = in_features
         self.hidden = len(features) - 1
@@ -71,16 +69,15 @@ class MLP(nn.Module):
             return qnn.LinearTer(fin, f, deterministic=kind == "ternary")
         if kind == "dorefa":
             return qnn.LinearDorefa(fin, f, bits=self.bits, a_bits=self.a_bits or None,
-                                    a_quant=self.a_quant)
+                                    g_bits=self.g_bits or None, a_quant=self.a_quant)
+        if kind == "elastic":
+            return qnn.ElasticLinear(fin, f, grid=self.elastic_grid, fsr=self.fsr, bits=self.bits)
         if kind == "log":
             return qnn.LinearQuantLog(fin, f, fsr=self.fsr, bits=self.bits)
         if kind == "lin":
             return qnn.LinearQuantLin(fin, f, fsr=self.fsr, bits=self.bits)
         if kind == "fp32":
             return qnn.Dense(fin, f)
-        if kind == "elastic":
-            raise NotImplementedError(
-                "the elastic layers are not ported yet (ROADMAP queue 1, item 4)")
         raise ValueError(f"unknown layer kind {kind!r}")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

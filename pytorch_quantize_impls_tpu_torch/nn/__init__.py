@@ -7,6 +7,7 @@ from pytorch_quantize_impls_tpu_torch.nn.base import (  # noqa: F401
     QuantConv,
     QuantDense,
     collect_elastic_losses,
+    current_generator,
     init_like_flax,
     intercept_quant_layers,
     quant_generator,
@@ -14,6 +15,7 @@ from pytorch_quantize_impls_tpu_torch.nn.base import (  # noqa: F401
 )
 from pytorch_quantize_impls_tpu_torch.nn.binary import BinConv, LinearBin  # noqa: F401
 from pytorch_quantize_impls_tpu_torch.nn.dorefa import DorefaConv, LinearDorefa  # noqa: F401
+from pytorch_quantize_impls_tpu_torch.nn.elastic import ElasticConv, ElasticLinear  # noqa: F401
 from pytorch_quantize_impls_tpu_torch.nn.log_lin import (  # noqa: F401
     ConvQuantLin,
     ConvQuantLog,

@@ -25,11 +25,14 @@ holds for the running thread: the train step sets it from (seed, step), as
 the JAX package folds the step into its ``'quant'`` key. Outside such a
 block a stochastic layer in training mode raises; it never draws from the
 global RNG. In eval mode (``not module.training``) they call their
-``eval_fn`` instead.
+``eval_fn`` instead. DoReFa's gradient quantizer draws in training mode
+from the same generator (:func:`current_generator`), and draws nothing in
+eval mode.
 
-A layer with a training penalty (PACT's L2 on its clip level) exposes it as
-``penalty()``; :func:`collect_elastic_losses` sums every such penalty of a
-model, as the JAX package sums its ``losses`` collection.
+A layer with a training penalty (PACT's L2 on its clip level, the elastic
+layers' grid penalty) exposes it as ``penalty()``;
+:func:`collect_elastic_losses` sums every such penalty of a model, as the
+JAX package sums its ``losses`` collection.
 
 ``Dense`` and ``Conv`` are the float32 layers of the ``quantized=False``
 twins (flax's ``nn.Dense``/``nn.Conv``). :func:`init_like_flax` draws every
@@ -114,13 +117,9 @@ def clipped_master(w: torch.Tensor) -> torch.Tensor:
     return torch.clamp(w, -1.0, 1.0)
 
 
-def _apply_quant(q, x: torch.Tensor, module: nn.Module) -> torch.Tensor:
-    if q is None:
-        return x
-    if not getattr(q, "stochastic", False):
-        return q(x)
-    if not module.training:
-        return q.eval_fn(x)
+def current_generator() -> torch.Generator:
+    """The generator :func:`quant_generator` holds for this thread; raises
+    outside such a block."""
     generator = _generator.get()
     if generator is None:
         raise RuntimeError(
@@ -128,7 +127,17 @@ def _apply_quant(q, x: torch.Tensor, module: nn.Module) -> torch.Tensor:
             "run it inside train.make_train_step's step (or nn.quant_generator), or call "
             ".eval() first"
         )
-    return q(x, generator)
+    return generator
+
+
+def _apply_quant(q, x: torch.Tensor, module: nn.Module) -> torch.Tensor:
+    if q is None:
+        return x
+    if not getattr(q, "stochastic", False):
+        return q(x)
+    if not module.training:
+        return q.eval_fn(x)
+    return q(x, current_generator())
 
 
 class _QuantLayer(nn.Module):

@@ -9,7 +9,11 @@ path runs integer codes). ``a_quant="pact"`` puts a ``PACT`` child named
 metadata as the JAX package does: the packed path then treats the inputs as
 real. Children are named as the flax ones (``conv``, ``dense``, ``act``).
 
-Not ported yet: the gradient quantizer (``g_bits``), which acts in training.
+``g_bits`` quantizes the gradient of the layer's input (paper eq. 12,
+``ops.dorefa_gradient``) in training mode only, before PACT or the input
+quantizer, drawing its noise from the train step's generator
+(``nn.base.current_generator``; outside a train step it raises). In eval
+mode it draws nothing.
 """
 
 from __future__ import annotations
@@ -19,9 +23,13 @@ from typing import Optional, Sequence, Tuple, Union
 
 from torch import nn
 
-from pytorch_quantize_impls_tpu_torch.nn.base import QuantConv, QuantDense
+from pytorch_quantize_impls_tpu_torch.nn.base import QuantConv, QuantDense, current_generator
 from pytorch_quantize_impls_tpu_torch.nn.pact import PACT
-from pytorch_quantize_impls_tpu_torch.ops.dorefa import dorefa_activation, dorefa_weight
+from pytorch_quantize_impls_tpu_torch.ops.dorefa import (
+    dorefa_activation,
+    dorefa_gradient,
+    dorefa_weight,
+)
 
 A_QUANTS = ("fixed", "pact")
 
@@ -44,6 +52,13 @@ def _quant_kwargs(bits: int, a_bits: Optional[int], a_quant: str):
     return act, kw
 
 
+def _input_path(layer: nn.Module, x):
+    """The gradient quantizer (training only), then PACT where there is one."""
+    if layer.g_bits and layer.training:
+        x = dorefa_gradient(x, current_generator(), layer.g_bits)
+    return layer.act(x) if layer.act is not None else x
+
+
 class LinearDorefa(nn.Module):
     """Dense layer with DoReFa k-bit weights (and optional k-bit inputs)."""
 
@@ -54,17 +69,17 @@ class LinearDorefa(nn.Module):
         *,
         bits: int = 4,
         a_bits: Optional[int] = None,
+        g_bits: Optional[int] = None,
         a_quant: str = "fixed",
         use_bias: bool = True,
     ):
         super().__init__()
+        self.g_bits = g_bits
         self.act, kw = _quant_kwargs(bits, a_bits, a_quant)
         self.dense = QuantDense(in_features, features, use_bias=use_bias, **kw)
 
     def forward(self, x):
-        if self.act is not None:
-            x = self.act(x)
-        return self.dense(x)
+        return self.dense(_input_path(self, x))
 
 
 class DorefaConv(nn.Module):
@@ -80,10 +95,12 @@ class DorefaConv(nn.Module):
         padding: Union[str, Sequence[Tuple[int, int]]] = "SAME",
         bits: int = 4,
         a_bits: Optional[int] = None,
+        g_bits: Optional[int] = None,
         a_quant: str = "fixed",
         use_bias: bool = True,
     ):
         super().__init__()
+        self.g_bits = g_bits
         self.act, kw = _quant_kwargs(bits, a_bits, a_quant)
         self.conv = QuantConv(
             in_channels, features, kernel_size, strides=strides, padding=padding,
@@ -91,6 +108,4 @@ class DorefaConv(nn.Module):
         )
 
     def forward(self, x):
-        if self.act is not None:
-            x = self.act(x)
-        return self.conv(x)
+        return self.conv(_input_path(self, x))

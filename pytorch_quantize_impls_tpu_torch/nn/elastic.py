@@ -1,0 +1,59 @@
+"""Elastic-quantization layers: ``ElasticLinear`` and ``ElasticConv``.
+
+Counterpart of ``pytorch_quantize_impls_tpu/nn/elastic.py``: float32 layers
+whose weight carries a grid penalty (``ops.elastic``) for the training loss,
+in place of a quantizer in the forward. The JAX layers sow the penalty into
+the ``losses`` collection; here ``penalty()`` returns it, and
+``nn.collect_elastic_losses`` sums it into the loss the train step weighs
+(``make_train_step(elastic_weight=)``). The weights are drawn by
+``glorot_normal`` (``init_like_flax``), as flax's layers draw theirs, and sit
+directly in the layer (flax path ``['layer0']['kernel']``, no ``dense``
+child), so the clamp after each step clips them as the JAX package's does.
+``ElasticConv`` pads as JAX does (``kernels.conv.conv_pads``). Grids:
+``"binary"`` (+-1), ``"lin"`` and ``"log"`` (FSR grids).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple, Union
+
+import torch
+
+from pytorch_quantize_impls_tpu_torch.nn.base import QuantConv, QuantDense
+from pytorch_quantize_impls_tpu_torch.ops.elastic import elastic_loss
+
+GRIDS = ("binary", "lin", "log")
+
+
+def _check_grid(grid: str) -> None:
+    if grid not in GRIDS:
+        raise ValueError(f"unknown elastic grid {grid!r}")
+
+
+class ElasticLinear(QuantDense):
+    """Float32 dense layer with a grid penalty on its weight."""
+
+    def __init__(self, in_features: int, features: int, *, grid: str = "binary",
+                 fsr: float = 0.0, bits: int = 4, use_bias: bool = True):
+        _check_grid(grid)
+        super().__init__(in_features, features, use_bias=use_bias)
+        self.grid, self.grid_fsr, self.grid_bits = grid, fsr, bits
+
+    def penalty(self) -> torch.Tensor:
+        return elastic_loss(self.grid, self.weight, fsr=self.grid_fsr, bits=self.grid_bits)
+
+
+class ElasticConv(QuantConv):
+    """Float32 NHWC conv with a grid penalty on its weight."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: Tuple[int, int] = (3, 3),
+                 *, strides: Tuple[int, int] = (1, 1),
+                 padding: Union[str, Sequence[Tuple[int, int]]] = "SAME", grid: str = "binary",
+                 fsr: float = 0.0, bits: int = 4, use_bias: bool = True):
+        _check_grid(grid)
+        super().__init__(in_channels, features, kernel_size, strides=strides, padding=padding,
+                         use_bias=use_bias)
+        self.grid, self.grid_fsr, self.grid_bits = grid, fsr, bits
+
+    def penalty(self) -> torch.Tensor:
+        return elastic_loss(self.grid, self.weight, fsr=self.grid_fsr, bits=self.grid_bits)

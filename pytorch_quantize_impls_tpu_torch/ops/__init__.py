@@ -18,8 +18,17 @@ from pytorch_quantize_impls_tpu_torch.ops.binary import (  # noqa: F401
 )
 from pytorch_quantize_impls_tpu_torch.ops.dorefa import (  # noqa: F401
     dorefa_activation,
+    dorefa_grad_prim,
+    dorefa_gradient,
+    dorefa_quantizers,
     dorefa_weight,
     quantize_k,
+)
+from pytorch_quantize_impls_tpu_torch.ops.elastic import (  # noqa: F401
+    binary_elastic_loss,
+    elastic_loss,
+    lin_elastic_loss,
+    log_elastic_loss,
 )
 from pytorch_quantize_impls_tpu_torch.ops.log_lin import (  # noqa: F401
     lin_quant,

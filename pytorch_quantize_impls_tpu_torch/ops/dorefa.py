@@ -8,15 +8,24 @@ Counterpart of ``pytorch_quantize_impls_tpu/ops/dorefa.py``:
   the gradient flowing through tanh and the max-normalizer; ``k == 1`` is
   ``E(|W|) sign(W)`` (eq. 8), STE on the sign only;
 * activations (eq. 10): ``quantize_k(clip(x, 0, 1), k)``, the clip
-  differentiated exactly.
-
-The gradient quantizer ``dorefa_gradient`` (eq. 12) waits for training.
+  differentiated exactly;
+* gradients (eq. 12, in training): the identity forward, and a backward
+  that quantizes the cotangent stochastically,
+  ``2 m (quantize_k(g / 2m + 1/2 + N) - 1/2 - N)`` with ``m = max|g|`` over
+  the tensor and the noise ``N = (u - 1/2) / (2^k - 1)``. The primitive
+  :func:`dorefa_grad_prim` takes the uniform draw ``u`` as an argument, as
+  JAX's ``_dorefa_grad_prim(x, u, n_levels)`` does, and keeps its order of
+  float operations, so the two packages give the same bits on a shared
+  ``u``; :func:`dorefa_gradient` draws ``u`` from a ``torch.Generator``.
 """
 
 from __future__ import annotations
 
+from typing import Callable, Dict
+
 import torch
 
+from pytorch_quantize_impls_tpu_torch.ops.binary import uniform_like
 from pytorch_quantize_impls_tpu_torch.ops.common import round_ste, safe_sign, ste
 
 _sign_ste = ste(safe_sign)
@@ -50,3 +59,53 @@ def dorefa_activation(x: torch.Tensor, bits: int) -> torch.Tensor:
     if bits >= 32:
         return x
     return quantize_k(torch.clamp(x, 0.0, 1.0), bits)
+
+
+class _DorefaGrad(torch.autograd.Function):
+    """Identity forward; the backward quantizes the cotangent (eq. 12) with
+    the noise of ``u``, and gives nothing for ``u``."""
+
+    @staticmethod
+    def forward(ctx, x, u, n_levels):
+        ctx.save_for_backward(u)
+        ctx.n_levels = n_levels
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (u,) = ctx.saved_tensors
+        n = torch.tensor(ctx.n_levels, dtype=u.dtype, device=u.device)
+        m = g.abs().max()
+        m = torch.where(m == 0, torch.ones_like(m), m)
+        noise = (u - 0.5) / n
+        gs = g / (2.0 * m) + 0.5 + noise
+        q = torch.round(torch.clamp(gs, 0.0, 1.0) * n) / n
+        gq = 2.0 * m * (q - 0.5 - noise)
+        return gq.to(g.dtype), None, None
+
+
+def dorefa_grad_prim(x: torch.Tensor, u: torch.Tensor, bits: int) -> torch.Tensor:
+    """The gradient quantizer on a given draw ``u`` ~ U[0, 1) of x's shape:
+    ``x`` forward, the ``bits``-bit stochastic cotangent backward."""
+    return _DorefaGrad.apply(x, u, float(2**bits - 1))
+
+
+def dorefa_gradient(x: torch.Tensor, generator: torch.Generator, bits: int) -> torch.Tensor:
+    """Identity forward; quantizes the gradient to ``bits`` bits (paper eq.
+    12), with a fresh draw per call from ``generator``. Insert it on the
+    activation path."""
+    if bits >= 32:
+        return x
+    return dorefa_grad_prim(x, uniform_like(x, generator), bits)
+
+
+def dorefa_quantizers(w_bits: int = 1, a_bits: int = 32,
+                      g_bits: int = 32) -> Dict[str, Callable]:
+    """The configured ``{"weight", "activation", "gradient"}`` callables, as
+    the reference's ``nnDorefaQuant(bitwight=k)``; the gradient one takes
+    ``(x, generator)``."""
+    return {
+        "weight": lambda w: dorefa_weight(w, w_bits),
+        "activation": lambda x: dorefa_activation(x, a_bits),
+        "gradient": lambda x, generator: dorefa_gradient(x, generator, g_bits),
+    }

@@ -16,8 +16,8 @@ whole test split, tail included; a quantized model is evaluated packed too
 (``infer.prepare(infer.pack_model(model))``). Data: real MNIST/CIFAR-10 from
 ``$QTPU_DATA_DIR`` when present, else the synthetic stand-ins. One line per
 config gives the seed-mean Δacc; the last line is one JSON object with the
-rows. The hard projection of the elastic configs waits for the elastic
-scheme (ROADMAP queue 1, item 4).
+rows. An elastic config's quantized model is hard-projected after training
+(:func:`project_elastic`) and evaluated so.
 """
 
 from __future__ import annotations
@@ -76,6 +76,26 @@ def warm_start(q_model: nn.Module, fp_model: nn.Module) -> int:
     return matched
 
 
+@torch.no_grad()
+def project_elastic(model: nn.Module) -> int:
+    """Hard-project every kernel of an elastic-trained model onto the binary
+    grid in place, as the JAX package's ``_project_elastic``: ``alpha *
+    where(w >= 0, 1, -1)`` with ``alpha = mean|w|`` over axis 0 of flax's
+    kernel, the inputs of a dense (in, out) kernel, so one alpha per output
+    channel (dim 1 of the port's (out, in) weight; of a conv's OIHW weight,
+    dim 2, flax's H). Returns the number of kernels projected."""
+    params = dict(model.named_parameters())
+    n = 0
+    for key, (collection, path) in flax_paths(model).items():
+        if collection != "params" or path[-1] != "kernel":
+            continue
+        w = params[key]
+        alpha = w.abs().mean(dim=1 if w.dim() == 2 else 2, keepdim=True)
+        w.copy_(alpha * torch.where(w >= 0, 1.0, -1.0))
+        n += 1
+    return n
+
+
 def elastic_weight(cfg: RunConfig, steps: int):
     """The config's penalty weight: a constant, or with ``elastic_ramp`` the
     JAX runs' ramp ``lambda min(step / (0.6 steps), 1)`` in float32."""
@@ -112,6 +132,8 @@ def run_one(cfg: RunConfig, fp32: bool, steps: int, lr: float, init_from=None,
                 f"{float(metrics['loss']):.4f}")
     sync()
     train_s = time.perf_counter() - t0
+    if not fp32 and cfg.config.startswith("elastic"):
+        out["projected"] = project_elastic(model)
     model.eval()
     out.update(accuracy=accuracy(model, test_set, dev), loss=float(metrics["loss"]),
                steps=state.step, train_s=train_s, ms_per_step=1e3 * train_s / max(state.step, 1))

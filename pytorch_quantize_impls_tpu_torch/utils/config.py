@@ -5,8 +5,11 @@ Counterpart of ``pytorch_quantize_impls_tpu/utils/config.py``. Ported:
 ``xnor_cifar`` (BASELINE config 3), ``dorefa_resnet20`` (BASELINE config 4,
 W4A4 with PACT and its alpha penalty), ``dorefa_resnet20_w4``,
 ``logquant_vgg`` (BASELINE config 5) and the digits MLPs
-``binaryconnect_digits(_stoch)`` and ``ternary_digits(_stoch)``, with the
-JAX entries' values, each with its float32 twin (``fp32=True``).
+``binaryconnect_digits(_stoch)``, ``ternary_digits(_stoch)``,
+``elastic_digits`` (the binary grid's penalty under a ramped weight, hard
+projected after training by ``train.accuracy_sweep.project_elastic``) and
+``dorefa_digits_g6`` (DoReFa W1A2G6), with the JAX entries' values, each
+with its float32 twin (``fp32=True``).
 ``RunConfig`` holds the fields their entries set and the training fields the
 port reads: batch size, lr, seed, the data directory, the elastic weight and
 its ramp (``train.accuracy_sweep``), ``warm_start``, the QAT warm start
@@ -30,6 +33,8 @@ class RunConfig:
     deterministic: bool = True  # det vs stoch quantization
     w_bits: int = 1
     a_bits: int = 0
+    # DoReFa gradient quantization bits (0 = off), paper eq. 12
+    g_bits: int = 0
     # activation quantizer of the DoReFa configs: "fixed" clip [0, 1] or
     # "pact" learnable per-layer clip (arXiv:1805.06085)
     a_quant: str = "fixed"
@@ -73,6 +78,12 @@ SCHEME_CONFIGS = {
     "ternary_digits": _mk("ternary_digits", w_bits=2, batch_size=64, steps=3200),
     "ternary_digits_stoch": _mk("ternary_digits_stoch", w_bits=2, deterministic=False,
                                 batch_size=64, steps=3200),
+    # the binary grid's penalty, lambda ramped 0 -> 100 over 60% of the run
+    "elastic_digits": _mk("elastic_digits", w_bits=1, elastic_weight=100.0, elastic_ramp=True,
+                          batch_size=64, steps=3200),
+    # DoReFa W1A2G6 (arXiv:1606.06160 table 2's headline config)
+    "dorefa_digits_g6": _mk("dorefa_digits_g6", w_bits=1, a_bits=2, g_bits=6,
+                            deterministic=False, batch_size=64, steps=1600),
 }
 
 
@@ -90,6 +101,15 @@ def _build(cfg: RunConfig, fp32: bool):
     if cfg.config in ("ternary_digits", "ternary_digits_stoch"):
         kind = "fp32" if fp32 else ("ternary" if cfg.deterministic else "ternary_stoch")
         return models.MLP(8 * 8, (512, 512, 10), layer=kind), (8 * 8,), "digits"
+    if cfg.config == "elastic_digits":
+        kind = "fp32" if fp32 else "elastic"
+        return (models.MLP(8 * 8, (512, 512, 10), layer=kind, elastic_grid="binary"), (8 * 8,),
+                "digits")
+    if cfg.config == "dorefa_digits_g6":
+        model = models.MLP(8 * 8, (512, 512, 10), layer="fp32" if fp32 else "dorefa",
+                           bits=cfg.w_bits, a_bits=cfg.a_bits, g_bits=cfg.g_bits,
+                           a_quant=cfg.a_quant)
+        return model, (8 * 8,), "digits"
     if cfg.config == "bnn_lenet":
         return models.BNNLeNet(width=cfg.width or 32, quantized=q), (28, 28, 1), "mnist"
     if cfg.config == "xnor_cifar":

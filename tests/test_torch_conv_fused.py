@@ -306,8 +306,11 @@ def test_packed_conv_direct_matches_jax(conv, scheme, bits, route, monkeypatch):
     if route == "decode":  # the route the shape picks is fused: take the other one
         monkeypatch.setattr(tconv, "conv_route", lambda *shape: "decode")
     w_hwio, x, alpha, ref = _conv_case(conv, scheme, bits)
+    # one-bit DoReFa weights are E|W| sign(W): the port's conv takes E|W|,
+    # which JAX's packing drops
+    e_w = float(np.abs(w_hwio).max()) if (scheme, bits) == ("dorefa", 1) else None
     tpc = tconv.pack_conv_weights(torch.from_numpy(w_hwio.transpose(3, 2, 0, 1).copy()), scheme,
-                                  w_bits=bits, a_bits=4)
+                                  w_bits=bits, a_bits=4, w_scale=e_w)
     if scheme == "xnor":  # a float mean, in another order
         np.testing.assert_allclose(tpc.alpha.numpy(), alpha, rtol=1e-6)
         tpc = tpc._replace(alpha=torch.from_numpy(alpha.copy()))
@@ -316,7 +319,17 @@ def test_packed_conv_direct_matches_jax(conv, scheme, bits, route, monkeypatch):
     before = tic.int8_conv2d.packed_launches
     got = tconv.packed_conv2d(torch.from_numpy(x.copy()), tpc, strides=strides, padding=padding)
     assert tic.int8_conv2d.packed_launches == before  # CPU tensors launch nothing
-    np.testing.assert_array_equal(got.numpy(), ref)
+    if e_w is None:
+        np.testing.assert_array_equal(got.numpy(), ref)
+        return
+    # JAX's sums scaled by f32(1/15); the port's by f32(1/15) E|W|
+    inv = np.float32(1 / 15)
+    acc = np.round(ref.astype(np.float64) / inv).astype(np.float32)
+    np.testing.assert_array_equal(acc * inv, ref)  # acc is JAX's integer sum
+    np.testing.assert_array_equal(got.numpy(), acc * (inv * np.float32(e_w)))
+    with pytest.raises(ValueError, match="E\\|W\\|"):
+        tconv.packed_conv2d(torch.from_numpy(x.copy()), tpc._replace(w_scale=None),
+                            strides=strides, padding=padding)
 
 
 def test_same_stride2_pads_as_jax_and_c_off_the_block():

@@ -159,15 +159,15 @@ def test_build_model_bnn_lenet():
 
 @pytest.mark.parametrize("scheme", ["ternary", "xnor"])
 def test_unported_parts_raise(lenet, scheme):
-    """What is still unported raises: act_scale, the elastic MLP and the
-    XNOR net's compute dtype (training); a scheme no package packs raises in
-    pack_model and in the packed forward."""
+    """What is still unported raises: act_scale (on the dense and the conv
+    layer) and the XNOR net's compute dtype (training); a scheme no package
+    packs raises in pack_model and in the packed forward."""
     _, _, tm, x = lenet
     with pytest.raises(NotImplementedError, match="act_scale"):
         tnn.LinearBin(8, 4, binarize_input=True, act_scale=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if scheme == "ternary":
-            models.MLP(8, (4, 2), layer="elastic")
+            tnn.BinConv(1, 4, (3, 3), binarize_input=True, act_scale=True)
         else:
             models.XNORConvNet(dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="unpackable"):

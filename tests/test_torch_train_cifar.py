@@ -35,9 +35,7 @@ every config with a twin against the JAX twin's variables, and
 
 import copy
 import functools
-import importlib.util
 import json
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -50,7 +48,6 @@ from pytorch_quantize_impls_tpu import data as jdata
 from pytorch_quantize_impls_tpu import models as jmodels
 from pytorch_quantize_impls_tpu import train as jtrain
 from pytorch_quantize_impls_tpu.nn.base import collect_elastic_losses as jcollect
-from pytorch_quantize_impls_tpu.train.steps import make_compute_loss
 from pytorch_quantize_impls_tpu.utils.config import SCHEME_CONFIGS as JCONFIGS
 from pytorch_quantize_impls_tpu.utils.config import RunConfig as JRunConfig
 from pytorch_quantize_impls_tpu.utils.config import build_model as jbuild_model
@@ -64,9 +61,15 @@ from pytorch_quantize_impls_tpu_torch.utils import (
     flax_variables,
     load_flax_variables,
 )
-from pytorch_quantize_impls_tpu_torch.utils import bridge
+from _torch_train_helpers import (
+    f64,
+    jax_apply_gradients,
+    jax_value_and_grad,
+    leaves,
+    load_jax_state,
+    sweep_script,
+)
 
-ROOT = Path(__file__).resolve().parent.parent
 LR = 3e-3
 BATCH = 16
 ELASTIC = 2e-4  # dorefa_resnet20's elastic_weight
@@ -123,10 +126,6 @@ def _port(name, seed=0):
     return tm, flax_variables(tm)
 
 
-def _f64(tree):
-    return jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), tree)
-
-
 # one optimizer object: it is a static field of the train state, so the
 # jitted functions below compile once per model
 TX = optax.chain(optax.adam(LR), jtrain.clip_quantized_weights())
@@ -136,22 +135,6 @@ def _jax_state(name, variables):
     """JAX's train state (Adam, the clamp) on ``variables``: call inside
     jax.enable_x64 for float64 leaves."""
     return jtrain.QuantTrainState.create_for(_jax_model(name), variables, TX)
-
-
-def _leaves(tree):
-    return {jax.tree_util.keystr(p): np.asarray(a)
-            for p, a in jax.tree_util.tree_flatten_with_path(tree)[0]}
-
-
-@jax.jit
-def _jax_value_and_grad(js, x, y):
-    return jax.value_and_grad(make_compute_loss(js, x, y, elastic_weight=ELASTIC),
-                              has_aux=True)(js.params)
-
-
-@jax.jit
-def _jax_apply_gradients(js, grads, stats):
-    return js.apply_gradients(grads=grads).replace(batch_stats=stats)
 
 
 def _port_grads(tm, x, y):
@@ -170,7 +153,7 @@ def _port_grads(tm, x, y):
     with torch.no_grad():
         for k, p in carrier.named_parameters():
             p.copy_(grads[k])
-    return float(loss.detach()), _leaves(flax_variables(carrier)["params"])
+    return float(loss.detach()), leaves(flax_variables(carrier)["params"])
 
 
 def _share_within(got, want, jgrad=None, bound=TOL):
@@ -208,8 +191,8 @@ def test_twin_logits_match_jax(name, mode, cifar):
         ref = jax.jit(functools.partial(jm.apply, train=False))(v, x)
         got = tm.eval()(torch.from_numpy(x)).detach().numpy()
     else:
-        stats = _leaves(flax_variables(tm)["batch_stats"])
-        for k, want in _leaves(aux["batch_stats"]).items():
+        stats = leaves(flax_variables(tm)["batch_stats"])
+        for k, want in leaves(aux["batch_stats"]).items():
             np.testing.assert_allclose(stats[k], want, rtol=1e-5, atol=1e-6, err_msg=k)
     np.testing.assert_allclose(got, np.asarray(ref), rtol=1e-5, atol=1e-5)
 
@@ -222,9 +205,9 @@ def test_one_step_gradients(name, cifar):
     tm, v = _port(name)
     x, y = cifar[0][:BATCH].astype(np.float64), cifar[1][:BATCH]
     with jax.enable_x64(True):
-        (jl, _), jg = _jax_value_and_grad(_jax_state(name, _f64(v)), jnp.asarray(x),
-                                          jnp.asarray(y))
-        jl, jg = float(jl), _leaves(jg)
+        (jl, _), jg = jax_value_and_grad(_jax_state(name, f64(v)), jnp.asarray(x),
+                                         jnp.asarray(y), ELASTIC)
+        jl, jg = float(jl), leaves(jg)
     tm.double()
     tl, tg = _port_grads(tm, x, y)
     assert abs(tl - jl) <= 1e-6 * abs(jl), (tl, jl)
@@ -242,38 +225,6 @@ def test_one_step_gradients(name, cifar):
                                    rtol=1e-9, atol=0)
 
 
-def _state_dict64(variables):
-    """flax variables -> a float64 state dict (``flax_state_dict`` keeps
-    float32)."""
-    sd = {}
-    for collection, names in (("params", bridge._PARAM_NAMES),
-                              ("batch_stats", bridge._STAT_NAMES)):
-        for path, value in bridge._leaves(variables.get(collection, {})):
-            key = ".".join(path[:-1] + (names[path[-1]],))
-            sd[key] = torch.from_numpy(np.array(bridge._to_torch_layout(path[-1], value),
-                                                np.float64))
-    return sd
-
-
-def _load_jax_state(ts, tm, js):
-    """The port's state := JAX's, in float64: parameters, statistics, Adam's
-    moments and count."""
-    tm.double().load_state_dict(_state_dict64(
-        {"params": js.params, "batch_stats": js.batch_stats}))
-    adam = [s for s in jax.tree_util.tree_leaves(
-        js.opt_state, is_leaf=lambda s: isinstance(s, optax.ScaleByAdamState))
-        if isinstance(s, optax.ScaleByAdamState)][0]
-    count = int(adam.count)
-    ts.step = count
-    if count == 0:
-        return
-    mu = _state_dict64({"params": adam.mu})
-    nu = _state_dict64({"params": adam.nu})
-    for k, p in tm.named_parameters():
-        ts.optimizer.state[p] = {"step": torch.tensor(float(count)), "exp_avg": mu[k],
-                                 "exp_avg_sq": nu[k]}
-
-
 @pytest.mark.parametrize("name", sorted(MODELS))
 def test_steps_against_jax(name, cifar):
     """Five teacher-forced steps in float64 (module docstring): each from
@@ -284,23 +235,24 @@ def test_steps_against_jax(name, cifar):
     ts = train.QuantTrainState.create_for(tm, lr=LR)
     tstep = train.make_train_step(elastic_weight=ELASTIC)
     with jax.enable_x64(True):
-        js = _jax_state(name, _f64(v))
+        js = _jax_state(name, f64(v))
         for i, (x, y) in enumerate(jdata.iterate_batches(cifar, BATCH, seed=1)):
             if i == 5:
                 break
             x = x.astype(np.float64)
-            _load_jax_state(ts, tm, js)
-            (jl, (_, stats)), grads = _jax_value_and_grad(js, jnp.asarray(x), jnp.asarray(y))
-            js = _jax_apply_gradients(js, grads, stats)
+            load_jax_state(ts, tm, js)
+            (jl, (_, stats)), grads = jax_value_and_grad(js, jnp.asarray(x), jnp.asarray(y),
+                                                         ELASTIC)
+            js = jax_apply_gradients(js, grads, stats)
             ts, tmet = tstep(ts, (x, y))
-            jl, tl, jg = float(jl), float(tmet["loss"]), _leaves(grads)
+            jl, tl, jg = float(jl), float(tmet["loss"]), leaves(grads)
             assert abs(tl - jl) <= 1e-6 * abs(jl), (i, tl, jl)
             assert ts.step == int(js.step) == i + 1
             got = flax_variables(tm)
-            params, want = _leaves(got["params"]), _leaves(js.params)
+            params, want = leaves(got["params"]), leaves(js.params)
             for k in want:
                 assert _share_within(params[k], want[k], jg[k]) == 1.0, (i, k)
-            stats, want_stats = _leaves(got["batch_stats"]), _leaves(js.batch_stats)
+            stats, want_stats = leaves(got["batch_stats"]), leaves(js.batch_stats)
             for k in want_stats:
                 bound = TOL * np.maximum(1.0, np.abs(want_stats[k]))
                 assert (np.abs(stats[k] - want_stats[k]) <= bound).all(), (i, k)
@@ -348,10 +300,10 @@ def test_scheduled_elastic_weight_matches_jax():
     ts = train.QuantTrainState.create_for(tm, lr=LR)
     tstep = train.make_train_step(elastic_weight=schedule)
     with jax.enable_x64(True):
-        js = jtrain.QuantTrainState.create_for(jm, _f64(v), TX)
+        js = jtrain.QuantTrainState.create_for(jm, f64(v), TX)
         jstep = jtrain.make_train_step(elastic_weight=schedule, donate=False)
         for i in range(3):
-            _load_jax_state(ts, tm, js)
+            load_jax_state(ts, tm, js)
             penalty = float(tnn.collect_elastic_losses(tm))
             ce = float(train.cross_entropy(copy.deepcopy(tm).train()(torch.from_numpy(xs[i])),
                                            torch.from_numpy(ys[i])))
@@ -360,17 +312,9 @@ def test_scheduled_elastic_weight_matches_jax():
             loss = float(tmet["loss"])
             assert abs(loss - (ce + schedule(i) * penalty)) <= 1e-6 * loss, i
             assert abs(loss - float(jmet["loss"])) <= 1e-6 * loss, i
-            got, want = _leaves(flax_variables(tm)["params"]), _leaves(js.params)
+            got, want = leaves(flax_variables(tm)["params"]), leaves(js.params)
             for k in want:
                 np.testing.assert_allclose(got[k], want[k], rtol=0, atol=TOL, err_msg=k)
-
-
-def _sweep_script():
-    spec = importlib.util.spec_from_file_location("jax_accuracy_sweep",
-                                                  ROOT / "scripts" / "accuracy_sweep.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 WARM = {"xnor_cifar": ("xnor", "xnor_twin"), "logquant_vgg": ("vgg", "vgg_twin"),
@@ -397,7 +341,7 @@ def test_warm_start_matches_jax(config):
     else:
         (q, _), (fp, _) = (_port(n) for n in WARM[config])
     q_vars, fp_vars = (_random_like(flax_variables(m), rng) for m in (q, fp))
-    want = _sweep_script()._warm_start(q_vars, fp_vars)
+    want = sweep_script()._warm_start(q_vars, fp_vars)
     load_flax_variables(q, q_vars, device="cpu")
     load_flax_variables(fp, fp_vars, device="cpu")
     matched = accuracy_sweep.warm_start(q, fp)
@@ -406,9 +350,9 @@ def test_warm_start_matches_jax(config):
     for (path, a), b in zip(jax.tree_util.tree_flatten_with_path(want)[0],
                             jax.tree_util.tree_leaves(got)):
         np.testing.assert_array_equal(b, np.asarray(a), err_msg=jax.tree_util.keystr(path))
-    alphas = _leaves({k: v for k, v in q_vars["params"].items()})
+    alphas = leaves({k: v for k, v in q_vars["params"].items()})
     alphas = {k: a for k, a in alphas.items() if k.endswith("['alpha']")}
-    assert all(np.array_equal(_leaves(got["params"])[k], a) for k, a in alphas.items())
+    assert all(np.array_equal(leaves(got["params"])[k], a) for k, a in alphas.items())
     assert matched == len(q.state_dict()) - len(alphas)
     assert (len(alphas) == 18) == (config == "dorefa_resnet20")
 
@@ -457,7 +401,7 @@ def test_build_model_twins(name):
                         {"params": jax.random.PRNGKey(0)}, jnp.zeros((1, *shape)))
     want = {jax.tree_util.keystr(p): tuple(a.shape) for p, a in jax.tree_util.tree_flatten_with_path(
         {c: jv[c] for c in ("params", "batch_stats") if c in jv})[0]}
-    got = {k: a.shape for k, a in _leaves(flax_variables(model)).items()}
+    got = {k: a.shape for k, a in leaves(flax_variables(model)).items()}
     assert got == want
     with torch.no_grad():
         assert tuple(model.eval()(torch.zeros(1, *shape)).shape) == (1, 10)
