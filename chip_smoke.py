@@ -174,6 +174,37 @@ on one NVIDIA GPU (built for Hopper, sm_90a).
    layer within 1e-5 (1 + |ref|) of its fake-quant forward on the same
    input, the argmax >= 99% on the test split, the 2-bit codes that flip
    reported; launches ``digits_g6_trained``.
+   Then the XNOR digits convnets and bnn_lenet_as (phase ``xnor digits +
+   bnn_lenet_as``): xnor_digits (binary weights, real activations, widths
+   32, 64) and xnor_digits_a1 (full XNOR with the K map, widths 128, 128) on
+   the synthetic digits as 8x8x1 images at b = 64, and bnn_lenet_as (the
+   learnable per-input-channel scale g on every binarized input, width 128)
+   on the synthetic MNIST at b = 128, built through build_model on the card.
+   Card against CPU per step (3 steps after 3 warm ones; bnn_lenet_as after
+   20, so that every g has left 1) under path 10's gate in float32, and
+   where float32 fails it (a sign or a pool tie at its boundary, summed in
+   another order) in float64 from the same weights, gated, the float32
+   shares reported; nn.ShiftNormBatch (the BNN paper's power-of-two
+   BatchNorm) train forward and backward and eval forward card against CPU,
+   its AP2 scales bit-equal; 300 steps each (the loss falls, the clamp), the
+   XNOR pair's float32 twins too (Δacc reported), a rerun from the same seed
+   bit-equal at step 100, no kernel launched by training; every trained
+   act_scale finite and moved from 1. The XNOR pair served: save_packed ->
+   load_packed -> InferenceEngine over the unprepared and the prepared
+   artifact from 4 clients, every batch replayed bit-equal, packed against
+   fake-quant by the JAX rule on the whole test split, launches exact:
+   ``xnor_digits_trained`` K2 once per unprepared forward (conv1 takes real
+   inputs: K2 + cuDNN + alpha) and once in prepare(); ``xnor_digits_a1_
+   trained`` K5 once per forward (the fused route or K2 + the raw K5, as
+   conv_route picks), K2 in prepare() and conv1's check (direct == fused K5
+   == K2 + raw K5 == im2col through K1 with alpha, bit for bit).
+   bnn_lenet_as served through InferenceEngine over its fake-quant forward
+   (``bnn_lenet_as_served``: no launch, every batch bit-equal to the model),
+   and pack_model, the host export, export_fused_lenet and packed_apply all
+   refuse it (ValueError naming act_scale: its packed forms would drop g).
+   K5 is checked at xnor_digits_a1's conv1 (b = 1, 64, 256, the packed
+   weight stage and the raw tile) and K2 at both digits convs' words, bit
+   for bit, beside their main rows.
 5. Main path 2, the 1-bit transformer LM that scripts/perf_bench.py serves
    (d 1024, 8 layers, cache 1024, W1A1, int8 KV) from seeded random weights:
    bridge -> export_fused_decode (int8 and packed) -> DecodeEngine(fused=)
@@ -248,7 +279,8 @@ on one NVIDIA GPU (built for Hopper, sm_90a).
 16. For each path the kernels' launch counters are zeroed just before it
     and read just after; each kernel of the path must be > 0 (the trained
     paths: bnn_lenet_trained, bnn_lenet_trained_fused, bc_mlp_trained,
-    bnn_lenet_exported, digits_g6_trained).
+    bnn_lenet_exported, digits_g6_trained, xnor_digits_trained,
+    xnor_digits_a1_trained; bnn_lenet_as_served launches none).
 17. Prints engine images/s, decode prefill ms and tokens/s, one JSON line
     with the kernels and their launches per path, and last
     ``{"ok": true, "device": {...}}``.
@@ -428,6 +460,16 @@ DIGITS_CHECKED_STEPS = 2  # card against CPU, each from the card's state
 DIGITS_OTHER_SEED_STEPS = 50  # a G6 run from another generator seed
 DIGITS_TOL = 1e-5  # packed against fake-quant, per layer, times 1 + |ref|
 DIGITS_ARGMAX_FLOOR = 0.99
+# the XNOR digits convnets and bnn_lenet_as
+XD_SHAPE = (8, 8, 1)  # the digits as images
+XD_STEPS = 300  # each run and twin, cosine over DIGITS_STEPS; the budgets: 1600, 12000
+XD_LENET_WARM = 20  # steps on the card before card vs CPU: every g off 1
+XD_CHECKED_STEPS = 3  # card against CPU, each from the card's state
+XD_RERUN_STEPS = 100  # a second run from the same seed, bit for bit at this step
+XD_IM2COL_BATCH = 8  # xnor_digits_a1's conv1 as im2col: M 512, K 1152, N 128
+XD_SNB_SHAPE = (TRAIN_BATCH, 8 * WIDTH)  # ShiftNormBatch: bn3's input at width 128
+XD_AP2_MARGIN = 1e-4  # AP2 scales this far (in log2) from a rounding point must agree
+XD_CONV = (8, 128, 128)  # xnor_digits_a1's conv1: input side, cin, cout (3x3 SAME)
 
 
 def cuda():
@@ -654,12 +696,11 @@ def kernel_cases(rng, dev):
         "K=2304 (96,256)": (2304, 256), "headline (128,4096)": (HEADLINE_SHAPE, HEADLINE_SHAPE),
     }.items():
         wp = packed(k, n)
-        r = wp.shape[0]
         cases.append(dict(
             kernel="decode_binary_weights", label=label,
             fn=lambda wp=wp: bg.decode_binary_weights(wp),
             plain=lambda wp=wp: bg.decode_binary_weights_reference(wp),
-            library=None, bound=bound_ms(4 * r * n + 32 * r * n, 0, INT8_OPS_PER_S),
+            library=None, bound=bound_ms(code_bytes(k, n, 1) + k * n, 0, INT8_OPS_PER_S),
             main=label.startswith("conv2"),
         ))
     # K1 and K3 at LeNet's fc1/head with M in SMALL_M and at the decode LM's
@@ -839,12 +880,12 @@ def kbit_cases(rng, dev):
                "edge w4 K=25 N=7": (25, 7, 4)})
     for label, (k, n, w_bits) in k7.items():
         wp = dorefa_packed(k, n, w_bits)
-        r = wp.shape[0]
         cases.append(dict(
             kernel="decode_dorefa_weights", label=label,
             fn=lambda wp=wp, b=w_bits: pm.decode_dorefa_weights(wp, w_bits=b),
             plain=lambda wp=wp, b=w_bits: pm.decode_dorefa_weights_reference(wp, w_bits=b),
-            library=None, bound=bound_ms(4 * r * n + r * (32 // w_bits) * n, 0, INT8_OPS_PER_S),
+            library=None, bound=bound_ms(code_bytes(k, n, w_bits) + k * n, 0,
+                                         INT8_OPS_PER_S),
             main=label.startswith("resnet stage2 conv 8x8"),
         ))
     # K6 at the LM's GEMMs (decode step M = SLOTS, prefill M = 128), the
@@ -1052,6 +1093,77 @@ def fused_conv_cases(rng, dev):
     return cases
 
 
+def digits_conv_cases(rng, dev):
+    """K5 and K2 at the XNOR digits convs: xnor_digits_a1's conv1 (8x8x128
+    -> 128, 3x3 SAME, xnor words, alpha in the scale epilogue) at b = 1, 64
+    and 256 by both routes, the packed weight stage (``fused``) and the raw
+    tile on K2's decoded words (``raw``), each held bit for bit to
+    int8_conv2d_reference, with its bound; K2 at both digits convs' packed
+    words (xnor_digits' conv1 32 -> 64, K 288; xnor_digits_a1's 128 -> 128,
+    K 1152). All timed beside their kernel's main row; the raw rows' library
+    call is cuDNN's float32 conv on the codes, as in :func:`kernel_cases`.
+    Same dicts as :func:`kernel_cases`."""
+    import torch
+    import torch.nn.functional as F
+
+    from pytorch_quantize_impls_tpu_torch.kernels import int8_conv as ic
+    from pytorch_quantize_impls_tpu_torch.kernels import xnor_gemm as bg
+    from pytorch_quantize_impls_tpu_torch.kernels.common import (conv_plan, conv_route,
+                                                                 conv_slab_plan)
+    from pytorch_quantize_impls_tpu_torch.kernels.conv import conv_pads
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    cases = []
+    for label, k, n in (("xnor_digits conv1 (32,64)", 9 * 32, 64),
+                        ("xnor_digits_a1 conv1 (128,128)", 9 * 128, 128)):
+        wp = bg.pack_binary_weights(t(rng.normal(size=(k, n)).astype(np.float32)))
+        cases.append(dict(
+            kernel="decode_binary_weights", label=label,
+            fn=lambda wp=wp: bg.decode_binary_weights(wp),
+            plain=lambda wp=wp: bg.decode_binary_weights_reference(wp),
+            library=None, bound=bound_ms(code_bytes(k, n, 1) + k * n, 0, INT8_OPS_PER_S),
+            main=False, also=True,
+        ))
+    h, cin, cout = XD_CONV
+    kk = 9 * cin
+    pads = conv_pads("SAME", (h, h), (3, 3), (1, 1))
+    for b in (1, 64, 256):
+        x = t(np.where(rng.normal(size=(b, h, h, cin)) >= 0, 1, -1).astype(np.int8))
+        words = bg.pack_binary_weights(t(rng.normal(size=(kk, cout)).astype(np.float32)))
+        w8 = bg.decode_binary_weights(words)[:kk].contiguous()
+        alpha = t(rng.uniform(0.5, 1.5, cout).astype(np.float32))
+        m = b * h * h
+        route = conv_route(b, m, cout, cin, 9, 1)
+        (pt, pb), (pl, pr) = pads
+        xf = F.pad(x.permute(0, 3, 1, 2).to(torch.float32), (pl, pr, pt, pb))
+        wf = w8.T.reshape(cout, cin, 3, 3).to(torch.float32).contiguous()
+
+        def cudnn(xf=xf, wf=wf):
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                return F.conv2d(xf, wf)
+
+        for mode, w, bits in (("fused", words, 1), ("raw", w8, 0)):
+            args = (x, w, (3, 3), (1, 1), pads, "scale", alpha)
+            plan = conv_slab_plan(cin, 9, 1) if bits else conv_plan(m, cout)
+            w_bytes = code_bytes(kk, cout, 1) if bits else kk * cout
+            case = dict(
+                kernel="int8_conv2d", label=f"{mode} b={b} xnor_digits_a1 conv1 8x8x128",
+                fn=lambda args=args, bits=bits: ic.int8_conv2d(*args, w_bits=bits),
+                plain=lambda args=args, bits=bits: ic.int8_conv2d_reference(*args, w_bits=bits),
+                library=None if bits else cudnn, main=False, also=True,
+                bound=bound_ms(x.numel() + w_bytes + 4 * m * cout + 4 * cout,
+                               2 * m * kk * cout, INT8_OPS_PER_S),
+                tile=(128, plan["bn"]),
+            )
+            if bits:
+                case["slab"] = (plan["groups"], plan["smem"])
+                case["route"] = f"{route} (conv_route's pick at b={b})"
+            cases.append(case)
+    return cases
+
+
 def xnor_convs():
     """XNORConvNet's hidden convs at its published widths (BASELINE config
     3): (label, input size, cin, cout), 3x3 SAME, a 2x2 pool after every
@@ -1184,12 +1296,12 @@ def log_cases(rng, dev):
                "edge K=2100 N=130 fsr0 b4": (2100, 130, 0.0, 4)})
     for label, (k, n, fsr, bits) in k9.items():
         wp = packed(k, n, fsr, bits)
-        r = wp.shape[0]
         cases.append(dict(
             kernel="decode_log_weights", label=label,
             fn=lambda wp=wp, f=fsr, b=bits: sm.decode_log_weights(wp, fsr=f, bits=b),
             plain=lambda wp=wp, f=fsr, b=bits: sm.decode_log_weights_reference(wp, fsr=f, bits=b),
-            library=None, bound=bound_ms(4 * r * n + 2 * 4 * r * n, 0, BF16_FLOPS_PER_S),
+            library=None, bound=bound_ms(code_bytes(k, n, sm.CODE_BITS) + 2 * k * n, 0,
+                                         BF16_FLOPS_PER_S),
             main=label.startswith("vgg conv5"),
         ))
     # K8 at the VGG head (M = 1, 16, 256; 256 timed beside the main row), the
@@ -1477,7 +1589,8 @@ def check_kernels(card: str, timed: bool = True):
     cases = (kernel_cases(rng, dev) + kbit_cases(rng, dev) + log_cases(rng, dev)
              + ws_cases(rng, dev) + probe_cases(rng, dev)
              + fused_conv_cases(np.random.default_rng(SEED + 13), dev)
-             + threshold_cases(np.random.default_rng(SEED + 14), dev))
+             + threshold_cases(np.random.default_rng(SEED + 14), dev)
+             + digits_conv_cases(np.random.default_rng(SEED + 15), dev))
     deferred = []  # timed rows awaiting their device time
     for c in cases:
         kernel, label, fn, plain = c["kernel"], c["label"], c["fn"], c["plain"]
@@ -3340,7 +3453,8 @@ def log_lm_path(card: str):
 # --- main path 7: the XNOR-Net convnet, packed and fused ----------------------
 
 
-def seeded_xnor_variables(widths, rng, fp32_first_last: bool = False) -> dict:
+def seeded_xnor_variables(widths, rng, fp32_first_last: bool = False,
+                          image_shape=RESNET_SHAPE) -> dict:
     """XNORConvNet variables in the flax layout, as numpy: He-scaled conv
     kernels, BatchNorm scales of magnitude 0.5-1.5 with about a quarter of
     them negative (the fused chains' (hi, lo) flip), statistics left for
@@ -3349,14 +3463,16 @@ def seeded_xnor_variables(widths, rng, fp32_first_last: bool = False) -> dict:
     biases around 0 leave half the signs +1; before a 2x2 max pool (odd
     stages) they sit near -0.85 |gamma|, a fifth of the signs +1, so that
     about half survive the max of four. ``fp32_first_last`` puts conv0's and
-    the head's kernels where flax's plain Conv and Dense keep them."""
+    the head's kernels where flax's plain Conv and Dense keep them;
+    ``image_shape`` is the NHWC input without the batch (CIFAR's, or the
+    digits' 8x8x1)."""
     f32 = np.float32
 
     def normal(*shape, scale=1.0):
         return (rng.normal(size=shape) * scale).astype(f32)
 
     p, s = {}, {}
-    cin = RESNET_SHAPE[2]
+    cin = image_shape[2]
     for i, w in enumerate(widths):
         kernel = normal(3, 3, cin, w, scale=np.sqrt(2.0 / (9 * cin)))
         p[f"conv{i}"] = ({"kernel": kernel} if fp32_first_last and i == 0
@@ -3366,8 +3482,8 @@ def seeded_xnor_variables(widths, rng, fp32_first_last: bool = False) -> dict:
         p[f"bn{i}"] = {"scale": gamma.astype(f32), "bias": beta.astype(f32)}
         s[f"bn{i}"] = {"mean": np.zeros(w, f32), "var": np.ones(w, f32)}
         cin = w
-    side = RESNET_SHAPE[0] // 2 ** (len(widths) // 2)
-    k = side * side * cin
+    pools = 2 ** (len(widths) // 2)
+    k = (image_shape[0] // pools) * (image_shape[1] // pools) * cin
     head = {"kernel": normal(k, 10, scale=k ** -0.5), "bias": normal(10, scale=0.1)}
     p["head"] = head if fp32_first_last else {"dense": head}
     return {"params": p, "batch_stats": s}
@@ -3448,11 +3564,13 @@ def xnor_input_shares(model, x) -> dict:
     return shares
 
 
-def xnor_direct_vs_im2col(model, loaded, x) -> None:
-    """conv3 (16x16x256 -> 256, full XNOR) on its real input: direct (the
+def xnor_direct_vs_im2col(model, loaded, x, name: str = "conv3") -> str:
+    """A full-XNOR conv of ``model`` (xnor_cifar's conv3, 16x16x256 -> 256;
+    xnor_digits_a1's conv1, 8x8x128 -> 128) on its real input: direct (the
     route conv_route picks), both routes called directly (the fused K5 with
     the packed weight stage, and K2 + the raw K5, each with alpha in the
-    scale epilogue) and im2col (F.unfold + K1 with alpha) bit for bit."""
+    scale epilogue) and im2col (F.unfold + K1 with alpha) bit for bit.
+    Returns the direct route."""
     import torch
 
     from pytorch_quantize_impls_tpu_torch.kernels import int8_conv as ic
@@ -3460,8 +3578,8 @@ def xnor_direct_vs_im2col(model, loaded, x) -> None:
     from pytorch_quantize_impls_tpu_torch.kernels.conv import (
         PackedConv, conv_pads, decode_conv_weights, packed_conv2d, packed_conv_route)
 
-    conv = model.conv3.conv
-    rec = loaded[("conv3", "conv")]
+    conv = getattr(model, name).conv
+    rec = loaded[(name, "conv")]
     kh, kw, cin, cout = rec.kernel_shape
     pc = PackedConv("xnor", rec.packed, (kh, kw), cin, cout, rec.alpha, 1, 1)
     seen = []
@@ -3481,11 +3599,13 @@ def xnor_direct_vs_im2col(model, loaded, x) -> None:
     fused = ic.int8_conv2d(codes, rec.packed, *args, w_bits=1)
     two = ic.int8_conv2d(codes, decode_conv_weights(pc), *args)
     im2col = packed_conv2d(xr, pc, mode="im2col", **kw_)
-    for name, y in ((f"direct ({route})", direct), ("fused K5", fused), ("K2 + raw K5", two)):
+    for label, y in ((f"direct ({route})", direct), ("fused K5", fused), ("K2 + raw K5", two)):
         if not torch.equal(y, im2col):
-            fail(f"xnor conv3: {name} and im2col differ in {int((y != im2col).sum())} places")
-    print(f"xnor conv3 on {x.shape[0]} images: direct ({route} route) == fused K5 == K2 + raw K5 "
-          f"== im2col (F.unfold + K1 with alpha), {tuple(direct.shape)}, bit for bit", flush=True)
+            fail(f"xnor {name}: {label} and im2col differ in {int((y != im2col).sum())} places")
+    print(f"xnor {name} on {x.shape[0]} images: direct ({route} route) == fused K5 == K2 + raw "
+          f"K5 == im2col (F.unfold + K1 with alpha), {tuple(direct.shape)}, bit for bit",
+          flush=True)
+    return route
 
 
 def records_on(recs: dict, device) -> dict:
@@ -4993,29 +5113,32 @@ def dorefa_gradient_card_vs_cpu(card: str, cfg) -> None:
             fail(f"dorefa_gradient at ({cfg.batch_size}, {k}): card and CPU differ")
 
 
-def digits_run(card: str, cfg, splits, steps=None, seed=None, log: bool = True):
-    """Train ``cfg``'s MLP on the card for ``steps`` steps (default
-    DIGITS_STEPS; cosine over DIGITS_STEPS, the config's ramped elastic weight, the generator from
-    ``seed``, default the config's): the clamp and finite statistics every
-    DIGITS_WINDOW steps; with ``log`` the task loss (the loss less the
-    weighted penalty) must fall, and ms per step by CUDA events and a
-    profile are printed. Returns (model, state, result dict)."""
+def digits_run(card: str, cfg, splits, steps=None, seed=None, log: bool = True,
+               fp32: bool = False, snapshot_at=None):
+    """Train ``cfg``'s model (``fp32``: its twin) on the card for ``steps``
+    steps (default DIGITS_STEPS; cosine over DIGITS_STEPS, the config's
+    ramped elastic weight, the generator from ``seed``, default the
+    config's): the clamp and finite statistics every DIGITS_WINDOW steps;
+    with ``log`` the task loss (the loss less the weighted penalty) must
+    fall, and ms per step by CUDA events and a profile are printed; with
+    ``snapshot_at`` the state dict at that step is kept (``snapshot``).
+    Returns (model, state, result dict)."""
     import torch
 
     from pytorch_quantize_impls_tpu_torch import data, nn as tnn, train
     from pytorch_quantize_impls_tpu_torch.train import accuracy_sweep
     from pytorch_quantize_impls_tpu_torch.utils import build_model
 
-    label = cfg.config
+    label = cfg.config + (" twin" if fp32 else "")
     steps = DIGITS_STEPS if steps is None else steps
-    model = build_model(cfg, device=cuda())[0]
+    model = build_model(cfg, fp32=fp32, device=cuda())[0]
     state = train.QuantTrainState.create_for(
         model, lr=train.cosine_decay_schedule(cfg.lr, DIGITS_STEPS),
         seed=cfg.seed if seed is None else seed)
     weight = accuracy_sweep.elastic_weight(cfg, DIGITS_STEPS)
     step_fn = train.make_train_step(elastic_weight=weight)
     batches = data.iterate_batches(splits[0], cfg.batch_size, seed=cfg.seed)
-    task = []
+    task, out = [], {}
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     for _ in range(steps):
         if state.step == DIGITS_WINDOW:
@@ -5024,6 +5147,8 @@ def digits_run(card: str, cfg, splits, steps=None, seed=None, log: bool = True):
         penalty = tnn.collect_elastic_losses(model).detach() if lam else 0.0
         _, m = step_fn(state, next(batches))
         task.append(m["loss"] - lam * penalty)
+        if state.step == snapshot_at:
+            out["snapshot"] = copy.deepcopy(model.state_dict())
         if state.step % DIGITS_WINDOW == 0:
             stats_ok = all(bool(torch.isfinite(b).all()) for b in model.buffers())
             if _clamped(state) > 1.0 or not stats_ok:
@@ -5031,7 +5156,6 @@ def digits_run(card: str, cfg, splits, steps=None, seed=None, log: bool = True):
                      "a running statistic is not finite")
     end.record()
     torch.cuda.synchronize()
-    out = {}
     if log:
         out["ms_per_step"] = start.elapsed_time(end) / (steps - DIGITS_WINDOW)
         loss = torch.stack([torch.as_tensor(t) for t in task]).cpu().numpy()
@@ -5235,6 +5359,324 @@ def digits_path(card: str) -> dict:
     return serve_digits_g6(card, model, splits[1])
 
 
+# --- the XNOR digits convnets and bnn_lenet_as: trained, served, refused -------
+
+
+def xd_card_vs_cpu(card: str, cfg, train_set, label: str, warm: int) -> dict:
+    """``warm`` steps on the card, then XD_CHECKED_STEPS steps on the card
+    and on the CPU, each from the card's state, under path 10's per-tensor
+    gate in float32. Where float32 fails it (a sign or a max pool's tie at
+    its boundary, summed in another order, sends a gradient elsewhere), the
+    same warmed weights take XD_CHECKED_STEPS steps in float64 on both
+    devices, gated, and the float32 shares stand as reported. Returns the
+    verdicts by dtype."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import data, train
+    from pytorch_quantize_impls_tpu_torch.utils import build_model
+
+    model = build_model(cfg, device=cuda())[0]
+    state = train.QuantTrainState.create_for(model, lr=cfg.lr, seed=cfg.seed)
+    step_fn = train.make_train_step()
+    batches = data.iterate_batches(train_set, cfg.batch_size, seed=cfg.seed)
+    for _ in range(warm):
+        step_fn(state, next(batches))
+    warmed = copy.deepcopy(model.state_dict())
+    cpu_state = train.QuantTrainState.create_for(copy.deepcopy(model).cpu(), lr=cfg.lr,
+                                                 seed=cfg.seed)
+    verdicts = {"float32": train_card_vs_cpu(card, state, cpu_state, step_fn, batches,
+                                             label=f"{label} float32", steps=XD_CHECKED_STEPS,
+                                             gate=False, noise_grads=True)}
+    if not verdicts["float32"]:
+        model64 = build_model(cfg, device=cuda())[0]
+        model64.load_state_dict(warmed)
+        model64.double()
+        state64, cpu64 = (train.QuantTrainState.create_for(m, lr=cfg.lr, seed=cfg.seed)
+                          for m in (model64, copy.deepcopy(model64).cpu()))
+        verdicts["float64"] = train_card_vs_cpu(
+            card, state64, cpu64, step_fn, _cast_batches(batches, np.float64),
+            label=f"{label} float64", steps=XD_CHECKED_STEPS, noise_grads=True)
+    print(f"{label} card vs CPU after {warm} warm steps: " + ", ".join(
+        f"{k} {'passes' if v else 'fails (reported)'}" for k, v in verdicts.items())
+        + f"  [{card}]", flush=True)
+    del model, state, cpu_state
+    torch.cuda.empty_cache()
+    return verdicts
+
+
+def shift_norm_card_vs_cpu(card: str) -> None:
+    """nn.ShiftNormBatch at bn3's input shape of bnn_lenet width 128
+    (XD_SNB_SHAPE), |gamma| in [0.2, 3] with a quarter negative: one
+    train-mode forward and backward and one eval forward on the card and on
+    the CPU. The outputs within TRAIN_TOL (1 + |ref|), the gradients of x,
+    scale and bias under path 10's per-tensor gate, the running statistics
+    within TRAIN_TOL relative, the AP2 scales of the eval forward bit-equal
+    (each |log2| at least XD_AP2_MARGIN from a rounding point)."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import nn as tnn
+    from pytorch_quantize_impls_tpu_torch.nn.binary import _ap2
+
+    g = torch.Generator().manual_seed(SEED + 21)
+    n, c = XD_SNB_SHAPE
+    x = torch.randn(n, c, generator=g) * 3 + 1
+    gy = torch.randn(n, c, generator=g)
+    ref = tnn.ShiftNormBatch(c)
+    with torch.no_grad():
+        sign = torch.where(torch.rand(c, generator=g) < 0.25, -1.0, 1.0)
+        ref.weight.copy_(sign * (0.2 + 2.8 * torch.rand(c, generator=g)))
+        ref.bias.copy_(0.3 * torch.randn(c, generator=g))
+    out = {}
+    for dev in ("cpu", cuda()):
+        m = copy.deepcopy(ref).to(dev).train()
+        xd = x.to(dev, copy=True).requires_grad_(True)  # a leaf on either device
+        y = m(xd)
+        (y * gy.to(dev)).sum().backward()
+        m.eval()
+        with torch.no_grad():
+            ye = m(x.to(dev))
+            scale = m.weight * torch.rsqrt(m.running_var + m.epsilon)
+        out[dev if dev == "cpu" else "card"] = {
+            "train": y.detach().cpu(), "eval": ye.cpu(), "x": xd.grad.cpu(),
+            "scale": m.weight.grad.cpu(), "bias": m.bias.grad.cpu(),
+            "running_mean": m.running_mean.cpu(), "running_var": m.running_var.cpu(),
+            "ap2": _ap2(scale).cpu(), "log2": scale.abs().log2().cpu()}
+    a, b = out["card"], out["cpu"]
+    fwd = max(float(((a[k] - b[k]).abs() / (1 + b[k].abs())).max()) for k in ("train", "eval"))
+    grads = {k: _tensor_gate(_within(a[k], b[k], atol=GRAD_TOL * float(b[k].abs().max())))
+             for k in ("x", "scale", "bias")}
+    stats = max(float(((a[k] - b[k]).abs() / b[k].abs().clamp_min(1.0)).max())
+                for k in ("running_mean", "running_var"))
+    margin = float((b["log2"] - b["log2"].floor() - 0.5).abs().min())
+    ap2_equal = torch.equal(a["ap2"], b["ap2"])
+    print(f"ShiftNormBatch {tuple(x.shape)} card vs CPU: forwards (train, eval) within "
+          f"{fwd:.3g} (1 + |ref|); gradients (share within {GRAD_TOL} max|g|) "
+          + ", ".join(f"{k} {sh:.6f}" for k, (sh, _, _) in grads.items())
+          + f"; running statistics within {stats:.3g} relative; eval AP2 scales bit-equal "
+          f"{ap2_equal} (nearest |log2| to a rounding point {margin:.4f}; powers of two "
+          f"{sorted(set(a['ap2'].abs().log2().int().tolist()))})  [{card}]", flush=True)
+    if (fwd > TRAIN_TOL or stats > TRAIN_TOL or not all(ok for _, _, ok in grads.values())
+            or (margin >= XD_AP2_MARGIN and not ap2_equal)):
+        fail("ShiftNormBatch: card and CPU differ beyond tolerance")
+
+
+def xd_train(card: str, name: str, splits) -> tuple:
+    """``name``'s model (and for the XNOR pair its twin, Δacc reported)
+    trained XD_STEPS steps on the card (digits_run: cosine, the clamp, the
+    loss falls, ms per step, a profile), the state dict kept at
+    XD_RERUN_STEPS; a second run from the same seed bit-equal there.
+    Returns (model in eval mode, result dict)."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch.train.run import accuracy
+    from pytorch_quantize_impls_tpu_torch.utils import SCHEME_CONFIGS, RunConfig
+
+    dev = cuda()
+    cfg = RunConfig(**SCHEME_CONFIGS[name])
+    model, _, out = digits_run(card, cfg, splits, steps=XD_STEPS, snapshot_at=XD_RERUN_STEPS)
+    again = digits_run(card, cfg, splits, steps=XD_RERUN_STEPS, log=False)[0]
+    differ = [k for k, v in out["snapshot"].items() if not again.state_dict()[k].equal(v)]
+    print(f"{name}: a second run from seed {cfg.seed} bit-equal at step {XD_RERUN_STEPS} in "
+          f"{len(out['snapshot']) - len(differ)} of {len(out['snapshot'])} tensors  [{card}]",
+          flush=True)
+    if differ:
+        fail(f"{name}: a rerun from the same seed differs in {differ}")
+    del again, out["snapshot"]
+    out["accuracy"] = accuracy(model.eval(), splits[1], dev)
+    if name != "bnn_lenet_as":
+        twin, _, tout = digits_run(card, cfg, splits, steps=XD_STEPS, fp32=True)
+        out["twin_accuracy"] = accuracy(twin.eval(), splits[1], dev)
+        print(f"{name}: {XD_STEPS} steps each, twin {out['twin_accuracy']:.4f}, quantized "
+              f"{out['accuracy']:.4f}, Δacc {out['accuracy'] - out['twin_accuracy']:+.4f} "
+              f"(reported; the full budget runs through train.accuracy_sweep); twin "
+              f"{tout['ms_per_step']:.3f} ms per step  [{card}]", flush=True)
+        del twin
+    torch.cuda.empty_cache()
+    return model, out
+
+
+def act_scales_moved(card: str, model) -> None:
+    """Every act_scale of the trained bnn_lenet_as finite and moved from 1."""
+    scales = {k: p.detach() for k, p in model.named_parameters() if k.endswith("act_scale")}
+    print("bnn_lenet_as trained act_scale (min, mean, max): " + ", ".join(
+        f"{k} ({float(g.min()):.4f}, {float(g.mean()):.4f}, {float(g.max()):.4f})"
+        for k, g in scales.items()) + f"  [{card}]", flush=True)
+    if sorted(scales) != ["conv2.act_scale", "fc1.act_scale", "head.act_scale"]:
+        fail(f"bnn_lenet_as: act_scale on {sorted(scales)}")
+    for k, g in scales.items():
+        if not bool(g.isfinite().all()) or float((g - 1).abs().max()) == 0.0:
+            fail(f"bnn_lenet_as: {k} is not finite or did not move from 1")
+
+
+def serve_trained_xnor_digits(card: str, name: str, model, test_set) -> dict:
+    """The trained XNOR digits model: pack_model -> save_packed ->
+    load_packed -> InferenceEngine over the unprepared artifact, prepare(),
+    InferenceEngine over the prepared one, from CLIENTS threads; every batch
+    replayed bit-equal through packed_apply of both artifacts; packed
+    against fake-quant by the JAX rule and both accuracies on the whole
+    test split. Launches exact: xnor_digits' conv1 (real inputs) K2 once per
+    unprepared forward and once in prepare(); xnor_digits_a1's conv1
+    (binarized inputs) K5 once per forward, with the packed weight stage on
+    the fused route and after K2 on the two-launch one, K2 once in
+    prepare(), and conv1's im2col check (K5 three times, K2 once, K1 once)."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import infer
+    from pytorch_quantize_impls_tpu_torch.kernels import int8_conv as ic
+    from pytorch_quantize_impls_tpu_torch.kernels import xnor_gemm as bg
+    from pytorch_quantize_impls_tpu_torch.kernels.conv import (PackedConv, conv_pads,
+                                                                packed_conv_route)
+
+    dev = cuda()
+    a1 = name == "xnor_digits_a1"
+    path_name = f"{name}_trained"
+    xs, ys = test_set
+    inputs = [xs[i] for i in range(CLIENTS * REQUESTS_PER_CLIENT)]
+    Logged = logged_engine_class()
+    engines, answers = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, f"{name}.npz")
+        infer.save_packed(path, infer.pack_model(model))
+        zero_launches()
+        loaded = infer.load_packed(path, device=dev)
+        recs = {"unprepared": loaded}
+        before = bg.decode_binary_weights.launches
+        recs["prepared"] = infer.prepare(loaded)
+        k2_prepare = bg.decode_binary_weights.launches - before
+        for kind in ("unprepared", "prepared"):
+            engines[kind] = Logged(lambda x, r=recs[kind]: infer.packed_apply(model, r, x),
+                                   XD_SHAPE, batch_sizes=BUCKETS, device=dev)
+            answers[kind] = run_engine(card, f"{name} {kind}", engines[kind], inputs)
+        check_route = None
+        if a1:
+            check_route = xnor_direct_vs_im2col(
+                model, loaded, torch.from_numpy(xs[:XD_IM2COL_BATCH]).to(dev), name="conv1")
+        required = (bg.decode_binary_weights, ic.int8_conv2d, bg.binary_gemm) if a1 else (
+            bg.decode_binary_weights,)
+        launches = read_launches(path_name, required)
+    sizes = {kind: list(BUCKETS) + [xb.shape[0] for xb, _ in e.log]
+             for kind, e in engines.items()}
+    rec = loaded[("conv1", "conv")]
+    kh, kw, cin, cout = rec.kernel_shape
+    if a1:
+        pc = PackedConv("xnor", rec.packed, (kh, kw), cin, cout, rec.alpha, 1, 1)
+        pads = conv_pads("SAME", XD_SHAPE[:2], (kh, kw), (1, 1))
+        routes = [packed_conv_route((b, *XD_SHAPE[:2], cin), pc, (1, 1), pads)
+                  for bs in sizes.values() for b in bs]
+        fused = routes.count("fused")
+        want = {"int8_conv2d": len(routes) + 3,
+                "int8_conv2d.packed": fused + 1 + (check_route == "fused"),
+                "decode_binary_weights": len(routes) - fused + k2_prepare + 1
+                + (check_route == "decode"),
+                "binary_gemm": 1}
+        how = (f"{len(routes)} forwards, {fused} on the fused route; K2 {k2_prepare} in "
+               f"prepare(); the im2col check on the {check_route} route")
+    else:
+        want = {"decode_binary_weights": len(sizes["unprepared"]) + k2_prepare,
+                "int8_conv2d": 0, "binary_gemm": 0}
+        how = (f"{len(sizes['unprepared'])} unprepared and {len(sizes['prepared'])} prepared "
+               f"forwards; K2 {k2_prepare} in prepare()")
+    got = {k: launches[k] for k in want}
+    print(f"{name} served: launches {got}, expected {want} ({how})  [{card}]", flush=True)
+    if got != want or k2_prepare != 1:
+        fail(f"{name} served: launches {got}, expected {want}")
+    forwards = {f"packed_apply ({kind})": lambda x, r=r: infer.packed_apply(model, r, x)
+                for kind, r in recs.items()}
+    for kind in ("unprepared", "prepared"):
+        check_logged(f"{name} {kind}", engines[kind].log, inputs, answers[kind], forwards)
+    logits = {"fake-quant": _split_logits(model, xs, dev)}
+    for kind, r in recs.items():
+        logits[f"packed {kind}"] = _split_logits(
+            lambda x, r=r: infer.packed_apply(model, r, x), xs, dev)
+        logit_rule(card, f"{name} trained packed {kind} vs fake-quant", logits[f"packed {kind}"],
+                   logits["fake-quant"])
+    _accuracy_line(card, f"{name} trained", ys, logits)
+    return {path_name: launches}
+
+
+def serve_lenet_as(card: str, model, test_set) -> dict:
+    """The trained bnn_lenet_as through InferenceEngine over its fake-quant
+    forward (its packed paths refuse act_scale): no kernel launched, every
+    batch replayed bit-equal through the model, every answer its batch's
+    row; pack_model, the host export (on a CPU copy) and export_fused_lenet
+    raise, naming act_scale."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import infer
+    from pytorch_quantize_impls_tpu_torch.infer import host_export
+
+    dev = cuda()
+    model.eval()
+    xs, _ = test_set
+    inputs = [xs[i] for i in range(CLIENTS * REQUESTS_PER_CLIENT)]
+    zero_launches()
+    engine = logged_engine_class()(model, (28, 28, 1), batch_sizes=BUCKETS, device=dev)
+    answers = run_engine(card, "bnn_lenet_as fake-quant", engine, inputs)
+    launches = read_launches("bnn_lenet_as_served", ())
+    if any(launches.values()):
+        fail(f"bnn_lenet_as served as fake-quant launched a kernel: {launches}")
+    check_logged("bnn_lenet_as fake-quant", engine.log, inputs, answers, {"the model": model})
+    cpu_model = copy.deepcopy(model).cpu()
+    refused = {}
+    for what, fn in (("pack_model", lambda: infer.pack_model(model)),
+                     ("host export", lambda: host_export.host_pack_model(cpu_model)),
+                     ("export_fused_lenet", lambda: infer.export_fused_lenet(model)),
+                     ("packed_apply", lambda: infer.packed_apply(
+                         model, {}, torch.zeros(1, 28, 28, 1, device=dev)))):
+        try:
+            fn()
+        except ValueError as e:
+            refused[what] = "act_scale" in str(e)
+        else:
+            refused[what] = False
+    print(f"bnn_lenet_as refused (ValueError naming act_scale): {refused}  [{card}]", flush=True)
+    if not all(refused.values()):
+        fail(f"bnn_lenet_as: a pack or export path did not refuse act_scale: {refused}")
+    return {"bnn_lenet_as_served": launches}
+
+
+def xnor_digits_path(card: str) -> dict:
+    """The XNOR digits convnets and bnn_lenet_as (phase ``xnor digits +
+    bnn_lenet_as``, after ``digits g6 + elastic train``) at their published
+    widths, built through build_model on the card: xnor_digits (BWN, widths
+    32, 64) and xnor_digits_a1 (full XNOR, 128, 128) on the synthetic digits
+    as 8x8x1 images at b = 64, bnn_lenet_as (width 128) on the synthetic
+    MNIST at b = 128. Card against CPU per step (xd_card_vs_cpu; LeNet after
+    XD_LENET_WARM steps, so that every g has left 1); ShiftNormBatch card
+    against CPU; XD_STEPS steps each, the XNOR pair's twins too (Δacc
+    reported), reruns bit-equal at XD_RERUN_STEPS, no kernel launched by
+    training; every trained act_scale finite and moved; the XNOR pair served
+    packed (launches ``xnor_digits_trained``: K2; ``xnor_digits_a1_trained``:
+    K5, K2, K1), bnn_lenet_as as fake-quant (``bnn_lenet_as_served``: none)
+    and refused by every pack and export path."""
+    from pytorch_quantize_impls_tpu_torch import data
+    from pytorch_quantize_impls_tpu_torch.utils import SCHEME_CONFIGS, RunConfig
+
+    digits = data.synthetic_digits()
+    mnist = data.mnist()
+    t = time.perf_counter()
+    for name, splits, warm in (("xnor_digits", digits, DIGITS_WARM),
+                               ("xnor_digits_a1", digits, DIGITS_WARM),
+                               ("bnn_lenet_as", mnist, XD_LENET_WARM)):
+        cfg = RunConfig(**SCHEME_CONFIGS[name])
+        xd_card_vs_cpu(card, cfg, splits[0], name, warm)
+    shift_norm_card_vs_cpu(card)
+    print(f"xnor digits + bnn_lenet_as: card vs CPU {time.perf_counter() - t:.1f} s", flush=True)
+    zero_launches()
+    trained = {name: xd_train(card, name, splits)
+               for name, splits in (("xnor_digits", digits), ("xnor_digits_a1", digits),
+                                    ("bnn_lenet_as", mnist))}
+    counts = read_launches("xnor digits + bnn_lenet_as training", ())
+    if any(counts.values()):
+        fail(f"training launched a serving kernel: {counts}")
+    act_scales_moved(card, trained["bnn_lenet_as"][0])
+    launches = {}
+    for name in ("xnor_digits", "xnor_digits_a1"):
+        launches.update(serve_trained_xnor_digits(card, name, trained[name][0], digits[1]))
+    launches.update(serve_lenet_as(card, trained["bnn_lenet_as"][0], mnist[1]))
+    return launches
+
+
 def ternary_lm_path(card: str):
     """Main path 10: the serving LM's shape with deterministic ternary
     weights (weights only), through DecodeEngine(packed=) unprepared and
@@ -5400,6 +5842,7 @@ def main() -> None:
     launches.update(phase("cifar train", cifar_train_path, card))
     launches.update(phase("bnn_lenet adam8", adam8_path, card))
     launches.update(phase("digits g6 + elastic train", digits_path, card))
+    launches.update(phase("xnor digits + bnn_lenet_as", xnor_digits_path, card))
     launches["decode_lm"] = phase("decode LM", decode_path, card)
     launches.update(phase("resnet", resnet_path, card))
     launches.update(phase("W4A4 LM", w4a4_lm_path, card))
@@ -5437,7 +5880,7 @@ def main() -> None:
     # ResNet's
     fused_paths = {"decode_binary_weights": ("bnn_lenet", "xnor_cifar_packed",
                                              "bnn_lenet_trained", "xnor_cifar_trained",
-                                             "bnn_lenet_exported"),
+                                             "bnn_lenet_exported", "xnor_digits_a1_trained"),
                    "decode_dorefa_weights": ("resnet_w4a4_packed",)}
     rows = []
     for name, (cu, replaces) in meta.items():

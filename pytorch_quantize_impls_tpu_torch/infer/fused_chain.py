@@ -58,6 +58,7 @@ from typing import Iterator, Optional, Tuple
 
 import torch
 
+from pytorch_quantize_impls_tpu_torch.infer.packed import refuse_act_scale
 from pytorch_quantize_impls_tpu_torch.kernels.conv import conv2d_nhwc, conv_pads
 from pytorch_quantize_impls_tpu_torch.kernels.int8_conv import int8_conv2d, threshold_codes
 from pytorch_quantize_impls_tpu_torch.kernels.int8_matmul import int8_gemm
@@ -230,7 +231,9 @@ def export_fused_lenet(model, *, first_dtype=torch.bfloat16) -> FusedChain:
     pixels with bn1 folded into its threshold and the pool on the codes;
     conv2 (K5, threshold) and its pool; fc1 (K3 on the flattened codes, then
     bn3's threshold); the +-1 head. ``first_dtype`` as in
-    :func:`export_fused_chain`."""
+    :func:`export_fused_chain`. A model with ``act_scale`` raises: its
+    thresholds would drop g."""
+    refuse_act_scale(model, "export_fused_lenet")
     conv1 = _sign_codes(model.conv1.conv.weight.detach()).to(first_dtype)
     conv2 = _flat(_sign_codes(model.conv2.conv.weight.detach()))
     fc1 = _sign_codes(model.fc1.dense.weight.detach()).T.contiguous()  # (in, out)

@@ -48,7 +48,10 @@ it when it is there (log: K9 on every unprepared call). The unprepared log
 dense layer rounds its input to bf16 and the prepared one does not, as in
 the JAX package. ``pack_model`` refuses log and lin layers with quantized
 inputs (``quantize_input=True``): the JAX package's packed paths ignore that
-quantizer (ROADMAP section 3).
+quantizer (ROADMAP section 3). ``pack_model`` and ``packed_apply`` refuse a
+model with a learnable activation scale (``act_scale``, config
+``bnn_lenet_as``): the packed paths binarize the input to +-1 and would drop
+g, as the JAX package's pack and export do (ROADMAP section 3).
 """
 
 from __future__ import annotations
@@ -177,17 +180,54 @@ def _pack_layer(m, pack_planes=packlib.pack_bitplanes) -> PackedLayer:
     )
 
 
-def _quant_layers(model: nn.Module):
+def scaled_layers(model: nn.Module) -> list:
+    """The names of ``model``'s layers that hold a learnable activation scale
+    (``act_scale``)."""
+    return [name for name, m in model.named_modules() if _has_act_scale(m)]
+
+
+def _has_act_scale(m: nn.Module) -> bool:
+    return isinstance(getattr(m, "act_scale", None), nn.Parameter)
+
+
+def _act_scale_error(what: str, scaled: list) -> ValueError:
+    return ValueError(
+        f"{what} refuses a learnable activation scale (act_scale on {scaled}): its "
+        "binarized inputs are +-1 codes, so it would drop g and compute another function "
+        "(ROADMAP section 3); serve the fake-quant model")
+
+
+def refuse_act_scale(model: nn.Module, what: str) -> None:
+    """Raise ValueError if a layer of ``model`` holds a learnable activation
+    scale: ``what`` (a packed or fused path) would run on +-1 inputs and
+    drop it."""
+    scaled = scaled_layers(model)
+    if scaled:
+        raise _act_scale_error(what, scaled)
+
+
+def _quant_layers(model: nn.Module, refuse: Optional[str] = None) -> list:
+    """``(path, layer)`` for every quantized layer of ``model``. With
+    ``refuse`` (the name of a packed path), the same walk raises as
+    :func:`refuse_act_scale` does."""
+    layers, scaled = [], []
     for name, m in model.named_modules():
+        if refuse is not None and _has_act_scale(m):
+            scaled.append(name)
         if isinstance(m, (QuantDense, QuantConv)) and m.scheme != "none":
-            yield tuple(name.split(".")), m
+            layers.append((tuple(name.split(".")), m))
+    if scaled:
+        raise _act_scale_error(refuse, scaled)
+    return layers
 
 
 @torch.no_grad()
 def pack_model(model: nn.Module, pack_planes=packlib.pack_bitplanes) -> PackedModel:
     """Pack every quantized layer's master weight, on the weight's device;
-    ``pack_planes`` as in ``_pack_layer``."""
-    return {path: _pack_layer(m, pack_planes) for path, m in _quant_layers(model)}
+    ``pack_planes`` as in ``_pack_layer``. Refuses ``act_scale``
+    (:func:`refuse_act_scale`)."""
+    return {path: _pack_layer(m, pack_planes)
+            for path, m in _quant_layers(model, refuse="pack_model")}
 
 
 def _decode_weights(rec: PackedLayer) -> torch.Tensor:
@@ -334,7 +374,7 @@ def packed_apply(model: nn.Module, packed: PackedModel, *args, **kwargs):
     ``(logits, cache)``."""
     if model.training:
         raise ValueError("packed_apply runs the eval forward: call model.eval() first")
-    paths = {m: path for path, m in _quant_layers(model)}
+    paths = {m: path for path, m in _quant_layers(model, refuse="packed_apply")}
 
     def interceptor(m, x, fake_quant_forward):
         rec = packed.get(paths.get(m))

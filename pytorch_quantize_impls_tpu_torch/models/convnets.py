@@ -12,7 +12,10 @@ sign-binarizes its input and multiplies its output by the K map
 follows every BatchNorm (after the pool) unless the model is quantized and
 binarizes its inputs, where the next layer's sign is the nonlinearity (ReLU
 first would make every code +1). ``fp32_first_last=True`` keeps the first
-conv and the head float32. ``quantized=False`` is the float32 twin of the
+conv and the head float32. ``image_shape`` is the NHWC input without the
+batch, CIFAR's ``(32, 32, 3)`` by default: the first conv's channels and the
+head's fan-in follow from it, as flax infers them (the digits configs take
+``(8, 8, 1)``). ``quantized=False`` is the float32 twin of the
 Δ-accuracy runs: every conv and the head are flax ``nn.Conv``/``nn.Dense``
 (``Conv``/``Dense``), which hold ``weight`` themselves (``conv0``, ``head``),
 as ``fp32_first_last`` does for those two. Module names match the flax ones
@@ -66,6 +69,7 @@ class XNORConvNet(nn.Module):
         fp32_first_last: bool = False,
         use_input_scale_map: bool = True,
         dtype: Optional[Any] = None,
+        image_shape: Tuple[int, int, int] = IMAGE_SHAPE,
     ):
         super().__init__()
         _refuse_dtype("XNORConvNet", dtype)
@@ -74,7 +78,8 @@ class XNORConvNet(nn.Module):
         self.binarize_inputs = binarize_inputs
         self.fp32_first_last = fp32_first_last
         self.use_input_scale_map = use_input_scale_map
-        cin = IMAGE_SHAPE[2]
+        self.image_shape = tuple(image_shape)
+        height, width, cin = self.image_shape
         for i, w in enumerate(self.widths):
             if not quantized or (fp32_first_last and i == 0):
                 conv = Conv(cin, w, (3, 3), use_bias=False)
@@ -85,8 +90,8 @@ class XNORConvNet(nn.Module):
             self.add_module(f"conv{i}", conv)
             self.add_module(f"bn{i}", BatchNorm(w))
             cin = w
-        side = IMAGE_SHAPE[0] // 2 ** (len(self.widths) // 2)
-        features = side * side * cin
+        pools = 2 ** (len(self.widths) // 2)
+        features = (height // pools) * (width // pools) * cin
         self.head = (XNORLinear(features, classes) if quantized and not fp32_first_last
                      else Dense(features, classes))
 

@@ -97,21 +97,27 @@ def max_pool_nhwc(x: torch.Tensor) -> torch.Tensor:
 class BNNLeNet(nn.Module):
     """conv1 5x5 1->w, bn1, pool, conv2 5x5 w->2w (binary input), bn2, pool,
     fc1 16*2w->8w, bn3, head 8w->classes; no biases. ``quantized=False`` is
-    the float32 twin (flax ``nn.Conv``/``nn.Dense`` layers, same names)."""
+    the float32 twin (flax ``nn.Conv``/``nn.Dense`` layers, same names).
+    ``act_scale=True`` (config ``bnn_lenet_as``) gives every binarized input
+    its learnable per-channel scale: ``conv2``, ``fc1`` and ``head`` hold an
+    ``act_scale`` and ``conv1``, which sees real pixels, none."""
 
-    def __init__(self, classes: int = 10, width: int = 32, quantized: bool = True):
+    def __init__(self, classes: int = 10, width: int = 32, quantized: bool = True,
+                 act_scale: bool = False):
         super().__init__()
         w = width
 
         def conv(cin, cout, binarize_input):
             if quantized:
                 return BinConv(cin, cout, (5, 5), padding="VALID",
-                               binarize_input=binarize_input, use_bias=False)
+                               binarize_input=binarize_input, act_scale=act_scale,
+                               use_bias=False)
             return Conv(cin, cout, (5, 5), padding="VALID", use_bias=False)
 
         def dense(fin, fout):
             if quantized:
-                return LinearBin(fin, fout, binarize_input=True, use_bias=False)
+                return LinearBin(fin, fout, binarize_input=True, act_scale=act_scale,
+                                 use_bias=False)
             return Dense(fin, fout, use_bias=False)
 
         self.conv1 = conv(1, w, binarize_input=False)  # real-valued input

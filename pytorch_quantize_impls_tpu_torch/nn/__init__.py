@@ -13,7 +13,11 @@ from pytorch_quantize_impls_tpu_torch.nn.base import (  # noqa: F401
     quant_generator,
     stochastic,
 )
-from pytorch_quantize_impls_tpu_torch.nn.binary import BinConv, LinearBin  # noqa: F401
+from pytorch_quantize_impls_tpu_torch.nn.binary import (  # noqa: F401
+    BinConv,
+    LinearBin,
+    ShiftNormBatch,
+)
 from pytorch_quantize_impls_tpu_torch.nn.dorefa import DorefaConv, LinearDorefa  # noqa: F401
 from pytorch_quantize_impls_tpu_torch.nn.elastic import ElasticConv, ElasticLinear  # noqa: F401
 from pytorch_quantize_impls_tpu_torch.nn.log_lin import (  # noqa: F401

@@ -200,7 +200,9 @@ class QuantDense(_QuantLayer):
 
 class QuantConv(_QuantLayer):
     """2-D conv (NHWC input, OIHW weight) with quantized weights (and
-    optionally inputs)."""
+    optionally inputs). ``act_scale=True`` says that the input quantizer
+    scales its +-1 codes by a learnable per-channel g, so one-bit sums are
+    not integers and are not rounded."""
 
     def __init__(
         self,
@@ -218,12 +220,13 @@ class QuantConv(_QuantLayer):
         w_bits: int = 1,
         a_bits: int = 0,
         fsr: float = 0.0,
+        act_scale: bool = False,
     ):
         super().__init__(weight_quant, input_quant, out_scale, scheme, w_bits, a_bits, fsr)
         self.kernel_size = tuple(kernel_size)
         self.strides = tuple(strides)
         self.padding = padding
-        self._integer_sums = (scheme in ("binary", "xnor") and a_bits == 1
+        self._integer_sums = (scheme in ("binary", "xnor") and a_bits == 1 and not act_scale
                               and not getattr(weight_quant, "stochastic", False))
         self.weight = nn.Parameter(torch.empty(features, in_channels, *kernel_size))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
@@ -274,9 +277,12 @@ def init_like_flax(model: nn.Module, seed: int) -> nn.Module:
     order from one generator seeded with ``seed`` on the CPU: a truncated
     normal of variance 2 / (fan_in + fan_out) (``glorot_normal``) or
     1 / fan_in (``lecun_normal``), or uniform(-1, 1) (the ternary layers);
-    biases 0. Returns ``model``."""
+    biases 0; every learnable activation scale (``act_scale``) 1. Returns
+    ``model``."""
     gen = torch.Generator().manual_seed(seed)
     for m in model.modules():
+        if isinstance(getattr(m, "act_scale", None), nn.Parameter):
+            m.act_scale.fill_(1.0)
         if not isinstance(m, _QuantLayer):
             continue
         w = torch.empty(m.weight.shape)

@@ -1,5 +1,6 @@
-"""Quantizer math core: STE quantizers as ``torch.autograd.Function``s, and
-the grouped-planar bit packing (``ops.pack``)."""
+"""Quantizer math core: STE quantizers as ``torch.autograd.Function``s, the
+grouped-planar bit packing (``ops.pack``) and the registry
+(``get_quantizer``: a scheme name and its knobs -> a quantizer)."""
 
 from pytorch_quantize_impls_tpu_torch.ops.common import (  # noqa: F401
     flush_subnormal,
@@ -52,5 +53,10 @@ from pytorch_quantize_impls_tpu_torch.ops.xnor import (  # noqa: F401
 from pytorch_quantize_impls_tpu_torch.ops.kv_cache import (  # noqa: F401
     dequantize_kv,
     quantize_kv,
+)
+from pytorch_quantize_impls_tpu_torch.ops.registry import (  # noqa: F401
+    SCHEMES,
+    STOCHASTIC_SCHEMES,
+    get_quantizer,
 )
 from pytorch_quantize_impls_tpu_torch.ops import pack  # noqa: F401

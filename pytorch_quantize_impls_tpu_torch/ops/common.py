@@ -24,8 +24,17 @@ def safe_sign(x: torch.Tensor) -> torch.Tensor:
 
 def jnp_clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     """``jnp.clip``: ``minimum(maximum(x, lo), hi)``, whose gradient is split
-    in half where x sits on a bound (``torch.clamp`` passes all of it)."""
-    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
+    in half where x sits on a bound (``torch.clamp`` passes all of it). The
+    forward is one ``torch.clamp``; the half lives in the backward mask,
+    and a call that records no gradient (serving) is the bare clamp."""
+    if not (x.requires_grad and torch.is_grad_enabled()):
+        return torch.clamp(x, lo, hi)
+
+    def mask(x):
+        inside = ((x > lo) & (x < hi)).to(x.dtype)
+        return inside + 0.5 * ((x == lo) | (x == hi)).to(x.dtype)
+
+    return _STE.apply(x, lambda x: torch.clamp(x, lo, hi), mask)
 
 
 def hard_sigmoid(x: torch.Tensor) -> torch.Tensor:

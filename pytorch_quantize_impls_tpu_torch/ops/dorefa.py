@@ -26,7 +26,7 @@ from typing import Callable, Dict
 import torch
 
 from pytorch_quantize_impls_tpu_torch.ops.binary import uniform_like
-from pytorch_quantize_impls_tpu_torch.ops.common import round_ste, safe_sign, ste
+from pytorch_quantize_impls_tpu_torch.ops.common import jnp_clip, round_ste, safe_sign, ste
 
 _sign_ste = ste(safe_sign)
 
@@ -42,7 +42,9 @@ def quantize_k(x: torch.Tensor, bits: int) -> torch.Tensor:
 def dorefa_weight(w: torch.Tensor, bits: int) -> torch.Tensor:
     """DoReFa weight quantization (paper eq. 8/9); output in [-1, 1]."""
     if bits == 1:
-        return w.abs().mean() * _sign_ste(w)
+        # |w| as w sign(w): the same values, and JAX's gradient +1 at w = 0
+        # (torch's abs has 0 there)
+        return (w * safe_sign(w.detach())).mean() * _sign_ste(w)
     if bits >= 32:
         return w
     t = torch.tanh(w)
@@ -55,10 +57,11 @@ def dorefa_weight(w: torch.Tensor, bits: int) -> torch.Tensor:
 
 def dorefa_activation(x: torch.Tensor, bits: int) -> torch.Tensor:
     """DoReFa activation quantization (paper eq. 10): the k-bit grid on
-    ``clip(x, 0, 1)``."""
+    ``clip(x, 0, 1)``, the clip ``jnp.clip``'s (half the gradient where x
+    sits on a bound, as in the JAX package)."""
     if bits >= 32:
         return x
-    return quantize_k(torch.clamp(x, 0.0, 1.0), bits)
+    return quantize_k(jnp_clip(x, 0.0, 1.0), bits)
 
 
 class _DorefaGrad(torch.autograd.Function):

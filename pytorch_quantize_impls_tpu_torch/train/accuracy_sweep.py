@@ -13,7 +13,8 @@ Adam with the clamp, the config's elastic weight (ramped over the first 60%
 of the run where ``elastic_ramp`` is set), batches from
 ``data.iterate_batches`` with the config's seed, and an evaluation over the
 whole test split, tail included; a quantized model is evaluated packed too
-(``infer.prepare(infer.pack_model(model))``). Data: real MNIST/CIFAR-10 from
+(``infer.prepare(infer.pack_model(model))``), but for one with a learnable
+activation scale (``bnn_lenet_as``), which the packed paths refuse. Data: real MNIST/CIFAR-10 from
 ``$QTPU_DATA_DIR`` when present, else the synthetic stand-ins. One line per
 config gives the seed-mean Δacc; the last line is one JSON object with the
 rows. An elastic config's quantized model is hard-projected after training
@@ -34,6 +35,7 @@ import torch
 from torch import nn
 
 from pytorch_quantize_impls_tpu_torch import data, infer, train
+from pytorch_quantize_impls_tpu_torch.infer.packed import scaled_layers
 from pytorch_quantize_impls_tpu_torch.train.clipping import keystr
 from pytorch_quantize_impls_tpu_torch.train.run import accuracy, load_data
 from pytorch_quantize_impls_tpu_torch.utils.bridge import flax_paths
@@ -137,7 +139,7 @@ def run_one(cfg: RunConfig, fp32: bool, steps: int, lr: float, init_from=None,
     model.eval()
     out.update(accuracy=accuracy(model, test_set, dev), loss=float(metrics["loss"]),
                steps=state.step, train_s=train_s, ms_per_step=1e3 * train_s / max(state.step, 1))
-    packed = infer.pack_model(model)
+    packed = {} if scaled_layers(model) else infer.pack_model(model)
     if packed:
         ready = infer.prepare(packed)
         out["packed_accuracy"] = accuracy(lambda x: infer.packed_apply(model, ready, x),

@@ -15,9 +15,10 @@ stand-ins; sklearn's digits), restore the newest checkpoint of
 and once at the end (``utils.CheckpointManager``: a run killed at any point
 resumes and ends on the same bits as one that was not), evaluate on the
 whole test split in batches of 256, and for a quantized model evaluate its
-packed form too (``infer.prepare(infer.pack_model(model))``). ``--export``
-writes the packed artifact (``infer.save_packed``), which either package
-loads; ``infer.host_export`` writes it from a checkpoint on a host without
+packed form too (``infer.prepare(infer.pack_model(model))``; not for
+``bnn_lenet_as``, whose learnable activation scale the packed paths refuse).
+``--export`` writes the packed artifact (``infer.save_packed``), which either
+package loads (``bnn_lenet_as`` refuses it before training); ``infer.host_export`` writes it from a checkpoint on a host without
 a card. ``--schedule cosine`` decays the learning rate as the JAX package's
 accuracy runs do (``scripts/accuracy_sweep.py``); the default is constant,
 as ``scripts/train.py``. Every 100 steps and at the last, a line gives the
@@ -42,6 +43,7 @@ import time
 import torch
 
 from pytorch_quantize_impls_tpu_torch import data, infer, train
+from pytorch_quantize_impls_tpu_torch.infer.packed import refuse_act_scale, scaled_layers
 from pytorch_quantize_impls_tpu_torch.utils.checkpoint import CheckpointManager
 from pytorch_quantize_impls_tpu_torch.utils.config import SCHEME_CONFIGS, RunConfig, build_model
 from pytorch_quantize_impls_tpu_torch.utils.metrics import MetricsWriter
@@ -103,6 +105,8 @@ def train_config(args):
     cfg.checkpoint_dir, cfg.metrics_path = args.checkpoint_dir, args.metrics
     model, input_shape, dataset = build_model(cfg, fp32=args.fp32, device=args.device)
     device = next(model.parameters()).device
+    if args.export:
+        refuse_act_scale(model, "--export")
     train_data, test_data = load_data(dataset, input_shape, cfg.data_dir)
     lr = train.cosine_decay_schedule(cfg.lr, cfg.steps) if args.schedule == "cosine" else cfg.lr
     state = train.QuantTrainState.create_for(model, lr=lr, seed=cfg.seed)
@@ -148,7 +152,7 @@ def train_config(args):
            "loss": float(metrics["loss"]) if metrics is not None else None,
            "ms_per_step": 1e3 * train_s / max(trained, 1),
            "accuracy": accuracy(model, test_data, device)}
-    packed = infer.pack_model(model)
+    packed = {} if scaled_layers(model) else infer.pack_model(model)
     if packed:
         ready = infer.prepare(packed)
         out["packed_accuracy"] = accuracy(

@@ -12,7 +12,9 @@ port's module of the same architecture:
   ``batch_stats`` ``mean``/``var`` -> ``running_mean``/``running_var``;
 * Embed ``embedding (vocab, d)`` -> ``weight (vocab, d)``, not transposed;
 * a parameter the model declares itself (the LM's ``pos_embed``) keeps its
-  name and layout, and so does PACT's scalar ``alpha``;
+  name and layout, and so do PACT's scalar ``alpha`` and the binary layers'
+  learnable activation scale ``act_scale`` (``("fc1", "act_scale")`` ->
+  ``"fc1.act_scale"``);
 * the ``losses`` collection is dropped: it holds what layers sow for the
   training loss (PACT's alpha penalty), which ``model.init`` returns beside
   the state. Any other collection raises.
@@ -40,7 +42,7 @@ from pytorch_quantize_impls_tpu_torch.utils.device import resolve_device
 
 _PARAM_NAMES = {
     "kernel": "weight", "scale": "weight", "bias": "bias", "embedding": "weight",
-    "alpha": "alpha",
+    "alpha": "alpha", "act_scale": "act_scale",
 }
 # collections that hold no state of the model
 _DROPPED = {"losses"}
@@ -104,7 +106,7 @@ def flax_paths(module: nn.Module) -> Dict[str, Tuple[str, Tuple[str, ...]]]:
                 leaf = "embedding"
             else:
                 leaf = "kernel"
-        elif prefix and leaf not in ("bias", "alpha"):
+        elif prefix and leaf not in ("bias", "alpha", "act_scale"):
             raise ValueError(f"state entry {key} has no flax counterpart")
         out[key] = ("params", (*prefix, leaf))
     return out

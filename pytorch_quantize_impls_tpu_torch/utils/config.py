@@ -1,15 +1,18 @@
 """Run configs: the named configurations and the model each one builds.
 
-Counterpart of ``pytorch_quantize_impls_tpu/utils/config.py``. Ported:
-``binaryconnect_mlp`` (BASELINE config 1), ``bnn_lenet`` (BASELINE config 2),
-``xnor_cifar`` (BASELINE config 3), ``dorefa_resnet20`` (BASELINE config 4,
-W4A4 with PACT and its alpha penalty), ``dorefa_resnet20_w4``,
-``logquant_vgg`` (BASELINE config 5) and the digits MLPs
+Counterpart of ``pytorch_quantize_impls_tpu/utils/config.py``: all fifteen
+of its entries, with their values, each with its float32 twin
+(``fp32=True``): ``binaryconnect_mlp`` (BASELINE config 1), ``bnn_lenet``
+(BASELINE config 2) and ``bnn_lenet_as`` (with the learnable activation
+scale), ``xnor_cifar`` (BASELINE config 3), ``dorefa_resnet20`` (BASELINE
+config 4, W4A4 with PACT and its alpha penalty), ``dorefa_resnet20_w4``,
+``logquant_vgg`` (BASELINE config 5), the digits MLPs
 ``binaryconnect_digits(_stoch)``, ``ternary_digits(_stoch)``,
 ``elastic_digits`` (the binary grid's penalty under a ramped weight, hard
 projected after training by ``train.accuracy_sweep.project_elastic``) and
-``dorefa_digits_g6`` (DoReFa W1A2G6), with the JAX entries' values, each
-with its float32 twin (``fp32=True``).
+``dorefa_digits_g6`` (DoReFa W1A2G6), and the XNOR digits convnets
+``xnor_digits`` (binary-weight mode, widths 32, 64) and ``xnor_digits_a1``
+(full XNOR, widths 128, 128) on 8x8x1 images.
 ``RunConfig`` holds the fields their entries set and the training fields the
 port reads: batch size, lr, seed, the data directory, the elastic weight and
 its ramp (``train.accuracy_sweep``), ``warm_start``, the QAT warm start
@@ -67,12 +70,19 @@ def _mk(config, **kw):
 SCHEME_CONFIGS = {
     "binaryconnect_mlp": _mk("binaryconnect_mlp", w_bits=1, steps=6000, warm_start=True),
     "bnn_lenet": _mk("bnn_lenet", w_bits=1, a_bits=1, width=128, steps=12000),
+    # bnn_lenet with a learnable per-input-channel scale on every binarized
+    # activation (the JAX package's ablation config)
+    "bnn_lenet_as": _mk("bnn_lenet_as", w_bits=1, a_bits=1, width=128, steps=12000),
     "xnor_cifar": _mk("xnor_cifar", w_bits=1, a_bits=1, steps=12000, warm_start=True),
     "dorefa_resnet20": _mk("dorefa_resnet20", w_bits=4, a_bits=4, a_quant="pact",
                            warm_start=True, elastic_weight=2e-4, steps=6000),
     "dorefa_resnet20_w4": _mk("dorefa_resnet20_w4", w_bits=4, a_bits=0),
     "logquant_vgg": _mk("logquant_vgg", w_bits=4, fsr=1.0),
     "binaryconnect_digits": _mk("binaryconnect_digits", w_bits=1, batch_size=64, steps=1600),
+    # the XNOR conv on the 8x8 digits: binary-weight (BWN) mode, and full
+    # XNOR (binarized activations) at widths (128, 128)
+    "xnor_digits": _mk("xnor_digits", w_bits=1, a_bits=0, batch_size=64, steps=1600),
+    "xnor_digits_a1": _mk("xnor_digits_a1", w_bits=1, a_bits=1, batch_size=64, steps=1600),
     "binaryconnect_digits_stoch": _mk("binaryconnect_digits_stoch", w_bits=1,
                                       deterministic=False, batch_size=64, steps=4800, lr=2e-2),
     "ternary_digits": _mk("ternary_digits", w_bits=2, batch_size=64, steps=3200),
@@ -110,8 +120,17 @@ def _build(cfg: RunConfig, fp32: bool):
                            bits=cfg.w_bits, a_bits=cfg.a_bits, g_bits=cfg.g_bits,
                            a_quant=cfg.a_quant)
         return model, (8 * 8,), "digits"
-    if cfg.config == "bnn_lenet":
-        return models.BNNLeNet(width=cfg.width or 32, quantized=q), (28, 28, 1), "mnist"
+    if cfg.config in ("xnor_digits", "xnor_digits_a1"):
+        if cfg.config == "xnor_digits":
+            widths, binarize = (32, 64), cfg.a_bits >= 1
+        else:
+            widths, binarize = (cfg.width or 128,) * 2, True
+        model = models.XNORConvNet(widths=widths, quantized=q, binarize_inputs=binarize,
+                                   fp32_first_last=True, image_shape=(8, 8, 1))
+        return model, (8, 8, 1), "digits"
+    if cfg.config in ("bnn_lenet", "bnn_lenet_as"):
+        return (models.BNNLeNet(width=cfg.width or 32, quantized=q,
+                                act_scale=cfg.config.endswith("_as")), (28, 28, 1), "mnist")
     if cfg.config == "xnor_cifar":
         return models.XNORConvNet(quantized=q), (32, 32, 3), "cifar10"
     if cfg.config in ("dorefa_resnet20", "dorefa_resnet20_w4"):
@@ -124,9 +143,7 @@ def _build(cfg: RunConfig, fp32: bool):
     if cfg.config == "logquant_vgg":
         return (models.LogQuantVGGSmall(bits=cfg.w_bits, fsr=cfg.fsr, quantized=q), (32, 32, 3),
                 "cifar10")
-    raise ValueError(
-        f"config {cfg.config!r} is not ported; pick from {sorted(SCHEME_CONFIGS)}"
-    )
+    raise ValueError(f"unknown config {cfg.config!r}; pick from {sorted(SCHEME_CONFIGS)}")
 
 
 def build_model(cfg: RunConfig, fp32: bool = False, device="cuda"):

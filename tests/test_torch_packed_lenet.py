@@ -153,22 +153,25 @@ def test_build_model_bnn_lenet():
     assert (shape, data, cfg.width, cfg.a_bits) == ((28, 28, 1), "mnist", 128, 1)
     assert tuple(model.fc1.dense.weight.shape) == (1024, 4096)
     assert tuple(model.conv2.conv.weight.shape) == (256, 128, 5, 5)
-    with pytest.raises(ValueError, match="not ported"):
-        build_model(RunConfig(config="xnor_digits"), device="cpu")
+    with pytest.raises(ValueError, match="unknown config"):  # every JAX config is ported
+        build_model(RunConfig(config="no_such_config"), device="cpu")
 
 
 @pytest.mark.parametrize("scheme", ["ternary", "xnor"])
 def test_unported_parts_raise(lenet, scheme):
-    """What is still unported raises: act_scale (on the dense and the conv
-    layer) and the XNOR net's compute dtype (training); a scheme no package
-    packs raises in pack_model and in the packed forward."""
+    """What the packed paths refuse or the port lacks raises: pack_model on a
+    learnable activation scale (act_scale, on the dense and the conv layer:
+    the packed paths would drop it) and the XNOR net's compute dtype (not
+    ported); a scheme no package packs raises in pack_model and in the
+    packed forward."""
     _, _, tm, x = lenet
-    with pytest.raises(NotImplementedError, match="act_scale"):
-        tnn.LinearBin(8, 4, binarize_input=True, act_scale=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if scheme == "ternary":
-            tnn.BinConv(1, 4, (3, 3), binarize_input=True, act_scale=True)
-        else:
+    with pytest.raises(ValueError, match="act_scale"):
+        infer.pack_model(tnn.LinearBin(8, 4, binarize_input=True, act_scale=True).eval())
+    if scheme == "ternary":
+        with pytest.raises(ValueError, match="act_scale"):
+            infer.pack_model(tnn.BinConv(1, 4, (3, 3), binarize_input=True, act_scale=True))
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
             models.XNORConvNet(dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="unpackable"):
         infer.pack_model(tnn.QuantDense(8, 4, scheme=f"{scheme}_stoch", w_bits=2).eval())
