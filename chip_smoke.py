@@ -470,6 +470,18 @@ XD_IM2COL_BATCH = 8  # xnor_digits_a1's conv1 as im2col: M 512, K 1152, N 128
 XD_SNB_SHAPE = (TRAIN_BATCH, 8 * WIDTH)  # ShiftNormBatch: bn3's input at width 128
 XD_AP2_MARGIN = 1e-4  # AP2 scales this far (in log2) from a rounding point must agree
 XD_CONV = (8, 128, 128)  # xnor_digits_a1's conv1: input side, cin, cout (3x3 SAME)
+# path 13: the compute dtype (bf16 compute, float32 masters)
+BF16_STEPS = 200  # bnn_lenet at width 128 with dtype=torch.bfloat16; rerun at RERUN_STEPS
+# card against CPU per bf16 step: every gradient and cotangent is rounded to bf16
+# (2^-9 relative) at each layer, in another order on each device; the port's CPU
+# step against JAX's lands within 2^-6.2 of a tensor's max |g| (PERF.md section 2)
+BF16_GRAD_TOL = 2.0 ** -5
+BF16_LOSS_RTOL = 1e-3  # the loss of bf16 logits, some a bf16 ulp apart
+BF16_EVAL = 1024  # test images: packed bit-equal to fake-quant
+BF16_LM_REQUESTS = 16  # per DecodeEngine(packed=) of the bf16 W1A1 LM
+BF16_LM_ARGMAX_FLOOR = 0.99
+BF16_RESNET_B1_ROWS = 32  # ResNet rows at b=1; RESNET_EVAL at b=RESNET_BATCH
+BF16_CIFAR_STEPS = (20, 20)  # xnor_cifar bf16 at b=128: untimed, then timed by events
 
 
 def cuda():
@@ -1812,15 +1824,16 @@ def read_launches(path: str, required) -> dict:
 
 
 def drive_main_path(card: str, model, example_shape, inputs, label: str = "bnn_lenet",
-                    artifact: str = None, rounds: bool = False):
+                    artifact: str = None, rounds: bool = False, dtype=None):
     """The main path, from a packed model to served answers: save_packed ->
     load_packed -> InferenceEngine (unprepared artifact) -> prepare ->
     InferenceEngine (prepared artifact); with ``artifact``, load_packed of
     that file instead of the model's own pack. The requests come from
     CLIENTS threads, or with ``rounds`` in rounds of the largest bucket
-    (serve_rounds). The kernels' launch counters are zeroed just before and
-    read just after. Returns (loaded artifact, engine answers and logged
-    (batch, output) pairs per artifact, launch counts)."""
+    (serve_rounds); ``dtype`` is the engines' input dtype (float32 unless
+    given). The kernels' launch counters are zeroed just before and read
+    just after. Returns (loaded artifact, engine answers and logged (batch,
+    output) pairs per artifact, launch counts)."""
     from pytorch_quantize_impls_tpu_torch import infer
     from pytorch_quantize_impls_tpu_torch.kernels import int8_conv as ic
     from pytorch_quantize_impls_tpu_torch.kernels import int8_matmul as im
@@ -1852,6 +1865,8 @@ def drive_main_path(card: str, model, example_shape, inputs, label: str = "bnn_l
                 return y
 
             delay = {"max_delay_ms": 1000.0} if rounds else {}
+            if dtype is not None:
+                delay["dtype"] = dtype
             engine = InferenceEngine(forward, example_shape, batch_sizes=BUCKETS, device=dev,
                                      **delay)
             try:
@@ -1957,7 +1972,7 @@ def check_main_path(model, loaded, inputs, answers, logs) -> None:
                 if not torch.equal(yb, ref):
                     fail(f"engine[{name}] batch of {xb.shape[0]} differs from {ref_name}: "
                          f"{int((yb != ref).sum())} logits")
-            for x_row, y_row in zip(xb.cpu().numpy(), yb.cpu().numpy()):
+            for x_row, y_row in zip(xb.float().cpu().numpy(), yb.float().cpu().numpy()):
                 got = by_input.get(x_row.tobytes(), {}).get(name)
                 if got is not None:
                     if not np.array_equal(got, y_row):
@@ -2101,16 +2116,17 @@ def seeded_dorefa_lm_variables(cfg: dict, rng) -> dict:
     return v
 
 
-def build_lm(cfg: dict, seed: int):
-    """(port QuantTransformerLM on the card, eval mode) from seeded weights
-    through the bridge."""
+def build_lm(cfg: dict, seed: int, dtype=None):
+    """(port QuantTransformerLM on the card, eval mode, compute ``dtype``)
+    from seeded weights through the bridge."""
     from pytorch_quantize_impls_tpu_torch.models import QuantTransformerLM
     from pytorch_quantize_impls_tpu_torch.utils import load_flax_variables
 
     seeded = {"dorefa": seeded_dorefa_lm_variables, "log": seeded_log_lm_variables}.get(
         cfg["scheme"], seeded_lm_variables)
     variables = seeded(cfg, np.random.default_rng(seed))
-    return load_flax_variables(QuantTransformerLM(**cfg), variables, device=cuda()).eval()
+    return load_flax_variables(QuantTransformerLM(**cfg, dtype=dtype), variables,
+                               device=cuda()).eval()
 
 
 def logged_engine(model, fm, dev):
@@ -2698,9 +2714,9 @@ def check_logged(label: str, log, inputs, answers, refs: dict) -> None:
 
 
 def against_fake_quant(card: str, label: str, model, forward, xs, atol=RESNET_LOGIT_TOL,
-                       rtol=0.0, rows_gated: bool = True) -> None:
+                       rtol=0.0, rows_gated: bool = True, batch: int = RESNET_BATCH) -> None:
     """``forward`` against the fake-quant forward on the images ``xs``, in
-    batches of RESNET_BATCH: argmax agreement and the row-max logit gap. A
+    batches of ``batch``: argmax agreement and the row-max logit gap. A
     row is within the tolerance when every logit is within ``atol + rtol *
     |fake-quant logit|``; 99% of rows must be (unless ``rows_gated`` is off:
     then the share is reported), and argmax must agree on 99% of rows."""
@@ -2709,8 +2725,8 @@ def against_fake_quant(card: str, label: str, model, forward, xs, atol=RESNET_LO
     dev = cuda()
     gaps, inside, agree = [], [], 0
     with torch.inference_mode():
-        for i in range(0, len(xs), RESNET_BATCH):
-            xb = torch.from_numpy(xs[i:i + RESNET_BATCH]).to(dev)
+        for i in range(0, len(xs), batch):
+            xb = torch.from_numpy(xs[i:i + batch]).to(dev)
             ref, got = model(xb), forward(xb)
             gaps.append((got - ref).abs().amax(dim=1).cpu())
             inside.append(((got - ref).abs() <= atol + rtol * ref.abs()).all(dim=1).cpu())
@@ -3912,14 +3928,17 @@ def _clamped(state) -> float:
     return max(float(p.detach().abs().max()) for p, _ in state.clamp.params)
 
 
-def _within(got, ref, grad=None, atol=TRAIN_TOL, rtol=0.0, lr=None):
+def _within(got, ref, grad=None, atol=TRAIN_TOL, rtol=0.0, lr=None, moved=None):
     """Which entries lie within ``atol + rtol |ref|``; where ``grad`` (the
-    step's gradient) is rounding noise, within 4 lr instead (Adam moves such
-    an entry by up to lr from noise)."""
+    step's gradient) is rounding noise, or where ``moved`` (a mask: the two
+    devices' gradients differ there) is set, within 4 lr instead (Adam
+    moves an entry by up to lr from any gradient)."""
     d = (got.double() - ref.double()).abs()
     ok = d <= atol + rtol * ref.double().abs()
     if grad is not None:
         ok = ok | ((grad.abs() <= NOISE_GRAD) & (d <= 4 * lr + atol))
+    if moved is not None:
+        ok = ok | (moved & (d <= 4 * lr + atol))
     return ok
 
 
@@ -3936,7 +3955,8 @@ def _tensor_gate(ok) -> tuple:
 
 def train_card_vs_cpu(card: str, state, cpu_state, step_fn, batches, label: str = "bnn_lenet",
                       steps: int = TRAIN_CHECKED_STEPS, gate: bool = True,
-                      noise_grads: bool = False) -> bool:
+                      noise_grads: bool = False, grad_tol: float = GRAD_TOL,
+                      loss_rtol: float = 1e-5) -> bool:
     """``steps`` train steps of ``label`` on the card and on the CPU, each
     from the card's state (free-running BNN trajectories part after one
     step from any float reassociation, the JAX package's jitted and unjitted
@@ -3950,7 +3970,9 @@ def train_card_vs_cpu(card: str, state, cpu_state, step_fn, batches, label: str 
     on both devices passes its gradient gate: the rounding noise of a
     gradient that is 0 in exact arithmetic (a bias before BatchNorm), which
     has no scale of its own to hold it to; every other tensor keeps the
-    per-entry rule."""
+    per-entry rule. A bf16 model's step passes a looser ``grad_tol`` and
+    ``loss_rtol`` (PERF.md section 2); where its two gradient entries differ
+    beyond GRAD_TOL, the parameter entry may differ by up to 4 lr."""
     lr = state.lr
     passed = True
     for i in range(steps):
@@ -3959,7 +3981,7 @@ def train_card_vs_cpu(card: str, state, cpu_state, step_fn, batches, label: str 
         _, m = step_fn(state, batch)
         _, mc = step_fn(cpu_state, batch)
         loss, loss_cpu = float(m["loss"]), float(mc["loss"])
-        loss_ok = abs(loss - loss_cpu) <= 1e-5 * abs(loss_cpu)
+        loss_ok = abs(loss - loss_cpu) <= loss_rtol * abs(loss_cpu)
         gates = {"gradients": {}, "parameters": {}, "statistics": {}}
         noise = {}  # the tensors passed as noise: max |g| on the card, on the CPU
         cpu_params = dict(cpu_state.model.named_parameters())
@@ -3967,13 +3989,14 @@ def train_card_vs_cpu(card: str, state, cpu_state, step_fn, batches, label: str 
             pc = cpu_params[name]
             g, gc = p.grad.detach().cpu(), pc.grad.detach()
             scale = float(gc.abs().max())
-            ok = _within(g, gc, atol=GRAD_TOL * scale)
+            ok = _within(g, gc, atol=grad_tol * scale)
             if noise_grads and max(scale, float(g.abs().max())) <= NOISE_GRAD:
                 noise[name] = (float(g.abs().max()), scale)
                 ok = ok.new_ones(ok.shape)
+            moved = (g - gc).abs() > GRAD_TOL * scale if grad_tol > GRAD_TOL else None
             gates["gradients"][name] = _tensor_gate(ok)
             gates["parameters"][name] = _tensor_gate(_within(p.detach().cpu(), pc.detach(),
-                                                             grad=gc, lr=lr))
+                                                             grad=gc, lr=lr, moved=moved))
         cpu_buffers = dict(cpu_state.model.named_buffers())
         for name, b in state.model.named_buffers():
             gates["statistics"][name] = _tensor_gate(_within(b.cpu(), cpu_buffers[name],
@@ -4050,8 +4073,9 @@ def conv2_precision(card: str) -> None:
           f"integers)  [{card}]", flush=True)
 
 
-def train_on_card(card: str, state, step_fn, batches, first_step: int):
-    """Train to TRAIN_STEPS: the clamp and finite statistics every
+def train_on_card(card: str, state, step_fn, batches, first_step: int,
+                  steps: int = TRAIN_STEPS, label: str = "bnn_lenet"):
+    """Train to ``steps``: the clamp and finite statistics every
     TRAIN_WINDOW steps, the loss falls, ms per step and images/s by CUDA
     events, a profile over 20 steps. Returns the state dict at RERUN_STEPS
     (for the rerun)."""
@@ -4060,7 +4084,7 @@ def train_on_card(card: str, state, step_fn, batches, first_step: int):
     losses, snapshot = [], None
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     timed_from = None
-    for step in range(first_step, TRAIN_STEPS):
+    for step in range(first_step, steps):
         if step == TRAIN_WINDOW:
             start.record()
             timed_from = step
@@ -4071,33 +4095,34 @@ def train_on_card(card: str, state, step_fn, batches, first_step: int):
         if state.step % TRAIN_WINDOW == 0:
             stats_ok = all(bool(torch.isfinite(b).all()) for b in state.model.buffers())
             if _clamped(state) > 1.0 or not stats_ok:
-                fail(f"bnn_lenet train step {state.step}: a kernel left [-1, 1] "
+                fail(f"{label} train step {state.step}: a kernel left [-1, 1] "
                      f"({_clamped(state)}) or a running statistic is not finite")
     end.record()
     torch.cuda.synchronize()
-    step_ms = start.elapsed_time(end) / (TRAIN_STEPS - timed_from)
+    step_ms = start.elapsed_time(end) / (steps - timed_from)
     loss = torch.stack(losses).cpu().numpy()
     first, last = float(loss[:TRAIN_WINDOW].mean()), float(loss[-TRAIN_WINDOW:].mean())
-    print(f"bnn_lenet trained {state.step} steps on the card (batch {TRAIN_BATCH}): mean loss "
+    print(f"{label} trained {state.step} steps on the card (batch {TRAIN_BATCH}): mean loss "
           f"of the first {TRAIN_WINDOW} steps {first:.4f}, of the last {last:.4f}; every "
           f"{TRAIN_WINDOW} steps the kernels in [-1, 1] and the statistics finite; "
           f"{step_ms:.3f} ms per step, {1e3 * TRAIN_BATCH / step_ms:.1f} images/s (CUDA events "
-          f"over {TRAIN_STEPS - timed_from} steps)  [{card}]", flush=True)
+          f"over {steps - timed_from} steps)  [{card}]", flush=True)
     if last > TRAIN_LOSS_DROP * first:
-        fail(f"bnn_lenet: the loss fell from {first:.4f} only to {last:.4f}")
+        fail(f"{label}: the loss fell from {first:.4f} only to {last:.4f}")
     line = profile_line(lambda: step_fn(state, next(batches)), "step", 20)
-    print(f"bnn_lenet train step {line}  [{card}]", flush=True)
+    print(f"{label} train step {line}  [{card}]", flush=True)
     return snapshot
 
 
-def train_rerun(card: str, snapshot) -> None:
+def train_rerun(card: str, snapshot, make_model=None, label: str = "bnn_lenet") -> None:
     """A second run from the same seed on the same batches gives the same
-    bits at RERUN_STEPS."""
+    bits at RERUN_STEPS; ``make_model()`` builds the model (the config's
+    unless given)."""
     from pytorch_quantize_impls_tpu_torch import data, train
     from pytorch_quantize_impls_tpu_torch.utils import SCHEME_CONFIGS, RunConfig, build_model
 
     cfg = RunConfig(**SCHEME_CONFIGS["bnn_lenet"])
-    model = build_model(cfg, device=cuda())[0]
+    model = make_model() if make_model else build_model(cfg, device=cuda())[0]
     state = train.QuantTrainState.create_for(model, lr=cfg.lr, seed=cfg.seed)
     step_fn = train.make_train_step()
     batches = _batches(data.mnist()[0], cfg.seed)
@@ -4105,11 +4130,11 @@ def train_rerun(card: str, snapshot) -> None:
         step_fn(state, next(batches))
     sd = model.state_dict()
     differ = [k for k, v in snapshot.items() if not sd[k].equal(v)]
-    print(f"bnn_lenet rerun from the same seed: {RERUN_STEPS} steps, "
+    print(f"{label} rerun from the same seed: {RERUN_STEPS} steps, "
           f"{len(snapshot) - len(differ)} of {len(snapshot)} tensors bit-equal  [{card}]",
           flush=True)
     if differ:
-        fail(f"bnn_lenet: a rerun from the same seed differs in {differ}")
+        fail(f"{label}: a rerun from the same seed differs in {differ}")
 
 
 def serve_trained_lenet(card: str, model, example_shape, test_set) -> dict:
@@ -5677,6 +5702,376 @@ def xnor_digits_path(card: str) -> dict:
     return launches
 
 
+# --- path 13: the compute dtype (bf16 compute, float32 masters) ---------------
+
+
+def bf16_lenet():
+    """(config, bnn_lenet at width 128 with dtype=torch.bfloat16 on the card,
+    its weights drawn as build_model draws the config's)."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import models, nn as tnn
+    from pytorch_quantize_impls_tpu_torch.utils import SCHEME_CONFIGS, RunConfig
+
+    cfg = RunConfig(**SCHEME_CONFIGS["bnn_lenet"])
+    model = models.BNNLeNet(width=cfg.width, dtype=torch.bfloat16)
+    return cfg, tnn.init_like_flax(model, cfg.seed).to(cuda())
+
+
+def masters_float32(label: str, model) -> None:
+    import torch
+
+    dtypes = {p.dtype for p in model.parameters()} | {b.dtype for b in model.buffers()}
+    if dtypes != {torch.float32}:
+        fail(f"{label}: master weights or statistics at {dtypes}, not float32")
+
+
+def bf16_sums_probe(card: str) -> None:
+    """How far cuDNN's bf16 conv and cuBLAS's bf16 GEMM of +-1 codes land
+    from the exact integer sums rounded once to bf16, at bnn_lenet's conv2
+    and fc1 and xnor_cifar's conv3 (reported: the port takes such sums in
+    float32 and rounds them once, ``nn.base``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from pytorch_quantize_impls_tpu_torch.train.steps import fp32_cudnn
+
+    dev = cuda()
+    g = torch.Generator().manual_seed(SEED + 93)
+
+    def codes(*shape):
+        return torch.where(torch.rand(*shape, generator=g) < 0.5, 1.0, -1.0).to(dev)
+
+    cases = {
+        "bnn_lenet conv2": (codes(TRAIN_BATCH, WIDTH, 12, 12), codes(2 * WIDTH, WIDTH, 5, 5), 0),
+        "xnor_cifar conv3": (codes(TRAIN_BATCH, 256, 16, 16), codes(256, 256, 3, 3), 1),
+        "bnn_lenet fc1": (codes(TRAIN_BATCH, 32 * WIDTH), codes(8 * WIDTH, 32 * WIDTH), None),
+    }
+    out = []
+    with torch.inference_mode(), fp32_cudnn():
+        for name, (x, w, pad) in cases.items():
+            if pad is None:
+                exact = (x @ w.T).round()
+                got = x.bfloat16() @ w.bfloat16().T
+            else:
+                exact = F.conv2d(x, w, padding=pad).round()
+                got = F.conv2d(x.bfloat16(), w.bfloat16(), padding=pad)
+            want = exact.bfloat16()
+            off = int((got != want).sum())
+            out.append(f"{name} {off} of {got.numel()} off (|sum| up to "
+                       f"{int(exact.abs().max())})")
+    print("bf16 products of +-1 codes against the exact sums rounded once to bf16: "
+          + "; ".join(out) + f"  [{card}]", flush=True)
+
+
+def bf16_lenet_train(card: str):
+    """bnn_lenet bf16: card against CPU per step from one state, BF16_STEPS
+    steps on the card (the clamp, the loss falls, ms per step, a profile),
+    a rerun bit-equal at RERUN_STEPS, the masters float32, no serving kernel
+    launched. Returns (model, example shape, test set)."""
+    from pytorch_quantize_impls_tpu_torch import data, train
+
+    cfg, model = bf16_lenet()
+    cpu_model = copy.deepcopy(model).cpu()
+    state = train.QuantTrainState.create_for(model, lr=cfg.lr, seed=cfg.seed)
+    cpu_state = train.QuantTrainState.create_for(cpu_model, lr=cfg.lr, seed=cfg.seed)
+    step_fn = train.make_train_step()
+    train_set, test_set = data.mnist()
+    batches = _batches(train_set, cfg.seed)
+    zero_launches()
+    train_card_vs_cpu(card, state, cpu_state, step_fn, batches, label="bnn_lenet bf16",
+                      steps=TRAIN_CHECKED_STEPS, grad_tol=BF16_GRAD_TOL,
+                      loss_rtol=BF16_LOSS_RTOL)
+    del cpu_model, cpu_state
+    snapshot = train_on_card(card, state, step_fn, batches, TRAIN_CHECKED_STEPS,
+                             steps=BF16_STEPS, label="bnn_lenet bf16")
+    trained = read_launches("bnn_lenet bf16 training", ())
+    if any(trained.values()):
+        fail(f"bf16 training launched a serving kernel: {trained}")
+    masters_float32("bnn_lenet bf16", model)
+    train_rerun(card, snapshot, make_model=lambda: bf16_lenet()[1], label="bnn_lenet bf16")
+    return model, (28, 28, 1), test_set
+
+
+def bf16_lenet_serve(card: str, model, example_shape, test_set) -> dict:
+    """The trained bf16 LeNet packed: save_packed -> load_packed ->
+    InferenceEngine(dtype=torch.bfloat16), unprepared and prepared, from
+    CLIENTS threads; every batch equal to packed_apply on it, to the other
+    artifact and to the bf16 fake-quant forward bit for bit; on BF16_EVAL
+    test images packed equal to fake-quant. K1, K2, K3 and K5 launch
+    exactly where drive_main_path counts them."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import infer
+
+    dev = cuda()
+    model.eval()
+    xs, ys = test_set
+    # images on the bf16 grid, so each logged bf16 batch row is its request's image
+    inputs = [torch.from_numpy(xs[i]).bfloat16().float().numpy()
+              for i in range(CLIENTS * REQUESTS_PER_CLIENT)]
+    loaded, answers, logs, launches = drive_main_path(
+        card, model, example_shape, inputs, label="bnn_lenet_bf16", dtype=torch.bfloat16)
+    check_main_path(model, loaded, inputs, answers, logs)
+    prepared = infer.prepare(loaded)
+    with torch.inference_mode():
+        xt = torch.from_numpy(xs[:BF16_EVAL]).to(dev, torch.bfloat16)
+        fq, pk = model(xt), infer.packed_apply(model, prepared, xt)
+    acc = float((pk.argmax(1).cpu() == torch.from_numpy(ys[:BF16_EVAL])).double().mean())
+    print(f"bnn_lenet bf16 trained, {BF16_EVAL} test images: logits {pk.dtype}, packed "
+          f"(prepared) bit-equal to fake-quant {bool(torch.equal(fq, pk))}, accuracy {acc:.4f}"
+          f"  [{card}]", flush=True)
+    if fq.dtype != torch.bfloat16 or not torch.equal(fq, pk):
+        fail("bnn_lenet bf16: packed and fake-quant logits differ")
+    if acc < TRAIN_MIN_ACC:
+        fail(f"bnn_lenet bf16: test accuracy {acc:.4f} below {TRAIN_MIN_ACC}")
+    return {"bnn_lenet_bf16": launches}
+
+
+def bf16_resnet(card: str) -> dict:
+    """The W4A4 ResNet-20 at width 64 with dtype=torch.bfloat16 (the
+    resnet path's seeded, calibrated weights), packed at b=1 and b=256
+    (unprepared; then prepare() and b=256 prepared) against its bf16
+    fake-quant forward by the 5e-2 seam; float32 logits; K5 and K7 launches
+    counted as the resnet path counts them."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import infer
+    from pytorch_quantize_impls_tpu_torch.kernels import int8_conv as ic
+    from pytorch_quantize_impls_tpu_torch.kernels import packed_matmul as pm
+    from pytorch_quantize_impls_tpu_torch.models import DorefaResNet20
+    from pytorch_quantize_impls_tpu_torch.utils import load_flax_variables
+
+    dev = cuda()
+    rng = np.random.default_rng(SEED + 94)
+    calib = rng.normal(size=(RESNET_CALIB, *RESNET_SHAPE)).astype(np.float32)
+    _, variables = calibrated_resnet(RESNET_WIDTH, rng, calib, dev)
+    model = load_flax_variables(
+        DorefaResNet20(w_bits=4, a_bits=4, width=RESNET_WIDTH, dtype=torch.bfloat16),
+        variables, device=dev).eval()
+    masters_float32("resnet bf16", model)
+    xs = rng.normal(size=(RESNET_EVAL, *RESNET_SHAPE)).astype(np.float32)
+    packed = infer.pack_model(model)
+    zero_launches()
+    with torch.inference_mode():
+        y = infer.packed_apply(model, packed, torch.from_numpy(xs[:2]).to(dev))
+    if y.dtype != torch.float32:
+        fail(f"resnet bf16: packed logits at {y.dtype}, not float32 (the head's)")
+    against_fake_quant(card, "resnet bf16 packed b=1", model,
+                       lambda x: infer.packed_apply(model, packed, x),
+                       xs[:BF16_RESNET_B1_ROWS], batch=1)
+    against_fake_quant(card, f"resnet bf16 packed b={RESNET_BATCH}", model,
+                       lambda x: infer.packed_apply(model, packed, x), xs)
+    before = pm.decode_dorefa_weights.launches
+    prepared = infer.prepare(packed)
+    k7_prepare = pm.decode_dorefa_weights.launches - before
+    against_fake_quant(card, f"resnet bf16 packed prepared b={RESNET_BATCH}", model,
+                       lambda x: infer.packed_apply(model, prepared, x), xs)
+    launches = read_launches("resnet_w4a4_bf16", (pm.decode_dorefa_weights, ic.int8_conv2d))
+    decoded = launches["int8_conv2d"] - launches["int8_conv2d.packed"]
+    print(f"resnet bf16 packed: {launches['int8_conv2d']} block conv calls, "
+          f"{launches['int8_conv2d.packed']} fused, {decoded} as K7 + raw K5; K7 launches "
+          f"{launches['decode_dorefa_weights']} = {decoded} + {k7_prepare} in prepare()",
+          flush=True)
+    if launches["decode_dorefa_weights"] != decoded + k7_prepare:
+        fail(f"resnet bf16: K7 launched {launches['decode_dorefa_weights']} times, expected "
+             f"{decoded + k7_prepare}")
+    return {"resnet_w4a4_bf16": launches}
+
+
+def projections_at(model, dtype):
+    """A context in which every QuantDense of ``model`` computes at ``dtype``
+    (None: at its input's), restored after."""
+    import contextlib
+
+    from pytorch_quantize_impls_tpu_torch.nn import QuantDense
+
+    @contextlib.contextmanager
+    def ctx():
+        layers = [m for m in model.modules() if isinstance(m, QuantDense)]
+        saved = [m.dtype for m in layers]
+        for m in layers:
+            m.dtype = dtype
+        try:
+            yield
+        finally:
+            for m, d in zip(layers, saved):
+                m.dtype = d
+
+    return ctx()
+
+
+def bf16_lm(card: str) -> dict:
+    """The serving LM's shape at W1A1 with dtype=torch.bfloat16 through
+    DecodeEngine(packed=), unprepared (K1) and prepared (K2 in prepare(),
+    K3), BF16_LM_REQUESTS requests each, the same tokens from both. Then the
+    prepared records teacher-forced by the bf16 fake-quant decode model's
+    greedy tokens, each packed call from a copy of its cache (lockstep):
+
+    - per projection, inside the bf16 fake-quant forward, the packed layer
+      on the same input: rounded to the fake-quant output's dtype, equal to
+      it bit for bit where the layer has no bias (the exact integer sum
+      rounded once); where it has one (the FFN), within 2^-6 (|s| + |b|)
+      (the fake-quant layer rounds the sum, the bias and then their sum to
+      bf16, the packed one rounds s + b once: four roundings, each at most
+      2^-8 of an operand no larger than (1 + 2^-8)(|s| + |b|));
+    - end to end, against the same model with every projection at its
+      input's dtype: the function the JAX package's packed_apply computes,
+      which returns each projection at its input's dtype (float32 after a
+      LayerNorm), so the packed LM's residual stream is float32 after the
+      first block. Argmax must agree on BF16_LM_ARGMAX_FLOOR of the (step,
+      row) pairs; the agreement with the bf16 fake-quant model (a W1A1 LM
+      this wide turns the stream's bf16 rounding into other codes) is
+      reported."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import infer
+    from pytorch_quantize_impls_tpu_torch.kernels import int8_matmul as im
+    from pytorch_quantize_impls_tpu_torch.kernels import xnor_gemm as bg
+    from pytorch_quantize_impls_tpu_torch.nn import intercept_quant_layers
+    from pytorch_quantize_impls_tpu_torch.serve import DecodeEngine, decode_model
+
+    dev = cuda()
+    model = build_lm(LM_CFG, SEED + 95, dtype=torch.bfloat16)
+    masters_float32("W1A1 LM bf16", model)
+    packed = infer.pack_model(model)
+    rng = np.random.default_rng(SEED + 96)
+    prompts = [rng.integers(0, LM_CFG["vocab"], rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1))
+               .astype(np.int32) for _ in range(BF16_LM_REQUESTS)]
+    answers, launches, records = {}, {}, {}
+    for name, required in (("unprepared", (bg.binary_gemm,)),
+                           ("prepared", (bg.decode_binary_weights, im.int8_gemm))):
+        zero_launches()
+        recs = packed if name == "unprepared" else infer.prepare(packed)
+        engine = DecodeEngine(model, packed=recs, n_slots=SLOTS, device=dev)
+        t1 = time.perf_counter()
+        try:
+            answers[name] = serve(lambda i: engine.submit(prompts[i], max_new=MAX_NEW),
+                                  len(prompts))
+        finally:
+            engine.shutdown()
+        dt = time.perf_counter() - t1
+        st = engine.stats
+        print(f"decode engine[W1A1 bf16 packed {name}]: {st.requests} requests, {st.tokens} "
+              f"tokens in {dt:.2f} s ({st.tokens / dt:.1f} tok/s), {st.steps} steps  [{card}]",
+              flush=True)
+        if st.requests != len(prompts) or st.tokens != MAX_NEW * len(prompts):
+            fail(f"W1A1 bf16 engine[{name}] answered {st.requests} requests, {st.tokens} tokens")
+        launches[f"lm_w1a1_bf16_{name}"] = read_launches(f"lm_w1a1_bf16_{name}", required)
+        records[name] = recs
+    if any(not np.array_equal(a, b) for a, b in zip(answers["unprepared"], answers["prepared"])):
+        fail("the bf16 W1A1 LM's unprepared and prepared engines answered differently")
+
+    recs = records["prepared"]
+    md = decode_model(model)
+    paths = {id(m): tuple(n.split(".")) for n, m in md.named_modules()}
+    calls, off, worst = [0], [], [0.0]
+
+    def per_gemm(m, x, fake_quant_forward):
+        y = fake_quant_forward(x)
+        got = infer.packed_apply(m, {("",): recs[paths[id(m)]]}, x).float()
+        calls[0] += 1
+        if m.bias is None:
+            ok = torch.equal(got.to(y.dtype), y)
+        else:
+            b = m.bias.float()
+            err = (got - y.float()).abs() / ((got - b).abs() + b.abs() + 1e-30)
+            worst[0] = max(worst[0], float(err.max()))
+            ok = bool((err <= 2.0 ** -6).all())
+        if not ok:
+            off.append(".".join(paths[id(m)]))
+        return y
+
+    def clone(cache):
+        return {k: clone(v) if isinstance(v, dict) else v.clone() for k, v in cache.items()}
+
+    b, steps = SLOTS, 32
+    toks = torch.from_numpy(rng.integers(0, LM_CFG["vocab"], (b, 64)).astype(np.int32)).to(dev)
+    agree = agree_bf16 = total = 0
+    gap = 0.0
+    cache, t = None, toks
+    with torch.no_grad():
+        for step in range(steps + 1):
+            got, _ = infer.packed_apply(md, recs, t, None if cache is None else clone(cache))
+            with projections_at(md, None):
+                want, _ = md(t, None if cache is None else clone(cache))
+            with intercept_quant_layers(per_gemm):
+                ref, cache = md(t, cache)
+            if {ref.dtype, got.dtype, want.dtype} != {torch.float32}:
+                fail(f"W1A1 LM bf16: logits at {ref.dtype} / {got.dtype}, not float32")
+            if step > 0:
+                total += b
+                agree += int((got[:, -1].argmax(-1) == want[:, -1].argmax(-1)).sum())
+                agree_bf16 += int((got[:, -1].argmax(-1) == ref[:, -1].argmax(-1)).sum())
+                gap = max(gap, float((got[:, -1] - want[:, -1]).abs().max()))
+            t = ref[:, -1].argmax(-1).to(torch.int32)[:, None]
+    print(f"W1A1 LM bf16 packed, teacher-forced by the bf16 fake-quant model: {calls[0]} "
+          f"projection calls on its inputs, {len(off)} off (bias-free: bit-equal once rounded "
+          f"to bf16; FFN: worst |diff| / (|s| + |b|) {worst[0]:.3g}, bound 2^-6); in lockstep "
+          f"over {steps} steps x {b} rows, argmax agrees with the projections-at-input-dtype "
+          f"model on {agree}/{total} ({100 * agree / total:.2f}%, floor "
+          f"{100 * BF16_LM_ARGMAX_FLOOR:.0f}%, max |logit gap| {gap:.3g}), with the bf16 "
+          f"fake-quant model on {agree_bf16}/{total} (reported)  [{card}]", flush=True)
+    if off:
+        fail(f"W1A1 LM bf16: packed projections differ from fake-quant in {sorted(set(off))}")
+    if agree < BF16_LM_ARGMAX_FLOOR * total:
+        fail(f"W1A1 LM bf16 teacher-forced: argmax agrees on only {agree} of {total}")
+    return launches
+
+
+def bf16_cifar_step(card: str) -> None:
+    """xnor_cifar at its published widths with dtype=torch.bfloat16, b=128:
+    BF16_CIFAR_STEPS steps on the synthetic CIFAR stand-in, ms per step by
+    CUDA events over the timed ones and a profile (a reading); the loss
+    finite and falling, the clamp, the masters float32."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import data, models, nn as tnn, train
+    from pytorch_quantize_impls_tpu_torch.utils import SCHEME_CONFIGS, RunConfig
+
+    cfg = RunConfig(**SCHEME_CONFIGS["xnor_cifar"])
+    model = tnn.init_like_flax(models.XNORConvNet(dtype=torch.bfloat16), cfg.seed).to(cuda())
+    state = train.QuantTrainState.create_for(model, lr=cfg.lr, seed=cfg.seed)
+    step_fn = train.make_train_step()
+    batches = data.iterate_batches(data.cifar10()[0], cfg.batch_size, seed=cfg.seed)
+    warm, timed = BF16_CIFAR_STEPS
+    losses = []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for i in range(warm + timed):
+        if i == warm:
+            start.record()
+        losses.append(step_fn(state, next(batches))[1]["loss"])
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / timed
+    loss = torch.stack(losses).cpu().double().numpy()
+    first, last = float(loss[:10].mean()), float(loss[-10:].mean())
+    line = profile_line(lambda: step_fn(state, next(batches)), "step", 10)
+    print(f"xnor_cifar bf16 train (batch {cfg.batch_size}): {ms:.3f} ms per step by CUDA events "
+          f"over {timed} steps; mean loss of the first 10 steps {first:.4f}, of the last 10 "
+          f"{last:.4f}; max |kernel| {_clamped(state)}; step {line}  [{card}]", flush=True)
+    masters_float32("xnor_cifar bf16", model)
+    if not (np.isfinite(loss).all() and last < first) or _clamped(state) > 1.0:
+        fail(f"xnor_cifar bf16: the loss went {first:.4f} -> {last:.4f}, max |kernel| "
+             f"{_clamped(state)}")
+
+
+def bf16_path(card: str) -> dict:
+    """Path 13: the compute dtype, bf16 compute with float32 masters, across
+    the paths: bnn_lenet trained and served packed (K1, K2, K3, K5), the
+    W4A4 ResNet-20 packed (K5, K7), the W1A1 LM decoded packed (K1, K2, K3),
+    an xnor_cifar train step, and how the card's bf16 products of +-1 codes
+    land."""
+    bf16_sums_probe(card)
+    model, example_shape, test_set = bf16_lenet_train(card)
+    launches = bf16_lenet_serve(card, model, example_shape, test_set)
+    del model
+    launches.update(bf16_resnet(card))
+    launches.update(bf16_lm(card))
+    bf16_cifar_step(card)
+    return launches
+
+
 def ternary_lm_path(card: str):
     """Main path 10: the serving LM's shape with deterministic ternary
     weights (weights only), through DecodeEngine(packed=) unprepared and
@@ -5843,6 +6238,7 @@ def main() -> None:
     launches.update(phase("bnn_lenet adam8", adam8_path, card))
     launches.update(phase("digits g6 + elastic train", digits_path, card))
     launches.update(phase("xnor digits + bnn_lenet_as", xnor_digits_path, card))
+    launches.update(phase("bf16 compute", bf16_path, card))
     launches["decode_lm"] = phase("decode LM", decode_path, card)
     launches.update(phase("resnet", resnet_path, card))
     launches.update(phase("W4A4 LM", w4a4_lm_path, card))
@@ -5880,8 +6276,9 @@ def main() -> None:
     # ResNet's
     fused_paths = {"decode_binary_weights": ("bnn_lenet", "xnor_cifar_packed",
                                              "bnn_lenet_trained", "xnor_cifar_trained",
-                                             "bnn_lenet_exported", "xnor_digits_a1_trained"),
-                   "decode_dorefa_weights": ("resnet_w4a4_packed",)}
+                                             "bnn_lenet_exported", "xnor_digits_a1_trained",
+                                             "bnn_lenet_bf16"),
+                   "decode_dorefa_weights": ("resnet_w4a4_packed", "resnet_w4a4_bf16")}
     rows = []
     for name, (cu, replaces) in meta.items():
         s = summary[name]

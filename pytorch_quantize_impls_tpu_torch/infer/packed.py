@@ -46,12 +46,18 @@ As in the JAX package, the quantized-input conv path decodes its weights on
 every call and does not read ``prepare()``'s buffer; a real-input conv reads
 it when it is there (log: K9 on every unprepared call). The unprepared log
 dense layer rounds its input to bf16 and the prepared one does not, as in
-the JAX package. ``pack_model`` refuses log and lin layers with quantized
-inputs (``quantize_input=True``): the JAX package's packed paths ignore that
-quantizer (ROADMAP section 3). ``pack_model`` and ``packed_apply`` refuse a
-model with a learnable activation scale (``act_scale``, config
-``bnn_lenet_as``): the packed paths binarize the input to +-1 and would drop
-g, as the JAX package's pack and export do (ROADMAP section 3).
+the JAX package. Every branch returns at the input's dtype, as the JAX
+package's do: a bf16 input (a model with ``dtype=torch.bfloat16``) gets the
+float32 sums of the integer kernels rounded once to bf16; a real-input layer
+multiplies at the input's dtype, and where alpha or a bias follows, a bf16
+product is taken in float32 and rounded once after them (JAX's
+``preferred_element_type=float32``). ``pack_model`` refuses log and lin
+layers with quantized inputs (``quantize_input=True``): the JAX package's
+packed paths ignore that quantizer (ROADMAP section 3). ``pack_model`` and
+``packed_apply`` refuse a model with a learnable activation scale
+(``act_scale``, config ``bnn_lenet_as``): the packed paths binarize the
+input to +-1 and would drop g, as the JAX package's pack and export do
+(ROADMAP section 3).
 """
 
 from __future__ import annotations
@@ -299,6 +305,15 @@ def prepare(packed: PackedModel) -> PackedModel:
     }
 
 
+def _unrounded(x: torch.Tensor, rec: PackedLayer, bias) -> bool:
+    """True where a real-input layer's product of values narrower than
+    float32 is taken in float32 (exact products, float32 sums) because alpha
+    or a bias follows it; otherwise its one rounding to x's dtype comes at
+    the end either way."""
+    return x.dtype not in (torch.float32, torch.float64) and (
+        rec.alpha is not None or bias is not None)
+
+
 def _dense_forward(rec: PackedLayer, x: torch.Tensor, bias) -> torch.Tensor:
     # the GEMM kernels take (M, K): fold any leading batch/sequence dims
     lead = x.shape[:-1]
@@ -326,8 +341,11 @@ def _dense_forward_2d(rec: PackedLayer, x: torch.Tensor, bias) -> torch.Tensor:
         y = sm.shift_gemm(x, rec.packed, fsr=rec.fsr, bits=rec.w_bits)
     else:
         # real inputs: decoded weights, out-major, at the input dtype
-        w = rec.decoded if rec.decoded is not None else _decode_weights(rec)
-        y = (x @ _out_major(w, x.dtype)).to(torch.float32)
+        w = _out_major(rec.decoded if rec.decoded is not None else _decode_weights(rec), x.dtype)
+        if _unrounded(x, rec, bias):
+            y = x.float() @ w.float()
+        else:
+            y = (x @ w).to(torch.float32)
         if rec.alpha is not None:
             y = y * rec.alpha[None, :]
     if bias is not None:
@@ -358,7 +376,8 @@ def _conv_forward(m: QuantConv, rec: PackedLayer, x: torch.Tensor, bias) -> torc
         # real inputs: decoded weights, float conv at the input dtype
         w2d = rec.decoded if rec.decoded is not None else _decode_weights(rec)
         w4d = w2d.T.reshape(cout, cin, kh, kw).to(x.dtype)
-        y = conv2d_nhwc(x, w4d, m.strides, m.padding)
+        xc = x.float() if _unrounded(x, rec, bias) else x
+        y = conv2d_nhwc(xc, w4d.to(xc.dtype), m.strides, m.padding)
         if rec.alpha is not None:
             y = y * rec.alpha
     if bias is not None:

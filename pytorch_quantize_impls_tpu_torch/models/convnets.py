@@ -32,8 +32,10 @@ so the head sees the (h, w, c) flattening the JAX model gives it. Module
 names match the flax ones (``conv0.conv``, ``bn0``, ..., ``head.dense``), so
 ``utils.bridge`` loads the JAX variables directly.
 
-Not ported: the compute ``dtype`` (bf16 compute with float32 masters) of
-both models, which raises ``NotImplementedError`` (ROADMAP queue 1, item 7).
+``dtype`` (``None`` or ``torch.bfloat16``) is both models' compute dtype:
+every conv, BatchNorm and head computes at it, ``fp32_first_last``'s plain
+first conv and head included (their weights are the unquantized float32
+masters), as in the JAX models.
 """
 
 from __future__ import annotations
@@ -52,13 +54,6 @@ from pytorch_quantize_impls_tpu_torch.nn.xnor import XNORConv, XNORLinear
 IMAGE_SHAPE = (32, 32, 3)  # CIFAR-10, NHWC without the batch
 
 
-def _refuse_dtype(model: str, dtype) -> None:
-    if dtype is not None:
-        raise NotImplementedError(
-            f"{model}'s compute dtype (bf16 compute, float32 masters) is not ported yet "
-            "(ROADMAP queue 1, item 7)")
-
-
 class XNORConvNet(nn.Module):
     def __init__(
         self,
@@ -72,7 +67,6 @@ class XNORConvNet(nn.Module):
         image_shape: Tuple[int, int, int] = IMAGE_SHAPE,
     ):
         super().__init__()
-        _refuse_dtype("XNORConvNet", dtype)
         self.widths = tuple(widths)
         self.quantized = quantized
         self.binarize_inputs = binarize_inputs
@@ -82,18 +76,20 @@ class XNORConvNet(nn.Module):
         height, width, cin = self.image_shape
         for i, w in enumerate(self.widths):
             if not quantized or (fp32_first_last and i == 0):
-                conv = Conv(cin, w, (3, 3), use_bias=False)
+                conv = Conv(cin, w, (3, 3), use_bias=False, dtype=dtype)
             else:
                 # the first conv sees real pixels in either mode
                 conv = XNORConv(cin, w, (3, 3), binarize_input=binarize_inputs and i > 0,
-                                use_input_scale_map=use_input_scale_map, use_bias=False)
+                                use_input_scale_map=use_input_scale_map, use_bias=False,
+                                dtype=dtype)
             self.add_module(f"conv{i}", conv)
-            self.add_module(f"bn{i}", BatchNorm(w))
+            self.add_module(f"bn{i}", BatchNorm(w, dtype=dtype))
             cin = w
         pools = 2 ** (len(self.widths) // 2)
         features = (height // pools) * (width // pools) * cin
-        self.head = (XNORLinear(features, classes) if quantized and not fp32_first_last
-                     else Dense(features, classes))
+        self.head = (XNORLinear(features, classes, dtype=dtype)
+                     if quantized and not fp32_first_last
+                     else Dense(features, classes, dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         relu = not (self.quantized and self.binarize_inputs)
@@ -117,19 +113,18 @@ class LogQuantVGGSmall(nn.Module):
         dtype: Optional[Any] = None,
     ):
         super().__init__()
-        _refuse_dtype("LogQuantVGGSmall", dtype)
         self.widths = tuple(widths)
         cin = IMAGE_SHAPE[2]
         for i, w in enumerate(self.widths):
             self.add_module(f"conv{i}", ConvQuantLog(cin, w, (3, 3), fsr=fsr, bits=bits,
-                                                     use_bias=False) if quantized
-                            else Conv(cin, w, (3, 3), use_bias=False))
-            self.add_module(f"bn{i}", BatchNorm(w))
+                                                     use_bias=False, dtype=dtype) if quantized
+                            else Conv(cin, w, (3, 3), use_bias=False, dtype=dtype))
+            self.add_module(f"bn{i}", BatchNorm(w, dtype=dtype))
             cin = w
         side = IMAGE_SHAPE[0] // 2 ** (len(self.widths) // 2)
         features = side * side * cin
-        self.head = (LinearQuantLog(features, classes, fsr=fsr, bits=bits) if quantized
-                     else Dense(features, classes))
+        self.head = (LinearQuantLog(features, classes, fsr=fsr, bits=bits, dtype=dtype)
+                     if quantized else Dense(features, classes, dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(len(self.widths)):

@@ -8,6 +8,10 @@ layers, so ``fc1`` sees the (h, w, c) flattening the JAX model gives it.
 Module names match the flax ones (``conv1.conv``, ``bn1``, ..., ``head.dense``;
 the ``quantized=False`` twin's plain layers are ``conv1``, ..., ``head``).
 
+``dtype`` (``None`` or ``torch.bfloat16``) is the compute dtype of every
+layer and BatchNorm, as in the JAX model; the master weights, BatchNorm's
+scale, bias and running statistics stay float32.
+
 ``BatchNorm`` is flax's in both modes: in training it normalizes by the
 batch statistics and moves the running ones, with flax's arithmetic. Inside
 :func:`recomputing` (the backward's second forward of a checkpointed block,
@@ -19,6 +23,7 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -51,18 +56,23 @@ class BatchNorm(nn.Module):
     training mode it uses the batch mean and flax's fast variance
     ``max(0, mean(x^2) - mean(x)^2)`` (biased; the same value goes into
     ``running_var``) and moves the running statistics as
-    ``momentum * running + (1 - momentum) * batch``."""
+    ``momentum * running + (1 - momentum) * batch``. As flax 0.12's, it
+    reduces and normalizes in float32 (or x's dtype where it is wider), then
+    casts the output to ``dtype`` where one is given."""
 
-    def __init__(self, features: int, epsilon: float = 1e-5, momentum: float = 0.99):
+    def __init__(self, features: int, epsilon: float = 1e-5, momentum: float = 0.99,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.epsilon = epsilon
         self.momentum = momentum
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training:
             axes = tuple(range(x.ndim - 1))
             mean = x.mean(axes)
@@ -75,7 +85,8 @@ class BatchNorm(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.epsilon) * self.weight
-        return (x - mean) * mul + self.bias
+        y = (x - mean) * mul + self.bias
+        return y if self.dtype is None else y.to(self.dtype)
 
 
 def max_pool_nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -100,10 +111,11 @@ class BNNLeNet(nn.Module):
     the float32 twin (flax ``nn.Conv``/``nn.Dense`` layers, same names).
     ``act_scale=True`` (config ``bnn_lenet_as``) gives every binarized input
     its learnable per-channel scale: ``conv2``, ``fc1`` and ``head`` hold an
-    ``act_scale`` and ``conv1``, which sees real pixels, none."""
+    ``act_scale`` and ``conv1``, which sees real pixels, none. ``dtype``: the
+    compute dtype of every layer and BatchNorm."""
 
     def __init__(self, classes: int = 10, width: int = 32, quantized: bool = True,
-                 act_scale: bool = False):
+                 act_scale: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
         w = width
 
@@ -111,21 +123,21 @@ class BNNLeNet(nn.Module):
             if quantized:
                 return BinConv(cin, cout, (5, 5), padding="VALID",
                                binarize_input=binarize_input, act_scale=act_scale,
-                               use_bias=False)
-            return Conv(cin, cout, (5, 5), padding="VALID", use_bias=False)
+                               use_bias=False, dtype=dtype)
+            return Conv(cin, cout, (5, 5), padding="VALID", use_bias=False, dtype=dtype)
 
         def dense(fin, fout):
             if quantized:
                 return LinearBin(fin, fout, binarize_input=True, act_scale=act_scale,
-                                 use_bias=False)
-            return Dense(fin, fout, use_bias=False)
+                                 use_bias=False, dtype=dtype)
+            return Dense(fin, fout, use_bias=False, dtype=dtype)
 
         self.conv1 = conv(1, w, binarize_input=False)  # real-valued input
-        self.bn1 = BatchNorm(w)
+        self.bn1 = BatchNorm(w, dtype=dtype)
         self.conv2 = conv(w, 2 * w, binarize_input=True)
-        self.bn2 = BatchNorm(2 * w)
+        self.bn2 = BatchNorm(2 * w, dtype=dtype)
         self.fc1 = dense(4 * 4 * 2 * w, 8 * w)
-        self.bn3 = BatchNorm(8 * w)
+        self.bn3 = BatchNorm(8 * w, dtype=dtype)
         self.head = dense(8 * w, classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -16,8 +16,13 @@ activation quantizer. ``remat=True`` runs each block under
 ``torch.utils.checkpoint`` (JAX's ``nn.remat``): its activations are
 recomputed in the backward instead of kept, and BatchNorm moves its running
 statistics only in the first forward (``models.lenet.recomputing``), so a
-step gives the same bits either way. The compute ``dtype`` is not ported
-(ROADMAP queue 1, item 7).
+step gives the same bits either way.
+
+``dtype`` (``None`` or ``torch.bfloat16``) is the compute dtype of the
+stem, every block conv, projection and BatchNorm, as in the JAX model; the
+global mean is taken in float32 and rounded to it, as ``jnp.mean`` does,
+and the head computes at float32 (or wider), so the logits are float32
+under any compute dtype (DoReFa keeps the last layer full precision).
 """
 
 from __future__ import annotations
@@ -40,24 +45,25 @@ class BasicBlock(nn.Module):
     its own input (``a_bits``), so the residual stream stays real."""
 
     def __init__(self, in_channels, features, strides=1, *, w_bits=4, a_bits=4, a_quant="fixed",
-                 quantized=True):
+                 quantized=True, dtype=None):
         super().__init__()
         s = (strides, strides)
-        q = dict(bits=w_bits, a_bits=a_bits or None, a_quant=a_quant, use_bias=False)
+        q = dict(bits=w_bits, a_bits=a_bits or None, a_quant=a_quant, use_bias=False, dtype=dtype)
 
         def conv(cin, stride):
             if quantized:
                 return DorefaConv(cin, features, strides=stride, **q)
-            return Conv(cin, features, (3, 3), strides=stride, use_bias=False)
+            return Conv(cin, features, (3, 3), strides=stride, use_bias=False, dtype=dtype)
 
         self.conv1 = conv(in_channels, s)
-        self.bn1 = BatchNorm(features)
+        self.bn1 = BatchNorm(features, dtype=dtype)
         self.conv2 = conv(features, (1, 1))
-        self.bn2 = BatchNorm(features)
+        self.bn2 = BatchNorm(features, dtype=dtype)
         self.proj = self.bn_proj = None
         if strides != 1 or in_channels != features:
-            self.proj = Conv(in_channels, features, (1, 1), strides=s, use_bias=False)
-            self.bn_proj = BatchNorm(features)
+            self.proj = Conv(in_channels, features, (1, 1), strides=s, use_bias=False,
+                             dtype=dtype)
+            self.bn_proj = BatchNorm(features, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = torch.relu(self.bn1(self.conv1(x)))
@@ -77,21 +83,17 @@ class DorefaResNet20(nn.Module):
                  a_quant: str = "fixed", width: int = 16, quantized: bool = True,
                  remat: bool = False, dtype: Optional[Any] = None):
         super().__init__()
-        if dtype is not None:
-            raise NotImplementedError(
-                "DorefaResNet20's compute dtype (bf16 compute, float32 masters) is not ported "
-                "yet (ROADMAP queue 1, item 7)")
         self.w_bits, self.a_bits, self.a_quant, self.width = w_bits, a_bits, a_quant, width
         self.quantized, self.remat = quantized, remat
         w = width
-        self.stem = Conv(3, w, (3, 3), use_bias=False)
-        self.bn_stem = BatchNorm(w)
+        self.stem = Conv(3, w, (3, 3), use_bias=False, dtype=dtype)
+        self.bn_stem = BatchNorm(w, dtype=dtype)
         cin = w
         for stage, (f, s) in enumerate([(w, 1), (2 * w, 2), (4 * w, 2)]):
             for block in range(3):
                 self.add_module(f"stage{stage}_block{block}", BasicBlock(
                     cin, f, s if block == 0 else 1, w_bits=w_bits, a_bits=a_bits, a_quant=a_quant,
-                    quantized=quantized,
+                    quantized=quantized, dtype=dtype,
                 ))
                 cin = f
         self.head = Dense(4 * w, classes)
@@ -107,4 +109,6 @@ class DorefaResNet20(nn.Module):
                 x = checkpoint(blk, x, use_reentrant=False, context_fn=_remat_contexts)
             else:
                 x = blk(x)
-        return self.head(x.mean(dim=(1, 2)))
+        # jnp.mean's float32 sum, rounded to x's dtype; the head at float32
+        acc = torch.promote_types(x.dtype, torch.float32)
+        return self.head(x.to(acc).mean(dim=(1, 2)).to(x.dtype).to(acc))

@@ -19,7 +19,8 @@ with the flax leaf names and layouts:
                            "index": (b,) int32}},
      "pos_index": (b,) int32}
 
-(``kv_bits=None`` keeps ``k_raw``/``v_raw`` (b, cl, h, hd) float32 instead.)
+(``kv_bits=None`` keeps ``k_raw``/``v_raw`` (b, cl, h, hd) at the compute
+dtype instead.)
 The forward updates the dict in place: this call's K/V are written into the
 cache tensors by indexed assignment at each slot's cursor, and the cursors
 are replaced by new tensors. It returns the same dict. Cursors are per slot,
@@ -38,6 +39,12 @@ model has no ``xnor`` weight quantizer, so ``scheme="xnor"`` raises
 ``ValueError`` there and here. Dense FFN; ``kv_bits`` 8 (2..8) or ``None``.
 MoE (``n_experts > 0``) and an injected ``attention_fn`` wait for ROADMAP
 queue 1 item 6 and raise ``NotImplementedError``.
+
+``dtype`` (``None`` or ``torch.bfloat16``) is the compute dtype of every
+projection, as in the JAX model: the embedding sum is cast to it, the
+residual stream and K/V stay at it, the scores and softmax are float32 and
+cast back to q's dtype; the embedding, the LayerNorms (float32 outputs)
+and the tied head stay float32, so the logits are float32.
 """
 
 from __future__ import annotations
@@ -141,6 +148,7 @@ class QuantAttention(nn.Module):
         cache_len: int = 0,
         kv_bits: Optional[int] = 8,
         attention_fn=None,
+        dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         if attention_fn is not None:
@@ -151,13 +159,14 @@ class QuantAttention(nn.Module):
         self.causal = causal
         self.cache_len = cache_len
         self.kv_bits = kv_bits
+        self.dtype = dtype
         wq = _weight_quant(scheme, w_bits, fsr)
         aq = _act_quant(scheme, a_bits)
 
         def proj():
             return QuantDense(
                 d_model, d_model, weight_quant=wq, input_quant=aq, use_bias=False,
-                scheme=scheme, w_bits=w_bits, a_bits=a_bits, fsr=fsr,
+                scheme=scheme, w_bits=w_bits, a_bits=a_bits, fsr=fsr, dtype=dtype,
             )
 
         self.q, self.k, self.v, self.out = proj(), proj(), proj(), proj()
@@ -188,10 +197,11 @@ class QuantAttention(nn.Module):
                 "v_codes": torch.zeros((b, cl, h, hd), dtype=torch.int8, device=device),
                 "v_scale": torch.zeros((b, cl, h), dtype=torch.float32, device=device),
             }
-        else:
+        else:  # at k's dtype: the projections' compute dtype
+            raw = self.dtype or torch.float32
             cache = {
-                "k_raw": torch.zeros((b, cl, h, hd), dtype=torch.float32, device=device),
-                "v_raw": torch.zeros((b, cl, h, hd), dtype=torch.float32, device=device),
+                "k_raw": torch.zeros((b, cl, h, hd), dtype=raw, device=device),
+                "v_raw": torch.zeros((b, cl, h, hd), dtype=raw, device=device),
             }
         cache["index"] = torch.zeros((b,), dtype=torch.int32, device=device)
         return cache
@@ -247,6 +257,7 @@ class QuantTransformerBlock(nn.Module):
         cache_len: int = 0,
         kv_bits: Optional[int] = 8,
         attention_fn=None,
+        dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         if n_experts > 0:
@@ -255,11 +266,12 @@ class QuantTransformerBlock(nn.Module):
         self.attn = QuantAttention(
             d_model, n_heads, scheme=scheme, w_bits=w_bits, a_bits=a_bits, fsr=fsr,
             causal=causal, cache_len=cache_len, kv_bits=kv_bits, attention_fn=attention_fn,
+            dtype=dtype,
         )
         self.ln2 = LayerNorm(d_model)
         wq, aq = _weight_quant(scheme, w_bits, fsr), _act_quant(scheme, a_bits)
         meta = dict(weight_quant=wq, input_quant=aq, scheme=scheme, w_bits=w_bits,
-                    a_bits=a_bits, fsr=fsr)
+                    a_bits=a_bits, fsr=fsr, dtype=dtype)
         self.ffn_in = QuantDense(d_model, d_ff, **meta)
         self.ffn_out = QuantDense(d_ff, d_model, **meta)
         self.sign_act = a_bits == 1 and scheme in ("binary", "xnor")
@@ -298,19 +310,21 @@ class QuantTransformerLM(nn.Module):
         decode: bool = False,
         kv_bits: Optional[int] = 8,
         attention_fn=None,
+        dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         self.vocab, self.d_model, self.n_heads = vocab, d_model, n_heads
         self.n_layers, self.d_ff, self.max_len = n_layers, d_ff, max_len
         self.scheme, self.w_bits, self.a_bits = scheme, w_bits, a_bits
         self.n_experts, self.decode, self.kv_bits = n_experts, decode, kv_bits
+        self.dtype = dtype
         self.embed = nn.Embedding(vocab, d_model)
         self.pos_embed = nn.Parameter(torch.randn(max_len, d_model) * 0.02)
         for i in range(n_layers):
             self.add_module(f"block{i}", QuantTransformerBlock(
                 d_model, n_heads, d_ff, scheme=scheme, w_bits=w_bits, a_bits=a_bits,
                 fsr=fsr, n_experts=n_experts, cache_len=max_len, kv_bits=kv_bits,
-                attention_fn=attention_fn,
+                attention_fn=attention_fn, dtype=dtype,
             ))
         self.ln_f = LayerNorm(d_model)
 
@@ -343,6 +357,7 @@ class QuantTransformerLM(nn.Module):
             if cache is not None:
                 raise ValueError("a cache was given to a model not in decode mode")
             x = x + self.pos_embed[None, :s]
+        x = x.to(self.dtype or x.dtype)
         for i, blk in enumerate(self.blocks()):
             x = blk(x, cache[f"block{i}"]["attn"] if self.decode else None)
         logits = self.ln_f(x) @ self.embed.weight.T

@@ -34,8 +34,19 @@ layers' grid penalty) exposes it as ``penalty()``;
 :func:`collect_elastic_losses` sums every such penalty of a model, as the
 JAX package sums its ``losses`` collection.
 
-``Dense`` and ``Conv`` are the float32 layers of the ``quantized=False``
-twins (flax's ``nn.Dense``/``nn.Conv``). :func:`init_like_flax` draws every
+``dtype`` is the compute dtype (``None`` or ``torch.bfloat16``), the JAX
+layers' ``dtype``: the input is quantized at its own dtype and the float32
+master at float32, then both are cast to ``dtype`` before the product, and
+the output scale and the bias are cast to the output's dtype. ``None``
+computes at the promoted dtype of input and weight, as ``jnp.dot`` does.
+Where the product is a sum of +-1 terms (``_integer_sums``) and ``dtype`` is
+narrower than float32, it is taken in float32, where it is the exact
+integer, and rounded once to ``dtype``: what the JAX package's bf16 product
+gives on the CPU, on any device.
+
+``Dense`` and ``Conv`` are the plain layers of the ``quantized=False``
+twins (flax's ``nn.Dense``/``nn.Conv``, input, kernel and bias cast to
+``dtype``). :func:`init_like_flax` draws every
 layer's weight as flax's initializers do (``glorot_normal`` for quantized
 layers, ``lecun_normal`` for the plain ones, both truncated normals), from a
 seeded generator on the CPU, so a model draws the same weights on any
@@ -140,10 +151,15 @@ def _apply_quant(q, x: torch.Tensor, module: nn.Module) -> torch.Tensor:
     return q(x, current_generator())
 
 
+# dtypes that hold every sum of +-1 terms a layer makes exactly
+_WIDE = (torch.float32, torch.float64)
+
+
 class _QuantLayer(nn.Module):
     kernel_init = "glorot_normal"  # init_like_flax's rule: or lecun_normal, uniform
 
-    def __init__(self, weight_quant, input_quant, out_scale, scheme, w_bits, a_bits, fsr):
+    def __init__(self, weight_quant, input_quant, out_scale, scheme, w_bits, a_bits, fsr,
+                 act_scale, dtype):
         super().__init__()
         self.weight_quant = weight_quant
         self.input_quant = input_quant
@@ -152,6 +168,10 @@ class _QuantLayer(nn.Module):
         self.w_bits = w_bits
         self.a_bits = a_bits  # 0 = inputs not quantized
         self.fsr = fsr
+        self.dtype = dtype  # compute dtype; None: the promoted dtype of input and weight
+        # +-1 inputs and weights: every output of the product is an integer
+        self._integer_sums = (scheme in ("binary", "xnor") and a_bits == 1 and not act_scale
+                              and not getattr(weight_quant, "stochastic", False))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         fn = _interceptor.get()
@@ -160,14 +180,22 @@ class _QuantLayer(nn.Module):
         return self.fake_quant_forward(x)
 
     def _quantized(self, x):
+        """The quantized input and weight, both at the compute dtype."""
         x = _apply_quant(self.input_quant, x, self)
-        return x, _apply_quant(self.weight_quant, self.weight, self)
+        w = _apply_quant(self.weight_quant, self.weight, self)
+        cdt = self.dtype or torch.promote_types(x.dtype, w.dtype)
+        return x.to(cdt), w.to(cdt)
+
+    def _exact(self, x: torch.Tensor) -> bool:
+        """True where the product's integer sums are taken in float32 and
+        rounded once to the narrower compute dtype."""
+        return self._integer_sums and x.dtype not in _WIDE
 
     def _epilogue(self, y):
         if self.out_scale is not None:
-            y = y * self.out_scale(self.weight)
+            y = y * self.out_scale(self.weight).to(y.dtype)
         if self.bias is not None:
-            y = y + self.bias
+            y = y + self.bias.to(y.dtype)
         return y
 
 
@@ -187,14 +215,19 @@ class QuantDense(_QuantLayer):
         w_bits: int = 1,
         a_bits: int = 0,
         fsr: float = 0.0,
+        act_scale: bool = False,
+        dtype: Optional[torch.dtype] = None,
     ):
-        super().__init__(weight_quant, input_quant, out_scale, scheme, w_bits, a_bits, fsr)
+        super().__init__(weight_quant, input_quant, out_scale, scheme, w_bits, a_bits, fsr,
+                         act_scale, dtype)
         self.weight = nn.Parameter(torch.empty(features, in_features))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
         nn.init.xavier_normal_(self.weight)
 
     def fake_quant_forward(self, x: torch.Tensor) -> torch.Tensor:
         x, w = self._quantized(x)
+        if self._exact(x):
+            return self._epilogue((x.float() @ w.float().T).to(x.dtype))
         return self._epilogue(x @ w.T)
 
 
@@ -221,50 +254,55 @@ class QuantConv(_QuantLayer):
         a_bits: int = 0,
         fsr: float = 0.0,
         act_scale: bool = False,
+        dtype: Optional[torch.dtype] = None,
     ):
-        super().__init__(weight_quant, input_quant, out_scale, scheme, w_bits, a_bits, fsr)
+        super().__init__(weight_quant, input_quant, out_scale, scheme, w_bits, a_bits, fsr,
+                         act_scale, dtype)
         self.kernel_size = tuple(kernel_size)
         self.strides = tuple(strides)
         self.padding = padding
-        self._integer_sums = (scheme in ("binary", "xnor") and a_bits == 1 and not act_scale
-                              and not getattr(weight_quant, "stochastic", False))
         self.weight = nn.Parameter(torch.empty(features, in_channels, *kernel_size))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
         nn.init.xavier_normal_(self.weight)
 
     def fake_quant_forward(self, x: torch.Tensor) -> torch.Tensor:
         x, w = self._quantized(x)
-        y = conv2d_nhwc(x, w, self.strides, self.padding)
+        exact = self._exact(x)
+        y = conv2d_nhwc(x.float() if exact else x, w.float() if exact else w, self.strides,
+                        self.padding)
         if self._integer_sums:
             # +-1 inputs and weights: every output is an integer, which the
             # algorithm cuDNN picks misses by up to ~1e-4 at some shapes; the
             # JAX package's convs are exact, and ties among the sums decide
-            # where a max pool's gradient goes
+            # where a max pool's gradient goes. Rounded before the one
+            # rounding to a narrower compute dtype.
             y = round_ste(y)
-        return self._epilogue(y)
+        return self._epilogue(y.to(x.dtype))
 
 
 class Dense(QuantDense):
-    """Float32 dense layer (flax ``nn.Dense``): no quantizer, ``lecun_normal``
-    init."""
+    """Plain dense layer (flax ``nn.Dense``): no quantizer, ``lecun_normal``
+    init, float32 weights, computed at ``dtype``."""
 
     kernel_init = "lecun_normal"
 
-    def __init__(self, in_features: int, features: int, *, use_bias: bool = True):
-        super().__init__(in_features, features, use_bias=use_bias)
+    def __init__(self, in_features: int, features: int, *, use_bias: bool = True,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__(in_features, features, use_bias=use_bias, dtype=dtype)
 
 
 class Conv(QuantConv):
-    """Float32 NHWC conv (flax ``nn.Conv``): no quantizer, ``lecun_normal``
-    init, JAX's padding."""
+    """Plain NHWC conv (flax ``nn.Conv``): no quantizer, ``lecun_normal``
+    init, JAX's padding, float32 weights, computed at ``dtype``."""
 
     kernel_init = "lecun_normal"
 
     def __init__(self, in_channels: int, features: int, kernel_size: Tuple[int, int] = (3, 3), *,
                  strides: Tuple[int, int] = (1, 1),
-                 padding: Union[str, Sequence[Tuple[int, int]]] = "SAME", use_bias: bool = True):
+                 padding: Union[str, Sequence[Tuple[int, int]]] = "SAME", use_bias: bool = True,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__(in_channels, features, kernel_size, strides=strides, padding=padding,
-                         use_bias=use_bias)
+                         use_bias=use_bias, dtype=dtype)
 
 
 # flax's variance_scaling: the std of a unit normal truncated to [-2, 2]

@@ -15,7 +15,9 @@ per-input-channel scale ``g`` (init 1) on the binarized input, which becomes
 ``binary_tanh(x) * g``. It lives on the wrapper as ``act_scale``, as the flax
 parameter ``("fc1", "act_scale")`` does; without ``binarize_input`` no scale
 is made, as in the JAX package. The packed paths refuse such a layer
-(``infer.pack_model``): the JAX package's pack and export drop g.
+(``infer.pack_model``): the JAX package's pack and export drop g. ``dtype``
+is the inner layer's compute dtype (``nn.base``); g is cast to the
+activation's dtype.
 
 ``ShiftNormBatch`` is the BNN paper's shift-based BatchNorm (§2.3): the
 scale ``gamma * rsqrt(var + eps)`` is rounded to the nearest power of two,
@@ -25,7 +27,7 @@ with an identity STE.
 from __future__ import annotations
 
 from functools import partial
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -81,16 +83,20 @@ class LinearBin(_BinaryWrapper):
         act_scale: bool = False,
         ste_mode: str = "clip",
         use_bias: bool = True,
+        dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
+        input_quant = self._input_quant(in_features, binarize_input, act_scale)
         self.dense = QuantDense(
             in_features,
             features,
             weight_quant=_binary_weight_quant(deterministic, ste_mode),
-            input_quant=self._input_quant(in_features, binarize_input, act_scale),
+            input_quant=input_quant,
             use_bias=use_bias,
             scheme="binary",
             a_bits=1 if binarize_input else 0,
+            act_scale=self.act_scale is not None,
+            dtype=dtype,
         )
 
     def forward(self, x):
@@ -113,6 +119,7 @@ class BinConv(_BinaryWrapper):
         act_scale: bool = False,
         ste_mode: str = "clip",
         use_bias: bool = True,
+        dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         input_quant = self._input_quant(in_channels, binarize_input, act_scale)
@@ -128,6 +135,7 @@ class BinConv(_BinaryWrapper):
             scheme="binary",
             a_bits=1 if binarize_input else 0,
             act_scale=self.act_scale is not None,
+            dtype=dtype,
         )
 
     def forward(self, x):

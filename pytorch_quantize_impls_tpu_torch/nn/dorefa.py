@@ -13,7 +13,8 @@ real. Children are named as the flax ones (``conv``, ``dense``, ``act``).
 ``ops.dorefa_gradient``) in training mode only, before PACT or the input
 quantizer, drawing its noise from the train step's generator
 (``nn.base.current_generator``; outside a train step it raises). In eval
-mode it draws nothing.
+mode it draws nothing. ``dtype`` is the inner layer's compute dtype
+(``nn.base``); PACT computes at float32 or wider, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from __future__ import annotations
 from functools import partial
 from typing import Optional, Sequence, Tuple, Union
 
+import torch
 from torch import nn
 
 from pytorch_quantize_impls_tpu_torch.nn.base import QuantConv, QuantDense, current_generator
@@ -34,7 +36,7 @@ from pytorch_quantize_impls_tpu_torch.ops.dorefa import (
 A_QUANTS = ("fixed", "pact")
 
 
-def _quant_kwargs(bits: int, a_bits: Optional[int], a_quant: str):
+def _quant_kwargs(bits: int, a_bits: Optional[int], a_quant: str, dtype):
     """(PACT child or None, the Quant layer's quantizers and metadata)."""
     if a_quant not in A_QUANTS:
         raise ValueError(f"a_quant must be one of {A_QUANTS}, got {a_quant!r}")
@@ -48,6 +50,7 @@ def _quant_kwargs(bits: int, a_bits: Optional[int], a_quant: str):
         scheme="dorefa",
         w_bits=bits,
         a_bits=0 if pact_input else (a_bits or 0),
+        dtype=dtype,
     )
     return act, kw
 
@@ -72,10 +75,11 @@ class LinearDorefa(nn.Module):
         g_bits: Optional[int] = None,
         a_quant: str = "fixed",
         use_bias: bool = True,
+        dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         self.g_bits = g_bits
-        self.act, kw = _quant_kwargs(bits, a_bits, a_quant)
+        self.act, kw = _quant_kwargs(bits, a_bits, a_quant, dtype)
         self.dense = QuantDense(in_features, features, use_bias=use_bias, **kw)
 
     def forward(self, x):
@@ -98,10 +102,11 @@ class DorefaConv(nn.Module):
         g_bits: Optional[int] = None,
         a_quant: str = "fixed",
         use_bias: bool = True,
+        dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         self.g_bits = g_bits
-        self.act, kw = _quant_kwargs(bits, a_bits, a_quant)
+        self.act, kw = _quant_kwargs(bits, a_bits, a_quant, dtype)
         self.conv = QuantConv(
             in_channels, features, kernel_size, strides=strides, padding=padding,
             use_bias=use_bias, **kw,

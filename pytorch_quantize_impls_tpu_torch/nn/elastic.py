@@ -10,12 +10,14 @@ the ``losses`` collection; here ``penalty()`` returns it, and
 directly in the layer (flax path ``['layer0']['kernel']``, no ``dense``
 child), so the clamp after each step clips them as the JAX package's does.
 ``ElasticConv`` pads as JAX does (``kernels.conv.conv_pads``). Grids:
-``"binary"`` (+-1), ``"lin"`` and ``"log"`` (FSR grids).
+``"binary"`` (+-1), ``"lin"`` and ``"log"`` (FSR grids). ``dtype`` is the
+compute dtype (``nn.base``): with bf16 the output stays bf16, the bias cast
+to it.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -34,9 +36,10 @@ class ElasticLinear(QuantDense):
     """Float32 dense layer with a grid penalty on its weight."""
 
     def __init__(self, in_features: int, features: int, *, grid: str = "binary",
-                 fsr: float = 0.0, bits: int = 4, use_bias: bool = True):
+                 fsr: float = 0.0, bits: int = 4, use_bias: bool = True,
+                 dtype: Optional[torch.dtype] = None):
         _check_grid(grid)
-        super().__init__(in_features, features, use_bias=use_bias)
+        super().__init__(in_features, features, use_bias=use_bias, dtype=dtype)
         self.grid, self.grid_fsr, self.grid_bits = grid, fsr, bits
 
     def penalty(self) -> torch.Tensor:
@@ -49,10 +52,11 @@ class ElasticConv(QuantConv):
     def __init__(self, in_channels: int, features: int, kernel_size: Tuple[int, int] = (3, 3),
                  *, strides: Tuple[int, int] = (1, 1),
                  padding: Union[str, Sequence[Tuple[int, int]]] = "SAME", grid: str = "binary",
-                 fsr: float = 0.0, bits: int = 4, use_bias: bool = True):
+                 fsr: float = 0.0, bits: int = 4, use_bias: bool = True,
+                 dtype: Optional[torch.dtype] = None):
         _check_grid(grid)
         super().__init__(in_channels, features, kernel_size, strides=strides, padding=padding,
-                         use_bias=use_bias)
+                         use_bias=use_bias, dtype=dtype)
         self.grid, self.grid_fsr, self.grid_bits = grid, fsr, bits
 
     def penalty(self) -> torch.Tensor:

@@ -12,7 +12,8 @@ master weight, metadata for training.
 The log layers are the ones ``infer.pack_model`` lowers to the shift
 kernels (``kernels.shift_matmul``). ``quantize_input=True`` sets
 ``a_bits = w_bits``, which ``infer.pack_model`` refuses: the JAX package's
-packed paths ignore the input quantizer (ROADMAP section 3).
+packed paths ignore the input quantizer (ROADMAP section 3). ``dtype`` is
+the inner layer's compute dtype (``nn.base``).
 """
 
 from __future__ import annotations
@@ -20,13 +21,14 @@ from __future__ import annotations
 from functools import partial
 from typing import Optional, Sequence, Tuple, Union
 
+import torch
 from torch import nn
 
 from pytorch_quantize_impls_tpu_torch.nn.base import QuantConv, QuantDense
 from pytorch_quantize_impls_tpu_torch.ops.log_lin import lin_quant, log_quant
 
 
-def _quant_kwargs(scheme, fsr, bits, bitwight, quantize_input, lin_back):
+def _quant_kwargs(scheme, fsr, bits, bitwight, quantize_input, lin_back, dtype):
     """(clip bound, the Quant layer's quantizers and metadata)."""
     w_bits = bits if bitwight is None else bitwight
     if scheme == "log":
@@ -40,6 +42,7 @@ def _quant_kwargs(scheme, fsr, bits, bitwight, quantize_input, lin_back):
         w_bits=w_bits,
         a_bits=w_bits if quantize_input else 0,
         fsr=fsr,
+        dtype=dtype,
     )
     return 2.0**fsr, kw
 
@@ -58,10 +61,11 @@ class _LogLinDense(nn.Module):
         quantize_input: bool = False,
         lin_back: bool = True,
         use_bias: bool = True,
+        dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         self.clip_bound, kw = _quant_kwargs(
-            self.scheme, fsr, bits, bitwight, quantize_input, lin_back
+            self.scheme, fsr, bits, bitwight, quantize_input, lin_back, dtype
         )
         self.dense = QuantDense(in_features, features, use_bias=use_bias, **kw)
 
@@ -86,10 +90,11 @@ class _LogLinConv(nn.Module):
         quantize_input: bool = False,
         lin_back: bool = True,
         use_bias: bool = True,
+        dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         self.clip_bound, kw = _quant_kwargs(
-            self.scheme, fsr, bits, bitwight, quantize_input, lin_back
+            self.scheme, fsr, bits, bitwight, quantize_input, lin_back, dtype
         )
         self.conv = QuantConv(
             in_channels, features, kernel_size, strides=strides, padding=padding,

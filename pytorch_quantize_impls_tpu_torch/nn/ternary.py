@@ -7,6 +7,7 @@ and ``TerConv`` (``scheme="ternary"``, ``w_bits=2``, children ``dense`` and
 :func:`ternary_spread_init`. ``deterministic=False`` draws the stochastic
 ternarization per training forward and evaluates with the clipped master
 ``clip(w, -1, 1)`` (E[T(w)] = clip(w)), as stochastic BinaryConnect does.
+``dtype`` is the inner layer's compute dtype (``nn.base``).
 """
 
 from __future__ import annotations
@@ -43,11 +44,12 @@ def _ternary_quant(deterministic: bool):
 
 class LinearTer(nn.Module):
     def __init__(self, in_features: int, features: int, *, deterministic: bool = True,
-                 use_bias: bool = True, generator: Optional[torch.Generator] = None):
+                 use_bias: bool = True, generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dense = QuantDense(
             in_features, features, weight_quant=_ternary_quant(deterministic),
-            use_bias=use_bias, scheme="ternary", w_bits=2,
+            use_bias=use_bias, scheme="ternary", w_bits=2, dtype=dtype,
         )
         self.dense.kernel_init = "uniform"
         ternary_spread_init(self.dense.weight, generator)
@@ -68,12 +70,13 @@ class TerConv(nn.Module):
         deterministic: bool = True,
         use_bias: bool = True,
         generator: Optional[torch.Generator] = None,
+        dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         self.conv = QuantConv(
             in_channels, features, kernel_size, strides=strides, padding=padding,
             weight_quant=_ternary_quant(deterministic), use_bias=use_bias,
-            scheme="ternary", w_bits=2,
+            scheme="ternary", w_bits=2, dtype=dtype,
         )
         self.conv.kernel_init = "uniform"
         ternary_spread_init(self.conv.weight, generator)

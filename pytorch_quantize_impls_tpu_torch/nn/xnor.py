@@ -9,14 +9,16 @@ op on ``sign(W)`` (clipped STE) and scales the output by alpha
 computed from the layer's real input outside the inner ``QuantConv``, so the
 packed path (``infer.packed_apply``, which intercepts the ``QuantConv``)
 keeps it; it is sliced ``[::s0, ::s1]`` at a stride > 1 and applied only
-where padding is ``"SAME"``, as in the JAX package. Children are named as
-the flax ones (``dense``, ``conv``).
+where padding is ``"SAME"``, as in the JAX package, at the output's dtype.
+``dtype`` is the inner layer's compute dtype (``nn.base``). Children are
+named as the flax ones (``dense``, ``conv``).
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
+import torch
 from torch import nn
 
 from pytorch_quantize_impls_tpu_torch import ops
@@ -27,7 +29,7 @@ class XNORLinear(nn.Module):
     """Dense layer with ``alpha_c sign(W)`` weights, alpha per out-feature."""
 
     def __init__(self, in_features: int, features: int, *, binarize_input: bool = False,
-                 use_bias: bool = True):
+                 use_bias: bool = True, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.dense = QuantDense(
             in_features,
@@ -38,6 +40,7 @@ class XNORLinear(nn.Module):
             use_bias=use_bias,
             scheme="xnor",
             a_bits=1 if binarize_input else 0,
+            dtype=dtype,
         )
 
     def forward(self, x):
@@ -60,6 +63,7 @@ class XNORConv(nn.Module):
         binarize_input: bool = False,
         use_input_scale_map: bool = True,
         use_bias: bool = True,
+        dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         self.kernel_size = tuple(kernel_size)
@@ -78,6 +82,7 @@ class XNORConv(nn.Module):
             use_bias=use_bias,
             scheme="xnor",
             a_bits=1 if binarize_input else 0,
+            dtype=dtype,
         )
 
     def forward(self, x):

@@ -33,8 +33,11 @@ class _Pact(torch.autograd.Function):
 
 
 def pact(x: torch.Tensor, alpha: torch.Tensor, bits: int = 4) -> torch.Tensor:
-    """PACT-quantize activations to ``bits`` over the learnable ``[0, alpha]``."""
-    alpha = alpha.to(x.dtype)
+    """PACT-quantize activations to ``bits`` over the learnable ``[0, alpha]``,
+    at float32 or x's dtype where it is wider: the JAX package's
+    ``result_type(x, float32)``, so a bf16 ``x`` gives float32."""
+    dtype = torch.promote_types(x.dtype, torch.float32)
+    x, alpha = x.to(dtype), alpha.to(dtype)
     if bits >= 32:
         return torch.minimum(torch.clamp(x, min=0.0), torch.clamp(alpha, min=1e-8))
     return _Pact.apply(x, alpha, float(2**bits - 1))

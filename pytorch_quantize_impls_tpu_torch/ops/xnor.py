@@ -61,11 +61,13 @@ def xnor_input_scale_map(
     """Input scale map ``K`` of a full-XNOR conv (paper section 3.2) on NHWC
     ``x``: ``A = mean over channels |x|``, then a stride-1 SAME conv with the
     ``1 / (kh kw)`` kernel, in float32 without TF32 (the JAX package asks
-    for HIGHEST precision). Returns (N, H, W, 1)."""
+    for HIGHEST precision). Returns (N, H, W, 1) at x's dtype; a narrower
+    one (bf16) takes the mean in float32, as ``jnp.mean`` does."""
     # imported here: kernels imports ops (the bit packing)
     from pytorch_quantize_impls_tpu_torch.kernels.conv import conv2d_nhwc
 
-    a = x.abs().mean(dim=channel_axis, keepdim=True)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    a = x.abs().to(acc).mean(dim=channel_axis, keepdim=True).to(x.dtype)
     kh, kw = kernel_size
     kern = torch.full((1, 1, kh, kw), 1.0 / (kh * kw), dtype=a.dtype, device=a.device)
     return conv2d_nhwc(a, kern, (1, 1), "SAME")

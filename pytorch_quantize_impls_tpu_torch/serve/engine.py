@@ -56,7 +56,10 @@ class InferenceEngine:
 
     ``forward`` is typically ``lambda x: infer.packed_apply(model, prepared,
     x)``. It receives a ``(bucket, *example_shape)`` tensor of ``dtype`` on
-    ``device`` and returns a tensor whose first axis is the batch.
+    ``device`` and returns a tensor whose first axis is the batch. Answers
+    are numpy rows; a bf16 output (a model with ``dtype=torch.bfloat16``)
+    comes back widened to float32, which holds it exactly (numpy has no
+    bf16).
     """
 
     def __init__(
@@ -137,7 +140,8 @@ class InferenceEngine:
     def _run(self, x: np.ndarray) -> np.ndarray:
         with torch.inference_mode():
             xt = torch.from_numpy(x).to(self._device, self._dtype)
-            return self._forward(xt).cpu().numpy()
+            y = self._forward(xt)
+            return (y.float() if y.dtype == torch.bfloat16 else y).cpu().numpy()
 
     def _dispatch_loop(self) -> None:
         max_b = self._buckets[-1]

@@ -18,9 +18,10 @@ port reads: batch size, lr, seed, the data directory, the elastic weight and
 its ramp (``train.accuracy_sweep``), ``warm_start``, the QAT warm start
 from the trained twin that ``train.accuracy_sweep`` applies, and the io
 fields ``train.run`` reads (checkpoint directory, metrics file). The mesh
-field and the other configs arrive with their ROADMAP items; the JAX
-config's ``profile_dir``, which nothing reads there, is left out (a trace
-is ``utils.trace``)."""
+field arrives with its ROADMAP item (queue 1, item 6); the JAX config's
+``profile_dir``, which nothing reads there, is left out (a trace is
+``utils.trace``). Neither package's config has a compute dtype: it is the
+models' ``dtype`` argument."""
 
 from __future__ import annotations
 

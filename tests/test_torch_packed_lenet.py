@@ -159,11 +159,13 @@ def test_build_model_bnn_lenet():
 
 @pytest.mark.parametrize("scheme", ["ternary", "xnor"])
 def test_unported_parts_raise(lenet, scheme):
-    """What the packed paths refuse or the port lacks raises: pack_model on a
-    learnable activation scale (act_scale, on the dense and the conv layer:
-    the packed paths would drop it) and the XNOR net's compute dtype (not
-    ported); a scheme no package packs raises in pack_model and in the
-    packed forward."""
+    """What the packed paths refuse raises: pack_model on a learnable
+    activation scale (act_scale, on the dense and the conv layer: the packed
+    paths would drop it), and a scheme no package packs, in pack_model and
+    in the packed forward. The XNOR net takes its compute dtype: packed at
+    bf16 its logits are bf16 with the argmax of its bf16 fake-quant forward
+    (the packed head adds alpha and the bias before its one rounding to
+    bf16, the fake-quant head after, as in the JAX package)."""
     _, _, tm, x = lenet
     with pytest.raises(ValueError, match="act_scale"):
         infer.pack_model(tnn.LinearBin(8, 4, binarize_input=True, act_scale=True).eval())
@@ -171,8 +173,14 @@ def test_unported_parts_raise(lenet, scheme):
         with pytest.raises(ValueError, match="act_scale"):
             infer.pack_model(tnn.BinConv(1, 4, (3, 3), binarize_input=True, act_scale=True))
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            models.XNORConvNet(dtype=torch.bfloat16)
+        xm = tnn.init_like_flax(models.XNORConvNet(widths=(8, 8), dtype=torch.bfloat16,
+                                                   image_shape=(8, 8, 1)), 0).eval()
+        xb = torch.from_numpy(x[:, :8, :8]).bfloat16()
+        got = infer.packed_apply(xm, infer.pack_model(xm), xb)
+        with torch.no_grad():
+            ref = xm(xb)
+        assert got.dtype == ref.dtype == torch.bfloat16
+        assert torch.equal(got.argmax(1), ref.argmax(1))
     with pytest.raises(ValueError, match="unpackable"):
         infer.pack_model(tnn.QuantDense(8, 4, scheme=f"{scheme}_stoch", w_bits=2).eval())
     rec = tpacked.PackedLayer(packed=torch.zeros(32, 4, dtype=torch.int32),

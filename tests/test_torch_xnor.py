@@ -247,8 +247,10 @@ def test_build_model_xnor_cifar():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build_model(cfg)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        models.XNORConvNet(dtype=torch.bfloat16)
+    # the compute dtype: every conv, BatchNorm and the head at bf16, float32 masters
+    bf16 = models.XNORConvNet(dtype=torch.bfloat16)
+    assert bf16.conv0.conv.dtype == bf16.bn3.dtype == bf16.head.dense.dtype == torch.bfloat16
+    assert {p.dtype for p in bf16.parameters()} == {torch.float32}
 
 
 # --- the binary fused chains and K5's threshold epilogue ------------------------
