@@ -205,6 +205,22 @@ on one NVIDIA GPU (built for Hopper, sm_90a).
    K5 is checked at xnor_digits_a1's conv1 (b = 1, 64, 256, the packed
    weight stage and the raw tile) and K2 at both digits convs' words, bit
    for bit, beside their main rows.
+   Then the compute dtype (phase ``bf16 compute``, bf16_path) and the
+   switch-routed MoE FFN (phase ``moe LM``, moe_lm_path): nn.QuantMoE of
+   every expert scheme card against CPU at capacity factors 2, 1 and 1e-9
+   (routing and keep masks equal, outputs, aux losses and gradients within
+   tolerance); the serving LM's shape with 8 binary experts per block
+   (capacity factor 2, ~2.1 GB of expert masters built once) through
+   DecodeEngine fake-quant, packed unprepared (K1 on the attention
+   projections, exactly 32 per forward) and prepared (K2 32 in prepare(),
+   K3 32 per forward), the experts fake-quant, as in the JAX package;
+   every engine's batches replayed through the next backend bit for bit;
+   prepared against fake-quant in lockstep (argmax >= 99%); prefill ms,
+   ms per step and tok/s at b = 1, 8, 32 with profiles; then a 2-layer
+   MoE LM (d 256, 8 experts) trained on a seeded next-token task: card
+   against CPU for one step under path 10's gate on its float twin (the
+   binary experts' shares reported), 20 steps with the clamp on the expert
+   kernels and not on the router, the loss falling, no kernel launched.
 5. Main path 2, the 1-bit transformer LM that scripts/perf_bench.py serves
    (d 1024, 8 layers, cache 1024, W1A1, int8 KV) from seeded random weights:
    bridge -> export_fused_decode (int8 and packed) -> DecodeEngine(fused=)
@@ -280,7 +296,9 @@ on one NVIDIA GPU (built for Hopper, sm_90a).
     and read just after; each kernel of the path must be > 0 (the trained
     paths: bnn_lenet_trained, bnn_lenet_trained_fused, bc_mlp_trained,
     bnn_lenet_exported, digits_g6_trained, xnor_digits_trained,
-    xnor_digits_a1_trained; bnn_lenet_as_served launches none).
+    xnor_digits_a1_trained; the MoE LM's moe_lm_unprepared and
+    moe_lm_prepared; bnn_lenet_as_served, moe_lm_fake_quant and
+    moe_lm_train launch none).
 17. Prints engine images/s, decode prefill ms and tokens/s, one JSON line
     with the kernels and their launches per path, and last
     ``{"ok": true, "device": {...}}``.
@@ -482,6 +500,22 @@ BF16_LM_REQUESTS = 16  # per DecodeEngine(packed=) of the bf16 W1A1 LM
 BF16_LM_ARGMAX_FLOOR = 0.99
 BF16_RESNET_B1_ROWS = 32  # ResNet rows at b=1; RESNET_EVAL at b=RESNET_BATCH
 BF16_CIFAR_STEPS = (20, 20)  # xnor_cifar bf16 at b=128: untimed, then timed by events
+# path 14: the switch-routed MoE FFN (nn.QuantMoE) in the LM
+MOE_LM_CFG = dict(LM_CFG, n_experts=8, capacity_factor=2.0)  # the JAX LM's default factor
+MOE_REQUESTS = 32  # per DecodeEngine of the MoE LM, from CLIENTS threads
+MOE_ARGMAX_FLOOR = 0.99  # packed against fake-quant in lockstep, as the W1A1 LM phase
+MOE_LAYER = (64, 4, 128, 256)  # the layer card against CPU: d, E, d_ff, tokens
+MOE_LAYER_SCHEMES = {"binary": {}, "ternary": {}, "dorefa": dict(w_bits=4),
+                     "log": dict(w_bits=4), "lin": dict(w_bits=4, fsr=1.0), "none": {}}
+MOE_LAYER_FACTORS = (2.0, 1.0, 1e-9)
+MOE_TOL = 1e-5  # the layer card against CPU, times 1 + the magnitude of the sums
+# the MoE LM trained on the card: 2 layers at d 256, BinaryConnect weights and real
+# activations, on a next-token task; its card-vs-CPU step is gated in float64
+MOE_TRAIN_CFG = dict(vocab=512, d_model=256, n_heads=8, n_layers=2, d_ff=1024, max_len=128,
+                     scheme="binary", w_bits=1, a_bits=0, n_experts=8, capacity_factor=2.0)
+MOE_TRAIN_BATCH = 16
+MOE_TRAIN_STEPS = (5, 15)  # untimed, then timed by CUDA events
+MOE_ELASTIC = 0.01  # the weight of the aux losses in the train loss
 
 
 def cuda():
@@ -2116,6 +2150,24 @@ def seeded_dorefa_lm_variables(cfg: dict, rng) -> dict:
     return v
 
 
+def seeded_moe_lm_variables(cfg: dict, rng) -> dict:
+    """:func:`seeded_lm_variables` with each block's FFN a switch MoE:
+    ``moe/router`` N(0, 1/d), so that the LayerNorm's output gives router
+    logits of unit spread and every expert is chosen; the stacked expert
+    kernels uniform(-1, 1), whose signs are the binary experts (a uniform
+    draw takes a quarter of a normal one's host time for the 2.1 GB)."""
+    v = seeded_lm_variables(dict(cfg, d_ff=1), rng)
+    d, e, f = cfg["d_model"], cfg["n_experts"], cfg["d_ff"]
+    for i in range(cfg["n_layers"]):
+        blk = v["params"][f"block{i}"]
+        del blk["ffn_in"], blk["ffn_out"]
+        router = rng.standard_normal((d, e), dtype=np.float32) * np.float32(d ** -0.5)
+        blk["moe"] = {"router": router,
+                      "wi_kernel": rng.random((e, d, f), dtype=np.float32) * 2 - 1,
+                      "wo_kernel": rng.random((e, f, d), dtype=np.float32) * 2 - 1}
+    return v
+
+
 def build_lm(cfg: dict, seed: int, dtype=None):
     """(port QuantTransformerLM on the card, eval mode, compute ``dtype``)
     from seeded weights through the bridge."""
@@ -2124,13 +2176,16 @@ def build_lm(cfg: dict, seed: int, dtype=None):
 
     seeded = {"dorefa": seeded_dorefa_lm_variables, "log": seeded_log_lm_variables}.get(
         cfg["scheme"], seeded_lm_variables)
+    if cfg.get("n_experts"):
+        seeded = seeded_moe_lm_variables
     variables = seeded(cfg, np.random.default_rng(seed))
     return load_flax_variables(QuantTransformerLM(**cfg, dtype=dtype), variables,
                                device=cuda()).eval()
 
 
-def logged_engine(model, fm, dev):
-    """A DecodeEngine over ``fm`` that records every batch it runs, in order:
+def logged_engine(model, dev, **backend):
+    """A DecodeEngine with ``backend`` (``fused=``, ``packed=`` or neither,
+    the fake-quant model) that records every batch it runs, in order:
     ("admit", slot, prompt), ("step", active mask) and after each of those
     ("batch", tokens, logits)."""
     from pytorch_quantize_impls_tpu_torch.serve import DecodeEngine
@@ -2153,7 +2208,7 @@ def logged_engine(model, fm, dev):
             self.log.append(("batch", toks.clone(), logits.clone()))
             return logits, cache
 
-    return LoggedEngine(model, fused=fm, n_slots=SLOTS, device=dev)
+    return LoggedEngine(model, n_slots=SLOTS, device=dev, **backend)
 
 
 def drive_decode_path(card: str, model, fms: dict, prompts):
@@ -2170,7 +2225,7 @@ def drive_decode_path(card: str, model, fms: dict, prompts):
     runs = {}
     zero_launches()
     for name, fm in fms.items():
-        engine = logged_engine(model, fm, dev)
+        engine = logged_engine(model, dev, fused=fm)
         t0 = time.perf_counter()
         try:
             answers = serve(lambda i: engine.submit(prompts[i], max_new=MAX_NEW), len(prompts))
@@ -2186,6 +2241,10 @@ def drive_decode_path(card: str, model, fms: dict, prompts):
         runs[name] = (answers, engine.log, engine._cache)
     launches = read_launches("decode_lm", kernels)
     return runs, launches
+
+
+def _clone_cache(cache):
+    return {k: _clone_cache(v) if isinstance(v, dict) else v.clone() for k, v in cache.items()}
 
 
 def _pin_cursors(cache, active):
@@ -2207,18 +2266,16 @@ def _insert_row(cache, one, slot: int, n: int):
             cache[key]["attn"][leaf][slot] = n if leaf == "index" else value[0]
 
 
-def replay(name: str, fm, log, answers, prompts, final_cache) -> int:
-    """Replay every batch an engine ran through ``fused_decode_apply`` of
-    ``fm`` on a cache rebuilt the same way (prefill rows inserted at their
-    slot, idle cursors pinned to 0): every batch's tokens and logits, every
+def replay(name: str, apply, cache, log, answers, prompts, final_cache) -> int:
+    """Replay every batch an engine ran through ``apply(cache, tokens) ->
+    (logits, cache)`` (a fused program's ``fused_decode_apply``, or a decode
+    model's own forward or ``packed_apply``) from the fresh engine cache
+    ``cache``, rebuilt the same way (prefill rows inserted at their slot,
+    idle cursors pinned to 0): every batch's tokens and logits, every
     request's answer and the final cache must be the same bits. Returns the
     number of batches."""
     import torch
 
-    from pytorch_quantize_impls_tpu_torch.infer import fused_decode_apply, fused_init_cache
-
-    dev = cuda()
-    cache = fused_init_cache(fm, SLOTS, device=dev)
     owner = [None] * SLOTS  # prompt bytes of the request in each slot
     tokens = {}
     i = batches = 0
@@ -2234,7 +2291,7 @@ def replay(name: str, fm, log, answers, prompts, final_cache) -> int:
             want[0, :n] = prompt
             if not np.array_equal(toks.cpu().numpy(), want):
                 fail(f"replay[{name}]: prefill batch is not the padded prompt")
-            got, one = fused_decode_apply(fm, None, toks)
+            got, one = apply(None, toks)
             _insert_row(cache, one, slot, n)
             owner[slot] = prompt.tobytes()
             tokens[owner[slot]] = [int(got[0, n - 1].argmax())]
@@ -2246,7 +2303,7 @@ def replay(name: str, fm, log, answers, prompts, final_cache) -> int:
             last = [tokens[s][-1] if s is not None else 0 for s in owner]
             if toks[:, 0].tolist() != last:
                 fail(f"replay[{name}]: step tokens are not the slots' last tokens")
-            got, cache = fused_decode_apply(fm, cache, toks)
+            got, cache = apply(cache, toks)
             _pin_cursors(cache, active)
             for slot, nxt in enumerate(got[:, 0].argmax(-1).tolist()):
                 if owner[slot] is not None:
@@ -2502,7 +2559,10 @@ def decode_path(card: str):
     runs, launches = drive_decode_path(card, model, fms, prompts)
     other = {"int8": "packed", "packed": "int8"}
     for name, (answers, log, final_cache) in runs.items():
-        n = replay(name, fms[other[name]], log, answers, prompts, final_cache)
+        fm = fms[other[name]]
+        n = replay(name, lambda c, t, fm=fm: infer.fused_decode_apply(fm, c, t),
+                   infer.fused_init_cache(fm, SLOTS, device=dev), log, answers, prompts,
+                   final_cache)
         print(f"replayed the fused {name} engine's {n} batches through the {other[name]} "
               f"export: same logits, tokens and final cache, bit for bit", flush=True)
         del log
@@ -3223,15 +3283,12 @@ def lm_teacher_forced(card: str, model, recs) -> None:
         calls[0] += 1
         return y
 
-    def clone(cache):
-        return {k: clone(v) if isinstance(v, dict) else v.clone() for k, v in cache.items()}
-
     agree = total = 0
     gaps = []
     cache, t = None, toks
     with torch.no_grad():
         for step in range(steps + 1):
-            got, _ = infer.packed_apply(md, recs, t, None if cache is None else clone(cache))
+            got, _ = infer.packed_apply(md, recs, t, None if cache is None else _clone_cache(cache))
             with intercept_quant_layers(per_gemm):
                 ref, cache = md(t, cache)
             gaps.append((got[:, -1] - ref[:, -1]).abs().amax(dim=1).cpu())
@@ -3372,15 +3429,13 @@ def lm_teacher_forced_by_projection(card: str, label: str, model, records: dict,
         calls[0] += 1
         return y
 
-    def clone(cache):
-        return {k: clone(v) if isinstance(v, dict) else v.clone() for k, v in cache.items()}
-
     agree = {name: 0 for name in records}
     total = 0
     cache, t = None, toks
     with torch.no_grad():
         for step in range(steps + 1):
-            got = {name: infer.packed_apply(md, recs, t, None if cache is None else clone(cache))[0]
+            got = {name: infer.packed_apply(md, recs, t,
+                                            None if cache is None else _clone_cache(cache))[0]
                    for name, recs in records.items()}
             with intercept_quant_layers(per_gemm):
                 ref, cache = md(t, cache)
@@ -4001,7 +4056,8 @@ def train_card_vs_cpu(card: str, state, cpu_state, step_fn, batches, label: str 
         for name, b in state.model.named_buffers():
             gates["statistics"][name] = _tensor_gate(_within(b.cpu(), cpu_buffers[name],
                                                              rtol=TRAIN_TOL))
-        shares = {kind: min(sh for sh, _, _ in c.values()) for kind, c in gates.items()}
+        shares = {kind: min((sh for sh, _, _ in c.values()), default=1.0)
+                  for kind, c in gates.items()}
         off = [f"{kind[:-1]} {name} {sh:.6f} ({rest} outside its worst channel)"
                for kind, c in gates.items() for name, (sh, rest, _) in c.items() if sh < 1.0]
         failed = [f"{kind[:-1]} {name}" for kind, c in gates.items()
@@ -5982,9 +6038,6 @@ def bf16_lm(card: str) -> dict:
             off.append(".".join(paths[id(m)]))
         return y
 
-    def clone(cache):
-        return {k: clone(v) if isinstance(v, dict) else v.clone() for k, v in cache.items()}
-
     b, steps = SLOTS, 32
     toks = torch.from_numpy(rng.integers(0, LM_CFG["vocab"], (b, 64)).astype(np.int32)).to(dev)
     agree = agree_bf16 = total = 0
@@ -5992,9 +6045,9 @@ def bf16_lm(card: str) -> dict:
     cache, t = None, toks
     with torch.no_grad():
         for step in range(steps + 1):
-            got, _ = infer.packed_apply(md, recs, t, None if cache is None else clone(cache))
+            got, _ = infer.packed_apply(md, recs, t, None if cache is None else _clone_cache(cache))
             with projections_at(md, None):
-                want, _ = md(t, None if cache is None else clone(cache))
+                want, _ = md(t, None if cache is None else _clone_cache(cache))
             with intercept_quant_layers(per_gemm):
                 ref, cache = md(t, cache)
             if {ref.dtype, got.dtype, want.dtype} != {torch.float32}:
@@ -6069,6 +6122,386 @@ def bf16_path(card: str) -> dict:
     launches.update(bf16_resnet(card))
     launches.update(bf16_lm(card))
     bf16_cifar_step(card)
+    return launches
+
+
+# --- path 14: the switch-routed MoE FFN in the LM, served and trained ---------
+
+
+def _moe_layer_pair(scheme, kw, cf, params, where):
+    """A QuantMoE on ``where`` with ``params`` (numpy)."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch.nn import QuantMoE
+
+    d, e, f, _ = MOE_LAYER
+    m = QuantMoE(d, e, f, scheme=scheme, capacity_factor=cf, device=where, **kw)
+    with torch.no_grad():
+        for k, v in params.items():
+            getattr(m, k).copy_(torch.from_numpy(v))
+    return m
+
+
+def _moe_sums_magnitude(m, x, cf):
+    """The magnitude of the layer's sums on ``x``: every term of both expert
+    products taken as |term|, on the layer's routing."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch.nn.moe import switch_route
+
+    with torch.no_grad():
+        r = switch_route(x, m.router, cf)
+        wi, wo = m.quantized_kernels()
+        return torch.einsum("tec,ecd->td", r.combine, torch.einsum(
+            "tec,td->ecd", r.dispatch, x.abs()) @ wi.abs() @ wo.abs())
+
+
+def moe_layer_card_vs_cpu(card: str) -> None:
+    """nn.QuantMoE of every expert scheme from the same seeded weights and
+    tokens (d 64, E 4, d_ff 128, 256 tokens) on the card and on the CPU, at
+    capacity factors 2, 1 and 1e-9 (one slot per expert): the expert of
+    every token and the keep mask equal; the output within MOE_TOL (1 + the
+    magnitude of its sums, as the GEMM checks hold K8 to |x| @ |w|), the aux
+    loss within MOE_TOL (1 + |ref|), the gradients of sum(out^2) + aux
+    within GRAD_TOL of their tensor's max |g|; a dropped token's output 0;
+    at most cap tokens kept per expert. A control: the card's layer at dtype
+    bf16 (the same float32 routing) against the CPU's float32 at capacity
+    factor 2 must fail the output gate for every scheme, or the gate could
+    not tell bf16 from float32."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch.nn.moe import switch_route
+
+    dev = cuda()
+    d, e, f, t = MOE_LAYER
+    rng = np.random.default_rng(SEED + 140)
+    x = rng.standard_normal((t, d), dtype=np.float32)
+    worst = {"out": 0.0, "aux": 0.0, "grad": 0.0}
+    kept, controls = {}, {}
+    for scheme, kw in MOE_LAYER_SCHEMES.items():
+        params = {"router": rng.standard_normal((d, e), dtype=np.float32) * np.float32(d ** -0.5),
+                  "wi_kernel": rng.uniform(-1, 1, (e, d, f)).astype(np.float32),
+                  "wo_kernel": rng.uniform(-1, 1, (e, f, d)).astype(np.float32)}
+        for cf in MOE_LAYER_FACTORS:
+            runs = []
+            for where in (dev, "cpu"):
+                m = _moe_layer_pair(scheme, kw, cf, params, where)
+                xt = torch.from_numpy(x).to(where).requires_grad_(True)
+                y = m(xt)
+                ((y ** 2).sum() + m.penalty()).backward()
+                with torch.no_grad():
+                    r = switch_route(xt, m.router, cf)
+                grads = [g.detach().cpu() for g in (xt.grad, m.router.grad, m.wi_kernel.grad,
+                                                     m.wo_kernel.grad)]
+                runs.append((y.detach().cpu(), m.penalty().item(), r.expert.cpu(), r.keep.cpu(),
+                             r.cap, grads, _moe_sums_magnitude(m, xt.detach(), cf).cpu()))
+            (y, aux, ex, keep, cap, g, mag), (yc, auxc, exc, keepc, _, gc, _) = runs
+            label = f"MoE layer {scheme} at capacity factor {cf}"
+            if not (torch.equal(ex, exc) and torch.equal(keep, keepc)):
+                fail(f"{label}: the card routes or keeps other tokens than the CPU")
+            worst["out"] = max(worst["out"], float(((y - yc).abs() / (1 + mag)).max()))
+            worst["aux"] = max(worst["aux"], abs(aux - auxc) / (1 + abs(auxc)))
+            for a, b in zip(g, gc):
+                worst["grad"] = max(worst["grad"], float((a - b).abs().max() / b.abs().max()))
+            if worst["out"] > MOE_TOL or worst["aux"] > MOE_TOL or worst["grad"] > GRAD_TOL:
+                fail(f"{label}: card against CPU {worst}")
+            if (y[~keep.any(-1)] != 0).any() or int(keep.sum(0).max()) > cap:
+                fail(f"{label}: a dropped token gave a nonzero output, or an expert holds "
+                     f"more than {cap} tokens")
+            kept[(scheme, cf)] = (int(keep.sum()), cap)
+        cpu = _moe_layer_pair(scheme, kw, 2.0, params, "cpu")
+        bf16 = _moe_layer_pair(scheme, dict(kw, dtype=torch.bfloat16), 2.0, params, dev)
+        xc = torch.from_numpy(x)
+        with torch.no_grad():
+            gap = (bf16(xc.to(dev)).float().cpu() - cpu(xc)).abs()
+        controls[scheme] = float((gap / (1 + _moe_sums_magnitude(cpu, xc, 2.0))).max())
+    print(f"MoE layer card vs CPU, {len(MOE_LAYER_SCHEMES)} schemes x capacity factors "
+          f"{MOE_LAYER_FACTORS}: routing and keep masks equal; worst output gap "
+          f"{worst['out']:.3g} of 1 + its sums' magnitude, aux {worst['aux']:.3g} (1 + |ref|), "
+          f"gradients {worst['grad']:.3g} "
+          f"of max |g|; tokens kept of {t} (cap per expert): "
+          + ", ".join(f"{cf}: {kept[('binary', cf)][0]} ({kept[('binary', cf)][1]})"
+                      for cf in MOE_LAYER_FACTORS) + f" (binary); control, the card's bf16 layer "
+          f"against the CPU's float32 (output gate {MOE_TOL:g}): "
+          + ", ".join(f"{k} {v:.3g}" for k, v in controls.items()) + f"  [{card}]", flush=True)
+    if min(controls.values()) <= MOE_TOL:
+        fail(f"MoE layer: the bf16 control passes the float32 output gate {controls}")
+
+
+def moe_lm_lockstep(card: str, model, recs) -> None:
+    """The prepared records against the fake-quant decode model, teacher-
+    forced by its greedy tokens: a 64-token prefill of SLOTS rows, then 32
+    steps, each packed call from a copy of the fake-quant cache. Argmax must
+    agree on MOE_ARGMAX_FLOOR of the (step, row) pairs; the calls whose
+    logits are bit-equal are counted (the ±1 projections' sums are exact
+    integers on both, and the MoE is the same code)."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import infer
+    from pytorch_quantize_impls_tpu_torch.serve import decode_model
+
+    dev = cuda()
+    md = decode_model(model)
+    rng = np.random.default_rng(SEED + 144)
+    b, steps = SLOTS, 32
+    t = torch.from_numpy(rng.integers(0, MOE_LM_CFG["vocab"], (b, 64)).astype(np.int32)).to(dev)
+    cache = None
+    agree = total = equal = 0
+    gap = 0.0
+    with torch.no_grad():
+        for step in range(steps + 1):
+            got, _ = infer.packed_apply(md, recs, t, None if cache is None else _clone_cache(cache))
+            ref, cache = md(t, cache)
+            equal += int(torch.equal(got, ref))
+            if step > 0:
+                total += b
+                agree += int((got[:, -1].argmax(-1) == ref[:, -1].argmax(-1)).sum())
+                gap = max(gap, float((got[:, -1] - ref[:, -1]).abs().max()))
+            t = ref[:, -1].argmax(-1).to(torch.int32)[:, None]
+    print(f"MoE LM packed (prepared) against fake-quant, teacher-forced in lockstep: "
+          f"{steps} steps x {b} rows, argmax agrees on {agree}/{total} "
+          f"({100 * agree / total:.2f}%, floor {100 * MOE_ARGMAX_FLOOR:.0f}%), max |logit gap| "
+          f"{gap:.3g}, {equal}/{steps + 1} calls bit-equal  [{card}]", flush=True)
+    if agree < MOE_ARGMAX_FLOOR * total:
+        fail(f"MoE LM teacher-forced: argmax agrees on only {agree} of {total}")
+
+
+def moe_lm_serve(card: str, model) -> dict:
+    """The full-width W1A1 MoE LM through DecodeEngine, fake-quant (no
+    kernel), packed unprepared (K1 on every attention projection) and
+    prepared (K2 once per record in prepare(), K3 on every projection): the
+    experts stay fake-quant, as in the JAX package. MOE_REQUESTS requests of
+    the decode phase's prompt lengths from CLIENTS threads per engine; the
+    counts exact (4 records per layer, per forward); every batch of each
+    engine replayed through the next backend (fake-quant -> unprepared ->
+    prepared -> fake-quant) bit for bit: the ±1 projections' sums are exact
+    integers on every route. Then lockstep against fake-quant and the decode
+    speeds."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import infer
+    from pytorch_quantize_impls_tpu_torch.kernels import int8_matmul as im
+    from pytorch_quantize_impls_tpu_torch.kernels import xnor_gemm as bg
+    from pytorch_quantize_impls_tpu_torch.serve import decode_model
+
+    dev = cuda()
+    per_forward = 4 * MOE_LM_CFG["n_layers"]  # q, k, v, out
+    packed = infer.pack_model(model)
+    if len(packed) != per_forward or any(p[-2] != "attn" for p in packed):
+        fail(f"MoE LM: pack_model gave {sorted(packed)}, not the attention projections alone")
+    md = decode_model(model)
+    rng = np.random.default_rng(SEED + 141)
+    lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, MOE_REQUESTS)
+    prompts = [rng.integers(0, MOE_LM_CFG["vocab"], n).astype(np.int32) for n in lens]
+    kernels = {"fake-quant": (), "unprepared": (bg.binary_gemm,),
+               "prepared": (bg.decode_binary_weights, im.int8_gemm)}
+    launches, runs = {}, {}
+    for name, required in kernels.items():
+        zero_launches()
+        recs = {"fake-quant": None, "unprepared": packed}.get(name) if name != "prepared" \
+            else infer.prepare(packed)
+        engine = logged_engine(model, dev, packed=recs)
+        t1 = time.perf_counter()
+        try:
+            answers = serve(lambda i: engine.submit(prompts[i], max_new=MAX_NEW), len(prompts))
+        finally:
+            engine.shutdown()
+        dt = time.perf_counter() - t1
+        st = engine.stats
+        forwards = sum(1 for event in engine.log if event[0] == "batch")
+        print(f"decode engine[MoE {name}]: {st.requests} requests, {st.tokens} tokens in "
+              f"{dt:.2f} s ({st.tokens / dt:.1f} tok/s), {st.steps} steps, {forwards} forwards, "
+              f"mean occupancy {st.mean_occupancy:.3f}  [{card}]", flush=True)
+        if st.requests != len(prompts) or st.tokens != MAX_NEW * len(prompts):
+            fail(f"MoE engine[{name}] answered {st.requests} requests, {st.tokens} tokens")
+        path = f"moe_lm_{name.replace('-', '_')}"
+        counts = read_launches(path, required)
+        want = {"binary_gemm": per_forward * forwards * (name == "unprepared"),
+                "decode_binary_weights": per_forward * (name == "prepared"),
+                "int8_gemm": per_forward * forwards * (name == "prepared")}
+        off = {k: n for k, n in counts.items() if n != want.get(k, 0)}
+        if off:
+            fail(f"MoE engine[{name}]: launches {off}, expected {want} and no other")
+        launches[path] = counts
+        runs[name] = (answers, engine.log, engine._cache, recs)
+    names = list(runs)
+    for i, name in enumerate(names):
+        answers, log, final_cache, _ = runs[name]
+        other = names[(i + 1) % len(names)]
+
+        @torch.no_grad()
+        def apply(c, t, recs=runs[other][3]):
+            return md(t, c) if recs is None else infer.packed_apply(md, recs, t, c)
+
+        n = replay(f"MoE {name}", apply, md.init_cache(SLOTS, device=dev), log, answers, prompts,
+                   final_cache)
+        print(f"replayed the MoE {name} engine's {n} batches through the {other} backend: same "
+              f"logits, tokens and final cache, bit for bit", flush=True)
+    # the slots share the experts' capacity, so an answer depends on which
+    # requests the client threads' timing put beside it: reported, not held
+    same = sum(np.array_equal(a, b) for a, b in zip(runs["fake-quant"][0], runs["prepared"][0]))
+    print(f"MoE LM: {same}/{len(prompts)} answers of the prepared engine equal the fake-quant "
+          f"engine's (the batches differ with the threads' timing)  [{card}]", flush=True)
+    ready = runs["prepared"][3]
+    del runs
+    moe_lm_lockstep(card, model, ready)
+    decode_speed(card, {
+        "MoE fake-quant": lambda c, t: md(t, c),
+        "MoE unprepared": lambda c, t: infer.packed_apply(md, packed, t, c),
+        "MoE prepared": lambda c, t: infer.packed_apply(md, ready, t, c),
+    })
+    return launches
+
+
+def moe_train_model(cfg: dict, seed: int):
+    """The MoE LM to train, on the CPU: the quantized projections and the
+    MoE's router and expert stacks drawn by init_like_flax from ``seed``,
+    the embedding N(0, 1/d) and the positions N(0, 0.02^2) (flax's
+    initializers) from a numpy generator of the same seed; then one entry of
+    each router past the clamp's bound (1.5) and the first row of each
+    wi_kernel at it (1.0), so that the clamp and its filter both act."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import nn as tnn
+    from pytorch_quantize_impls_tpu_torch.models import QuantTransformerLM
+
+    model = tnn.init_like_flax(QuantTransformerLM(**cfg), seed)
+    rng = np.random.default_rng(seed)
+    d = cfg["d_model"]
+    with torch.no_grad():
+        model.embed.weight.copy_(torch.from_numpy(
+            rng.standard_normal((cfg["vocab"], d), dtype=np.float32) * np.float32(d ** -0.5)))
+        model.pos_embed.copy_(torch.from_numpy(
+            rng.standard_normal((cfg["max_len"], d), dtype=np.float32) * np.float32(0.02)))
+        for blk in model.blocks():
+            blk.moe.router[0, 0] = 1.5
+            blk.moe.wi_kernel[:, 0] = 1.0
+    return model
+
+
+def moe_task(cfg: dict, seed: int):
+    """Next-token batches made from ``seed``: token j + 1 is perm[token j]
+    for a seeded permutation of the vocabulary, each row from a random start;
+    ``(inputs, labels)`` of (MOE_TRAIN_BATCH, max_len) int32."""
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(cfg["vocab"]).astype(np.int32)
+    while True:
+        seq = np.empty((MOE_TRAIN_BATCH, cfg["max_len"] + 1), np.int32)
+        seq[:, 0] = rng.integers(0, cfg["vocab"], MOE_TRAIN_BATCH)
+        for j in range(cfg["max_len"]):
+            seq[:, j + 1] = perm[seq[:, j]]
+        yield seq[:, :-1], seq[:, 1:]
+
+
+def moe_card_vs_cpu(card: str, step_fn) -> None:
+    """The MoE LM's card-against-CPU step from one state and one batch, by
+    path 10's gate (loss within 1e-5, each gradient within GRAD_TOL of its
+    tensor's max |g|): the binary experts in float64, gated (the same
+    function on both devices, as cifar_card_vs_cpu gates the CIFAR models),
+    and in float32, reported; the float twin (scheme none) in float32,
+    gated. The float32 binary step's own conditioning is read on the CPU:
+    its gradients against the float64 step's."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import train
+
+    dev = cuda()
+    verdicts, cpu_grads = {}, {}
+    for scheme, dtype, gate in (("binary", torch.float64, True), ("binary", torch.float32, False),
+                                ("none", torch.float32, True)):
+        model = moe_train_model(dict(MOE_TRAIN_CFG, scheme=scheme), SEED + 142).to(dtype)
+        state = train.QuantTrainState.create_for(copy.deepcopy(model).to(dev))
+        cpu_state = train.QuantTrainState.create_for(model)
+        label = f"MoE LM ({'float twin' if scheme == 'none' else 'binary'} {str(dtype)[6:]})"
+        verdicts[label] = train_card_vs_cpu(card, state, cpu_state, step_fn,
+                                            moe_task(MOE_TRAIN_CFG, SEED + 143), steps=1,
+                                            gate=gate, label=label)
+        if scheme == "binary":
+            cpu_grads[dtype] = {n: p.grad.detach().double() for n, p in model.named_parameters()}
+        del state, cpu_state, model
+    g32, g64 = cpu_grads[torch.float32], cpu_grads[torch.float64]
+    rows = [((g32[n] - g64[n]).abs() / g64[n].abs().max()) for n in g64]
+    share = min(float((r <= GRAD_TOL).double().mean()) for r in rows)
+    gap = max(float(r.max()) for r in rows)
+    print("MoE LM card vs CPU gates (binary float64 and the float twin enforced, binary float32 "
+          "reported): " + ", ".join(f"{k} {'passes' if v else 'fails'}"
+                                    for k, v in verdicts.items())
+          + f"; the binary float32 CPU step against its float64 CPU step: least share of a "
+          f"tensor's gradient entries within GRAD_TOL {share:.6f}, worst gap {gap:.3g} of "
+          f"max |g|  [{card}]", flush=True)
+
+
+def moe_lm_train(card: str) -> dict:
+    """The MoE LM of MOE_TRAIN_CFG through train.make_train_step(
+    elastic_weight=MOE_ELASTIC) with Adam and the clamp, on the next-token
+    task: card against CPU for one step (moe_card_vs_cpu), then
+    MOE_TRAIN_STEPS on the card: the loss falls, wi_kernel and wo_kernel
+    stay in [-1, 1], every router keeps its entry past 1 (the default filter
+    leaves it), the aux losses are each >= 1; ms per step by CUDA events, a
+    profile, and no kernel of the port launched."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import train
+
+    dev = cuda()
+    step_fn = train.make_train_step(elastic_weight=MOE_ELASTIC)
+    moe_card_vs_cpu(card, step_fn)
+    batches = moe_task(MOE_TRAIN_CFG, SEED + 143)
+    model = moe_train_model(MOE_TRAIN_CFG, SEED + 142).to(dev)
+    state = train.QuantTrainState.create_for(model)
+    clamped = {id(p) for p, _ in state.clamp.params}
+    for blk in model.blocks():
+        if id(blk.moe.router) in clamped or not {id(blk.moe.wi_kernel),
+                                                 id(blk.moe.wo_kernel)} <= clamped:
+            fail("MoE LM: the clamp's default filter does not take wi/wo_kernel and leave router")
+    zero_launches()
+    warm, timed = MOE_TRAIN_STEPS
+    losses = []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for i in range(warm + timed):
+        if i == warm:
+            start.record()
+        losses.append(step_fn(state, next(batches))[1]["loss"])
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / timed
+    line = profile_line(lambda: step_fn(state, next(batches)), "step", 5)
+    counts = read_launches("moe_lm_train", ())
+    loss = torch.stack(losses).cpu().double().numpy()
+    first, last = float(loss[:5].mean()), float(loss[-5:].mean())
+    routers = [blk.moe.router[0, 0].item() for blk in model.blocks()]
+    aux = [blk.moe.penalty().item() for blk in model.blocks()]
+    print(f"MoE LM train (d {MOE_TRAIN_CFG['d_model']}, E {MOE_TRAIN_CFG['n_experts']}, batch "
+          f"{MOE_TRAIN_BATCH} x {MOE_TRAIN_CFG['max_len']}): {ms:.3f} ms per step by CUDA events "
+          f"over {timed} steps; mean loss of the first 5 steps {first:.4f}, of the last 5 "
+          f"{last:.4f}; max |kernel| {_clamped(state)}; the routers' entry past the bound "
+          f"{routers}; aux losses {[round(a, 4) for a in aux]}; step {line}  [{card}]", flush=True)
+    if not (np.isfinite(loss).all() and last < first):
+        fail(f"MoE LM train: the loss went {first:.4f} -> {last:.4f}")
+    if _clamped(state) > 1.0 or min(routers) <= 1.0 or min(aux) < 1.0 - 1e-3:
+        fail(f"MoE LM train: max |kernel| {_clamped(state)}, routers {routers}, aux {aux}")
+    if any(counts.values()):
+        fail(f"MoE LM train launched a kernel of the port: {counts}")
+    return {"moe_lm_train": counts}
+
+
+def moe_lm_path(card: str) -> dict:
+    """Path 14: the switch-routed MoE FFN (nn.QuantMoE): the layer card
+    against CPU for every expert scheme; the serving LM's shape with 8
+    binary experts per block (MOE_LM_CFG, ~2.1 GB of expert masters, built
+    once) served fake-quant and packed (K1; K2, K3 on its attention
+    projections); a 2-layer MoE LM trained (no kernel)."""
+    import torch
+
+    moe_layer_card_vs_cpu(card)
+    t0 = time.perf_counter()
+    model = build_lm(MOE_LM_CFG, SEED + 140)
+    print(f"MoE LM built in {time.perf_counter() - t0:.1f} s: "
+          f"{torch.cuda.memory_allocated() / 2**20:.0f} MiB allocated", flush=True)
+    launches = moe_lm_serve(card, model)
+    del model
+    torch.cuda.empty_cache()
+    launches.update(moe_lm_train(card))
     return launches
 
 
@@ -6239,6 +6672,7 @@ def main() -> None:
     launches.update(phase("digits g6 + elastic train", digits_path, card))
     launches.update(phase("xnor digits + bnn_lenet_as", xnor_digits_path, card))
     launches.update(phase("bf16 compute", bf16_path, card))
+    launches.update(phase("moe LM", moe_lm_path, card))
     launches["decode_lm"] = phase("decode LM", decode_path, card)
     launches.update(phase("resnet", resnet_path, card))
     launches.update(phase("W4A4 LM", w4a4_lm_path, card))

@@ -7,6 +7,11 @@ Counterpart of ``pytorch_quantize_impls_tpu/infer/packed.py``:
     ready  = prepare(packed)                    # decode hot buffers once
     y      = packed_apply(model, ready, x)      # every quantized layer packed
 
+The packed layers are the ``QuantDense``/``QuantConv`` ones: an MoE LM's
+expert stacks (``nn.QuantMoE``) are not packed, and ``packed_apply`` runs
+them fake-quant beside its packed attention projections, as the JAX
+package's interceptor does.
+
 Records are keyed by the module path as a tuple, the same tuple flax gives
 (``("conv1", "conv")``), and ``save_packed``/``load_packed`` write and read
 the JAX package's ``.npz`` artifact (uint32 words, the same JSON meta), so

@@ -2,11 +2,12 @@
 
 Counterpart of ``pytorch_quantize_impls_tpu/models/transformer.py``
 (``QuantAttention``, ``QuantTransformerBlock``, ``QuantTransformerLM``).
-Every projection (QKV, attention out, FFN) is a ``QuantDense`` whose float32
-master weight is fake-quantized per forward; the embedding, layer norms and
-the tied logits head stay float32. Module names match the flax ones
-(``block0.attn.q``, ``block0.ffn_in``, ``ln_f``, ``embed``, ``pos_embed``),
-so ``utils.bridge`` loads the JAX package's variables directly.
+Every projection (QKV, attention out, dense FFN) is a ``QuantDense``, and
+every MoE expert stack a ``QuantMoE`` kernel, whose float32 master weight is
+fake-quantized per forward; the embedding, layer norms and the tied logits
+head stay float32. Module names match the flax ones (``block0.attn.q``,
+``block0.ffn_in``, ``block0.moe``, ``ln_f``, ``embed``, ``pos_embed``), so
+``utils.bridge`` loads the JAX package's variables directly.
 
 Decode mode (``decode=True``, or :func:`serve.decode_model`) serves token by
 token from a fixed-capacity (``max_len``) KV cache. The flax ``"cache"``
@@ -36,15 +37,23 @@ levels set by ``fsr``) and ``ternary`` (deterministic {-1, 0, 1} weights
 only; the records carry the model's ``w_bits``); for these three ``a_bits``
 > 0 raises ``ValueError``, as in the JAX package; and ``none``. The JAX
 model has no ``xnor`` weight quantizer, so ``scheme="xnor"`` raises
-``ValueError`` there and here. Dense FFN; ``kv_bits`` 8 (2..8) or ``None``.
-MoE (``n_experts > 0``) and an injected ``attention_fn`` wait for ROADMAP
-queue 1 item 6 and raise ``NotImplementedError``.
+``ValueError`` there and here. ``kv_bits`` 8 (2..8) or ``None``.
+The FFN is dense, or with ``n_experts > 0`` a switch-routed ``nn.QuantMoE``
+(``block{i}.moe``: ``capacity_factor``, the expert kernels quantized by the
+model's scheme and ``w_bits``; it ignores ``a_bits``, as in the JAX model,
+and takes the LayerNorm's real output). Each MoE forward routes every token
+of the call together, over the batch and the sequence, so in decode mode the
+slots of a batch share the experts' capacity. An injected ``attention_fn``
+(ring or Ulysses attention) waits for ROADMAP queue 1 item 6 and raises
+``NotImplementedError``.
 
 ``dtype`` (``None`` or ``torch.bfloat16``) is the compute dtype of every
 projection, as in the JAX model: the embedding sum is cast to it, the
 residual stream and K/V stay at it, the scores and softmax are float32 and
 cast back to q's dtype; the embedding, the LayerNorms (float32 outputs)
-and the tied head stay float32, so the logits are float32.
+and the tied head stay float32, so the logits are float32. A model made
+``.double()`` computes all of it, the scores and LayerNorms included, in
+float64.
 """
 
 from __future__ import annotations
@@ -56,27 +65,12 @@ import torch
 from torch import nn
 
 from pytorch_quantize_impls_tpu_torch import ops
-from pytorch_quantize_impls_tpu_torch.nn.base import QuantDense
+from pytorch_quantize_impls_tpu_torch.nn.base import QuantDense, scheme_weight_quant
+from pytorch_quantize_impls_tpu_torch.nn.moe import QuantMoE
 from pytorch_quantize_impls_tpu_torch.utils.device import resolve_device
 
 def _not_ported(what: str, item: int):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, item {item})")
-
-
-def _weight_quant(scheme: str, w_bits: int, fsr: float):
-    if scheme == "none":
-        return None
-    if scheme == "binary":
-        return ops.binary_connect_det
-    if scheme == "ternary":
-        return ops.ternary_connect_det
-    if scheme == "dorefa":
-        return partial(ops.dorefa_weight, bits=w_bits)
-    if scheme == "log":
-        return partial(ops.log_quant, fsr=fsr, bits=w_bits)
-    if scheme == "lin":
-        return partial(ops.lin_quant, fsr=fsr, bits=w_bits)
-    raise ValueError(f"unknown scheme {scheme!r}")
 
 
 def _act_quant(scheme: str, a_bits: int):
@@ -97,8 +91,9 @@ def _act_quant(scheme: str, a_bits: int):
 class LayerNorm(nn.Module):
     """LayerNorm over the last axis with flax ``nn.LayerNorm``'s arithmetic
     (flax 0.12, ``use_fast_variance=True``): ``var = max(0, E[x^2] - E[x]^2)``,
-    then ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in float32. The
-    signs taken right after it should see the JAX model's rounding."""
+    then ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in float32 (in
+    float64 in a model made ``.double()``). The signs taken right after it
+    should see the JAX model's rounding."""
 
     def __init__(self, features: int, epsilon: float = 1e-6):
         super().__init__()
@@ -107,7 +102,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(torch.float32)
+        x = x.to(torch.promote_types(self.weight.dtype, torch.float32))
         mean = x.mean(dim=-1, keepdim=True)
         mean2 = (x * x).mean(dim=-1, keepdim=True)
         var = torch.clamp(mean2 - mean * mean, min=0.0)
@@ -117,10 +112,12 @@ class LayerNorm(nn.Module):
 
 def _softmax_attention(q, k, v, mask):
     """(b, s, h, hd) q over (b, cl, h, hd) k/v; ``mask`` broadcasts to
-    (b, h, s, cl). Float32 scores and softmax, as in the JAX model, with
-    subnormal probabilities flushed as XLA flushes them."""
+    (b, h, s, cl). Float32 scores and softmax, as in the JAX model (float64
+    in a model made ``.double()``), with subnormal probabilities flushed as
+    XLA flushes them."""
     hd = q.shape[-1]
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    scores = scores.to(torch.promote_types(scores.dtype, torch.float32))
     scores = scores / torch.sqrt(torch.tensor(float(hd), device=q.device))
     scores = torch.where(mask, scores, -1e30)
     attn = ops.flush_subnormal(torch.softmax(scores, dim=-1)).to(q.dtype)
@@ -160,7 +157,7 @@ class QuantAttention(nn.Module):
         self.cache_len = cache_len
         self.kv_bits = kv_bits
         self.dtype = dtype
-        wq = _weight_quant(scheme, w_bits, fsr)
+        wq = scheme_weight_quant(scheme, w_bits, fsr)
         aq = _act_quant(scheme, a_bits)
 
         def proj():
@@ -237,10 +234,11 @@ class QuantAttention(nn.Module):
 
 class QuantTransformerBlock(nn.Module):
     """Pre-LN block: LN -> quantized attention -> residual; LN -> quantized
-    dense FFN -> residual. With sign-binarized activations (binary,
-    ``a_bits == 1``) the sign is the FFN's nonlinearity and there is no ReLU
-    before it (ReLU then sign would be +1 everywhere); otherwise (dorefa's
-    [0, 1] grid included) a ReLU precedes ``ffn_out``."""
+    dense FFN (or ``QuantMoE`` when ``n_experts > 0``) -> residual. With
+    sign-binarized activations (binary, ``a_bits == 1``) the dense FFN's
+    nonlinearity is the sign and there is no ReLU before it (ReLU then sign
+    would be +1 everywhere); otherwise (dorefa's [0, 1] grid included) a ReLU
+    precedes ``ffn_out``. The MoE has its own ReLU between its products."""
 
     def __init__(
         self,
@@ -253,6 +251,7 @@ class QuantTransformerBlock(nn.Module):
         a_bits: int = 0,
         fsr: float = 0.0,
         n_experts: int = 0,
+        capacity_factor: float = 2.0,
         causal: bool = True,
         cache_len: int = 0,
         kv_bits: Optional[int] = 8,
@@ -260,8 +259,6 @@ class QuantTransformerBlock(nn.Module):
         dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
-        if n_experts > 0:
-            raise _not_ported("the MoE FFN (n_experts > 0)", 6)
         self.ln1 = LayerNorm(d_model)
         self.attn = QuantAttention(
             d_model, n_heads, scheme=scheme, w_bits=w_bits, a_bits=a_bits, fsr=fsr,
@@ -269,7 +266,12 @@ class QuantTransformerBlock(nn.Module):
             dtype=dtype,
         )
         self.ln2 = LayerNorm(d_model)
-        wq, aq = _weight_quant(scheme, w_bits, fsr), _act_quant(scheme, a_bits)
+        if n_experts > 0:
+            # built on the CPU with the other parameters; the bridge moves them
+            self.moe = QuantMoE(d_model, n_experts, d_ff, scheme=scheme, w_bits=w_bits, fsr=fsr,
+                                capacity_factor=capacity_factor, dtype=dtype, device="cpu")
+            return
+        wq, aq = scheme_weight_quant(scheme, w_bits, fsr), _act_quant(scheme, a_bits)
         meta = dict(weight_quant=wq, input_quant=aq, scheme=scheme, w_bits=w_bits,
                     a_bits=a_bits, fsr=fsr, dtype=dtype)
         self.ffn_in = QuantDense(d_model, d_ff, **meta)
@@ -278,6 +280,8 @@ class QuantTransformerBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, cache: Optional[Dict] = None) -> torch.Tensor:
         x = x + self.attn(self.ln1(x), cache)
+        if hasattr(self, "moe"):
+            return x + self.moe(self.ln2(x))
         ff = self.ffn_in(self.ln2(x))
         if not self.sign_act:
             ff = torch.relu(ff)
@@ -307,6 +311,7 @@ class QuantTransformerLM(nn.Module):
         a_bits: int = 0,
         fsr: float = 0.0,
         n_experts: int = 0,
+        capacity_factor: float = 2.0,
         decode: bool = False,
         kv_bits: Optional[int] = 8,
         attention_fn=None,
@@ -317,13 +322,15 @@ class QuantTransformerLM(nn.Module):
         self.n_layers, self.d_ff, self.max_len = n_layers, d_ff, max_len
         self.scheme, self.w_bits, self.a_bits = scheme, w_bits, a_bits
         self.n_experts, self.decode, self.kv_bits = n_experts, decode, kv_bits
+        self.capacity_factor = capacity_factor
         self.dtype = dtype
         self.embed = nn.Embedding(vocab, d_model)
         self.pos_embed = nn.Parameter(torch.randn(max_len, d_model) * 0.02)
         for i in range(n_layers):
             self.add_module(f"block{i}", QuantTransformerBlock(
                 d_model, n_heads, d_ff, scheme=scheme, w_bits=w_bits, a_bits=a_bits,
-                fsr=fsr, n_experts=n_experts, cache_len=max_len, kv_bits=kv_bits,
+                fsr=fsr, n_experts=n_experts, capacity_factor=capacity_factor,
+                cache_len=max_len, kv_bits=kv_bits,
                 attention_fn=attention_fn, dtype=dtype,
             ))
         self.ln_f = LayerNorm(d_model)

@@ -20,6 +20,7 @@ from pytorch_quantize_impls_tpu_torch.nn.binary import (  # noqa: F401
 )
 from pytorch_quantize_impls_tpu_torch.nn.dorefa import DorefaConv, LinearDorefa  # noqa: F401
 from pytorch_quantize_impls_tpu_torch.nn.elastic import ElasticConv, ElasticLinear  # noqa: F401
+from pytorch_quantize_impls_tpu_torch.nn.moe import QuantMoE  # noqa: F401
 from pytorch_quantize_impls_tpu_torch.nn.log_lin import (  # noqa: F401
     ConvQuantLin,
     ConvQuantLog,

@@ -30,7 +30,8 @@ from the same generator (:func:`current_generator`), and draws nothing in
 eval mode.
 
 A layer with a training penalty (PACT's L2 on its clip level, the elastic
-layers' grid penalty) exposes it as ``penalty()``;
+layers' grid penalty, the MoE's switch aux loss of its last forward)
+exposes it as ``penalty()``;
 :func:`collect_elastic_losses` sums every such penalty of a model, as the
 JAX package sums its ``losses`` collection.
 
@@ -57,12 +58,14 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import functools
 import math
 from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
 
+from pytorch_quantize_impls_tpu_torch import ops
 from pytorch_quantize_impls_tpu_torch.kernels.conv import conv2d_nhwc
 from pytorch_quantize_impls_tpu_torch.ops.common import round_ste
 
@@ -149,6 +152,24 @@ def _apply_quant(q, x: torch.Tensor, module: nn.Module) -> torch.Tensor:
     if not module.training:
         return q.eval_fn(x)
     return q(x, current_generator())
+
+
+def scheme_weight_quant(scheme: str, w_bits: int = 1, fsr: float = 0.0):
+    """The weight quantizer of a transformer ``scheme``: the LM's
+    projections and its MoE experts take it (``None`` for ``"none"``)."""
+    if scheme == "none":
+        return None
+    if scheme == "binary":
+        return ops.binary_connect_det
+    if scheme == "ternary":
+        return ops.ternary_connect_det
+    if scheme == "dorefa":
+        return functools.partial(ops.dorefa_weight, bits=w_bits)
+    if scheme == "log":
+        return functools.partial(ops.log_quant, fsr=fsr, bits=w_bits)
+    if scheme == "lin":
+        return functools.partial(ops.lin_quant, fsr=fsr, bits=w_bits)
+    raise ValueError(f"unknown scheme {scheme!r}")
 
 
 # dtypes that hold every sum of +-1 terms a layer makes exactly
@@ -315,23 +336,35 @@ def init_like_flax(model: nn.Module, seed: int) -> nn.Module:
     order from one generator seeded with ``seed`` on the CPU: a truncated
     normal of variance 2 / (fan_in + fan_out) (``glorot_normal``) or
     1 / fan_in (``lecun_normal``), or uniform(-1, 1) (the ternary layers);
-    biases 0; every learnable activation scale (``act_scale``) 1. Returns
-    ``model``."""
+    the MoE router and stacked expert kernels (``glorot_params()``) by
+    ``glorot_normal`` over their last two axes; biases 0; every learnable
+    activation scale (``act_scale``) 1. Returns ``model``."""
     gen = torch.Generator().manual_seed(seed)
+
+    def truncated(shape, denom):
+        w = torch.empty(shape)
+        std = math.sqrt(1.0 / denom) / _TRUNCATED_STD
+        return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=gen)
+
     for m in model.modules():
         if isinstance(getattr(m, "act_scale", None), nn.Parameter):
             m.act_scale.fill_(1.0)
+        if callable(getattr(m, "glorot_params", None)):
+            # stacked expert kernels (nn.QuantMoE): fans of the last two
+            # axes, flax's glorot_normal(batch_axis=(0,))
+            for p in m.glorot_params():
+                p.copy_(truncated(p.shape, (p.shape[-2] + p.shape[-1]) / 2))
+            continue
         if not isinstance(m, _QuantLayer):
             continue
-        w = torch.empty(m.weight.shape)
         if m.kernel_init == "uniform":
-            w.uniform_(-1.0, 1.0, generator=gen)
+            w = torch.empty(m.weight.shape).uniform_(-1.0, 1.0, generator=gen)
         else:
-            receptive = math.prod(w.shape[2:])
-            fan_in, fan_out = w.shape[1] * receptive, w.shape[0] * receptive
+            shape = m.weight.shape
+            receptive = math.prod(shape[2:])
+            fan_in, fan_out = shape[1] * receptive, shape[0] * receptive
             denom = fan_in if m.kernel_init == "lecun_normal" else (fan_in + fan_out) / 2
-            std = math.sqrt(1.0 / denom) / _TRUNCATED_STD
-            nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=gen)
+            w = truncated(shape, denom)
         m.weight.copy_(w)
         if m.bias is not None:
             m.bias.zero_()

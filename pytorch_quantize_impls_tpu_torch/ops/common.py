@@ -51,7 +51,19 @@ def flush_subnormal(x: torch.Tensor) -> torch.Tensor:
     attention code flushes the softmax probabilities and the context before
     its sign. Products inside a matmul are not flushed, so the fused decode
     step leaves ``p * v_scale`` as it is too: then it forms the same terms as
-    the fake-quant model, whose probabilities meet dequantized V in a matmul."""
+    the fake-quant model, whose probabilities meet dequantized V in a matmul.
+
+    XLA's flush is no op of the program, so it has no gradient of its own:
+    the gradient passes through unchanged. (A context that is exactly 0 in
+    both packages still passes its sign's STE gradient back, as in JAX; a
+    zero gradient there would cut the attention's backward wherever a W1A1
+    context cancels.)"""
+    if not (x.requires_grad and torch.is_grad_enabled()):
+        return _flush(x)
+    return _STE.apply(x, _flush, None)
+
+
+def _flush(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() < torch.finfo(x.dtype).tiny, 0.0, x)
 
 

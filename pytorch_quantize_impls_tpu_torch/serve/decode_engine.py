@@ -7,14 +7,18 @@ mid-flight through a batch-1 prefill inserted into their slot's row, so
 short requests never wait for long ones. Prompts are padded to buckets
 (powers of two past the configured ones), as in the JAX engine. Idle slots
 step a dummy token with their cursors pinned to 0; admitting a request
-rewrites the whole row.
+rewrites the whole row. With an MoE LM (``n_experts > 0``) the slots are not
+independent, as in the JAX engine: each step routes every slot's token
+together, the idle slots' dummy tokens included, and lower slots take the
+experts' capacity first; a bucketed prefill routes its pad tokens too. So an
+answer depends on the requests served beside it.
 
 Backends: the fake-quant decode model (default), ``packed=`` records from
 ``infer.pack_model`` run through ``infer.packed_apply`` (binary, dorefa, log
 or lin), or ``fused=`` a program from ``infer.export_fused_decode`` (the
-fused step with the ``decode_attention`` kernel). A mesh (``mesh=``) waits for ROADMAP
-queue 1 item 6. The cache is updated in place by every call (see
-``models.transformer``).
+fused step with the ``decode_attention`` kernel; it refuses MoE). A mesh
+(``mesh=``) waits for ROADMAP queue 1 item 6. The cache is updated in place
+by every call (see ``models.transformer``).
 """
 
 from __future__ import annotations
@@ -74,7 +78,9 @@ class DecodeStats:
         return self.slot_occupancy / self.steps if self.steps else 0.0
 
 
-@dataclass
+# eq=False: requests and slots are found by identity (``list.index``); a
+# field-wise == would compare the numpy prompts and raise
+@dataclass(eq=False)
 class _GenRequest:
     prompt: np.ndarray
     max_new: int
@@ -83,7 +89,7 @@ class _GenRequest:
     t_submit: float = field(default_factory=time.perf_counter)
 
 
-@dataclass
+@dataclass(eq=False)
 class _Slot:
     request: _GenRequest
     generated: list = field(default_factory=list)

@@ -1,9 +1,10 @@
 """Train and eval steps.
 
 Counterpart of ``pytorch_quantize_impls_tpu/train/steps.py``: fake-quant
-forward -> float32 cross-entropy (+ the weighted penalties of
-``nn.collect_elastic_losses``, PACT's alpha L2) -> STE backward -> Adam ->
-clamp, with BatchNorm in training mode. The JAX package jits this into one
+forward -> float32 cross-entropy over every leading position (+ the weighted
+penalties of ``nn.collect_elastic_losses``: PACT's alpha L2, the elastic
+grid penalty, the MoE's aux loss) -> STE backward -> Adam -> clamp, with
+BatchNorm in training mode. The JAX package jits this into one
 XLA program; here it is eager PyTorch (``torch.matmul``, cuDNN convs, the
 STEs' ``autograd.Function``s), and launches none of the port's kernels.
 
@@ -25,8 +26,13 @@ from pytorch_quantize_impls_tpu_torch.train.state import QuantTrainState
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean softmax cross-entropy on float32 logits and integer labels."""
-    return F.cross_entropy(logits.to(torch.float32), labels.to(torch.int64))
+    """Mean softmax cross-entropy on float32 logits ``(..., V)`` and integer
+    labels ``(...)``, over every leading position (optax's integer-label
+    cross-entropy, then the mean): a classifier's ``(b, V)`` or an LM's
+    ``(b, s, V)``."""
+    logits = logits.to(torch.float32)
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           labels.reshape(-1).to(torch.int64))
 
 
 def fp32_cudnn():

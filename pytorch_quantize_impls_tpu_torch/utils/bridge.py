@@ -12,9 +12,11 @@ port's module of the same architecture:
   ``batch_stats`` ``mean``/``var`` -> ``running_mean``/``running_var``;
 * Embed ``embedding (vocab, d)`` -> ``weight (vocab, d)``, not transposed;
 * a parameter the model declares itself (the LM's ``pos_embed``) keeps its
-  name and layout, and so do PACT's scalar ``alpha`` and the binary layers'
+  name and layout, and so do PACT's scalar ``alpha``, the binary layers'
   learnable activation scale ``act_scale`` (``("fc1", "act_scale")`` ->
-  ``"fc1.act_scale"``);
+  ``"fc1.act_scale"``) and the MoE's ``router (d, E)``, ``wi_kernel (E, d,
+  f)`` and ``wo_kernel (E, f, d)`` (stacked on the expert axis, not
+  transposed: ``("block0", "moe", "wi_kernel")`` -> ``"block0.moe.wi_kernel"``);
 * the ``losses`` collection is dropped: it holds what layers sow for the
   training loss (PACT's alpha penalty), which ``model.init`` returns beside
   the state. Any other collection raises.
@@ -27,7 +29,8 @@ numpy ``{"params": ..., "batch_stats": ...}``, which the JAX package's
 ``apply``, ``pack_model`` and training steps take. :func:`flax_paths` names
 each state-dict entry's flax collection and path: a 1-D ``weight`` is a
 norm layer's ``scale``, an ``nn.Embedding``'s its ``embedding``, any other
-``weight`` a ``kernel`` (``train.clipping`` selects by these paths).
+``weight`` a ``kernel`` (``train.clipping`` selects by these paths: the
+MoE's ``wi_kernel`` and ``wo_kernel`` are clamped, its ``router`` is not).
 """
 
 from __future__ import annotations
@@ -40,9 +43,11 @@ from torch import nn
 
 from pytorch_quantize_impls_tpu_torch.utils.device import resolve_device
 
+# parameters that keep their flax name and layout
+_SAME_NAMES = ("alpha", "act_scale", "router", "wi_kernel", "wo_kernel")
 _PARAM_NAMES = {
     "kernel": "weight", "scale": "weight", "bias": "bias", "embedding": "weight",
-    "alpha": "alpha", "act_scale": "act_scale",
+    **{name: name for name in _SAME_NAMES},
 }
 # collections that hold no state of the model
 _DROPPED = {"losses"}
@@ -106,7 +111,7 @@ def flax_paths(module: nn.Module) -> Dict[str, Tuple[str, Tuple[str, ...]]]:
                 leaf = "embedding"
             else:
                 leaf = "kernel"
-        elif prefix and leaf not in ("bias", "alpha", "act_scale"):
+        elif prefix and leaf != "bias" and leaf not in _SAME_NAMES:
             raise ValueError(f"state entry {key} has no flax counterpart")
         out[key] = ("params", (*prefix, leaf))
     return out

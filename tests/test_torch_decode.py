@@ -380,8 +380,11 @@ def test_engine_submit_validation_and_exclusive_backends(bc, w1a1):
 
 
 def test_unported_parts_raise():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        QuantTransformerLM(**dict(ENGINE_CFG, n_experts=4))
+    # the MoE FFN is ported (tests/test_torch_moe.py): n_experts > 0 builds a
+    # QuantMoE in each block in place of the dense FFN
+    moe_lm = QuantTransformerLM(**dict(ENGINE_CFG, n_experts=4, capacity_factor=1.0))
+    assert all(blk.moe.n_experts == 4 and blk.moe.capacity_factor == 1.0
+               and not hasattr(blk, "ffn_in") for blk in moe_lm.blocks())
     with pytest.raises(NotImplementedError, match="item 6"):
         QuantTransformerLM(**dict(ENGINE_CFG, attention_fn=lambda q, k, v: q))
     # the JAX LM has no xnor weight quantizer either (tests/test_torch_ternary.py)
