@@ -102,7 +102,7 @@ on one NVIDIA GPU (built for Hopper, sm_90a).
    time), three steps of the quantized model and one of its twin, in
    float64 under the gate above (enforced) and in float32 (the shares
    reported: a ReLU mask, a PACT code or a sign at its boundary flips under
-   another summation order and moves what follows it); then 200 steps at
+   another summation order and moves what follows it); then 160 steps at
    b = 128 (cosine, the config's elastic weight), the twin first and the
    quantized model warm-started from it where the config says so (the
    matched-entry count: every entry but PACT's alphas), the loss falls, the
@@ -455,7 +455,9 @@ MLP_TOL = 1e-5  # packed (K2 + cuBLAS) against fake-quant logits, times 1 + |ref
 CIFAR_CONFIGS = ("xnor_cifar", "dorefa_resnet20", "dorefa_resnet20_w4", "logquant_vgg")
 CIFAR_CHECK_BATCH = 32  # card against CPU: cut from 128 for the CPU's time at full width
 CIFAR_CHECKED_STEPS = 3  # card against CPU, each from the card's state
-CIFAR_STEPS = 200  # each cut training run (the configs' budgets: 2000-12000)
+# each cut training run (the configs' budgets: 2000-12000), cut from 200 to keep the
+# whole run's length as phases were added
+CIFAR_STEPS = 160
 CIFAR_WINDOW = 50  # loss windows, clamp checks
 CIFAR_RERUN_FROM = 100  # the snapshot the replay starts from
 CIFAR_RERUN_STEPS = 20
@@ -516,6 +518,17 @@ MOE_TRAIN_CFG = dict(vocab=512, d_model=256, n_heads=8, n_layers=2, d_ff=1024, m
 MOE_TRAIN_BATCH = 16
 MOE_TRAIN_STEPS = (5, 15)  # untimed, then timed by CUDA events
 MOE_ELASTIC = 0.01  # the weight of the aux losses in the train loss
+# path 15: serving over a (data, model) mesh on torch.distributed (a world of one NCCL rank)
+MESH_REQUESTS = 32  # per DecodeEngine of the serving LM, with and without the mesh
+MESH_MAX_NEW = 16
+MESH_TP = (2, 4, 8)  # emulated model ranks: the LM's dense records cut into column shards
+MESH_LENET_INPUTS = 512  # bnn_lenet requests per engine: two full rounds of 256
+MESH_MOE_LAYER = (1024, 8, 4096, 256)  # the MoE LM's layer: d, E, d_ff, tokens
+# the MoE layer's schemes and one-bit DoReFa, whose E|W| is the other statistic of the stack
+MESH_MOE_SCHEMES = tuple(MOE_LAYER_SCHEMES.items()) + (("dorefa", dict(w_bits=1)),)
+MESH_TP_TOKENS = (4, 64)  # the serving LM through packed_apply(tp_group=) on the NCCL mesh
+MESH_GROUP_TIMEOUT_S = 120
+MESH_PHASE_S = 60  # the phase's budget
 
 
 def cuda():
@@ -2577,7 +2590,7 @@ def decode_path(card: str):
     for name, fm in fms.items():
         backends[f"fused {name}"] = lambda c, t, fm=fm: infer.fused_decode_apply(fm, c, t)
     decode_speed(card, backends)
-    return launches
+    return launches, model
 
 
 # --- main path 3: DoReFa ResNet-20 W4A4, packed and fused --------------------
@@ -6128,13 +6141,14 @@ def bf16_path(card: str) -> dict:
 # --- path 14: the switch-routed MoE FFN in the LM, served and trained ---------
 
 
-def _moe_layer_pair(scheme, kw, cf, params, where):
-    """A QuantMoE on ``where`` with ``params`` (numpy)."""
+def _moe_layer_pair(scheme, kw, cf, params, where, shape=MOE_LAYER):
+    """A QuantMoE of ``shape`` (d, E, d_ff, tokens) on ``where`` with
+    ``params`` (numpy)."""
     import torch
 
     from pytorch_quantize_impls_tpu_torch.nn import QuantMoE
 
-    d, e, f, _ = MOE_LAYER
+    d, e, f, _ = shape
     m = QuantMoE(d, e, f, scheme=scheme, capacity_factor=cf, device=where, **kw)
     with torch.no_grad():
         for k, v in params.items():
@@ -6563,6 +6577,404 @@ def ternary_lm_path(card: str):
     return launches
 
 
+# --- path 15: serving over a (data, model) mesh -----------------------------
+
+
+def mesh_group(card: str, workdir: str):
+    """A world of one NCCL rank (``file://`` store, a timeout) and its (1, 1)
+    mesh on the card; fails on any other backend."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from pytorch_quantize_impls_tpu_torch import parallel
+
+    parallel.initialize("file://" + os.path.join(workdir, "store"), world_size=1, rank=0,
+                        device="cuda",
+                        timeout=datetime.timedelta(seconds=MESH_GROUP_TIMEOUT_S))
+    backend = dist.get_backend()
+    nccl = torch.cuda.nccl.version()
+    nccl = ".".join(map(str, nccl)) if isinstance(nccl, tuple) else str(nccl)
+    print(f"mesh group: backend {backend}, NCCL {nccl}, world size {dist.get_world_size()}  "
+          f"[{card}]", flush=True)
+    if backend != "nccl":
+        fail(f"the mesh group runs {backend}, not nccl, on a machine with a GPU")
+    mesh = parallel.make_mesh((1, 1), device="cuda")
+    if mesh.device_type != "cuda" or tuple(mesh.shape) != (1, 1):
+        fail(f"make_mesh((1, 1)) gave a {mesh.device_type} mesh of shape {tuple(mesh.shape)}")
+    # NCCL builds a communicator at a group's first collective: time those
+    # here, apart from the engines' ticks
+    t = torch.ones(4, device=cuda())
+    firsts = {}
+    for name, group in (("world", None), ("data", mesh.get_group("data")),
+                        ("model", mesh.get_group("model"))):
+        t0 = time.perf_counter()
+        dist.all_reduce(t, group=group)
+        torch.cuda.synchronize()
+        firsts[name] = time.perf_counter() - t0
+    if t.tolist() != [1.0] * 4:
+        fail(f"an all_reduce over one rank changed its tensor: {t.tolist()}")
+    print("mesh group: first collective (communicator set-up) per group, s: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in firsts.items()), flush=True)
+    return mesh
+
+
+def mesh_decode(card: str, model, mesh) -> dict:
+    """The serving LM through DecodeEngine(packed=) without and with the
+    mesh, unprepared and prepared, MESH_REQUESTS prompts each from CLIENTS
+    threads: every request's tokens bit-equal, and on the mesh runs K1
+    exactly 48 per forward unprepared (8 layers x 6 projections; forwards =
+    prefills + steps), K2 48 in prepare() and K3 48 per forward prepared."""
+    from pytorch_quantize_impls_tpu_torch import infer
+    from pytorch_quantize_impls_tpu_torch.kernels import int8_matmul as im
+    from pytorch_quantize_impls_tpu_torch.kernels import xnor_gemm as bg
+    from pytorch_quantize_impls_tpu_torch.serve import DecodeEngine
+
+    dev = cuda()
+    rng = np.random.default_rng(SEED + 150)
+    prompts = [rng.integers(0, LM_CFG["vocab"], rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1))
+               .astype(np.int32) for _ in range(MESH_REQUESTS)]
+    per_forward = 6 * LM_CFG["n_layers"]
+    packed = infer.pack_model(model)
+    launches = {}
+    for name in ("unprepared", "prepared"):
+        answers = {}
+        for where in ("alone", "mesh"):
+            if where == "mesh":
+                zero_launches()
+            recs = packed if name == "unprepared" else infer.prepare(packed)
+            engine = DecodeEngine(model, packed=recs, n_slots=SLOTS, device=dev,
+                                  mesh=mesh if where == "mesh" else None)
+            t0 = time.perf_counter()
+            try:
+                answers[where] = serve(
+                    lambda i: engine.submit(prompts[i], max_new=MESH_MAX_NEW), len(prompts))
+            finally:
+                engine.shutdown()
+            dt = time.perf_counter() - t0
+            st = engine.stats
+            print(f"decode engine[packed {name}, {where}]: {st.requests} requests, {st.tokens} "
+                  f"tokens in {dt:.2f} s ({st.tokens / dt:.1f} tok/s), {st.steps} steps  [{card}]",
+                  flush=True)
+            if st.requests != len(prompts) or st.tokens != MESH_MAX_NEW * len(prompts):
+                fail(f"mesh decode[{name}, {where}]: {st.requests} requests, {st.tokens} tokens")
+        label = f"mesh_lm_{name}"
+        launches[label] = counts = read_launches(
+            label, (bg.binary_gemm,) if name == "unprepared" else (bg.decode_binary_weights,
+                                                                   im.int8_gemm))
+        forwards = st.requests + st.steps
+        want = ({"binary_gemm": per_forward * forwards, "decode_binary_weights": 0, "int8_gemm": 0}
+                if name == "unprepared" else
+                {"binary_gemm": 0, "decode_binary_weights": per_forward,
+                 "int8_gemm": per_forward * forwards})
+        got = {k: counts[k] for k in want}
+        if got != want:
+            fail(f"mesh decode[{name}]: launches {got}, expected {want} ({forwards} forwards)")
+        bad = [i for i, (a, b) in enumerate(zip(answers["alone"], answers["mesh"]))
+               if not np.array_equal(a, b)]
+        if bad:
+            fail(f"mesh decode[{name}]: requests {bad[:8]} answered otherwise than without the "
+                 "mesh")
+        print(f"mesh decode[{name}]: all {len(prompts)} requests bit-equal to the engine without "
+              f"the mesh; launches {got} over {forwards} forwards", flush=True)
+    return launches
+
+
+def mesh_tp_shards(card: str, model) -> None:
+    """Every dense record of the serving LM cut by infer.shard_packed_columns
+    for n in MESH_TP model ranks, every rank: K1 on the shard's words, and K2
+    on them then K3 on the decoded shard, bit-equal to the matching columns
+    of the unsharded K1, K2 and K3 calls at M = SLOTS rows; the prepared
+    records' cut ``decoded`` equal to K2 of the shard. Then ms per call by
+    CUDA events, unsharded and per shard, at the LM's three GEMM shapes."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import infer
+    from pytorch_quantize_impls_tpu_torch.kernels import xnor_gemm as bg
+
+    dev = cuda()
+    packed = infer.pack_model(model)
+    prepared = infer.prepare(packed)
+    rng = np.random.default_rng(SEED + 151)
+    checked, timed, full = 0, {}, {}
+    for path, rec in packed.items():
+        k = rec.kernel_shape[0]
+        xi = torch.from_numpy(rng.choice(np.array([-1, 1], np.int8), (SLOTS, k))).to(dev)
+        full[path] = (xi, bg.binary_gemm(xi, rec.packed, rec.alpha),
+                      bg.binary_gemm_decoded(xi, prepared[path].decoded, rec.alpha))
+        if not torch.equal(full[path][1], full[path][2]):
+            fail(f"{'/'.join(path)}: K1 and K3 differ unsharded")
+    for n in MESH_TP:
+        for r in range(n):
+            shards = infer.shard_packed_columns(packed, n, r)
+            cut = infer.shard_packed_columns(prepared, n, r)
+            for path, sh in shards.items():
+                k, cols = sh.kernel_shape
+                xi, full_k1, full_k3 = full[path]
+                block = slice(r * cols, (r + 1) * cols)
+                dec = bg.decode_binary_weights(sh.packed)[:k]
+                ok = (torch.equal(bg.binary_gemm(xi, sh.packed, sh.alpha), full_k1[:, block])
+                      and torch.equal(dec, prepared[path].decoded[:, block])
+                      and torch.equal(dec, cut[path].decoded)
+                      and torch.equal(bg.binary_gemm_decoded(xi, dec, sh.alpha),
+                                      full_k3[:, block]))
+                if not ok:
+                    fail(f"{'/'.join(path)}: rank {r} of {n}: a shard's K1, K2 or K3 differs "
+                         "from the unsharded columns")
+                checked += 1
+    for path, rec in packed.items():
+        if rec.kernel_shape in timed:
+            continue
+        xi, dec = full[path][0], prepared[path].decoded
+        row = {"K1": cuda_ms(lambda: bg.binary_gemm(xi, rec.packed, rec.alpha)),
+               "K3": cuda_ms(lambda: bg.binary_gemm_decoded(xi, dec, rec.alpha))}
+        for n in MESH_TP:
+            sh = infer.shard_packed_columns({path: prepared[path]}, n, 0)[path]
+            row[f"K1/{n}"] = cuda_ms(lambda: bg.binary_gemm(xi, sh.packed, sh.alpha))
+            row[f"K3/{n}"] = cuda_ms(lambda: bg.binary_gemm_decoded(xi, sh.decoded, sh.alpha))
+        timed[rec.kernel_shape] = row
+    print(f"TP shards: {checked} (record, n, rank) shards of {len(packed)} dense records for n in "
+          f"{MESH_TP}: K1, K2 and K3 bit-equal to the unsharded columns", flush=True)
+    for (k, n_out), row in timed.items():
+        print(f"TP shard ms per call at M={SLOTS}, K={k}, N={n_out} (CUDA events): "
+              + ", ".join(f"{key} {v:.4f}" for key, v in row.items()) + f"  [{card}]", flush=True)
+
+
+def mesh_tp_nccl(card: str, model, mesh) -> None:
+    """The TP path on the (1, 1) NCCL mesh at full width: the serving LM's
+    records cut by infer.shard_packed over "model" and run through
+    packed_apply(tp_group=) on MESH_TP_TOKENS tokens, unprepared and
+    prepared. Each of the 48 dense layers per forward all-gathers its
+    columns over the model group (counted); the logits must be bit-equal to
+    packed_apply on the whole records."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import infer
+    from pytorch_quantize_impls_tpu_torch.infer import packed as ip
+
+    dev = cuda()
+    rng = np.random.default_rng(SEED + 153)
+    toks = torch.from_numpy(rng.integers(0, LM_CFG["vocab"], MESH_TP_TOKENS)
+                            .astype(np.int32)).to(dev)
+    group = mesh.get_group("model")
+    packed = infer.pack_model(model)
+    real, gathers = ip._gather_columns, [0]
+
+    def counted(y, tp_group):
+        gathers[0] += 1
+        return real(y, tp_group)
+
+    for name, recs in (("unprepared", packed), ("prepared", infer.prepare(packed))):
+        whole = infer.packed_apply(model, recs, toks)
+        gathers[0] = 0
+        ip._gather_columns = counted
+        try:
+            tp = infer.packed_apply(model, infer.shard_packed(recs, mesh, "model"), toks,
+                                    tp_group=group)
+        finally:
+            ip._gather_columns = real
+        want = 6 * LM_CFG["n_layers"]
+        if gathers[0] != want:
+            fail(f"TP over NCCL ({name}): {gathers[0]} column all-gathers, expected {want}")
+        if not torch.equal(tp, whole):
+            fail(f"TP over NCCL ({name}): packed_apply(tp_group=) on the shards differs from "
+                 f"packed_apply on the whole records by {float((tp - whole).abs().max()):.3g}")
+        print(f"TP over NCCL ({name}): the serving LM on {MESH_TP_TOKENS} tokens through "
+              f"shard_packed and packed_apply(tp_group=), {gathers[0]} column all-gathers: "
+              f"logits {tuple(tp.shape)} bit-equal to the whole records  [{card}]", flush=True)
+
+
+def mesh_lenet(card: str, mesh) -> dict:
+    """bnn_lenet (width 128, path 1's seeded weights) through
+    InferenceEngine without and with the mesh, unprepared and prepared, in
+    rounds of the largest bucket: every answer bit-equal; the mesh runs
+    launch K5, K1, K2 and K3."""
+    from pytorch_quantize_impls_tpu_torch import infer
+    from pytorch_quantize_impls_tpu_torch.kernels import int8_conv as ic
+    from pytorch_quantize_impls_tpu_torch.kernels import int8_matmul as im
+    from pytorch_quantize_impls_tpu_torch.kernels import xnor_gemm as bg
+    from pytorch_quantize_impls_tpu_torch.serve import InferenceEngine
+    from pytorch_quantize_impls_tpu_torch.utils import (
+        SCHEME_CONFIGS, RunConfig, build_model, load_flax_variables,
+    )
+
+    dev = cuda()
+    rng = np.random.default_rng(SEED)
+    cfg = RunConfig(**SCHEME_CONFIGS["bnn_lenet"])
+    model, example_shape, _ = build_model(cfg, device=dev)
+    load_flax_variables(model, seeded_variables(cfg.width, rng), device=dev)
+    model.eval()
+    inputs = [rng.normal(size=example_shape).astype(np.float32) for _ in range(MESH_LENET_INPUTS)]
+    packed = infer.pack_model(model)
+    answers = {}
+    for where in ("alone", "mesh"):
+        if where == "mesh":
+            zero_launches()
+        for name in ("unprepared", "prepared"):
+            recs = packed if name == "unprepared" else infer.prepare(packed)
+            engine = InferenceEngine(lambda x, recs=recs: infer.packed_apply(model, recs, x),
+                                     example_shape, batch_sizes=BUCKETS, max_delay_ms=1000.0,
+                                     device=dev, mesh=mesh if where == "mesh" else None)
+            try:
+                engine.warmup()
+                answers[(name, where)] = serve_rounds(lambda i: engine.submit(inputs[i]),
+                                                      len(inputs))
+            finally:
+                engine.shutdown()
+            st = engine.stats
+            print(f"bnn_lenet engine[{name}, {where}]: {st.requests} requests in {st.batches} "
+                  f"batches, mean latency {st.mean_latency_ms:.3f} ms  [{card}]", flush=True)
+    launches = read_launches("mesh_bnn_lenet", (ic.int8_conv2d, bg.binary_gemm,
+                                                bg.decode_binary_weights, im.int8_gemm))
+    for name in ("unprepared", "prepared"):
+        a, b = answers[(name, "alone")], answers[(name, "mesh")]
+        if any(not np.array_equal(x, y) for x, y in zip(a, b)):
+            fail(f"bnn_lenet over the mesh ({name}) answered otherwise than without it")
+    print(f"bnn_lenet over the mesh: all {len(inputs)} answers bit-equal to the engine without "
+          "the mesh, unprepared and prepared", flush=True)
+    return {"mesh_bnn_lenet": launches}
+
+
+def _moe_label(scheme: str, kw: dict) -> str:
+    return scheme + (f" w{kw['w_bits']}" if "w_bits" in kw else "")
+
+
+def mesh_moe_ep(card: str, mesh) -> None:
+    """Expert parallelism on the card at the MoE LM's layer (d 1024, E 8,
+    d_ff 4096, 256 tokens), for every scheme of MESH_MOE_SCHEMES.
+
+    On the (1, 1) NCCL mesh: the layer placed by parallel.shard_experts
+    (routing over the data group, the stack's statistic reduced over the
+    model group, xin all-reduced, hout all-gathered) must give the unsharded
+    layer's output bit for bit, its expert and keep masks exactly and its
+    aux loss within 1e-6 (1 + |ref|).
+
+    Emulated rank by rank for n in MESH_TP model ranks: each rank quantizes
+    its experts with the whole stack's statistic (nn.moe.stack_statistic
+    over the model group, then ops.dorefa_weight(stat=)) and runs
+    nn.moe.expert_ffn on its slots; its hout rows must be within MOE_TOL
+    (1 + the magnitude of the sums) of the whole stack's rows. The dispatch
+    einsum split over 2 and 4 emulated data ranks and summed must equal the
+    whole one bit for bit (one token at most per expert slot)."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import parallel
+    from pytorch_quantize_impls_tpu_torch.nn.base import _apply_quant
+    from pytorch_quantize_impls_tpu_torch.nn.moe import expert_ffn, stack_statistic, switch_route
+    from pytorch_quantize_impls_tpu_torch.ops import dorefa_weight
+
+    dev = cuda()
+    d, e, f, t = MESH_MOE_LAYER
+    rng = np.random.default_rng(SEED + 152)
+    x = torch.from_numpy(rng.standard_normal((t, d), dtype=np.float32)).to(dev)
+    model_group = mesh.get_group("model")
+    worst, worst_aux = 0.0, 0.0
+    with torch.no_grad():
+        for scheme, kw in MESH_MOE_SCHEMES:
+            label = _moe_label(scheme, kw)
+            params = {
+                "router": rng.standard_normal((d, e), dtype=np.float32) * np.float32(d ** -0.5),
+                "wi_kernel": rng.uniform(-1, 1, (e, d, f)).astype(np.float32),
+                "wo_kernel": rng.uniform(-1, 1, (e, f, d)).astype(np.float32)}
+            m = _moe_layer_pair(scheme, kw, 2.0, params, dev, shape=MESH_MOE_LAYER)
+            ep = parallel.shard_experts(
+                _moe_layer_pair(scheme, kw, 2.0, params, dev, shape=MESH_MOE_LAYER), mesh)
+            y, y_ep = m(x), ep(x)
+            r = switch_route(x, m.router, 2.0)
+            r_ep = switch_route(x, ep.router, 2.0, ep.ep.data_group)
+            aux, aux_ep = float(m.penalty()), float(ep.penalty())
+            worst_aux = max(worst_aux, abs(aux_ep - aux) / (1 + abs(aux)))
+            if not (torch.equal(y_ep, y) and torch.equal(r_ep.expert, r.expert)
+                    and torch.equal(r_ep.keep, r.keep) and r_ep.cap == r.cap):
+                fail(f"MoE EP {label} over NCCL: output, routing or capacity differs from the "
+                     f"unsharded layer (output by {float((y_ep - y).abs().max()):.3g})")
+            if abs(aux_ep - aux) > 1e-6 * (1 + abs(aux)):
+                fail(f"MoE EP {label} over NCCL: aux {aux_ep!r} against {aux!r}")
+            xin = torch.einsum("tec,td->ecd", r.dispatch, x)
+            for n_data in (2, 4):
+                rows = t // n_data
+                parts = sum(torch.einsum("tec,td->ecd", r.dispatch[i * rows:(i + 1) * rows],
+                                         x[i * rows:(i + 1) * rows]) for i in range(n_data))
+                if not torch.equal(parts, xin):
+                    fail(f"MoE EP {label}: the dispatch over {n_data} data ranks, summed, "
+                         "differs from the whole")
+            wi_q, wo_q = m.quantized_kernels()
+            hout = expert_ffn(xin, wi_q, wo_q)
+            mag = expert_ffn(xin.abs(), wi_q.abs(), wo_q.abs())
+            stats = [stack_statistic(scheme, m.w_bits, w, model_group)
+                     for w in (m.wi_kernel, m.wo_kernel)]
+            for n in MESH_TP:
+                per = e // n
+                for rank in range(n):
+                    lo = rank * per
+                    shard = [_apply_quant(m.quantizer, w[lo:lo + per], m) if stat is None
+                             else dorefa_weight(w[lo:lo + per], m.w_bits, stat=stat)
+                             for w, stat in zip((m.wi_kernel, m.wo_kernel), stats)]
+                    mine = expert_ffn(xin[lo:lo + per], *shard)
+                    gap = float(((mine - hout[lo:lo + per]).abs()
+                                 / (1 + mag[lo:lo + per])).max())
+                    worst = max(worst, gap)
+                    if gap > MOE_TOL:
+                        fail(f"MoE EP {label}: rank {rank} of {n}: hout {gap:.3g} from the "
+                             "whole stack's (1 + |sums|), over MOE_TOL")
+    labels = ", ".join(_moe_label(sc, kw) for sc, kw in MESH_MOE_SCHEMES)
+    print(f"MoE EP over NCCL, d {d}, E {e}, d_ff {f}, {t} tokens ({labels}): shard_experts on "
+          f"the (1, 1) mesh bit-equal to the unsharded layer, routing equal, aux within "
+          f"{worst_aux:.3g} (1 + |ref|)  [{card}]", flush=True)
+    print(f"MoE EP emulated on the card, n in {MESH_TP}: every rank's hout rows within "
+          f"{worst:.3g} (1 + |sums|) of the whole stack's (gate {MOE_TOL:g}); the dispatch split "
+          f"over 2 and 4 data ranks sums to the whole bit for bit  [{card}]", flush=True)
+
+
+def mesh_serving_path(card: str, model=None) -> dict:
+    """Path 15: serving over a (data, model) mesh on torch.distributed, in a
+    world of one NCCL rank (one card): the serving LM (path 2's seeded
+    weights; built again when the phase runs alone) through
+    DecodeEngine(packed=, mesh=) unprepared and prepared, bit-equal to the
+    engine without the mesh (mesh_decode); every column shard of its dense
+    records through K1, K2 and K3 for 2, 4 and 8 model ranks
+    (mesh_tp_shards); the LM through shard_packed and packed_apply(tp_group=)
+    over the NCCL model group, bit-equal to the whole records (mesh_tp_nccl);
+    bnn_lenet through InferenceEngine(mesh=) (mesh_lenet); a QuantMoE placed
+    by shard_experts on the NCCL mesh, bit-equal to the unsharded layer, and
+    expert parallelism emulated rank by rank (mesh_moe_ep). Multi-rank NCCL
+    runs need more than one card: the CPU tests run them over gloo."""
+    import torch
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    if model is None:
+        model = build_lm(LM_CFG, SEED)
+    parts = {"build": time.perf_counter() - t0}
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        parts[name] = time.perf_counter() - t
+        return out
+
+    with tempfile.TemporaryDirectory() as workdir:
+        mesh = part("group", mesh_group, card, workdir)
+        try:
+            launches = part("decode", mesh_decode, card, model, mesh)
+            part("tp shards", mesh_tp_shards, card, model)
+            part("tp over nccl", mesh_tp_nccl, card, model, mesh)
+            del model
+            torch.cuda.empty_cache()
+            launches.update(part("bnn_lenet", mesh_lenet, card, mesh))
+            part("moe ep", mesh_moe_ep, card, mesh)
+        finally:
+            dist.destroy_process_group()
+    dt = time.perf_counter() - t0
+    print(f"mesh serving: {dt:.1f} s of its {MESH_PHASE_S} s budget; by part, s: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + f"  [{card}]", flush=True)
+    if dt - parts["build"] > MESH_PHASE_S:
+        fail(f"mesh serving took {dt - parts['build']:.1f} s past the LM's build, over its "
+             f"{MESH_PHASE_S} s")
+    return launches
+
+
 # --- paths 10-12: the GEMM measurements ------------------------------------
 
 
@@ -6673,7 +7085,9 @@ def main() -> None:
     launches.update(phase("xnor digits + bnn_lenet_as", xnor_digits_path, card))
     launches.update(phase("bf16 compute", bf16_path, card))
     launches.update(phase("moe LM", moe_lm_path, card))
-    launches["decode_lm"] = phase("decode LM", decode_path, card)
+    launches["decode_lm"], lm = phase("decode LM", decode_path, card)
+    launches.update(phase("mesh serving", mesh_serving_path, card, lm))
+    del lm
     launches.update(phase("resnet", resnet_path, card))
     launches.update(phase("W4A4 LM", w4a4_lm_path, card))
     launches.update(phase("vgg", vgg_path, card))
@@ -6711,7 +7125,7 @@ def main() -> None:
     fused_paths = {"decode_binary_weights": ("bnn_lenet", "xnor_cifar_packed",
                                              "bnn_lenet_trained", "xnor_cifar_trained",
                                              "bnn_lenet_exported", "xnor_digits_a1_trained",
-                                             "bnn_lenet_bf16"),
+                                             "bnn_lenet_bf16", "mesh_bnn_lenet"),
                    "decode_dorefa_weights": ("resnet_w4a4_packed", "resnet_w4a4_bf16")}
     rows = []
     for name, (cu, replaces) in meta.items():

@@ -29,6 +29,7 @@ from pytorch_quantize_impls_tpu_torch import (  # noqa: F401
     models,
     nn,
     ops,
+    parallel,
     serve,
     train,
     utils,

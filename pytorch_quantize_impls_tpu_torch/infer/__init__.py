@@ -5,6 +5,8 @@ decode step of the 1-bit transformer LM.
     packed = infer.pack_model(model)              # once
     ready  = infer.prepare(packed)                # decode hot buffers
     y      = infer.packed_apply(model, ready, x)  # fast path
+    mine   = infer.shard_packed(ready, mesh, "model")  # a model rank's columns
+    y      = infer.packed_apply(model, mine, x, tp_group=mesh.get_group("model"))
 
     chain = infer.export_fused_chain(xnor_net)    # or export_fused_lenet(lenet)
     logits = infer.fused_apply(chain, images)
@@ -25,6 +27,8 @@ from pytorch_quantize_impls_tpu_torch.infer.packed import (  # noqa: F401
     packed_apply,
     prepare,
     save_packed,
+    shard_packed,
+    shard_packed_columns,
 )
 from pytorch_quantize_impls_tpu_torch.infer.fused_chain import (  # noqa: F401
     FusedChain,

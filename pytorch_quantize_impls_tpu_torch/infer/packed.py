@@ -74,6 +74,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from pytorch_quantize_impls_tpu_torch.kernels import packed_matmul as pm
@@ -319,14 +320,27 @@ def _unrounded(x: torch.Tensor, rec: PackedLayer, bias) -> bool:
         rec.alpha is not None or bias is not None)
 
 
-def _dense_forward(rec: PackedLayer, x: torch.Tensor, bias) -> torch.Tensor:
+def _dense_forward(rec: PackedLayer, x: torch.Tensor, bias, tp_group=None) -> torch.Tensor:
     # the GEMM kernels take (M, K): fold any leading batch/sequence dims
     lead = x.shape[:-1]
-    y = _dense_forward_2d(rec, x.reshape(-1, x.shape[-1]), bias)
+    y = _dense_forward_2d(rec, x.reshape(-1, x.shape[-1]), bias, tp_group)
     return y.reshape(*lead, y.shape[-1])
 
 
-def _dense_forward_2d(rec: PackedLayer, x: torch.Tensor, bias) -> torch.Tensor:
+def _gather_columns(y: torch.Tensor, tp_group) -> torch.Tensor:
+    """Each model rank's (M, N/n) column block -> the whole (M, N), blocks
+    in rank order (JAX's tiled ``all_gather`` on axis 1)."""
+    n = dist.get_world_size(tp_group)
+    blocks = y.new_empty((n * y.shape[0], y.shape[1]))
+    dist.all_gather_into_tensor(blocks, y.contiguous(), group=tp_group)
+    return blocks.view(n, *y.shape).permute(1, 0, 2).reshape(y.shape[0], n * y.shape[1])
+
+
+def _dense_forward_2d(rec: PackedLayer, x: torch.Tensor, bias, tp_group=None) -> torch.Tensor:
+    """One packed GEMM. With ``tp_group`` the record is this rank's column
+    shard (:func:`shard_packed`): the GEMM computes the rank's block of
+    output columns and an all-gather over the group assembles the row
+    before the bias."""
     _check_record(rec)
     if rec.scheme in ("binary", "xnor") and rec.a_bits == 1:
         xi = bg.binarize_to_int8(x)
@@ -353,6 +367,8 @@ def _dense_forward_2d(rec: PackedLayer, x: torch.Tensor, bias) -> torch.Tensor:
             y = (x @ w).to(torch.float32)
         if rec.alpha is not None:
             y = y * rec.alpha[None, :]
+    if tp_group is not None:
+        y = _gather_columns(y, tp_group)
     if bias is not None:
         y = y + bias
     return y.to(x.dtype)
@@ -390,12 +406,17 @@ def _conv_forward(m: QuantConv, rec: PackedLayer, x: torch.Tensor, bias) -> torc
     return y.to(x.dtype)
 
 
-def packed_apply(model: nn.Module, packed: PackedModel, *args, **kwargs):
+def packed_apply(model: nn.Module, packed: PackedModel, *args, tp_group=None, **kwargs):
     """Eval forward ``model(*args, **kwargs)`` with every packed quantized
     layer dispatched to its packed path; other modules (BatchNorm, pooling,
     LayerNorm, attention) run as they are. The model must be in eval mode.
     A decode-mode LM takes ``(tokens, cache)`` and returns what it returns,
-    ``(logits, cache)``."""
+    ``(logits, cache)``.
+
+    ``tp_group`` (a model-axis group): ``packed``'s dense records are this
+    rank's column shards (:func:`shard_packed` over that axis), and each
+    dense layer all-gathers its output columns over the group before its
+    bias (column-parallel tensor parallelism); conv records are whole."""
     if model.training:
         raise ValueError("packed_apply runs the eval forward: call model.eval() first")
     paths = {m: path for path, m in _quant_layers(model, refuse="packed_apply")}
@@ -406,10 +427,52 @@ def packed_apply(model: nn.Module, packed: PackedModel, *args, **kwargs):
             return fake_quant_forward(x)
         if isinstance(m, QuantConv):
             return _conv_forward(m, rec, x, m.bias)
-        return _dense_forward(rec, x, m.bias)
+        return _dense_forward(rec, x, m.bias, tp_group)
 
     with torch.no_grad(), intercept_quant_layers(interceptor):
         return model(*args, **kwargs)
+
+
+def _column_shard(rec: PackedLayer, n: int, rank: int) -> PackedLayer:
+    """Columns ``[rank N/n, (rank + 1) N/n)`` of a dense record, each
+    buffer a contiguous copy: the packed words and ``decoded`` on their N
+    axis (an out-major ``decoded`` stays out-major), ``alpha`` on its only
+    axis. One-bit DoReFa's ``alpha`` holds the whole tensor's E|W| in
+    every entry, so its shard keeps that value. Conv records stay whole."""
+    if rec.kind != "dense":
+        return rec
+    *k_dims, n_out = rec.kernel_shape
+    if n_out % n:
+        raise ValueError(f"{n_out} output columns do not divide over {n} model ranks")
+    lo, width = rank * (n_out // n), n_out // n
+    dec = rec.decoded
+    if dec is not None:
+        if _real_input_dense(rec):  # (K, N) over (N, K) rows: cut the rows
+            dec = dec.T.narrow(0, lo, width).clone().T
+        else:
+            dec = dec.narrow(1, lo, width).contiguous()
+    return dataclasses.replace(
+        rec, packed=rec.packed.narrow(-1, lo, width).contiguous(),
+        alpha=None if rec.alpha is None else rec.alpha.narrow(0, lo, width).contiguous(),
+        decoded=dec, kernel_shape=(*k_dims, width))
+
+
+def shard_packed_columns(packed: PackedModel, n: int, rank: int) -> PackedModel:
+    """Model rank ``rank``'s records of ``packed`` over ``n`` model ranks:
+    every dense record's column block ``rank`` of ``n``, cut once as
+    contiguous copies; conv records whole, as in the JAX package (conv
+    serving shards on data)."""
+    return {path: _column_shard(rec, n, rank) for path, rec in packed.items()}
+
+
+def shard_packed(packed: PackedModel, mesh, axis: str = "model") -> PackedModel:
+    """This rank's records of ``packed`` on ``mesh``: the dense records
+    column-sharded over ``axis`` (:func:`shard_packed_columns` at the
+    rank's index there), the counterpart of the JAX package's
+    ``packed_tp_specs``. Run them through ``packed_apply(...,
+    tp_group=mesh.get_group(axis))``."""
+    return shard_packed_columns(packed, mesh.size(mesh.mesh_dim_names.index(axis)),
+                                mesh.get_local_rank(axis))
 
 
 # --- inference-only export artifact ---------------------------------------

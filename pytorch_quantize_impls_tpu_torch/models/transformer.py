@@ -44,8 +44,10 @@ model's scheme and ``w_bits``; it ignores ``a_bits``, as in the JAX model,
 and takes the LayerNorm's real output). Each MoE forward routes every token
 of the call together, over the batch and the sequence, so in decode mode the
 slots of a batch share the experts' capacity. An injected ``attention_fn``
-(ring or Ulysses attention) waits for ROADMAP queue 1 item 6 and raises
-``NotImplementedError``.
+(ring or Ulysses attention) waits for ROADMAP queue 1 item 6 (e) and raises
+``NotImplementedError``. The MoE blocks run expert-parallel on a mesh
+(``parallel.shard_experts``: tokens over ``"data"``, the experts over
+``"model"``), the forward only.
 
 ``dtype`` (``None`` or ``torch.bfloat16``) is the compute dtype of every
 projection, as in the JAX model: the embedding sum is cast to it, the
@@ -69,7 +71,7 @@ from pytorch_quantize_impls_tpu_torch.nn.base import QuantDense, scheme_weight_q
 from pytorch_quantize_impls_tpu_torch.nn.moe import QuantMoE
 from pytorch_quantize_impls_tpu_torch.utils.device import resolve_device
 
-def _not_ported(what: str, item: int):
+def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, item {item})")
 
 
@@ -149,7 +151,7 @@ class QuantAttention(nn.Module):
     ):
         super().__init__()
         if attention_fn is not None:
-            raise _not_ported("an injected attention_fn (ring/Ulysses attention)", 6)
+            raise _not_ported("an injected attention_fn (ring/Ulysses attention)", "6 (e)")
         if d_model % n_heads:
             raise ValueError(f"d_model {d_model} is not a multiple of n_heads {n_heads}")
         self.n_heads = n_heads

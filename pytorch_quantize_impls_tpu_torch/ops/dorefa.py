@@ -21,7 +21,7 @@ Counterpart of ``pytorch_quantize_impls_tpu/ops/dorefa.py``:
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -39,18 +39,25 @@ def quantize_k(x: torch.Tensor, bits: int) -> torch.Tensor:
     return round_ste(x * n) / n
 
 
-def dorefa_weight(w: torch.Tensor, bits: int) -> torch.Tensor:
-    """DoReFa weight quantization (paper eq. 8/9); output in [-1, 1]."""
+def dorefa_weight(w: torch.Tensor, bits: int, *, stat: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """DoReFa weight quantization (paper eq. 8/9); output in [-1, 1].
+
+    ``stat`` stands in for the tensor's own statistic, ``E|W|`` at one bit
+    and ``max|tanh W|`` above: the whole tensor's, where ``w`` is a shard of
+    it (an expert-parallel rank's experts)."""
     if bits == 1:
         # |w| as w sign(w): the same values, and JAX's gradient +1 at w = 0
-        # (torch's abs has 0 there)
-        return (w * safe_sign(w.detach())).mean() * _sign_ste(w)
+        # (torch's abs has 0 there); the mean as jnp.mean takes it, the sum
+        # over the count, which an expert-parallel statistic reproduces
+        scale = (w * safe_sign(w.detach())).sum() / w.numel() if stat is None else stat
+        return scale * _sign_ste(w)
     if bits >= 32:
         return w
     t = torch.tanh(w)
     # all-zero weights would divide 0/0: the guard keeps forward and
     # gradient finite, as in the JAX package
-    m = t.abs().max()
+    m = t.abs().max() if stat is None else stat
     t = t / (2.0 * torch.where(m > 0, m, torch.ones_like(m))) + 0.5
     return 2.0 * quantize_k(t, bits) - 1.0
 

@@ -10,7 +10,7 @@ config, with checkpoints and resume, a metrics stream and a profile;
 ``python -m pytorch_quantize_impls_tpu_torch.train.accuracy_sweep`` trains a
 config's float32 twin and its quantized model (warm-started from the twin
 where the config says so) and reports the accuracy gap. Not ported yet:
-the sharded steps (ROADMAP queue 1, item 6).
+the sharded train and eval steps (ROADMAP queue 1, item 6 (b2)).
 """
 
 from pytorch_quantize_impls_tpu_torch.train.clipping import (  # noqa: F401

@@ -5,8 +5,8 @@
         [--checkpoint-dir D] [--ckpt-every 500] [--metrics m.jsonl] \\
         [--expect-acc A] [--export model.npz]
 
-The loop of the JAX package's ``scripts/train.py`` without its mesh
-(ROADMAP queue 1, item 6): build the config's model (weights drawn as flax
+The loop of the JAX package's ``scripts/train.py`` without its mesh (the
+sharded steps and ``--mesh`` are ROADMAP queue 1, item 6 (b2)): build the config's model (weights drawn as flax
 draws them, from ``--seed``), load its data (real MNIST/CIFAR-10 from
 ``$QTPU_DATA_DIR`` or ``--data-dir`` when present, else the synthetic
 stand-ins; sklearn's digits), restore the newest checkpoint of

@@ -17,10 +17,10 @@ projected after training by ``train.accuracy_sweep.project_elastic``) and
 port reads: batch size, lr, seed, the data directory, the elastic weight and
 its ramp (``train.accuracy_sweep``), ``warm_start``, the QAT warm start
 from the trained twin that ``train.accuracy_sweep`` applies, and the io
-fields ``train.run`` reads (checkpoint directory, metrics file). The mesh
-field arrives with its ROADMAP item (queue 1, item 6); the JAX config's
-``profile_dir``, which nothing reads there, is left out (a trace is
-``utils.trace``). Neither package's config has a compute dtype: it is the
+fields ``train.run`` reads (checkpoint directory, metrics file). The JAX
+config's ``mesh_shape`` arrives with its reader, ``train.run --mesh`` and
+the sharded steps (ROADMAP queue 1, item 6 (b2)); its ``profile_dir``,
+which nothing reads there, is left out (a trace is ``utils.trace``). Neither package's config has a compute dtype: it is the
 models' ``dtype`` argument."""
 
 from __future__ import annotations

@@ -361,6 +361,25 @@ def test_engine_long_prompt_beyond_buckets(bc):
     np.testing.assert_array_equal(got[0], _expected(jm, v, p, 3))
 
 
+def test_engine_failure_reaches_waiters_and_shutdown(bc):
+    """A step that raises stops the engine: the request in flight fails
+    with it as the cause, and shutdown() raises it again."""
+    _, _, tm = bc
+    eng = _engine(tm, "fake", n_slots=2)
+
+    def broken(toks, active):
+        raise RuntimeError("step failed")
+
+    eng._step = broken
+    fut = eng.submit(_prompts()[0], max_new=3)
+    with pytest.raises(RuntimeError, match="engine shutdown") as err:
+        fut.result(timeout=60)
+    assert "step failed" in str(err.value.__cause__)
+    with pytest.raises(RuntimeError, match="failed on this rank") as err:
+        eng.shutdown()
+    assert "step failed" in str(err.value.__cause__)
+
+
 def test_engine_submit_validation_and_exclusive_backends(bc, w1a1):
     _, _, tm = bc
     eng = _engine(tm, "fake", n_slots=2)
@@ -375,8 +394,10 @@ def test_engine_submit_validation_and_exclusive_backends(bc, w1a1):
     fm = infer.export_fused_decode(tw, device=CPU)
     with pytest.raises(ValueError, match="exclusive"):
         serve.DecodeEngine(tw, fused=fm, packed={}, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        serve.DecodeEngine(tw, mesh=object(), device=CPU)
+    # serving over a mesh is ported (tests/test_torch_mesh_serving.py): the
+    # fused backend stays exclusive with it
+    with pytest.raises(ValueError, match="exclusive"):
+        serve.DecodeEngine(tw, fused=fm, mesh=object(), device=CPU)
 
 
 def test_unported_parts_raise():

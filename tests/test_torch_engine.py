@@ -144,6 +144,12 @@ def test_port_imports_without_jax():
         "from pytorch_quantize_impls_tpu_torch.train import quantized_optim, run\n"
         "from pytorch_quantize_impls_tpu_torch.utils import checkpoint, metrics, native, profiling\n"
         "from pytorch_quantize_impls_tpu_torch.infer import host_export\n"
+        "from pytorch_quantize_impls_tpu_torch.parallel import control, mesh, sharding\n"
+        "import importlib.util\n"
+        "spec = importlib.util.spec_from_file_location('_torch_dist_helpers',"
+        " 'tests/_torch_dist_helpers.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "assert p.parallel.make_mesh is mesh.make_mesh and p.infer.shard_packed\n"
         "assert len(headline.build_rows(16, 16, 64, 'cpu')) == 8\n"
         "assert len(kernel_bench.build('shift_ws', (16, 16, 64), 4, 'cpu')) == 3\n"
         "i8 = torch.ones(64, 128, dtype=torch.int8)\n"
