@@ -297,8 +297,11 @@ on one NVIDIA GPU (built for Hopper, sm_90a).
     paths: bnn_lenet_trained, bnn_lenet_trained_fused, bc_mlp_trained,
     bnn_lenet_exported, digits_g6_trained, xnor_digits_trained,
     xnor_digits_a1_trained; the MoE LM's moe_lm_unprepared and
-    moe_lm_prepared; bnn_lenet_as_served, moe_lm_fake_quant and
-    moe_lm_train launch none).
+    moe_lm_prepared; the meshes' mesh_bnn_lenet and mesh_trained_bnn_lenet,
+    the latter the bnn_lenet that phase ``mesh train`` trained through
+    parallel.make_sharded_train_step on a one-rank NCCL mesh, bit-equal to
+    the local step; bnn_lenet_as_served, moe_lm_fake_quant and moe_lm_train
+    launch none).
 17. Prints engine images/s, decode prefill ms and tokens/s, one JSON line
     with the kernels and their launches per path, and last
     ``{"ok": true, "device": {...}}``.
@@ -310,6 +313,7 @@ from __future__ import annotations
 
 import copy
 import json
+import math
 import os
 import subprocess
 import sys
@@ -327,6 +331,9 @@ from pytorch_quantize_impls_tpu_torch.bench.common import SHAPE as HEADLINE_SHAP
 SEED = 0
 WIDTH = 128
 BUCKETS = (1, 4, 16, 64, 256)
+# closed-loop engine rounds per bucket and backend (cut from max(100, 1024 / b),
+# whose 1024 and 256 rounds at b = 1 and 4 took ~1.8 of the whole run's minutes)
+THROUGHPUT_ROUNDS = 100
 CLIENTS = 4
 REQUESTS_PER_CLIENT = 24
 SMALL_M = (1, 16, 256)
@@ -469,11 +476,11 @@ ADAM8_RESUME_TO = 200  # restored at ADAM8_SAVE_EVERY, run to here, against the 
 ADAM8_STATE_BYTES = 10_221_548  # JAX's count: codes, scales, small moments, the count
 ADAM8_CODE_SHARE = 1e-3  # card vs CPU: a tensor's codes off by one (log2's rounding)
 ADAM8_RTOL = 1e-6  # card vs CPU: scales, small moments; host vs card: alpha
-KILL_STEPS = 300  # train.run killed after its first checkpoint, then resumed
+KILL_STEPS = 200  # train.run killed after its first checkpoint, then resumed (cut from 300)
 KILL_EVERY = 100
 KILL_WAIT_S = 300
 # the digits MLPs: DoReFa W1A2G6 and the elastic scheme at 64-512-512-10
-DIGITS_STEPS = 300  # each run, cosine over these; the configs' budgets: 1600, 3200
+DIGITS_STEPS = 200  # each run, cosine over these (cut from 300); the budgets: 1600, 3200
 DIGITS_WINDOW = 50  # loss windows, clamp checks
 DIGITS_WARM = 3  # steps on the card before card vs CPU: every BatchNorm bias off 0
 DIGITS_CHECKED_STEPS = 2  # card against CPU, each from the card's state
@@ -482,7 +489,7 @@ DIGITS_TOL = 1e-5  # packed against fake-quant, per layer, times 1 + |ref|
 DIGITS_ARGMAX_FLOOR = 0.99
 # the XNOR digits convnets and bnn_lenet_as
 XD_SHAPE = (8, 8, 1)  # the digits as images
-XD_STEPS = 300  # each run and twin, cosine over DIGITS_STEPS; the budgets: 1600, 12000
+XD_STEPS = 200  # each run and twin, cosine over DIGITS_STEPS (cut from 300); budgets 1600, 12000
 XD_LENET_WARM = 20  # steps on the card before card vs CPU: every g off 1
 XD_CHECKED_STEPS = 3  # card against CPU, each from the card's state
 XD_RERUN_STEPS = 100  # a second run from the same seed, bit for bit at this step
@@ -529,6 +536,15 @@ MESH_MOE_SCHEMES = tuple(MOE_LAYER_SCHEMES.items()) + (("dorefa", dict(w_bits=1)
 MESH_TP_TOKENS = (4, 64)  # the serving LM through packed_apply(tp_group=) on the NCCL mesh
 MESH_GROUP_TIMEOUT_S = 120
 MESH_PHASE_S = 60  # the phase's budget
+# path 16: training over the (data, model) mesh, in the same world of one NCCL rank
+MESH_TRAIN_STEPS = 20  # bnn_lenet (width 128, b 128), sharded against unsharded, bit for bit
+MESH_DRAW_STEPS = 10  # binaryconnect_digits_stoch and dorefa_digits_g6, the same way
+MESH_ADAM8_STEPS = 5  # bnn_lenet with QuantizedAdam, the same way
+MESH_RUN_STEPS = 100  # train.run --mesh 1,1 against train.run without it
+# TP emulated rank by rank: a block of the kernel against the whole layer, times
+# 1 + |the sum of |terms||; bit for bit where the sums are integers
+MESH_EMULATED_TOL = 1e-6
+MESH_TRAIN_PHASE_S = 60  # the phase's budget
 
 
 def cuda():
@@ -2074,9 +2090,9 @@ def throughput(card: str, label: str, backends: dict, example_shape):
     closed loop: an engine whose largest bucket is ``b`` serves rounds of
     exactly ``b`` requests submitted at once. Its deadline (1 s) is far
     beyond a round's submissions (which at b=256 took over 50 ms on the H100
-    host), so each round is one full batch and no deadline is waited out. At
-    least 100 rounds, so the p90 round time has 10 samples beyond it. Beside
-    it, the forward alone on a batch of ``b`` (CUDA events)."""
+    host), so each round is one full batch and no deadline is waited out.
+    THROUGHPUT_ROUNDS rounds, so the p90 round time has 10 samples beyond
+    it. Beside it, the forward alone on a batch of ``b`` (CUDA events)."""
     import torch
 
     from pytorch_quantize_impls_tpu_torch.serve import InferenceEngine
@@ -2091,7 +2107,7 @@ def throughput(card: str, label: str, backends: dict, example_shape):
                                      max_delay_ms=1000.0, device=dev)
             try:
                 engine.warmup()
-                rounds = max(100, 1024 // b)
+                rounds = THROUGHPUT_ROUNDS
                 round_ms = []
                 t0 = time.perf_counter()
                 for _ in range(rounds):
@@ -2104,7 +2120,7 @@ def throughput(card: str, label: str, backends: dict, example_shape):
             finally:
                 engine.shutdown()
             with torch.inference_mode():
-                fwd_ms = cuda_ms(lambda: forward(xb), iters=20)
+                fwd_ms = cuda_ms(lambda: forward(xb), iters=10)
             p50, p90 = np.percentile(round_ms, [50, 90])
             print(f"{label} {name:16s} bucket {b:3d}: engine {rounds * b / dt:10.1f} images/s, "
                   f"round p50 {p50:.3f} ms p90 {p90:.3f} ms ({rounds} rounds in "
@@ -2510,7 +2526,7 @@ def decode_speed(card: str, backends: dict):
 
     dev = cuda()
     rng = np.random.default_rng(SEED + 2)
-    n_steps = 32
+    n_steps = 16
     profiles = []
     with torch.no_grad():
         for name, apply in backends.items():
@@ -6851,9 +6867,10 @@ def mesh_moe_ep(card: str, mesh) -> None:
     aux loss within 1e-6 (1 + |ref|).
 
     Emulated rank by rank for n in MESH_TP model ranks: each rank quantizes
-    its experts with the whole stack's statistic (nn.moe.stack_statistic
-    over the model group, then ops.dorefa_weight(stat=)) and runs
-    nn.moe.expert_ffn on its slots; its hout rows must be within MOE_TOL
+    its experts with the whole stack's statistic (ops.dorefa_weight(reduce=)
+    with the group's reduction done over the ranks' own statistics,
+    _emulated_reduce) and runs nn.moe.expert_ffn on its slots; its hout
+    rows must be within MOE_TOL
     (1 + the magnitude of the sums) of the whole stack's rows. The dispatch
     einsum split over 2 and 4 emulated data ranks and summed must equal the
     whole one bit for bit (one token at most per expert slot)."""
@@ -6861,14 +6878,13 @@ def mesh_moe_ep(card: str, mesh) -> None:
 
     from pytorch_quantize_impls_tpu_torch import parallel
     from pytorch_quantize_impls_tpu_torch.nn.base import _apply_quant
-    from pytorch_quantize_impls_tpu_torch.nn.moe import expert_ffn, stack_statistic, switch_route
+    from pytorch_quantize_impls_tpu_torch.nn.moe import expert_ffn, switch_route
     from pytorch_quantize_impls_tpu_torch.ops import dorefa_weight
 
     dev = cuda()
     d, e, f, t = MESH_MOE_LAYER
     rng = np.random.default_rng(SEED + 152)
     x = torch.from_numpy(rng.standard_normal((t, d), dtype=np.float32)).to(dev)
-    model_group = mesh.get_group("model")
     worst, worst_aux = 0.0, 0.0
     with torch.no_grad():
         for scheme, kw in MESH_MOE_SCHEMES:
@@ -6902,16 +6918,21 @@ def mesh_moe_ep(card: str, mesh) -> None:
             wi_q, wo_q = m.quantized_kernels()
             hout = expert_ffn(xin, wi_q, wo_q)
             mag = expert_ffn(xin.abs(), wi_q.abs(), wo_q.abs())
-            stats = [stack_statistic(scheme, m.w_bits, w, model_group)
-                     for w in (m.wi_kernel, m.wo_kernel)]
+            statistic = m.scheme == "dorefa" and m.w_bits < 32
             for n in MESH_TP:
                 per = e // n
+                shards = []
+                for w in (m.wi_kernel, m.wo_kernel):
+                    blocks = [w[r * per:(r + 1) * per] for r in range(n)]
+                    if statistic:
+                        reduce = _emulated_reduce(
+                            blocks, lambda b, red: dorefa_weight(b, m.w_bits, reduce=red))
+                        shards.append([dorefa_weight(b, m.w_bits, reduce=reduce) for b in blocks])
+                    else:
+                        shards.append([_apply_quant(m.quantizer, b, m) for b in blocks])
                 for rank in range(n):
                     lo = rank * per
-                    shard = [_apply_quant(m.quantizer, w[lo:lo + per], m) if stat is None
-                             else dorefa_weight(w[lo:lo + per], m.w_bits, stat=stat)
-                             for w, stat in zip((m.wi_kernel, m.wo_kernel), stats)]
-                    mine = expert_ffn(xin[lo:lo + per], *shard)
+                    mine = expert_ffn(xin[lo:lo + per], shards[0][rank], shards[1][rank])
                     gap = float(((mine - hout[lo:lo + per]).abs()
                                  / (1 + mag[lo:lo + per])).max())
                     worst = max(worst, gap)
@@ -6972,6 +6993,528 @@ def mesh_serving_path(card: str, model=None) -> dict:
     if dt - parts["build"] > MESH_PHASE_S:
         fail(f"mesh serving took {dt - parts['build']:.1f} s past the LM's build, over its "
              f"{MESH_PHASE_S} s")
+    return launches
+
+
+# --- path 16: training over the (data, model) mesh ---------------------------
+
+
+def _equal_states(label: str, got, ref) -> None:
+    """Two train states' steps, models and optimizers (every moment, code
+    and scale, every group's count and rate) bit-equal, or fail."""
+    import torch
+
+    def same(a, b):
+        if isinstance(a, torch.Tensor):
+            return a.dtype == b.dtype and torch.equal(a, b)
+        return a == b
+
+    pairs = [(k, v, ref.model.state_dict()[k]) for k, v in got.model.state_dict().items()]
+    for i, (sg, sr) in enumerate(zip(got.optimizer.state.values(), ref.optimizer.state.values())):
+        pairs += [(f"moment {i} {k}", v, sr[k]) for k, v in sg.items()]
+    groups = [[{k: v for k, v in g.items() if k != "params"} for g in s.optimizer.param_groups]
+              for s in (got, ref)]
+    pairs += [("step", got.step, ref.step), ("param groups", *groups)]
+    differ = [k for k, a, b in pairs if not same(a, b)]
+    if differ or len(got.optimizer.state) != len(ref.optimizer.state):
+        fail(f"{label}: the sharded state differs from the unsharded one in {differ[:8]}")
+
+
+def mesh_train_lockstep(card: str, label: str, cfg, mesh, steps: int, batches, make_state,
+                        on_context=None):
+    """``steps`` steps of train.make_train_step and of
+    parallel.make_sharded_train_step on the (1, 1) NCCL mesh, from one state
+    (the config's model built twice from its seed), the same global batch
+    each step: loss, accuracy, every parameter and statistic and every
+    optimizer moment bit-equal after each step. ``on_context`` is called
+    with the sharded step's mesh context before the first step. Returns
+    (the sharded state, the unsharded state, the collectives of one step)."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import parallel, train
+    from pytorch_quantize_impls_tpu_torch.parallel import collectives
+    from pytorch_quantize_impls_tpu_torch.utils import build_model
+
+    dev = cuda()
+    local, sharded = (make_state(cfg, build_model(cfg, device=dev)[0]) for _ in range(2))
+    local_step = train.make_train_step()
+    sharded, step = parallel.make_sharded_train_step(sharded, mesh)
+    if on_context is not None:
+        on_context(step.context)
+    per_step, ms = None, {"local": 0.0, "mesh": 0.0}
+    for i in range(steps):
+        x, y = next(batches)
+        t = time.perf_counter()
+        _, m0 = local_step(local, (x, y))
+        torch.cuda.synchronize()
+        ms["local"] += (time.perf_counter() - t) * (i > 0)
+        before = dict(collectives.COUNTS)
+        t = time.perf_counter()
+        _, m1 = step(sharded, parallel.shard_batch((x, y), mesh))
+        torch.cuda.synchronize()
+        ms["mesh"] += (time.perf_counter() - t) * (i > 0)
+        per_step = {k: v - before.get(k, 0) for k, v in collectives.COUNTS.items()}
+        if not (torch.equal(m0["loss"], m1["loss"]) and torch.equal(m0["accuracy"],
+                                                                    m1["accuracy"])):
+            fail(f"{label} step {i + 1}: sharded metrics {float(m1['loss'])!r}, "
+                 f"{float(m1['accuracy'])!r} against {float(m0['loss'])!r}, "
+                 f"{float(m0['accuracy'])!r}")
+        _equal_states(f"{label} step {i + 1}", sharded, local)
+    n_entries = len(local.model.state_dict()) + sum(len(s) for s in local.optimizer.state.values())
+    print(f"mesh train {label}: {steps} steps of make_sharded_train_step on the (1, 1) NCCL mesh "
+          f"bit-equal to make_train_step after every step (loss, accuracy, {n_entries} entries "
+          f"of the model and optimizer); NCCL collectives per step {per_step}; host ms per step "
+          f"(synchronized, steps 2-{steps}) unsharded {1e3 * ms['local'] / (steps - 1):.2f}, "
+          f"sharded {1e3 * ms['mesh'] / (steps - 1):.2f}  [{card}]", flush=True)
+    return sharded, local, per_step
+
+
+def _counting(obj, name: str, calls: dict) -> None:
+    """Count the calls of ``obj``'s bound method ``name`` into ``calls``."""
+    real = getattr(obj, name)
+
+    def counted(*args, **kwargs):
+        calls[name] = calls.get(name, 0) + 1
+        return real(*args, **kwargs)
+
+    setattr(obj, name, counted)
+
+
+def mesh_train_draws(card: str, mesh) -> dict:
+    """binaryconnect_digits_stoch and dorefa_digits_g6 on the (1, 1) mesh
+    (mesh_train_lockstep): bit-equal per step, with G6's cotangent noise as
+    the rows of the whole batch's (batch_draw, 3 per step) and its max|g|
+    over the data group (data_max, 2 per step: the first layer's input has
+    no cotangent). The model axis has one rank, so no layer is a column
+    shard and the stochastic weights draw as the unsharded step's do
+    (weight_draw, 0 per step); a column shard's block of the whole
+    kernel's draw is held in mesh_tp_emulated. Returns both trained
+    states."""
+    from pytorch_quantize_impls_tpu_torch import data, train
+    from pytorch_quantize_impls_tpu_torch.utils import SCHEME_CONFIGS, RunConfig
+
+    train_set, _ = digits_splits()
+    out = {}
+    for name, want in (("binaryconnect_digits_stoch", {"weight_draw": 0}),
+                       ("dorefa_digits_g6", {"batch_draw": 3, "data_max": 2})):
+        cfg = RunConfig(**SCHEME_CONFIGS[name])
+        calls = {}
+        sharded, _, _ = mesh_train_lockstep(
+            card, name, cfg, mesh, MESH_DRAW_STEPS,
+            data.iterate_batches(train_set, cfg.batch_size, seed=cfg.seed),
+            lambda c, m: train.QuantTrainState.create_for(m, lr=c.lr, seed=c.seed),
+            lambda context: [_counting(context, method, calls) for method in want])
+        expected = {k: v * MESH_DRAW_STEPS for k, v in want.items()}
+        calls = {k: calls.get(k, 0) for k in want}
+        print(f"mesh train {name}: mesh-path draws and maxima {calls} over {MESH_DRAW_STEPS} "
+              f"steps, expected {expected}  [{card}]", flush=True)
+        if calls != expected:
+            fail(f"mesh train {name}: the mesh path's draws and maxima {calls}, "
+                 f"expected {expected}")
+        out[name] = sharded
+    return out
+
+
+def _layer_inputs(model, x) -> dict:
+    """Every quant layer's input in one training-mode forward of a copy of
+    ``model`` on ``x`` (its BatchNorm statistics move in the copy only)."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch.nn.base import _QuantLayer, quant_generator
+
+    model = copy.deepcopy(model).train()
+    seen, hooks = {}, []
+    for name, m in model.named_modules():
+        if isinstance(m, _QuantLayer):
+            hooks.append(m.register_forward_pre_hook(
+                lambda m, args, name=name: seen.__setitem__(name, (m, args[0].detach()))))
+    try:
+        with torch.no_grad(), quant_generator(torch.Generator(x.device).manual_seed(SEED)):
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def _emulated_reduce(blocks, quantize):
+    """A group's reduction done in one process: each block through
+    ``quantize(block, reduce)`` with its own statistic recorded (its mean,
+    or the maximum of its entries), then a ``reduce`` that returns on every
+    rank what parallel.collectives.group_reduce returns there: the mean of
+    the blocks' means, or the maximum of their maxima, with its gradient
+    into every block. None where ``quantize`` takes no statistic."""
+    import torch
+
+    own = []
+
+    def record(kind, v):
+        own.append((kind, v if kind == "mean" else v.max()))
+        return own[-1][1]
+
+    for b in blocks:
+        quantize(b, record)
+    if not own:
+        return None
+    stack = torch.stack([v for _, v in own])
+    whole = stack.mean() if own[0][0] == "mean" else stack.max()
+    return lambda kind, v: whole
+
+
+def _draws():
+    """The step's generator as every rank builds it, from one seed: a
+    stochastic quantizer draws the same numbers in each such block."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch.nn.base import quant_generator
+
+    return quant_generator(torch.Generator(cuda()).manual_seed(SEED + 162))
+
+
+def _emulated_columns(layer, x, g, n: int, control=None):
+    """``layer`` run as ``n`` model ranks in one process, with the mesh
+    path's functions: each rank's block of out-features of the kernel
+    quantized by ``_quantized_shard``, with the whole kernel's statistic
+    (:func:`_emulated_reduce`) and, for a stochastic quantizer, its block of
+    the whole kernel's draw (parallel.collectives.block_draw, each rank
+    from a generator of the same seed); the block's output by the layer's
+    op; the blocks and output scales joined in rank order (the all-gather);
+    then the epilogue. ``control`` breaks it: ``"own"`` quantizes each
+    block by its own statistic, ``"detached"`` by the whole one without its
+    gradient. Returns (the output, the kernel's gradient under the
+    cotangent ``g``, the joined quantized kernel)."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch.nn.base import _apply_quant
+    from pytorch_quantize_impls_tpu_torch.parallel.collectives import block_draw
+
+    w = layer.weight.detach().clone().requires_grad_()
+    rows = w.shape[0] // n
+    blocks = [w[r * rows:(r + 1) * rows] for r in range(n)]
+
+    def quantize(r, reduce):
+        with _draws():
+            return layer._quantized_shard(blocks[r], reduce,
+                                          lambda gen: block_draw(gen, blocks[r], n, r))
+
+    whole = _emulated_reduce(range(n), quantize)
+    if control == "own":
+        reduce = lambda kind, v: v if kind == "mean" else v.max()  # noqa: E731
+    elif control == "detached":
+        reduce = lambda kind, v: whole(kind, v).detach()  # noqa: E731
+    else:
+        reduce = whole
+    xq = _apply_quant(layer.input_quant, x, layer)
+    ys, scales, wqs = [], [], []
+    for r, b in enumerate(blocks):
+        wq = quantize(r, reduce)
+        cdt = layer.dtype or torch.promote_types(xq.dtype, wq.dtype)
+        ys.append(layer._op(xq.to(cdt), wq.to(cdt)))
+        scales.append(None if layer.out_scale is None else layer.out_scale(b))
+        wqs.append(wq.detach())
+    y = layer._epilogue(torch.cat(ys, -1), None if scales[0] is None else torch.cat(scales))
+    (y * g).sum().backward()
+    return y.detach(), w.grad, torch.cat(wqs)
+
+
+def _emulated_case(layer, xin, n: int, g) -> dict:
+    """One (layer, n) case of mesh_tp_emulated, each gap over 1 + the sum
+    of |terms| of its entry: ``out`` and ``grad``, the output's and the
+    kernel gradient's largest gaps from the whole layer's; ``equal``,
+    whether the outputs are bit-equal; ``weights_equal``, whether the
+    joined quantized kernel is the whole layer's bit for bit (its draws
+    included); ``terms``, the products each kernel-gradient entry sums
+    (batch x output pixels); the controls: ``shifted_grad``, each rank's
+    gradient block set in its neighbour's place (a wrong slice of the
+    gathered cotangent), and for a DoReFa layer ``own_out`` and
+    ``own_grad`` with each rank's own statistic, ``detached_grad`` with the
+    whole statistic but no gradient through it; for a float32 conv,
+    ``whole_f64`` and ``blocks_f64``, the whole layer's and the blocks'
+    gradients off the float64 sum of the same float32 terms."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch.nn.base import QuantConv
+
+    ref = copy.deepcopy(layer).train()
+    with _draws():
+        y_ref = ref.fake_quant_forward(xin)
+    (y_ref * g).sum().backward()
+    with _draws():
+        xq, wq = ref._quantized(xin, None)
+    wa = wq.detach().abs().requires_grad_()
+    mag = ref._op(xq.detach().abs(), wa)
+    if ref.out_scale is not None:
+        mag = mag * ref.out_scale(ref.weight).detach().abs()
+    (mag * g.abs()).sum().backward()
+    y_ref, mag, g_ref = y_ref.detach(), mag.detach(), ref.weight.grad
+
+    def gaps(y, grad):
+        return (float(((y - y_ref).abs() / (1 + mag)).max()),
+                float(((grad - g_ref).abs() / (1 + wa.grad)).max()))
+
+    y, grad, wq_joined = _emulated_columns(layer, xin, g, n)
+    out = dict(zip(("out", "grad"), gaps(y, grad)), equal=torch.equal(y, y_ref),
+               weights_equal=torch.equal(wq_joined, wq.detach().to(wq_joined.dtype)),
+               shifted_grad=gaps(y, torch.roll(grad, grad.shape[0] // n, 0))[1],
+               terms=math.prod(y.shape[:-1]))
+    if g.dtype == torch.float32 and isinstance(layer, QuantConv):
+        exact = copy.deepcopy(layer).train().to(torch.float64)
+        with _draws():
+            y64 = exact.fake_quant_forward(xin.double())
+        (y64 * g.double()).sum().backward()
+        out["whole_f64"], out["blocks_f64"] = (
+            float(((gr.double() - exact.weight.grad).abs() / (1 + wa.grad.double())).max())
+            for gr in (g_ref, grad))
+    if layer.scheme == "dorefa":
+        out["own_out"], out["own_grad"] = gaps(*_emulated_columns(layer, xin, g, n, "own")[:2])
+        out["detached_grad"] = gaps(*_emulated_columns(layer, xin, g, n, "detached")[:2])[1]
+    return out
+
+
+def _reorder_bound(terms: int) -> float:
+    """The most two float32 sums of ``terms`` products, in any two orders,
+    can differ, over the sum of the products' magnitudes: 2 gamma_n with
+    n = terms and the unit roundoff 2^-24 (Higham, Accuracy and Stability
+    of Numerical Algorithms, 2002, section 3.1)."""
+    u = 2.0 ** -24
+    return 2 * terms * u / (1 - terms * u)
+
+
+def mesh_tp_emulated(card: str, models: dict) -> None:
+    """Tensor parallelism at full width emulated on the card for n in MESH_TP
+    model ranks (a multi-rank NCCL group needs more than one card): every
+    quant layer of the trained bnn_lenet, of binaryconnect_digits_stoch's
+    MLP and of dorefa_digits_g6's MLP whose out-features divide by n, on
+    the inputs a training-mode forward gives it, as n column ranks
+    (_emulated_columns), against the whole layer (fake_quant_forward), in
+    float64 (the model and its inputs cast) and in float32. The joined
+    quantized kernel of a layer without a statistic is the whole layer's
+    bit for bit (the stochastic weights' draws included); the output is
+    bit-equal where its sums are integers (+-1 x +-1, float32) and within
+    MESH_EMULATED_TOL (1 + the sum of |terms|) elsewhere; so is the kernel
+    gradient's every block, except a float32 conv's: cuDNN's float32 weight
+    gradient sums its batch x output-pixel products in an order of its
+    choosing for each out-channel count, so there the bound is
+    :func:`_reorder_bound` of that count (each sum's distance from the
+    float64 sum of the same terms is printed). The negative controls must
+    miss their case's gradient bound: a rank's block in its neighbour's
+    place in every case, and in some case (a gap that depends on how the
+    cotangent's terms cancel) a DoReFa layer quantized with each rank's own
+    statistic, whose output must miss MESH_EMULATED_TOL in every case, or
+    with the whole statistic but no gradient through it. Every reading is
+    printed before any gate is applied."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch.train.steps import fp32_cudnn
+
+    readings, failures = [], []
+    with fp32_cudnn():
+        for dtype in (torch.float64, torch.float32):
+            rng = torch.Generator(cuda()).manual_seed(SEED + 160)
+            for label, (model, x) in models.items():
+                cast = copy.deepcopy(model).to(dtype)
+                for name, (layer, xin) in _layer_inputs(cast, x.to(dtype)).items():
+                    for n in MESH_TP:
+                        if layer.weight.shape[0] % n:
+                            continue
+                        with torch.no_grad(), _draws():
+                            shape = layer.fake_quant_forward(xin).shape
+                        g = torch.randn(shape, generator=rng, device=cuda(), dtype=dtype)
+                        r = _emulated_case(layer, xin, n, g)
+                        r.update(dtype=dtype, where=f"{label} {name}, n {n}",
+                                 integer=layer._integer_sums, dorefa="own_out" in r,
+                                 tol=_reorder_bound(r["terms"]) if "whole_f64" in r
+                                 else MESH_EMULATED_TOL)
+                        readings.append(r)
+    for dtype in (torch.float64, torch.float32):
+        rs = [r for r in readings if r["dtype"] == dtype]
+        ctl = [r for r in rs if r["dorefa"]]
+        conv = [r for r in rs if "whole_f64" in r]
+        gemm = max((r for r in rs if "whole_f64" not in r), key=lambda r: r["grad"])
+
+        def span(key, rows=ctl):
+            return f"{min(r[key] for r in rows):.3g}..{max(r[key] for r in rows):.3g}"
+
+        line = (f"TP emulated on the card, {str(dtype)[6:]}, n in {MESH_TP}: {len(rs)} (layer, "
+                f"n) cases of {', '.join(models)} against the whole layers, (1 + |terms|): "
+                f"outputs within {max(r['out'] for r in rs):.3g} (the +-1 x +-1 layers "
+                f"bit-equal: {all(r['equal'] for r in rs if r['integer'])}); kernel gradients "
+                f"within {gemm['grad']:.3g} (at {gemm['where']}; gate {MESH_EMULATED_TOL:g})")
+        if conv:
+            worst = max(conv, key=lambda r: r["grad"] / r["tol"])
+            line += (f", of the convs within {worst['grad']:.3g} (at {worst['where']}; gate "
+                     f"{worst['tol']:.3g}, 2 gamma of its {worst['terms']} products; the whole "
+                     f"layer's gradient {span('whole_f64', conv)} and the blocks' "
+                     f"{span('blocks_f64', conv)} off the float64 sums)")
+        line += (f"; joined kernels without a statistic bit-equal: "
+                 f"{all(r['weights_equal'] for r in rs if not r['dorefa'])}; negative controls: "
+                 f"neighbour's block {span('shifted_grad', rs)}; {len(ctl)} DoReFa cases, own "
+                 f"statistic outputs {span('own_out')}, gradients {span('own_grad')}, statistic "
+                 f"without its gradient {span('detached_grad')}  [{card}]")
+        print(line, flush=True)
+        for r in rs:
+            where = f"TP emulated {r['where']}, {dtype}"
+            if r["integer"] and dtype == torch.float32 and not r["equal"]:
+                failures.append(f"{where}: integer sums not bit-equal ({r['out']:.3g})")
+            if not r["dorefa"] and not r["weights_equal"]:
+                failures.append(f"{where}: the joined quantized kernel differs from the whole's")
+            if r["out"] > MESH_EMULATED_TOL or r["grad"] > r["tol"]:
+                failures.append(f"{where}: output {r['out']:.3g}, kernel gradient "
+                                f"{r['grad']:.3g} from the whole layer (1 + |terms|), over "
+                                f"{MESH_EMULATED_TOL:g} / {r['tol']:.3g}")
+            if r["shifted_grad"] <= r["tol"]:
+                failures.append(f"{where}: the neighbour's block passed the gradient gate")
+            if r["dorefa"] and r["own_out"] <= MESH_EMULATED_TOL:
+                failures.append(f"{where}: the rank's own statistic passed the output gate "
+                                f"({r['own_out']:.3g})")
+        for control in ("own_grad", "detached_grad"):
+            if all(r[control] <= r["tol"] for r in ctl):
+                failures.append(f"TP emulated, {dtype}: no case of the control {control} "
+                                "misses its gradient gate")
+    if failures:
+        fail(f"{len(failures)} TP emulated gates failed; first: " + "; ".join(failures[:4]))
+
+
+def mesh_train_run(card: str, workdir: str) -> None:
+    """train.run --config bnn_lenet --steps MESH_RUN_STEPS on the card, with
+    --mesh 1,1 (in the phase's NCCL world) and without: the result lines
+    equal field for field (steps, loss, test accuracy, packed accuracy), and
+    the final checkpoints (the mesh run's written whole by rank 0) bit-equal
+    entry by entry, Adam's moments included."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch.train import run
+
+    out = {}
+    for where, extra in (("alone", []), ("mesh", ["--mesh", "1,1"])):
+        ckpt = os.path.join(workdir, f"run_{where}")
+        t = time.perf_counter()
+        _, out[where] = run.train_config(run.parse_args(
+            ["--config", "bnn_lenet", "--steps", str(MESH_RUN_STEPS), "--checkpoint-dir", ckpt,
+             "--ckpt-every", str(MESH_RUN_STEPS // 2), "--device", cuda().type] + extra))
+        out[where]["wall_s"] = time.perf_counter() - t
+        out[where]["checkpoint"] = torch.load(
+            os.path.join(ckpt, str(MESH_RUN_STEPS), "state.pt"), weights_only=True)
+    fields = ("steps", "loss", "accuracy", "packed_accuracy")
+    a, b = out["alone"], out["mesh"]
+    line = {where: ", ".join(f"{k} {r[k]!r}" for k in fields) + f" in {r['wall_s']:.1f} s"
+            for where, r in out.items()}
+    print(f"train.run --mesh 1,1: {line['mesh']}; without --mesh: {line['alone']}  [{card}]",
+          flush=True)
+    if any(a[k] != b[k] for k in fields) or b.get("mesh") != [1, 1]:
+        fail("train.run --mesh 1,1 ended otherwise than train.run without it")
+    _bit_equal("train.run --mesh 1,1 final checkpoint against the run without it",
+               _checkpoint_tensors(b["checkpoint"]), _checkpoint_tensors(a["checkpoint"]))
+
+
+def mesh_train_serve(card: str, trained, reference, mesh) -> dict:
+    """The bnn_lenet trained in mesh_train_lockstep served through
+    InferenceEngine over the mesh, unprepared then prepare() and prepared,
+    in rounds of the largest bucket; the unsharded run's model the same way
+    without the mesh: every answer bit-equal, and the two runs' launch
+    counts of K5, K1, K2 and K3 equal and > 0."""
+    from pytorch_quantize_impls_tpu_torch import infer
+    from pytorch_quantize_impls_tpu_torch.kernels import int8_conv as ic
+    from pytorch_quantize_impls_tpu_torch.kernels import int8_matmul as im
+    from pytorch_quantize_impls_tpu_torch.kernels import xnor_gemm as bg
+    from pytorch_quantize_impls_tpu_torch.serve import InferenceEngine
+
+    dev = cuda()
+    rng = np.random.default_rng(SEED + 161)
+    example_shape = (28, 28, 1)
+    inputs = [rng.normal(size=example_shape).astype(np.float32) for _ in range(MESH_LENET_INPUTS)]
+    kernels = (ic.int8_conv2d, bg.binary_gemm, bg.decode_binary_weights, im.int8_gemm)
+    answers, launches = {}, {}
+    for label, model, m in (("unsharded", reference, None), ("mesh", trained, mesh)):
+        model.eval()
+        zero_launches()
+        packed = infer.pack_model(model)
+        for name in ("unprepared", "prepared"):
+            recs = packed if name == "unprepared" else infer.prepare(packed)
+            engine = InferenceEngine(lambda x, recs=recs, model=model: infer.packed_apply(
+                model, recs, x), example_shape, batch_sizes=BUCKETS, max_delay_ms=1000.0,
+                device=dev, mesh=m)
+            try:
+                engine.warmup()
+                answers[(label, name)] = serve_rounds(lambda i: engine.submit(inputs[i]),
+                                                      len(inputs))
+            finally:
+                engine.shutdown()
+        launches[label] = read_launches(f"mesh_trained_bnn_lenet ({label})", kernels)
+    for name in ("unprepared", "prepared"):
+        a, b = answers[("unsharded", name)], answers[("mesh", name)]
+        if any(not np.array_equal(u, v) for u, v in zip(a, b)):
+            fail(f"the mesh-trained bnn_lenet ({name}) answered otherwise than the unsharded one")
+    counts = {k.__name__: launches["mesh"][k.__name__] for k in kernels}
+    if counts != {k.__name__: launches["unsharded"][k.__name__] for k in kernels}:
+        fail(f"mesh-trained bnn_lenet launches {counts} against the unsharded model's "
+             f"{launches['unsharded']}")
+    print(f"mesh-trained bnn_lenet served over the mesh: all {len(inputs)} answers bit-equal to "
+          f"the unsharded model's, unprepared and prepared; launches {counts}, the same as the "
+          f"unsharded model's  [{card}]", flush=True)
+    return {"mesh_trained_bnn_lenet": launches["mesh"]}
+
+
+def mesh_train_path(card: str) -> dict:
+    """Path 16: training over a (data, model) mesh on torch.distributed, in a
+    world of one NCCL rank (one card). bnn_lenet (width 128, b 128) through
+    make_sharded_train_step for MESH_TRAIN_STEPS steps bit-equal to
+    make_train_step, its NCCL collectives per step counted; the stochastic
+    BinaryConnect MLP and the G6 MLP with G6's draws and maximum on the mesh
+    path (mesh_train_draws); the 8-bit Adam; tensor parallelism emulated
+    rank by rank at n = 2, 4, 8 on the three models, the stochastic
+    weights' block draws included (mesh_tp_emulated); train.run
+    --mesh 1,1 against train.run (mesh_train_run); the mesh-trained model
+    served through K5, K1, K2 and K3 (mesh_train_serve). Multi-rank NCCL runs
+    need more than one card: the CPU tests run them over gloo."""
+    import torch
+    import torch.distributed as dist
+
+    from pytorch_quantize_impls_tpu_torch import data, train
+    from pytorch_quantize_impls_tpu_torch.utils import SCHEME_CONFIGS, RunConfig
+
+    t0 = time.perf_counter()
+    parts = {}
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        parts[name] = time.perf_counter() - t
+        return out
+
+    cfg = RunConfig(**SCHEME_CONFIGS["bnn_lenet"])
+    train_set, _ = data.mnist()
+    with tempfile.TemporaryDirectory() as workdir:
+        mesh = part("group", mesh_group, card, workdir)
+        try:
+            zero_launches()
+            trained, reference, _ = part(
+                "bnn_lenet", mesh_train_lockstep, card, "bnn_lenet", cfg, mesh, MESH_TRAIN_STEPS,
+                _batches(train_set, cfg.seed),
+                lambda c, m: train.QuantTrainState.create_for(m, lr=c.lr, seed=c.seed))
+            digits = part("draws", mesh_train_draws, card, mesh)
+            part("adam8", mesh_train_lockstep, card, "bnn_lenet QuantizedAdam", cfg, mesh,
+                 MESH_ADAM8_STEPS, _batches(train_set, cfg.seed), _adam8_state)
+            none = read_launches("mesh training", ())
+            if any(none.values()):
+                fail(f"training over the mesh launched a serving kernel: {none}")
+            x_lenet = torch.from_numpy(train_set[0][:TRAIN_BATCH]).to(cuda())
+            digits_set, _ = digits_splits()
+            models = {"bnn_lenet": (trained.model, x_lenet)}
+            for name, state in digits.items():
+                x = digits_set[0][:SCHEME_CONFIGS[name]["batch_size"]]
+                models[name] = (state.model, torch.from_numpy(x).to(cuda()))
+            part("tp emulated", mesh_tp_emulated, card, models)
+            part("train.run", mesh_train_run, card, workdir)
+            launches = part("serve", mesh_train_serve, card, trained.model, reference.model,
+                            mesh)
+        finally:
+            dist.destroy_process_group()
+    dt = time.perf_counter() - t0
+    print(f"mesh train: {dt:.1f} s of its {MESH_TRAIN_PHASE_S} s budget; by part, s: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()) + f"  [{card}]", flush=True)
+    if dt > MESH_TRAIN_PHASE_S:
+        fail(f"mesh train took {dt:.1f} s, over its {MESH_TRAIN_PHASE_S} s")
     return launches
 
 
@@ -7088,6 +7631,7 @@ def main() -> None:
     launches["decode_lm"], lm = phase("decode LM", decode_path, card)
     launches.update(phase("mesh serving", mesh_serving_path, card, lm))
     del lm
+    launches.update(phase("mesh train", mesh_train_path, card))
     launches.update(phase("resnet", resnet_path, card))
     launches.update(phase("W4A4 LM", w4a4_lm_path, card))
     launches.update(phase("vgg", vgg_path, card))
@@ -7125,7 +7669,8 @@ def main() -> None:
     fused_paths = {"decode_binary_weights": ("bnn_lenet", "xnor_cifar_packed",
                                              "bnn_lenet_trained", "xnor_cifar_trained",
                                              "bnn_lenet_exported", "xnor_digits_a1_trained",
-                                             "bnn_lenet_bf16", "mesh_bnn_lenet"),
+                                             "bnn_lenet_bf16", "mesh_bnn_lenet",
+                                             "mesh_trained_bnn_lenet"),
                    "decode_dorefa_weights": ("resnet_w4a4_packed", "resnet_w4a4_bf16")}
     rows = []
     for name, (cu, replaces) in meta.items():

@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pytorch_quantize_impls_tpu_torch.nn.base import Conv, Dense
+from pytorch_quantize_impls_tpu_torch.nn.base import Conv, Dense, mesh_context
 from pytorch_quantize_impls_tpu_torch.nn.binary import BinConv, LinearBin
 
 
@@ -56,9 +56,12 @@ class BatchNorm(nn.Module):
     training mode it uses the batch mean and flax's fast variance
     ``max(0, mean(x^2) - mean(x)^2)`` (biased; the same value goes into
     ``running_var``) and moves the running statistics as
-    ``momentum * running + (1 - momentum) * batch``. As flax 0.12's, it
-    reduces and normalizes in float32 (or x's dtype where it is wider), then
-    casts the output to ``dtype`` where one is given."""
+    ``momentum * running + (1 - momentum) * batch``. Under a sharded step
+    (``nn.base.sharded_step``) the batch mean and ``mean(x^2)`` are the
+    whole batch's, each data rank's averaged over the data group with their
+    gradient, as GSPMD computes them. As flax 0.12's, it reduces and
+    normalizes in float32 (or x's dtype where it is wider), then casts the
+    output to ``dtype`` where one is given."""
 
     def __init__(self, features: int, epsilon: float = 1e-5, momentum: float = 0.99,
                  dtype: Optional[torch.dtype] = None):
@@ -76,7 +79,12 @@ class BatchNorm(nn.Module):
         if self.training:
             axes = tuple(range(x.ndim - 1))
             mean = x.mean(axes)
-            var = torch.maximum(x.new_zeros(()), (x * x).mean(axes) - mean * mean)
+            context = mesh_context()
+            if context is None:
+                var = torch.maximum(x.new_zeros(()), (x * x).mean(axes) - mean * mean)
+            else:
+                mean, mean_sq = context.data_mean(torch.stack([mean, (x * x).mean(axes)])).unbind(0)
+                var = torch.maximum(x.new_zeros(()), mean_sq - mean * mean)
             if not _recomputing.get():
                 with torch.no_grad():
                     m = self.momentum

@@ -35,7 +35,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from pytorch_quantize_impls_tpu_torch.models.lenet import BatchNorm, recomputing
-from pytorch_quantize_impls_tpu_torch.nn.base import Conv, Dense
+from pytorch_quantize_impls_tpu_torch.nn.base import Conv, Dense, mesh_context, sharded_step
 from pytorch_quantize_impls_tpu_torch.nn.dorefa import DorefaConv
 
 
@@ -72,10 +72,18 @@ class BasicBlock(nn.Module):
         return torch.relu(y + residual)
 
 
+@contextlib.contextmanager
+def _recomputation(context):
+    with recomputing(), sharded_step(context):
+        yield
+
+
 def _remat_contexts():
     """checkpoint's (forward, recomputation) contexts: the recomputation
-    leaves BatchNorm's running statistics alone."""
-    return contextlib.nullcontext(), recomputing()
+    leaves BatchNorm's running statistics alone, and runs under the
+    forward's sharded step (its mesh context), if any, which the backward's
+    thread does not hold."""
+    return contextlib.nullcontext(), _recomputation(mesh_context())
 
 
 class DorefaResNet20(nn.Module):

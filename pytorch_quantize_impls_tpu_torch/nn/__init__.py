@@ -11,6 +11,7 @@ from pytorch_quantize_impls_tpu_torch.nn.base import (  # noqa: F401
     init_like_flax,
     intercept_quant_layers,
     quant_generator,
+    sharded_step,
     stochastic,
 )
 from pytorch_quantize_impls_tpu_torch.nn.binary import (  # noqa: F401

@@ -29,6 +29,18 @@ global RNG. In eval mode (``not module.training``) they call their
 from the same generator (:func:`current_generator`), and draws nothing in
 eval mode.
 
+:func:`sharded_step` holds a sharded train or eval step's mesh
+(``parallel.collectives.MeshContext``) for the running thread. Under it a
+layer whose weight is a column shard (one of the context's ``columns``)
+runs Megatron's column-parallel order: its input through ``copy_to_model``
+(the cotangent all-reduced over the model group), the weight quantized as
+a shard of the whole kernel (DoReFa's statistic reduced over the model
+group, a stochastic draw of the whole kernel cut to the shard), its block of
+out-features, the blocks all-gathered, then the epilogue with the gathered
+scale and the replicated bias. A stochastic draw on the batch
+(:func:`batch_generator`, DoReFa's gradient noise) draws the whole batch's
+and keeps this data rank's rows. With no context, nothing changes.
+
 A layer with a training penalty (PACT's L2 on its clip level, the elastic
 layers' grid penalty, the MoE's switch aux loss of its last forward)
 exposes it as ``penalty()``;
@@ -89,6 +101,34 @@ def intercept_quant_layers(fn: Interceptor):
         _interceptor.reset(token)
 
 
+_sharded: contextvars.ContextVar[Optional[object]] = contextvars.ContextVar(
+    "sharded_step", default=None
+)
+
+
+@contextlib.contextmanager
+def sharded_step(context):
+    """Let the modules in this thread reduce over ``context``'s mesh (a
+    ``parallel.collectives.MeshContext``) until the block exits; ``None``
+    is no mesh."""
+    token = _sharded.set(context)
+    try:
+        yield
+    finally:
+        _sharded.reset(token)
+
+
+def mesh_context():
+    """The mesh context :func:`sharded_step` holds for this thread, or None."""
+    return _sharded.get()
+
+
+def column_context(module: nn.Module):
+    """The mesh context where ``module``'s weight is a column shard, else None."""
+    context = _sharded.get()
+    return context if context is not None and module in context.columns else None
+
+
 _generator: contextvars.ContextVar[Optional[torch.Generator]] = contextvars.ContextVar(
     "quant_generator", default=None
 )
@@ -144,14 +184,26 @@ def current_generator() -> torch.Generator:
     return generator
 
 
-def _apply_quant(q, x: torch.Tensor, module: nn.Module) -> torch.Tensor:
+def batch_generator(x: torch.Tensor):
+    """The generator of a draw of ``x``'s shape over the batch:
+    :func:`current_generator`, or under a sharded step its block draw of the
+    whole batch's rows (``MeshContext.batch_draw``)."""
+    context = _sharded.get()
+    generator = current_generator()
+    return generator if context is None else context.batch_draw(generator, x)
+
+
+def _apply_quant(q, x: torch.Tensor, module: nn.Module, draw=None) -> torch.Tensor:
+    """``q(x)``; a stochastic ``q`` in training mode draws from the step's
+    generator, or from ``draw(generator)`` where given (a shard's block)."""
     if q is None:
         return x
     if not getattr(q, "stochastic", False):
         return q(x)
     if not module.training:
         return q.eval_fn(x)
-    return q(x, current_generator())
+    generator = current_generator()
+    return q(x, generator if draw is None else draw(generator))
 
 
 def scheme_weight_quant(scheme: str, w_bits: int = 1, fsr: float = 0.0):
@@ -200,21 +252,49 @@ class _QuantLayer(nn.Module):
             return fn(self, x, self.fake_quant_forward)
         return self.fake_quant_forward(x)
 
-    def _quantized(self, x):
-        """The quantized input and weight, both at the compute dtype."""
+    def _quantized(self, x, tp=None):
+        """The quantized input and weight, both at the compute dtype; under
+        ``tp`` (the layer's column context) the weight is a shard's."""
         x = _apply_quant(self.input_quant, x, self)
-        w = _apply_quant(self.weight_quant, self.weight, self)
+        if tp is None:
+            w = _apply_quant(self.weight_quant, self.weight, self)
+        else:
+            w = self._quantized_shard(self.weight, tp.reduce,
+                                      lambda generator: tp.weight_draw(generator, self.weight))
         cdt = self.dtype or torch.promote_types(x.dtype, w.dtype)
         return x.to(cdt), w.to(cdt)
+
+    def _quantized_shard(self, w, reduce, draw):
+        """The weight quantizer on ``w``, a block of out-features of the
+        whole kernel: DoReFa with the whole kernel's statistic
+        (``reduce``), a stochastic quantizer on the block ``draw`` gives of
+        the whole kernel's draw, any other entry by entry."""
+        if self.scheme == "dorefa" and self.weight_quant is not None:
+            return ops.dorefa_weight(w, self.w_bits, reduce=reduce)
+        return _apply_quant(self.weight_quant, w, self, draw)
+
+    def _column_input(self, x):
+        """The input, and this layer's column context (None off the mesh)."""
+        tp = column_context(self)
+        return (x, None) if tp is None else (tp.copy_to_model(x), tp)
 
     def _exact(self, x: torch.Tensor) -> bool:
         """True where the product's integer sums are taken in float32 and
         rounded once to the narrower compute dtype."""
         return self._integer_sums and x.dtype not in _WIDE
 
-    def _epilogue(self, y):
-        if self.out_scale is not None:
-            y = y * self.out_scale(self.weight).to(y.dtype)
+    def _finish(self, y, tp=None):
+        """The epilogue on the op's output; under ``tp`` the output blocks
+        and the output scale are first gathered over the model group."""
+        scale = None if self.out_scale is None else self.out_scale(self.weight)
+        if tp is not None:
+            y = tp.gather(y, -1)
+            scale = None if scale is None else tp.gather(scale, 0)
+        return self._epilogue(y, scale)
+
+    def _epilogue(self, y, scale):
+        if scale is not None:
+            y = y * scale.to(y.dtype)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         return y
@@ -246,10 +326,14 @@ class QuantDense(_QuantLayer):
         nn.init.xavier_normal_(self.weight)
 
     def fake_quant_forward(self, x: torch.Tensor) -> torch.Tensor:
-        x, w = self._quantized(x)
+        x, tp = self._column_input(x)
+        x, w = self._quantized(x, tp)
+        return self._finish(self._op(x, w), tp)
+
+    def _op(self, x, w):
         if self._exact(x):
-            return self._epilogue((x.float() @ w.float().T).to(x.dtype))
-        return self._epilogue(x @ w.T)
+            return (x.float() @ w.float().T).to(x.dtype)
+        return x @ w.T
 
 
 class QuantConv(_QuantLayer):
@@ -287,7 +371,11 @@ class QuantConv(_QuantLayer):
         nn.init.xavier_normal_(self.weight)
 
     def fake_quant_forward(self, x: torch.Tensor) -> torch.Tensor:
-        x, w = self._quantized(x)
+        x, tp = self._column_input(x)
+        x, w = self._quantized(x, tp)
+        return self._finish(self._op(x, w), tp)
+
+    def _op(self, x, w):
         exact = self._exact(x)
         y = conv2d_nhwc(x.float() if exact else x, w.float() if exact else w, self.strides,
                         self.padding)
@@ -298,7 +386,7 @@ class QuantConv(_QuantLayer):
             # where a max pool's gradient goes. Rounded before the one
             # rounding to a narrower compute dtype.
             y = round_ste(y)
-        return self._epilogue(y.to(x.dtype))
+        return y.to(x.dtype)
 
 
 class Dense(QuantDense):

@@ -21,7 +21,8 @@ activation's dtype.
 
 ``ShiftNormBatch`` is the BNN paper's shift-based BatchNorm (§2.3): the
 scale ``gamma * rsqrt(var + eps)`` is rounded to the nearest power of two,
-with an identity STE.
+with an identity STE. Under a sharded step its batch mean and variance are
+the whole batch's (each data rank's averaged over the data group).
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from pytorch_quantize_impls_tpu_torch.nn.base import (
     QuantConv,
     QuantDense,
     clipped_master,
+    mesh_context,
     stochastic,
 )
 
@@ -175,8 +177,13 @@ class ShiftNormBatch(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             axes = tuple(range(x.ndim - 1))
+            context = mesh_context()
             mean = x.mean(axes)
+            if context is not None:
+                mean = context.data_mean(mean)
             var = ((x - mean) ** 2).mean(axes)  # jnp.var: biased
+            if context is not None:
+                var = context.data_mean(var)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)

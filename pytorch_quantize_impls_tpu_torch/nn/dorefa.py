@@ -13,8 +13,11 @@ real. Children are named as the flax ones (``conv``, ``dense``, ``act``).
 ``ops.dorefa_gradient``) in training mode only, before PACT or the input
 quantizer, drawing its noise from the train step's generator
 (``nn.base.current_generator``; outside a train step it raises). In eval
-mode it draws nothing. ``dtype`` is the inner layer's compute dtype
-(``nn.base``); PACT computes at float32 or wider, as in the JAX package.
+mode it draws nothing. Under a sharded step it draws the whole batch's
+noise and keeps this data rank's rows (``nn.base.batch_generator``), and
+its ``max|g|`` is the whole batch's (``MeshContext.data_max``). ``dtype``
+is the inner layer's compute dtype (``nn.base``); PACT computes at float32
+or wider, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -25,7 +28,12 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 from torch import nn
 
-from pytorch_quantize_impls_tpu_torch.nn.base import QuantConv, QuantDense, current_generator
+from pytorch_quantize_impls_tpu_torch.nn.base import (
+    QuantConv,
+    QuantDense,
+    batch_generator,
+    mesh_context,
+)
 from pytorch_quantize_impls_tpu_torch.nn.pact import PACT
 from pytorch_quantize_impls_tpu_torch.ops.dorefa import (
     dorefa_activation,
@@ -58,7 +66,9 @@ def _quant_kwargs(bits: int, a_bits: Optional[int], a_quant: str, dtype):
 def _input_path(layer: nn.Module, x):
     """The gradient quantizer (training only), then PACT where there is one."""
     if layer.g_bits and layer.training:
-        x = dorefa_gradient(x, current_generator(), layer.g_bits)
+        context = mesh_context()
+        x = dorefa_gradient(x, batch_generator(x), layer.g_bits,
+                            max_over=None if context is None else context.data_max)
     return layer.act(x) if layer.act is not None else x
 
 

@@ -9,7 +9,9 @@ the ``losses`` collection; here ``penalty()`` returns it, and
 ``glorot_normal`` (``init_like_flax``), as flax's layers draw theirs, and sit
 directly in the layer (flax path ``['layer0']['kernel']``, no ``dense``
 child), so the clamp after each step clips them as the JAX package's does.
-``ElasticConv`` pads as JAX does (``kernels.conv.conv_pads``). Grids:
+``ElasticConv`` pads as JAX does (``kernels.conv.conv_pads``). A column
+shard's penalty (``nn.base.sharded_step``) is the whole kernel's, its mean
+over the model group. Grids:
 ``"binary"`` (+-1), ``"lin"`` and ``"log"`` (FSR grids). ``dtype`` is the
 compute dtype (``nn.base``): with bf16 the output stays bf16, the bias cast
 to it.
@@ -21,7 +23,7 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
-from pytorch_quantize_impls_tpu_torch.nn.base import QuantConv, QuantDense
+from pytorch_quantize_impls_tpu_torch.nn.base import QuantConv, QuantDense, column_context
 from pytorch_quantize_impls_tpu_torch.ops.elastic import elastic_loss
 
 GRIDS = ("binary", "lin", "log")
@@ -30,6 +32,12 @@ GRIDS = ("binary", "lin", "log")
 def _check_grid(grid: str) -> None:
     if grid not in GRIDS:
         raise ValueError(f"unknown elastic grid {grid!r}")
+
+
+def _penalty(layer) -> torch.Tensor:
+    p = elastic_loss(layer.grid, layer.weight, fsr=layer.grid_fsr, bits=layer.grid_bits)
+    tp = column_context(layer)
+    return p if tp is None else tp.penalty_mean(p)
 
 
 class ElasticLinear(QuantDense):
@@ -43,7 +51,7 @@ class ElasticLinear(QuantDense):
         self.grid, self.grid_fsr, self.grid_bits = grid, fsr, bits
 
     def penalty(self) -> torch.Tensor:
-        return elastic_loss(self.grid, self.weight, fsr=self.grid_fsr, bits=self.grid_bits)
+        return _penalty(self)
 
 
 class ElasticConv(QuantConv):
@@ -60,4 +68,4 @@ class ElasticConv(QuantConv):
         self.grid, self.grid_fsr, self.grid_bits = grid, fsr, bits
 
     def penalty(self) -> torch.Tensor:
-        return elastic_loss(self.grid, self.weight, fsr=self.grid_fsr, bits=self.grid_bits)
+        return _penalty(self)

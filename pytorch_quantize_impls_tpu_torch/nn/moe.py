@@ -44,16 +44,18 @@ einsum, summed over the data group, is the global ``xin`` exactly (each
 their outputs are gathered over the model group in expert order, and the
 combine runs on the local tokens. A scheme whose quantizer takes a
 statistic of the whole stack (DoReFa's ``max |tanh w|``, one-bit DoReFa's
-``E|W|``) reduces it over the model group, so that a shard quantizes as the
-whole stack does. EP runs the forward only: the statistic's reduction
-carries no gradient, so EP under autograd raises (sharded training is
-ROADMAP queue 1 item 6 (b2)).
+``E|W|``) reduces it over the model group (``ExpertParallel.reduce``,
+``ops.dorefa_weight(reduce=)``), so that a shard quantizes as the whole
+stack does. EP runs the forward only: the dispatch's all-reduce, the
+outputs' all-gather and the aux loss's all-reduces carry no gradient, so
+EP under autograd raises (EP under autograd is ROADMAP queue 1 item 6 (b3);
+the sharded train step refuses such a model).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -61,7 +63,6 @@ import torch.nn.functional as F
 from torch import nn
 
 from pytorch_quantize_impls_tpu_torch.nn.base import _apply_quant, scheme_weight_quant
-from pytorch_quantize_impls_tpu_torch.ops.common import safe_sign
 from pytorch_quantize_impls_tpu_torch.ops.dorefa import dorefa_weight
 from pytorch_quantize_impls_tpu_torch.utils.device import resolve_device
 
@@ -193,29 +194,14 @@ def expert_sharding_rules(params_path: str) -> bool:
 
 class ExpertParallel(NamedTuple):
     """A ``QuantMoE``'s place on a mesh: the groups of its data and model
-    axes, and its model rank's first expert."""
+    axes, its model rank's first expert, and the reduction over the model
+    group that gives DoReFa the whole stack's statistic from this rank's
+    block (``ops.dorefa_weight(reduce=)``)."""
 
     data_group: object
     model_group: object
     first_expert: int
-
-
-def stack_statistic(scheme: str, w_bits: int, w: torch.Tensor, model_group
-                    ) -> Optional[torch.Tensor]:
-    """The statistic of the whole expert stack that ``scheme``'s quantizer
-    takes, from this rank's shard ``w`` of it, reduced over
-    ``model_group``: DoReFa's ``max |tanh w|`` (k > 1 bits) or one-bit
-    DoReFa's ``E|W|``; None for the schemes that quantize entry by entry."""
-    if scheme != "dorefa" or w_bits >= 32:
-        return None
-    w = w.detach()
-    if w_bits == 1:
-        total = (w * safe_sign(w)).sum()
-        dist.all_reduce(total, group=model_group)
-        return total / (w.numel() * dist.get_world_size(model_group))
-    m = torch.tanh(w).abs().max()
-    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=model_group)
-    return m
+    reduce: Callable[[str, torch.Tensor], torch.Tensor]
 
 
 class QuantMoE(nn.Module):
@@ -267,34 +253,35 @@ class QuantMoE(nn.Module):
         if self.ep is None:
             return (_apply_quant(self.quantizer, self.wi_kernel, self),
                     _apply_quant(self.quantizer, self.wo_kernel, self))
-        out = []
-        for w in (self.wi_kernel, self.wo_kernel):
-            stat = stack_statistic(self.scheme, self.w_bits, w, self.ep.model_group)
-            out.append(_apply_quant(self.quantizer, w, self) if stat is None
-                       else dorefa_weight(w, self.w_bits, stat=stat))
-        return tuple(out)
+        if self.scheme != "dorefa" or self.w_bits >= 32:
+            return (_apply_quant(self.quantizer, self.wi_kernel, self),
+                    _apply_quant(self.quantizer, self.wo_kernel, self))
+        return tuple(dorefa_weight(w, self.w_bits, reduce=self.ep.reduce)
+                     for w in (self.wi_kernel, self.wo_kernel))
 
-    def expert_parallel(self, stacks: Dict[str, torch.Tensor], data_group, model_group
-                        ) -> None:
+    def expert_parallel(self, stacks: Dict[str, torch.Tensor], data_group, model_group,
+                        reduce: Callable[[str, torch.Tensor], torch.Tensor]) -> None:
         """Place the layer on a mesh (``parallel.shard_experts``, which cuts
         ``stacks``): ``wi_kernel`` and ``wo_kernel`` become this model
         rank's block of ``E / n`` experts (block ``r`` of the model group's
-        ``n`` ranks, in rank order), and the layer routes over the data
-        group."""
+        ``n`` ranks, in rank order), quantized by the whole stack's
+        statistic that ``reduce`` gives over the model group, and the layer
+        routes over the data group."""
         if set(stacks) != {"wi_kernel", "wo_kernel"}:
             raise ValueError(f"expert_parallel takes both expert stacks, not {sorted(stacks)}")
         per = stacks["wi_kernel"].shape[0]
         for name, w in stacks.items():
             setattr(self, name, nn.Parameter(w))
-        self.ep = ExpertParallel(data_group, model_group, dist.get_rank(model_group) * per)
+        self.ep = ExpertParallel(data_group, model_group, dist.get_rank(model_group) * per,
+                                 reduce)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.ep is not None and torch.is_grad_enabled() and any(
                 p.requires_grad for p in self.parameters()):
             raise NotImplementedError(
                 "an expert-parallel QuantMoE runs the forward only (its statistics reduce "
-                "without a gradient): run it under torch.no_grad(); sharded training is "
-                "ROADMAP queue 1 item 6 (b2)")
+                "without a gradient): run it under torch.no_grad(); EP under autograd is "
+                "ROADMAP queue 1 item 6 (b3)")
         wi, wo = self.quantized_kernels()
         out, self._aux, _ = switch_ffn(
             x, self.router, wi, wo, capacity_factor=self.capacity_factor,

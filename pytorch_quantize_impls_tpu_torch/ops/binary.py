@@ -6,12 +6,15 @@ takes the uniform draw ``u`` as an argument, as JAX's
 ``_binary_stoch_prim(x, u)`` does, so the two packages can be held bit for
 bit on a shared ``u``; :func:`binary_connect_stoch` draws ``u`` from a
 ``torch.Generator`` on ``x``'s device. The draw is a constant in the
-backward pass.
+backward pass. A :class:`BlockDraw` in place of the generator draws a whole
+tensor's uniforms and hands out one block of them: a shard's draw on a
+mesh, the same numbers as the unsharded tensor's at the same place.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Union
+from dataclasses import dataclass
+from typing import Callable, Tuple, Union
 
 import torch
 
@@ -66,9 +69,35 @@ def binary_stoch_prim(x: torch.Tensor, u: torch.Tensor, *, ste_mode: str = STE_C
     return _BinaryStoch.apply(x, u, ste_mode == STE_CLIP)
 
 
-def uniform_like(x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+@dataclass(frozen=True)
+class BlockDraw:
+    """A generator that draws the whole tensor of ``shape`` and keeps the
+    block of ``x``'s extent along ``dim`` from index ``start``: where ``x``
+    is a shard of that tensor (a column shard's kernel, a data rank's rows
+    of the batch), ``uniform_like(x, BlockDraw(...))`` gives the numbers
+    the whole tensor's draw has there, and moves the generator as far."""
+
+    generator: torch.Generator
+    shape: Tuple[int, ...]
+    dim: int
+    start: int
+
+
+def uniform_like(x: torch.Tensor, generator: Union[torch.Generator, BlockDraw]) -> torch.Tensor:
     """U[0, 1) of x's shape, drawn in float32 on x's device from ``generator``
-    (which must live there), cast to x's dtype."""
+    (which must live there), cast to x's dtype. A :class:`BlockDraw` draws
+    its whole shape and returns x's block of it."""
+    if isinstance(generator, BlockDraw):
+        shape = tuple(generator.shape)
+        block = list(shape)
+        block[generator.dim] = x.shape[generator.dim]
+        if tuple(block) != tuple(x.shape) or generator.start + block[generator.dim] > \
+                shape[generator.dim]:
+            raise ValueError(f"a block of shape {tuple(x.shape)} from {generator.start} on axis "
+                             f"{generator.dim} does not lie in the draw's shape {shape}")
+        u = torch.rand(shape, generator=generator.generator, device=x.device,
+                       dtype=torch.float32)
+        return u.narrow(generator.dim, generator.start, block[generator.dim]).to(x.dtype)
     u = torch.rand(x.shape, generator=generator, device=x.device, dtype=torch.float32)
     return u.to(x.dtype)
 

@@ -21,14 +21,17 @@ Counterpart of ``pytorch_quantize_impls_tpu/ops/dorefa.py``:
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Union
 
 import torch
 
-from pytorch_quantize_impls_tpu_torch.ops.binary import uniform_like
+from pytorch_quantize_impls_tpu_torch.ops.binary import BlockDraw, uniform_like
 from pytorch_quantize_impls_tpu_torch.ops.common import jnp_clip, round_ste, safe_sign, ste
 
 _sign_ste = ste(safe_sign)
+
+# ("mean", a shard's mean) or ("max", a shard's entries) -> the whole tensor's
+Reduce = Callable[[str, torch.Tensor], torch.Tensor]
 
 
 def quantize_k(x: torch.Tensor, bits: int) -> torch.Tensor:
@@ -39,25 +42,30 @@ def quantize_k(x: torch.Tensor, bits: int) -> torch.Tensor:
     return round_ste(x * n) / n
 
 
-def dorefa_weight(w: torch.Tensor, bits: int, *, stat: Optional[torch.Tensor] = None
+def dorefa_weight(w: torch.Tensor, bits: int, *, reduce: Optional[Reduce] = None
                   ) -> torch.Tensor:
     """DoReFa weight quantization (paper eq. 8/9); output in [-1, 1].
 
-    ``stat`` stands in for the tensor's own statistic, ``E|W|`` at one bit
-    and ``max|tanh W|`` above: the whole tensor's, where ``w`` is a shard of
-    it (an expert-parallel rank's experts)."""
+    The statistic is ``E|W|`` at one bit and ``max|tanh W|`` above. Where
+    ``w`` is a block of a tensor sharded over ranks (a column shard's
+    kernel, an expert-parallel rank's experts), ``reduce`` makes it the
+    whole tensor's, with a gradient: it is called as ``reduce("mean", the
+    block's E|W|)`` or ``reduce("max", the block's |tanh W|)`` and returns
+    the whole tensor's (``parallel.collectives.group_reduce``)."""
     if bits == 1:
         # |w| as w sign(w): the same values, and JAX's gradient +1 at w = 0
         # (torch's abs has 0 there); the mean as jnp.mean takes it, the sum
-        # over the count, which an expert-parallel statistic reproduces
-        scale = (w * safe_sign(w.detach())).sum() / w.numel() if stat is None else stat
+        # over the count
+        scale = (w * safe_sign(w.detach())).sum() / w.numel()
+        if reduce is not None:
+            scale = reduce("mean", scale)
         return scale * _sign_ste(w)
     if bits >= 32:
         return w
     t = torch.tanh(w)
     # all-zero weights would divide 0/0: the guard keeps forward and
     # gradient finite, as in the JAX package
-    m = t.abs().max() if stat is None else stat
+    m = t.abs().max() if reduce is None else reduce("max", t.abs())
     t = t / (2.0 * torch.where(m > 0, m, torch.ones_like(m))) + 0.5
     return 2.0 * quantize_k(t, bits) - 1.0
 
@@ -73,12 +81,13 @@ def dorefa_activation(x: torch.Tensor, bits: int) -> torch.Tensor:
 
 class _DorefaGrad(torch.autograd.Function):
     """Identity forward; the backward quantizes the cotangent (eq. 12) with
-    the noise of ``u``, and gives nothing for ``u``."""
+    the noise of ``u``, and gives nothing for ``u`` or ``max_over``."""
 
     @staticmethod
-    def forward(ctx, x, u, n_levels):
+    def forward(ctx, x, u, n_levels, max_over):
         ctx.save_for_backward(u)
         ctx.n_levels = n_levels
+        ctx.max_over = max_over
         return x.view_as(x)
 
     @staticmethod
@@ -86,27 +95,36 @@ class _DorefaGrad(torch.autograd.Function):
         (u,) = ctx.saved_tensors
         n = torch.tensor(ctx.n_levels, dtype=u.dtype, device=u.device)
         m = g.abs().max()
+        if ctx.max_over is not None:
+            m = ctx.max_over(m)
         m = torch.where(m == 0, torch.ones_like(m), m)
         noise = (u - 0.5) / n
         gs = g / (2.0 * m) + 0.5 + noise
         q = torch.round(torch.clamp(gs, 0.0, 1.0) * n) / n
         gq = 2.0 * m * (q - 0.5 - noise)
-        return gq.to(g.dtype), None, None
+        return gq.to(g.dtype), None, None, None
 
 
-def dorefa_grad_prim(x: torch.Tensor, u: torch.Tensor, bits: int) -> torch.Tensor:
+def dorefa_grad_prim(x: torch.Tensor, u: torch.Tensor, bits: int, *,
+                     max_over: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                     ) -> torch.Tensor:
     """The gradient quantizer on a given draw ``u`` ~ U[0, 1) of x's shape:
-    ``x`` forward, the ``bits``-bit stochastic cotangent backward."""
-    return _DorefaGrad.apply(x, u, float(2**bits - 1))
+    ``x`` forward, the ``bits``-bit stochastic cotangent backward.
+    ``max_over`` turns the cotangent's ``max|g|`` into the whole batch's
+    where ``x`` holds a data rank's rows (``parallel.collectives``)."""
+    return _DorefaGrad.apply(x, u, float(2**bits - 1), max_over)
 
 
-def dorefa_gradient(x: torch.Tensor, generator: torch.Generator, bits: int) -> torch.Tensor:
+def dorefa_gradient(x: torch.Tensor, generator: Union[torch.Generator, BlockDraw], bits: int,
+                    *, max_over: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+                    ) -> torch.Tensor:
     """Identity forward; quantizes the gradient to ``bits`` bits (paper eq.
-    12), with a fresh draw per call from ``generator``. Insert it on the
+    12), with a fresh draw per call from ``generator`` (a :class:`BlockDraw`
+    draws the whole batch's and keeps x's rows). Insert it on the
     activation path."""
     if bits >= 32:
         return x
-    return dorefa_grad_prim(x, uniform_like(x, generator), bits)
+    return dorefa_grad_prim(x, uniform_like(x, generator), bits, max_over=max_over)
 
 
 def dorefa_quantizers(w_bits: int = 1, a_bits: int = 32,

@@ -14,6 +14,9 @@ and gloo on ``cpu``, which a caller asks for by name, as the tests do; every
 group is made with a timeout, so that a rank that never answers fails the
 collective instead of hanging it. Only one card has run these groups (a
 world of size 1); more ranks run on the CPU only.
+
+:func:`assert_host_sync` is the JAX package's divergence guard
+(``parallel/mesh.py:60-89``) over the ranks.
 """
 
 from __future__ import annotations
@@ -100,6 +103,55 @@ def make_mesh(
     if len(shape) != 2 or shape[0] * shape[1] != n:
         raise ValueError(f"mesh shape {shape} != world size {n}")
     return init_device_mesh(dev_type, shape, mesh_dim_names=tuple(axis_names))
+
+
+def _bits_digest(t: torch.Tensor) -> int:
+    """The sum of a tensor's bit patterns as int32 words (a float's
+    bits), in int64: one ulp anywhere moves it."""
+    t = t.detach().reshape(-1)
+    if t.is_floating_point():
+        t = (t.to(torch.float32) if t.element_size() == 2 else t).view(torch.int32)
+    return int(t.to(torch.int64).sum())
+
+
+def assert_host_sync(state, mesh: DeviceMesh, *, atol: float = 0.0) -> None:
+    """Raise ``AssertionError`` on every rank where ranks that must agree
+    have not (the JAX package's divergence guard): each rank all-gathers
+    (step, seed, a digest of the replicated entries of its model's state, a
+    digest of its shard's entries) as float64; the first three must match
+    over every rank, the shard digest over each data group (the ranks that
+    hold the same shards), within ``atol``. A digest is the sum of the
+    entries' bit patterns as integers, modulo 2^52 (exact in float64), so
+    one ulp anywhere moves it; JAX's sum of ``|entry|`` would round a
+    small one away. Call it at each checkpoint (a collective: every rank
+    calls it); a world of one rank does nothing."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return
+    from pytorch_quantize_impls_tpu_torch.parallel.collectives import all_gather
+    from pytorch_quantize_impls_tpu_torch.parallel.sharding import param_shardings
+
+    model_dim = mesh.mesh_dim_names.index(MODEL_AXIS)
+    digests = [0, 0]
+    placements = param_shardings(state.model, mesh)
+    for key, t in state.model.state_dict().items():
+        sharded = getattr(placements[key][model_dim], "dim", None) is not None
+        digests[sharded] += _bits_digest(t)
+    row = torch.tensor([float(state.step), float(state.seed), float(digests[0] % 2**52),
+                        float(digests[1] % 2**52), float(mesh.get_local_rank(MODEL_AXIS))],
+                       dtype=torch.float64)
+    device = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    table = all_gather(row[None].to(device), None, 0).cpu()
+    names = ("step", "seed", "replicated digest", "shard digest")
+    for r, other in enumerate(table):
+        for col, name in enumerate(names):
+            if col == 3:
+                peers = table[table[:, 4] == other[4]]
+                ref, what = peers[0, 3], f"the first rank of model index {int(other[4])}"
+            else:
+                ref, what = table[0, col], "rank 0"
+            if abs(float(other[col]) - float(ref)) > atol:
+                raise AssertionError(f"rank {r} diverged: its {name} {float(other[col])!r} "
+                                     f"against {what}'s {float(ref)!r} (atol {atol})")
 
 
 def axis_size(mesh: DeviceMesh, axis: str) -> int:

@@ -9,8 +9,12 @@ clamp, step and the step's generator), ``make_train_step`` /
 config, with checkpoints and resume, a metrics stream and a profile;
 ``python -m pytorch_quantize_impls_tpu_torch.train.accuracy_sweep`` trains a
 config's float32 twin and its quantized model (warm-started from the twin
-where the config says so) and reports the accuracy gap. Not ported yet:
-the sharded train and eval steps (ROADMAP queue 1, item 6 (b2)).
+where the config says so) and reports the accuracy gap. The sharded
+train and eval steps over a (data, model) mesh share this package's
+forward and loss (``steps.make_compute_loss``) and live in ``parallel``
+(``make_sharded_train_step``, ``make_sharded_eval_step``); ``train.run
+--mesh D,M`` drives them. Left for ROADMAP queue 1 item 6 (b3): the 8-bit
+Adam under a model axis > 1 and expert parallelism under autograd.
 """
 
 from pytorch_quantize_impls_tpu_torch.train.clipping import (  # noqa: F401

@@ -3,10 +3,12 @@
     python -m pytorch_quantize_impls_tpu_torch.train.run --config bnn_lenet \\
         [--steps N] [--fp32] [--schedule constant|cosine] [--device cpu] \\
         [--checkpoint-dir D] [--ckpt-every 500] [--metrics m.jsonl] \\
-        [--expect-acc A] [--export model.npz]
+        [--expect-acc A] [--export model.npz] [--mesh D,M]
 
-The loop of the JAX package's ``scripts/train.py`` without its mesh (the
-sharded steps and ``--mesh`` are ROADMAP queue 1, item 6 (b2)): build the config's model (weights drawn as flax
+    torchrun --nproc-per-node N -m pytorch_quantize_impls_tpu_torch.train.run \
+        --config bnn_lenet --mesh D,M
+
+The loop of the JAX package's ``scripts/train.py``: build the config's model (weights drawn as flax
 draws them, from ``--seed``), load its data (real MNIST/CIFAR-10 from
 ``$QTPU_DATA_DIR`` or ``--data-dir`` when present, else the synthetic
 stand-ins; sklearn's digits), restore the newest checkpoint of
@@ -31,18 +33,35 @@ with the result; with
 ``--expect-acc`` the exit code is 1 when the test accuracy is below it. The
 8-bit Adam is reached through the API (``train.QuantTrainState.create_for(
 optimizer=train.QuantizedAdam(...))``), as in the JAX package.
+
+Over a mesh (``RunConfig.mesh_shape``): in a process group (``torchrun``
+sets ``WORLD_SIZE``; ``parallel.initialize(device=)`` joins it, NCCL on
+the card, gloo with ``--device cpu``) the run trains through
+``parallel.make_sharded_train_step`` on a ``(data, model)`` mesh of
+``--mesh D,M`` ranks, or with no ``--mesh`` every rank on ``data`` (the
+JAX package's default); ``--mesh`` without a group raises. Each rank
+builds the whole model from the seed, restores the whole checkpoint and
+cuts its shard, and takes its rows of every global batch of
+``data.iterate_batches`` (so a resumed run sees the same data). A
+checkpoint holds the whole state (``parallel.unshard_params`` and the
+gathered optimizer moments), after ``parallel.assert_host_sync``; rank 0
+writes it, prints the lines and metrics, and evaluates and exports the
+whole model. Only a world of one NCCL rank has run on a card; more ranks
+ran on the CPU over gloo only.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
 import torch
+import torch.distributed as dist
 
-from pytorch_quantize_impls_tpu_torch import data, infer, train
+from pytorch_quantize_impls_tpu_torch import data, infer, parallel, train
 from pytorch_quantize_impls_tpu_torch.infer.packed import refuse_act_scale, scaled_layers
 from pytorch_quantize_impls_tpu_torch.utils.checkpoint import CheckpointManager
 from pytorch_quantize_impls_tpu_torch.utils.config import SCHEME_CONFIGS, RunConfig, build_model
@@ -70,7 +89,35 @@ def parse_args(argv=None):
     p.add_argument("--expect-acc", type=float, default=None,
                    help="exit 1 if the test accuracy is below this")
     p.add_argument("--export", default=None, help="write the packed .npz artifact here")
+    p.add_argument("--mesh", default=None,
+                   help="data,model ranks, e.g. 4,2, in a process group (torchrun); "
+                        "default there: every rank on data")
     return p.parse_args(argv)
+
+
+def run_mesh(shape, device):
+    """The run's (data, model) mesh: None for a run alone with no ``--mesh``
+    (no ``WORLD_SIZE``: not under torchrun); else the process group joined
+    (torchrun's, or the caller's, already up) and ``shape`` over it (None:
+    every rank on data). ``--mesh`` with no group to join raises."""
+    if "WORLD_SIZE" not in os.environ:
+        if shape is None:
+            return None
+        if not dist.is_initialized():
+            raise ValueError("--mesh needs a process group: start the run under torchrun "
+                             "(WORLD_SIZE) or in an initialized group")
+    parallel.initialize(device=device)
+    return parallel.make_mesh(shape, device=device)
+
+
+def whole_checkpoint(state, mesh, placements) -> dict:
+    """A sharded state's checkpoint contents, whole (a collective)."""
+    from pytorch_quantize_impls_tpu_torch.utils.checkpoint import _to_host
+
+    return {"step": int(state.step), "seed": int(state.seed),
+            "model": _to_host(parallel.unshard_params(state.model, mesh, placements)),
+            "optimizer": _to_host(parallel.unshard_optimizer_state(
+                state.optimizer, state.model, mesh, placements))}
 
 
 def load_data(dataset: str, input_shape, data_dir=None):
@@ -103,20 +150,39 @@ def train_config(args):
         if getattr(args, field) is not None:
             setattr(cfg, field, getattr(args, field))
     cfg.checkpoint_dir, cfg.metrics_path = args.checkpoint_dir, args.metrics
-    model, input_shape, dataset = build_model(cfg, fp32=args.fp32, device=args.device)
+    cfg.mesh_shape = tuple(int(v) for v in args.mesh.split(",")) if args.mesh else None
+    mesh = run_mesh(cfg.mesh_shape, args.device)
+    lead = mesh is None or dist.get_rank() == 0
+    model, input_shape, dataset = build_model(
+        cfg, fp32=args.fp32, device=args.device if mesh is None else parallel.mesh_device(mesh))
     device = next(model.parameters()).device
     if args.export:
         refuse_act_scale(model, "--export")
     train_data, test_data = load_data(dataset, input_shape, cfg.data_dir)
     lr = train.cosine_decay_schedule(cfg.lr, cfg.steps) if args.schedule == "cosine" else cfg.lr
     state = train.QuantTrainState.create_for(model, lr=lr, seed=cfg.seed)
-    step_fn = train.make_train_step()
-    print(f"config={cfg.config} fp32={args.fp32} model={type(model).__name__} "
-          f"dataset={dataset} train={train_data[0].shape} test={test_data[0].shape} "
-          f"device={device}", flush=True)
+    say = print if lead else (lambda *a, **k: None)
+    say(f"config={cfg.config} fp32={args.fp32} model={type(model).__name__} "
+        f"dataset={dataset} train={train_data[0].shape} test={test_data[0].shape} "
+        f"device={device}", flush=True)
     mgr = CheckpointManager(cfg.checkpoint_dir) if cfg.checkpoint_dir else None
     if mgr is not None and mgr.restore(state) is not None:
-        print(f"resumed from step {state.step}", flush=True)
+        say(f"resumed from step {state.step}", flush=True)
+    if mesh is None:
+        step_fn = train.make_train_step()
+
+        def save(force=False):
+            mgr.save(state, force=force)
+    else:
+        state, step_fn = parallel.make_sharded_train_step(state, mesh)
+        placements = parallel.param_shardings(model, mesh)
+        say(f"mesh={dict(zip(mesh.mesh_dim_names, mesh.shape))}", flush=True)
+
+        def save(force=False):
+            contents = whole_checkpoint(state, mesh, placements)
+            parallel.assert_host_sync(state, mesh)
+            if lead:
+                mgr.save(state, force=force, contents=contents)
 
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
     metrics = None
@@ -127,6 +193,8 @@ def train_config(args):
                                           start_step=state.step):
             if state.step >= cfg.steps:
                 break
+            if mesh is not None:
+                batch = parallel.shard_batch(batch, mesh)
             state, metrics = step_fn(state, batch)
             if state.step % LOG_EVERY == 0 or state.step == cfg.steps:
                 sync()
@@ -135,23 +203,32 @@ def train_config(args):
                      "images_per_s": (state.step - last_log) * cfg.batch_size / (now - t_log)}
                 t_log, last_log = now, state.step
                 mw.write(state.step, m)
-                print(f"step {state.step} loss {m['loss']:.4f} accuracy {m['accuracy']:.4f} "
-                      f"images/s {m['images_per_s']:.1f}", flush=True)
+                say(f"step {state.step} loss {m['loss']:.4f} accuracy {m['accuracy']:.4f} "
+                    f"images/s {m['images_per_s']:.1f}", flush=True)
             if mgr is not None and state.step % args.ckpt_every == 0:
-                mgr.save(state)
+                save()
     sync()
     train_s = time.perf_counter() - t_start
     if mgr is not None:
-        mgr.save(state, force=True)
+        save(force=True)
         mgr.close()
+    if mesh is not None:
+        # the whole model on every rank; rank 0 evaluates and exports it
+        whole = parallel.unshard_params(model, mesh, placements)
+        model, _, _ = build_model(cfg, fp32=args.fp32, device=device)
+        model.load_state_dict(whole)
 
     model.eval()
     trained = state.step - first_step
     out = {"config": cfg.config, "fp32": args.fp32, "steps": state.step,
            "schedule": args.schedule, "device": str(device),
            "loss": float(metrics["loss"]) if metrics is not None else None,
-           "ms_per_step": 1e3 * train_s / max(trained, 1),
-           "accuracy": accuracy(model, test_data, device)}
+           "ms_per_step": 1e3 * train_s / max(trained, 1)}
+    if mesh is not None:
+        out["mesh"] = list(cfg.mesh_shape or mesh.shape)
+        if not lead:
+            return model, out
+    out["accuracy"] = accuracy(model, test_data, device)
     packed = {} if scaled_layers(model) else infer.pack_model(model)
     if packed:
         ready = infer.prepare(packed)
@@ -166,6 +243,8 @@ def train_config(args):
 def main(argv=None) -> int:
     args = parse_args(argv)
     _, out = train_config(args)
+    if "accuracy" not in out:  # a rank of a mesh other than 0
+        return 0
     print(json.dumps(out), flush=True)
     if args.expect_acc is not None and out["accuracy"] < args.expect_acc:
         print(f"accuracy {out['accuracy']:.4f} below the gate {args.expect_acc:.4f}",

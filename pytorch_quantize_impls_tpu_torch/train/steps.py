@@ -10,7 +10,9 @@ STEs' ``autograd.Function``s), and launches none of the port's kernels.
 
 The forward and the backward run inside one set of cuDNN flags: no TF32
 (the JAX package computes float32) and the deterministic algorithms, so two
-runs on the card give the same bits.
+runs on the card give the same bits. :func:`make_compute_loss` is the
+forward and loss that every step flavour shares, this local step and the
+sharded one (``parallel.make_sharded_train_step``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -42,14 +44,35 @@ def fp32_cudnn():
 
 
 def _on_device(batch, device):
-    x, y = batch
-    if isinstance(x, np.ndarray):
-        x, y = torch.from_numpy(x), torch.from_numpy(y)
-    return x.to(device, non_blocking=True), y.to(device, non_blocking=True)
+    """Every array of ``batch`` (numpy or tensors) as a tensor on ``device``."""
+    return tuple((torch.from_numpy(b) if isinstance(b, np.ndarray) else b)
+                 .to(device, non_blocking=True) for b in batch)
 
 
-def make_train_step(*, elastic_weight: Union[float, Callable[[int], float]] = 0.0,
-                    loss_fn: Callable = cross_entropy):
+ElasticWeight = Union[float, Callable[[int], float]]
+
+
+def make_compute_loss(state: QuantTrainState, x: torch.Tensor, y: torch.Tensor, *,
+                      elastic_weight: ElasticWeight = 0.0, loss_fn: Callable = cross_entropy):
+    """``() -> (loss, logits)``: the fake-quant forward of ``state.model``
+    on ``x`` under :func:`fp32_cudnn` and the step's generator, and the
+    loss on ``y`` plus the model's penalties weighed by ``elastic_weight``
+    (a constant, or a schedule called with the step before its update).
+    The forward and loss that every train-step flavour shares."""
+
+    def compute_loss():
+        weight = float(elastic_weight(state.step) if callable(elastic_weight) else elastic_weight)
+        with fp32_cudnn(), quant_generator(state.step_generator()):
+            logits = state.model(x)
+            loss = loss_fn(logits, y)
+            if weight:
+                loss = loss + weight * collect_elastic_losses(state.model)
+        return loss, logits
+
+    return compute_loss
+
+
+def make_train_step(*, elastic_weight: ElasticWeight = 0.0, loss_fn: Callable = cross_entropy):
     """``(state, (inputs, integer labels)) -> (state, {"loss", "accuracy"})``:
     one update of ``state`` in place (returned for the JAX package's
     calling pattern). The metrics stay on the device; the loss includes the
@@ -61,15 +84,12 @@ def make_train_step(*, elastic_weight: Union[float, Callable[[int], float]] = 0.
 
     def step(state: QuantTrainState, batch):
         x, y = _on_device(batch, state.device)
-        model = state.model
-        model.train()
+        state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        weight = float(elastic_weight(state.step) if callable(elastic_weight) else elastic_weight)
-        with fp32_cudnn(), quant_generator(state.step_generator()):
-            logits = model(x)
-            loss = loss_fn(logits, y)
-            if weight:
-                loss = loss + weight * collect_elastic_losses(model)
+        compute_loss = make_compute_loss(state, x, y, elastic_weight=elastic_weight,
+                                         loss_fn=loss_fn)
+        with fp32_cudnn():
+            loss, logits = compute_loss()
             loss.backward()
         state.apply_gradients()
         with torch.no_grad():

@@ -92,17 +92,20 @@ class CheckpointManager:
     def path(self, step: int) -> Path:
         return self._dir / str(step) / STATE_FILE
 
-    def save(self, state, *, force: bool = False) -> bool:
+    def save(self, state, *, force: bool = False, contents: Optional[Dict[str, Any]] = None
+             ) -> bool:
         """Save at ``state.step`` (async unless configured otherwise).
         Returns whether a save was started: a step already on disk, or one
-        off ``save_interval_steps`` without ``force``, is skipped."""
+        off ``save_interval_steps`` without ``force``, is skipped.
+        ``contents`` (host tensors) is written in place of
+        :func:`snapshot` of ``state``: a sharded state's whole contents."""
         step = int(state.step)
         if not force and step % self.save_interval_steps:
             return False
         self.wait()  # one write at a time; the one in flight may be this step's
         if step in self.all_steps():
             return False
-        payload = snapshot(state)
+        payload = snapshot(state) if contents is None else contents
         if self.async_save:
             self._writer = threading.Thread(target=self._write_guarded, args=(step, payload),
                                             name=f"checkpoint-{step}", daemon=False)

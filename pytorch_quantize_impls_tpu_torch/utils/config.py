@@ -17,16 +17,16 @@ projected after training by ``train.accuracy_sweep.project_elastic``) and
 port reads: batch size, lr, seed, the data directory, the elastic weight and
 its ramp (``train.accuracy_sweep``), ``warm_start``, the QAT warm start
 from the trained twin that ``train.accuracy_sweep`` applies, and the io
-fields ``train.run`` reads (checkpoint directory, metrics file). The JAX
-config's ``mesh_shape`` arrives with its reader, ``train.run --mesh`` and
-the sharded steps (ROADMAP queue 1, item 6 (b2)); its ``profile_dir``,
+fields ``train.run`` reads (checkpoint directory, metrics file), and the
+JAX config's ``mesh_shape``, the ``(data, model)`` mesh that ``train.run
+--mesh`` sets and trains over. The JAX config's ``profile_dir``,
 which nothing reads there, is left out (a trace is ``utils.trace``). Neither package's config has a compute dtype: it is the
 models' ``dtype`` argument."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 from pytorch_quantize_impls_tpu_torch.utils.device import resolve_device
 
@@ -57,6 +57,8 @@ class RunConfig:
     # ramp the weight 0 -> elastic_weight over the first 60% of the run
     elastic_ramp: bool = False
     seed: int = 0
+    # (data, model) ranks of the run's mesh; None: every rank on data
+    mesh_shape: Optional[Tuple[int, int]] = None
     # io
     checkpoint_dir: Optional[str] = None
     metrics_path: Optional[str] = None

@@ -329,6 +329,252 @@ def case_moe_lm(cfg, variables, tokens):
     return out
 
 
+# --- sharded training (tests/test_torch_sharded_train.py) ------------------
+
+
+def shift_norm_mlp(in_features: int = 64, hidden: int = 32, classes: int = 10):
+    """A small MLP with the BNN paper's shift-based BatchNorm, which no
+    config uses: layer0 (LinearBin) -> bn0 (ShiftNormBatch) -> ReLU -> head."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import nn as tnn
+
+    class ShiftNormMLP(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.layer0 = tnn.LinearBin(in_features, hidden)
+            self.bn0 = tnn.ShiftNormBatch(hidden)
+            self.head = tnn.LinearBin(hidden, classes)
+
+        def forward(self, x):
+            return self.head(torch.relu(self.bn0(self.layer0(x.reshape(x.shape[0], -1)))))
+
+    return ShiftNormMLP()
+
+
+def make_model(name: str, kwargs: dict, seed: int = 0, variables=None):
+    """``models.<name>(**kwargs)`` (or :func:`shift_norm_mlp`) on the CPU,
+    its weights JAX's ``variables`` where given, else drawn from ``seed``."""
+    from pytorch_quantize_impls_tpu_torch import models
+    from pytorch_quantize_impls_tpu_torch.nn import init_like_flax
+    from pytorch_quantize_impls_tpu_torch.utils import load_flax_variables
+
+    model = shift_norm_mlp(**kwargs) if name == "ShiftNormMLP" else getattr(models, name)(**kwargs)
+    if variables is not None:
+        load_flax_variables(model, variables, device="cpu")
+    else:
+        init_like_flax(model, seed)
+    return model
+
+
+def make_state(model, opt: str):
+    """The train state of ``model``: SGD 0.1, Adam 1e-3 or the 8-bit Adam
+    1e-3 (with the clamp), generator seed 3."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import train
+
+    if opt == "sgd":
+        return train.QuantTrainState.create_for(
+            model, optimizer=torch.optim.SGD(model.parameters(), lr=0.1), seed=3)
+    if opt == "adam8":
+        return train.QuantTrainState.create_for(
+            model, optimizer=train.QuantizedAdam(model.parameters(), lr=1e-3), seed=3)
+    return train.QuantTrainState.create_for(model, lr=1e-3, seed=3)
+
+
+class _Control:
+    """A negative control: one of the mesh context's reductions replaced by
+    the rank's own statistic while the block runs."""
+
+    def __init__(self, name):
+        from pytorch_quantize_impls_tpu_torch.parallel import collectives
+
+        self.cls, self.name = collectives.MeshContext, name
+        self.saved = {k: getattr(self.cls, k) for k in ("data_mean", "reduce")}
+
+    def __enter__(self):
+        if self.name == "local_data_mean":
+            self.cls.data_mean = lambda self, t: t
+        elif self.name == "shard_statistic":
+            self.cls.reduce = lambda self, kind, t: t.max() if kind == "max" else t
+        elif self.name is not None:
+            raise ValueError(self.name)
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            setattr(self.cls, k, v)
+
+
+def case_train(model, x, y, shape, opt="sgd", steps=1, elastic_weight=0.0, control=None):
+    """``make_sharded_train_step`` over ``shape`` on ``model`` = (name,
+    kwargs, variables or None): per step the metrics, then the
+    whole state (``unshard_params``), this rank's local shapes and its
+    optimizer moments' shapes, the count of column-parallel layers and the
+    collectives the steps launched."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import parallel
+    from pytorch_quantize_impls_tpu_torch.parallel import collectives
+
+    name, kwargs, variables = model
+    mesh = parallel.make_mesh(shape, device="cpu")
+    state = make_state(make_model(name, kwargs, variables=variables), opt)
+    metrics = []
+    with _Control(control):
+        state, step = parallel.make_sharded_train_step(state, mesh, elastic_weight=elastic_weight)
+        xb, yb = parallel.shard_batch((x, y), mesh)
+        before = dict(collectives.COUNTS)
+        for _ in range(steps):
+            state, m = step(state, (xb, yb))
+            metrics.append((float(m["loss"]), float(m["accuracy"])))
+        launched = {k: v - before.get(k, 0) for k, v in collectives.COUNTS.items()}
+    params = dict(state.model.named_parameters())
+    moments = {k: {n: tuple(t.shape) for n, t in state.optimizer.state[p].items()
+                   if isinstance(t, torch.Tensor) and t.ndim}
+               for k, p in params.items() if p in state.optimizer.state}
+    return {"coord": (mesh.get_local_rank("data"), mesh.get_local_rank("model")),
+            "metrics": metrics,
+            "whole": {k: _np(v) for k, v in parallel.unshard_params(state.model, mesh).items()},
+            "local_shapes": {k: tuple(v.shape) for k, v in state.model.state_dict().items()},
+            "moment_shapes": moments, "columns": len(step.context.columns),
+            "collectives": {k: v for k, v in launched.items() if v}}
+
+
+def case_stochastic_block(x):
+    """On (4, 2): a stochastic BinaryConnect layer's sharded weight draw
+    (the mesh path's) against the unsharded draw of the whole kernel from
+    the same generator."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import parallel
+    from pytorch_quantize_impls_tpu_torch.nn.base import _apply_quant, quant_generator
+
+    mesh = parallel.make_mesh((4, 2), device="cpu")
+    model = make_model("BinaryConnectMLP", dict(in_features=x.shape[1], hidden=16,
+                                                deterministic=False))
+    layer = model.layer0.dense
+    whole_w = layer.weight.detach().clone()
+    state = make_state(model, "adam")
+    state, step = parallel.make_sharded_train_step(state, mesh)
+    ctx = step.context
+    model.train()
+    with torch.no_grad(), quant_generator(state.step_generator()):
+        whole = _apply_quant(layer.weight_quant, whole_w, layer)
+    with torch.no_grad(), quant_generator(state.step_generator()):
+        mine = layer._quantized_shard(layer.weight, ctx.reduce,
+                                      lambda g: ctx.weight_draw(g, layer.weight))
+    return {"model_rank": mesh.get_local_rank("model"), "whole": _np(whole),
+            "mine": _np(mine), "column": layer in ctx.columns}
+
+
+def case_adam8(x, y):
+    """The 8-bit Adam on (8, 1), 2 steps: the loss, every code and scale;
+    under (4, 2) make_sharded_train_step must refuse it."""
+    import torch
+
+    from pytorch_quantize_impls_tpu_torch import parallel
+
+    mesh = parallel.make_mesh((8, 1), device="cpu")
+    model = make_model("BinaryConnectMLP", dict(in_features=x.shape[1], hidden=16))
+    state, step = parallel.make_sharded_train_step(make_state(model, "adam8"), mesh)
+    batch = parallel.shard_batch((x, y), mesh)
+    losses = [float(step(state, batch)[1]["loss"]) for _ in range(2)]
+    codes = {f"{k}.{n}": _np(t) for k, p in model.named_parameters()
+             for n, t in state.optimizer.state[p].items() if isinstance(t, torch.Tensor)}
+    try:
+        parallel.make_sharded_train_step(
+            make_state(make_model("BinaryConnectMLP", dict(in_features=x.shape[1], hidden=16)),
+                       "adam8"), parallel.make_mesh((4, 2), device="cpu"))
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    return {"losses": losses, "state": codes, "refused": refused}
+
+
+def case_eval(model, x, y):
+    """make_sharded_eval_step on (4, 2) from the initial state."""
+    from pytorch_quantize_impls_tpu_torch import parallel
+
+    name, kwargs = model
+    mesh = parallel.make_mesh((4, 2), device="cpu")
+    state, placements = parallel.shard_train_state(make_state(make_model(name, kwargs), "sgd"),
+                                                   mesh)
+    out = parallel.make_sharded_eval_step(placements, mesh)(
+        state, parallel.shard_batch((x, y), mesh))
+    return {k: float(v) for k, v in out.items()}
+
+
+def case_host_sync(x, y):
+    """assert_host_sync after a DP x TP step: it passes; then with rank 3's
+    replicated bias one ulp off, it raises on every rank."""
+    import torch
+    import torch.distributed as dist
+
+    from pytorch_quantize_impls_tpu_torch import parallel
+
+    mesh = parallel.make_mesh((4, 2), device="cpu")
+    model = make_model("MLP", dict(in_features=x.shape[1], features=(64, 10), layer="bin"))
+    state, step = parallel.make_sharded_train_step(make_state(model, "sgd"), mesh)
+    step(state, parallel.shard_batch((x, y), mesh))
+    parallel.assert_host_sync(state, mesh)
+    if dist.get_rank() == 3:
+        b = model.layer0.dense.bias
+        with torch.no_grad():
+            b[0] = torch.nextafter(b[0], torch.tensor(float("inf")))
+    try:
+        parallel.assert_host_sync(state, mesh)
+        raised = None
+    except AssertionError as e:
+        raised = str(e)
+    return {"raised": raised}
+
+
+def case_refusals(lm_cfg):
+    """The sharded steps' refusals: out-features that do not divide over
+    "model", a batch that does not divide over "data", an MoE LM placed by
+    shard_experts."""
+    import numpy as np
+
+    from pytorch_quantize_impls_tpu_torch import parallel
+    from pytorch_quantize_impls_tpu_torch.models import QuantTransformerLM
+
+    out = {}
+    mesh24 = parallel.make_mesh((2, 4), device="cpu")
+    mesh42 = parallel.make_mesh((4, 2), device="cpu")
+    model = make_model("MLP", dict(in_features=32, features=(64, 10), layer="bin"))
+    lm = parallel.shard_experts(QuantTransformerLM(**lm_cfg), mesh42)
+    attempts = {
+        "features": lambda: parallel.shard_train_state(make_state(model, "sgd"), mesh24),
+        "batch": lambda: parallel.shard_batch((np.zeros((10, 32), np.float32),
+                                               np.zeros(10, np.int64)), mesh42),
+        "moe_ep": lambda: parallel.make_sharded_train_step(make_state(lm, "adam"), mesh42),
+    }
+    for label, fn in attempts.items():
+        try:
+            fn()
+            out[label] = None
+        except ValueError as e:
+            out[label] = str(e)
+    return out
+
+
+def case_run(argvs):
+    """train.run's train_config for each argv in turn (every rank): each
+    run's result line and a digest of every entry of its whole model."""
+    import hashlib
+
+    from pytorch_quantize_impls_tpu_torch.train import run
+
+    out = []
+    for argv in argvs:
+        model, res = run.train_config(run.parse_args(argv))
+        out.append({"result": res, "digest": {
+            k: hashlib.sha256(_np(v).tobytes()).hexdigest()
+            for k, v in model.state_dict().items()}})
+    return out
+
+
 def _rank(job: dict, rank: int, tmp_dir: str) -> None:
     import torch
     import torch.distributed as dist

@@ -145,6 +145,11 @@ def test_port_imports_without_jax():
         "from pytorch_quantize_impls_tpu_torch.utils import checkpoint, metrics, native, profiling\n"
         "from pytorch_quantize_impls_tpu_torch.infer import host_export\n"
         "from pytorch_quantize_impls_tpu_torch.parallel import control, mesh, sharding\n"
+        "from pytorch_quantize_impls_tpu_torch.parallel import collectives\n"
+        "from pytorch_quantize_impls_tpu_torch.train.steps import make_compute_loss\n"
+        "from pytorch_quantize_impls_tpu_torch.parallel import assert_host_sync\n"
+        "assert p.parallel.make_sharded_train_step and p.parallel.make_sharded_eval_step\n"
+        "assert collectives.MeshContext and callable(make_compute_loss)\n"
         "import importlib.util\n"
         "spec = importlib.util.spec_from_file_location('_torch_dist_helpers',"
         " 'tests/_torch_dist_helpers.py')\n"
